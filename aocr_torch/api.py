@@ -1,10 +1,12 @@
-"""Library API (counterpart of aocr/api.py, greedy recognition only):
+"""Library API (counterpart of aocr/api.py: greedy recognition and
+scoring):
 
     ocr = AttentionOCR.load("train/", device="cuda")   # an aocr checkpoint
     words, scores = ocr.recognize(images)    # (B, 32, W, 1) or a list
+    gold = ocr.score(images, ["word", ...])  # teacher-forced log-probs
 
-Image paths, device-side preprocessing, `shard()`, `score()` and the
-dictionary constraint are not ported yet (ROADMAP).
+Image paths, device-side preprocessing, `shard()` and the dictionary
+constraint are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from aocr import checkpoint, vocab
 from aocr.config import GEOMETRY_FIELDS, STRUCT_FIELDS, Config
-from aocr_torch import decode, weights
+from aocr_torch import decode, train_step, weights
 from aocr_torch.models import model as model_lib
 
 
@@ -150,3 +152,23 @@ class AttentionOCR:
                 words[i] = vocab.decode(labels[j])
                 scores[i] = sc[j]
         return words, scores
+
+    @torch.inference_mode()
+    def score(self, images, transcripts: Sequence[str]) -> np.ndarray:
+        """Per-sample gold log-prob of the given transcripts
+        (teacher-forced, eval mode), in input order."""
+        transcripts = list(transcripts)
+        groups = self._prepare_groups(images)
+        n = sum(len(idx) for idx, _ in groups)
+        if n != len(transcripts):
+            raise ValueError(f"{n} images but {len(transcripts)} "
+                             "transcripts")
+        out = np.empty((n,), np.float32)
+        for idx, x in groups:
+            targets, targets_eval, _ = vocab.encode_batch(
+                [transcripts[i] for i in idx])
+            _, gold = train_step.eval_loss_step(
+                self.params, self.batch_stats, x, targets, targets_eval,
+                self.cfg)
+            out[idx] = gold.float().cpu().numpy()
+        return out

@@ -107,18 +107,41 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// The LSTM gate math of aocr/ops/lstm.py::gate_math for one unit:
-// gates [i|f|o|g] -> (c', h').
-__device__ __forceinline__ void gate_math(float gi, float gf, float go,
-                                          float gg, float c_prev, float* c,
-                                          float* h) {
-  float i = sigmoidf_(gi);
-  float f = sigmoidf_(gf);
-  float o = sigmoidf_(go);
-  float g = tanhf(gg);
-  float cn = f * c_prev + i * g;
+// The LSTM gate math of aocr/ops/lstm.py::gate_math_parts for one unit:
+// gates [i|f|o|g] -> (c', h'), and the activations a = (i, f, o, g), the
+// residuals the training backward reads (unused a costs nothing).
+__device__ __forceinline__ void gate_math_parts(float gi, float gf, float go,
+                                                float gg, float c_prev,
+                                                float* c, float* h,
+                                                float (&a)[4]) {
+  a[0] = sigmoidf_(gi);
+  a[1] = sigmoidf_(gf);
+  a[2] = sigmoidf_(go);
+  a[3] = tanhf(gg);
+  float cn = a[1] * c_prev + a[0] * a[3];
   *c = cn;
-  *h = o * tanhf(cn);
+  *h = a[2] * tanhf(cn);
+}
+
+// Backward of the gate math for one unit, from the stored activations
+// (i, f, o, g), the cell state c and the previous cell state cp, as
+// aocr/ops/pallas/lstm_bwd.py and tf_bwd.py compute it: dh and dc are the
+// incoming carries (dh already holds the step's output cotangent).
+// Returns the four pre-activation cotangents and the dc carried to the
+// previous step.
+__device__ __forceinline__ void gate_math_bwd(float dh, float dc, float i,
+                                              float f, float o, float g,
+                                              float c, float cp,
+                                              float (&dg)[4], float* dc_prev) {
+  const float tc = tanhf(c);
+  const float d_o = dh * tc;
+  dc = dc + dh * o * (1.f - tc * tc);
+  const float d_i = dc * g, d_g = dc * i, d_f = dc * cp;
+  *dc_prev = dc * f;
+  dg[0] = d_i * i * (1.f - i);
+  dg[1] = d_f * f * (1.f - f);
+  dg[2] = d_o * o * (1.f - o);
+  dg[3] = d_g * (1.f - g * g);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -146,6 +169,48 @@ __device__ __forceinline__ void warp_argmax(float* v, int* i) {
       *i = oi;
     }
   }
+}
+
+// acc[n][r] = sum_{k<K} xs[r*ldx + k] * W[(n0 + n)*ldw + k] for NR rows of
+// W (global, row-major (N, K): the weights in their stored orientation,
+// so this is xs @ W^T) and BT rows of xs (shared, float, 16-byte aligned
+// rows).  The lanes of a warp split k in runs of 4 (coalesced vector
+// loads of W), each xs load serves NR rows of W, and a butterfly sum
+// leaves every total on every lane.  Needs K % 4 == 0 and ldx, ldw
+// multiples of 4.  Call from all 32 lanes of a warp.
+template <typename T, int BT, int NR>
+__device__ __forceinline__ void mm_rows(const float* __restrict__ xs, int ldx,
+                                        int K, const T* __restrict__ W,
+                                        int ldw, int n0,
+                                        float (&acc)[NR][BT]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < NR; ++n)
+#pragma unroll
+    for (int r = 0; r < BT; ++r) acc[n][r] = 0.f;
+  for (int k = 4 * lane; k < K; k += 128) {
+    float x[BT][4];
+#pragma unroll
+    for (int r = 0; r < BT; ++r) load_row(xs + r * ldx + k, x[r]);
+#pragma unroll
+    for (int n = 0; n < NR; ++n) {
+      float w[4];
+      load_row(W + (size_t)(n0 + n) * ldw + k, w);
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[n][r] = fmaf(x[r][u], w[u], acc[n][r]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NR; ++n)
+#pragma unroll
+    for (int r = 0; r < BT; ++r) acc[n][r] = warp_sum(acc[n][r]);
+}
+
+// mm_rows leaves every sum on every lane; the lane that stores sum (n, r)
+__device__ __forceinline__ bool lane_stores(int n, int r, int bt) {
+  return (threadIdx.x & 31) == ((n * bt + r) & 31);
 }
 
 inline cudaError_t set_smem(const void* fn, size_t bytes) {

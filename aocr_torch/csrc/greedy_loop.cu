@@ -45,32 +45,27 @@ greedy_loop_kernel(const T* __restrict__ ctx,     // (L, B, H)
                    float* __restrict__ state,     // (B, 2*nl+1, H)
                    int L, int B, int H, int Vp, int T_, int nl,
                    int input_feed) {
-  constexpr int BT = DEC_BT, U = DEC_U;
+  constexpr int BT = DEC_BT;
   extern __shared__ float smem[];
   TailSmem sm(smem, H, L, Vp);
   float* score = sm.delta + BT;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int b0 = blockIdx.x * BT;
   const int nrows = min(BT, B - b0);
-  const int G = 4 * H, H2 = 2 * H;
-  const int K0 = input_feed ? H2 : H;
+  const int G = 4 * H;
   const int nslot = 2 * nl + 1;
-  // slot 0: attn (h~ of the last step); 1 + 2l: c_l; 2 + 2l: h_l
   auto st = [&](int r, int slot) {
     return state + ((size_t)(b0 + r) * nslot + slot) * H;
   };
+  // layer 0 adds the emb_gates row of the previous token, the other
+  // layers their summed biases
+  auto pre = [&](int l, int r, int q, int j, float acc) {
+    return l == 0 ? to_f(eg[(size_t)sm.prev[r] * G + q * H + j]) + acc
+                  : acc + bx[(size_t)(l - 1) * G + q * H + j];
+  };
+  auto seen = [](int, int, int, float, float, const float(&)[4]) {};
 
-  for (int i = tid; i < nrows * H; i += nthr) {
-    const int r = i / H, j = i % H;
-    const size_t g = (size_t)(b0 + r) * H + j;
-    st(r, 0)[j] = 0.f;
-    st(r, 1)[j] = c0[g];
-    st(r, 2)[j] = h0[g];
-    for (int l = 1; l < nl; ++l) {
-      st(r, 1 + 2 * l)[j] = 0.f;
-      st(r, 2 + 2 * l)[j] = 0.f;
-    }
-  }
+  decoder_state_init(st, c0, h0, b0, nrows, H, nl);
   for (int i = tid; i < nrows * T_; i += nthr)
     labels[(size_t)b0 * T_ + i] = PAD;
   if (tid < BT) {
@@ -86,77 +81,8 @@ greedy_loop_kernel(const T* __restrict__ ctx,     // (L, B, H)
       live |= !(sm.prev[r] == PAD || sm.prev[r] == EOS);
     if (!live) break;  // uniform: every thread read the same shared words
 
-    // ---- layer 0: eg[prev] + [attn; h0] @ wfh0 ----
-    for (int i = tid; i < BT * K0; i += nthr) {
-      const int r = i / K0, k = i % K0;
-      float v = 0.f;
-      if (r < nrows)
-        v = (input_feed && k < H) ? st(r, 0)[k]
-                                  : st(r, 2)[input_feed ? k - H : k];
-      sm.X[i] = round_cd<T>(v);
-    }
-    __syncthreads();
-    for (int ch = tid; ch * U < H; ch += nthr) {
-      const int j0 = ch * U;
-      float acc[4][U][BT];
-      zero(acc);
-      mm_cols<T, BT, 4, U>(sm.X, K0, K0, wfh0, G, H, j0, acc);
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        if (r >= nrows) continue;
-        const T* egr = eg + (size_t)sm.prev[r] * G;
-        float* cr = st(r, 1);
-        float* hr = st(r, 2);
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int j = j0 + u;
-          gate_math(to_f(egr[j]) + acc[0][u][r], to_f(egr[H + j]) + acc[1][u][r],
-                    to_f(egr[2 * H + j]) + acc[2][u][r],
-                    to_f(egr[3 * H + j]) + acc[3][u][r], cr[j], &cr[j], &hr[j]);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- layers 1..nl-1: [x; h_l] @ [Wi; Wh] + (bi + bh) ----
-    for (int l = 1; l < nl; ++l) {
-      for (int i = tid; i < BT * H2; i += nthr) {
-        const int r = i / H2, k = i % H2;
-        float v = 0.f;
-        if (r < nrows) v = k < H ? st(r, 2 * l)[k] : st(r, 2 + 2 * l)[k - H];
-        sm.X[i] = round_cd<T>(v);
-      }
-      __syncthreads();
-      const T* w = wx + (size_t)(l - 1) * H2 * G;
-      const float* b = bx + (size_t)(l - 1) * G;
-      for (int ch = tid; ch * U < H; ch += nthr) {
-        const int j0 = ch * U;
-        float acc[4][U][BT];
-        zero(acc);
-        mm_cols<T, BT, 4, U>(sm.X, H2, H2, w, G, H, j0, acc);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          if (r >= nrows) continue;
-          float* cr = st(r, 1 + 2 * l);
-          float* hr = st(r, 2 + 2 * l);
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const int j = j0 + u;
-            gate_math(acc[0][u][r] + b[j], acc[1][u][r] + b[H + j],
-                      acc[2][u][r] + b[2 * H + j], acc[3][u][r] + b[3 * H + j],
-                      cr[j], &cr[j], &hr[j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // ---- attention tail on h_top ----
-    for (int i = tid; i < BT * H; i += nthr) {
-      const int r = i / H, j = i % H;
-      sm.X[r * H2 + H + j] = r < nrows ? round_cd<T>(st(r, 2 * nl)[j]) : 0.f;
-    }
-    __syncthreads();
+    decoder_stack_step<T>(st, sm.X, wfh0, wx, H, nl, nrows, input_feed, pre,
+                          seen);
     attention_tail<T>(ctx, L, B, H, b0, nrows, wa, wc, pw, pb, Vp, sm,
                       [&](int r, int j, float v) { st(r, 0)[j] = v; });
     if (tid < nrows) {

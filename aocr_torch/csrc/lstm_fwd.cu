@@ -1,7 +1,11 @@
 // One encoder direction's LSTM recurrence, all L steps in one launch.
 //
-// Replaces aocr/ops/pallas/lstm_fwd.py::lstm_fwd_scan with collect=False
-// (pl.pallas_call at lstm_fwd.py:158).
+// Replaces aocr/ops/pallas/lstm_fwd.py::lstm_fwd_scan (pl.pallas_call at
+// lstm_fwd.py:158) in both modes: collect=False (inference), and
+// collect=True (training), which also writes the residual stacks the
+// backward kernel (lstm_bwd.cu) reads: the gate activations ifog
+// (L, B, 4H) and the cell states cs (L, B, H), both rounded to the
+// compute dtype as aocr/ops/lstm.py::_collect_from_proj stores them.
 //
 // Bound on the H100: reads of Wh.  Every step needs every column of h, so
 // a block owns a tile of BT batch rows and ALL 4H gate columns and loops
@@ -41,6 +45,8 @@ lstm_fwd_kernel(const T* __restrict__ wh,      // (H, 4H)
                 const float* __restrict__ h0,  // (B, H)
                 T* __restrict__ hs,            // (L, B, H)
                 float* __restrict__ cf, float* __restrict__ hf,  // (B, H)
+                T* __restrict__ ifog,  // (L, B, 4H) or null: no residuals
+                T* __restrict__ cs,    // (L, B, H) or null
                 int L, int B, int H, int reverse) {
   constexpr int BT = LSTM_BT, U = LSTM_U;
   extern __shared__ float sm[];
@@ -75,13 +81,21 @@ lstm_fwd_kernel(const T* __restrict__ wh,      // (H, 4H)
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int j = j0 + u;
-          float c, h;
-          gate_math(to_f(xr[j]) + acc[0][u][r], to_f(xr[H + j]) + acc[1][u][r],
-                    to_f(xr[2 * H + j]) + acc[2][u][r],
-                    to_f(xr[3 * H + j]) + acc[3][u][r], cst[r * H + j], &c, &h);
+          float c, h, a[4];
+          gate_math_parts(to_f(xr[j]) + acc[0][u][r],
+                          to_f(xr[H + j]) + acc[1][u][r],
+                          to_f(xr[2 * H + j]) + acc[2][u][r],
+                          to_f(xr[3 * H + j]) + acc[3][u][r], cst[r * H + j],
+                          &c, &h, a);
           cst[r * H + j] = c;
           nxt[r * H + j] = round_cd<T>(h);
           hs[row * H + j] = from_f<T>(h);
+          if (ifog != nullptr) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              ifog[row * G + q * H + j] = from_f<T>(a[q]);
+            cs[row * H + j] = from_f<T>(c);
+          }
           if (s == L - 1) {
             cf[(size_t)(b0 + r) * H + j] = c;
             hf[(size_t)(b0 + r) * H + j] = h;
@@ -98,8 +112,9 @@ lstm_fwd_kernel(const T* __restrict__ wh,      // (H, 4H)
 
 template <typename T, typename XP>
 static int launch(const void* wh, const void* xp, const void* c0,
-                  const void* h0, void* hs, void* cf, void* hf, int L, int B,
-                  int H, int reverse, cudaStream_t stream) {
+                  const void* h0, void* hs, void* cf, void* hf, void* ifog,
+                  void* cs, int L, int B, int H, int reverse,
+                  cudaStream_t stream) {
   auto* fn = lstm_fwd_kernel<T, XP>;
   size_t smem = sizeof(float) * 3 * LSTM_BT * H;
   cudaError_t e = set_smem((const void*)fn, smem);
@@ -107,31 +122,29 @@ static int launch(const void* wh, const void* xp, const void* c0,
   dim3 grid((B + LSTM_BT - 1) / LSTM_BT);
   fn<<<grid, LSTM_THREADS, smem, stream>>>(
       (const T*)wh, (const XP*)xp, (const float*)c0, (const float*)h0, (T*)hs,
-      (float*)cf, (float*)hf, L, B, H, reverse);
+      (float*)cf, (float*)hf, (T*)ifog, (T*)cs, L, B, H, reverse);
   return (int)cudaGetLastError();
 }
 
 }  // namespace aocr
 
-extern "C" int aocr_lstm_fwd_f32(const void* wh, const void* xp,
-                                 int xp_is_f32, const void* c0,
-                                 const void* h0, void* hs, void* cf, void* hf,
-                                 int L, int B, int H, int reverse,
-                                 void* stream) {
+#define AOCR_LSTM_FWD_ARGS                                                 \
+  const void *wh, const void *xp, int xp_is_f32, const void *c0,          \
+      const void *h0, void *hs, void *cf, void *hf, void *ifog, void *cs, \
+      int L, int B, int H, int reverse, void *stream
+
+extern "C" int aocr_lstm_fwd_f32(AOCR_LSTM_FWD_ARGS) {
   if (!xp_is_f32) return (int)cudaErrorInvalidValue;
-  return aocr::launch<float, float>(wh, xp, c0, h0, hs, cf, hf, L, B, H,
-                                    reverse, (cudaStream_t)stream);
+  return aocr::launch<float, float>(wh, xp, c0, h0, hs, cf, hf, ifog, cs, L,
+                                    B, H, reverse, (cudaStream_t)stream);
 }
 
-extern "C" int aocr_lstm_fwd_bf16(const void* wh, const void* xp,
-                                  int xp_is_f32, const void* c0,
-                                  const void* h0, void* hs, void* cf,
-                                  void* hf, int L, int B, int H, int reverse,
-                                  void* stream) {
+extern "C" int aocr_lstm_fwd_bf16(AOCR_LSTM_FWD_ARGS) {
   if (xp_is_f32)
-    return aocr::launch<__nv_bfloat16, float>(wh, xp, c0, h0, hs, cf, hf, L,
-                                              B, H, reverse,
+    return aocr::launch<__nv_bfloat16, float>(wh, xp, c0, h0, hs, cf, hf,
+                                              ifog, cs, L, B, H, reverse,
                                               (cudaStream_t)stream);
   return aocr::launch<__nv_bfloat16, __nv_bfloat16>(
-      wh, xp, c0, h0, hs, cf, hf, L, B, H, reverse, (cudaStream_t)stream);
+      wh, xp, c0, h0, hs, cf, hf, ifog, cs, L, B, H, reverse,
+      (cudaStream_t)stream);
 }

@@ -1,6 +1,6 @@
-"""Input-feeding attention LSTM decoder, one step at a time (counterpart of
+"""Input-feeding attention LSTM decoder (counterpart of
 aocr/models/decoder.py: DecoderState, init_state, lstm_stack, attention,
-step).
+step, and the teacher-forced scan of training and scoring).
 
 Layer 1 takes [emb ; h~_prev] (input feed); the stacked layers use fused
 [i|f|o|g] gates; attention is Luong "general" on the top hidden state,
@@ -18,7 +18,8 @@ import torch
 
 from aocr_torch.models.encoder import init_lstm_layer
 from aocr_torch.ops import lstm
-from aocr_torch.ops.mm import matmul
+from aocr_torch.ops.cuda import tf_bwd, tf_fwd
+from aocr_torch.ops.mm import matmul, outer_sum
 
 
 class DecoderState(NamedTuple):
@@ -105,3 +106,133 @@ def step(prep: dict, state: DecoderState, tokens: torch.Tensor,
     cs, hs, h_top = lstm_stack(prep, state, tokens, input_feed=input_feed)
     h_tilde = attention(prep, h_top, context, simple)
     return DecoderState(attn=h_tilde, cs=cs, hs=hs), h_tilde
+
+
+class TFCoreFn(torch.autograd.Function):
+    """The teacher-forced scan with the reference's custom backward
+    (aocr/models/decoder.py::_tf_core): the `tf_fwd` kernel stores the
+    residual stacks, the `tf_bwd` kernel carries only the recurrent
+    cotangents back through time, and every weight, bias and context
+    gradient is a batched product over the whole sequence
+    (decoder.py:453-477).  Inputs: meta = (input_feed, use_kernel); the
+    compute-dtype weights wfh0 (K0, 4H), wa (H, H), wc (2H, H); xp
+    (T, B, 4H) compute dtype; context (B, L, H); c0, h0 (B, H); then
+    (w, bi, bh) of each layer above 0.  Returns h~ (T, B, H) float32."""
+
+    @staticmethod
+    def forward(ctx, meta, wfh0, wa, wc, xp, context, c0, h0, *rest_flat):
+        input_feed, use_kernel = meta
+        cd = wfh0.dtype
+        rest = [tuple(rest_flat[i:i + 3]) for i in range(0, len(rest_flat), 3)]
+        ctx_lbh = context.to(cd).transpose(0, 1).contiguous()
+        fwd = (tf_fwd.decoder_fwd_scan if use_kernel
+               else tf_fwd.decoder_fwd_scan_plain)
+        htl, hs, ifog, cs, alpha, cvec = fwd(
+            ctx_lbh, wfh0, rest, wa, wc, xp, c0.float().contiguous(),
+            h0.float().contiguous(), input_feed, True)
+        ctx.meta = (meta, context.dtype, xp.dtype, len(rest))
+        ctx.save_for_backward(wfh0, wa, wc, ctx_lbh, c0, h0, htl, hs, ifog,
+                              cs, alpha, cvec, *[w for w, _, _ in rest])
+        return htl
+
+    @staticmethod
+    def backward(ctx, dys):
+        (input_feed, use_kernel), ctx_dtype, xp_dtype, n_rest = ctx.meta
+        (wfh0, wa, wc, ctx_lbh, c0, h0, htl, hs, ifog, cs, alpha, cvec,
+         *rest_w) = ctx.saved_tensors
+        cd = wfh0.dtype
+        bwd = (tf_bwd.decoder_bwd_scan if use_kernel
+               else tf_bwd.decoder_bwd_scan_plain)
+        dg, dht, dq, dcvec, dscore, dc0, dh0 = bwd(
+            ctx_lbh, wfh0, rest_w, wc, wa, dys.float().contiguous(), htl,
+            alpha, ifog, cs, c0.float().contiguous(), input_feed)
+        # the inputs of each step's matmuls, from the residual stacks
+        h_prev0 = lstm.shift(hs[0], h0).to(cd)
+        if input_feed:
+            ah = torch.cat([lstm.shift(htl, torch.zeros_like(h0)).to(cd),
+                            h_prev0], dim=-1)
+        else:
+            ah = h_prev0
+        dwfh0 = outer_sum(ah, dg[0])
+        drest = []
+        for li in range(1, 1 + n_rest):
+            xh = torch.cat([hs[li - 1],
+                            lstm.shift(hs[li], torch.zeros_like(h0))],
+                           dim=-1).to(cd)
+            db = dg[li].float().sum((0, 1))
+            drest += [outer_sum(xh, dg[li]).to(cd), db, db]
+        h_top = hs[-1].to(cd)
+        dwc = outer_sum(torch.cat([cvec.to(cd), h_top], dim=-1), dht)
+        dwa = outer_sum(h_top, dq)
+        q = matmul(h_top, wa).to(cd)
+        dctx = (torch.einsum("tbl,tbh->blh", alpha.to(cd).float(),
+                             dcvec.float())
+                + torch.einsum("tbl,tbh->blh", dscore.to(cd).float(),
+                               q.float()))
+        return (None, dwfh0.to(cd), dwa.to(cd), dwc.to(cd),
+                dg[0].to(xp_dtype), dctx.to(ctx_dtype), dc0, dh0, *drest)
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} in training is not ported: {item}")
+
+
+def teacher_forced(params: dict, dec_init, targets: torch.Tensor,
+                   context: torch.Tensor, *, input_feed: bool,
+                   compute_dtype: torch.dtype = torch.float32,
+                   dropout: float = 0.0, train: bool = False,
+                   remat: bool = False, simple: bool = False,
+                   custom_grad: bool = True, use_kernel: bool = True
+                   ) -> torch.Tensor:
+    """Teacher-forced decode over targets (B, T) -> h~ (B, T, H) float32.
+
+    The embedding part of layer 0's input projection is hoisted into one
+    matmul over all T steps and stored in the compute dtype, with both
+    layer-0 biases (decoder.py:608-618); the recurrence is `TFCoreFn`
+    (the tf_fwd / tf_bwd kernels, their plain versions with
+    use_kernel=False), or the `tf_fwd` kernel alone where autograd does
+    not record.  custom_grad=False, and the simple attention (eval only),
+    run the per-step `step` under plain autograd."""
+    if train and dropout > 0.0:
+        _not_ported("dropout", "JAX's threefry dropout stream cannot be "
+                    "reproduced (ROADMAP queue 1 item 7)")
+    if train and remat:
+        _not_ported("remat", "ROADMAP queue 1 item 7")
+    if train and simple:
+        _not_ported("simple attention", "ROADMAP queue 1 item 7")
+    cd = compute_dtype
+    c0, h0 = dec_init
+    if simple or not custom_grad:
+        prep = prepare(params, cd)
+        state = init_state(dec_init, len(params["layers"]))
+        hts = []
+        for t in range(targets.shape[1]):
+            state, ht = step(prep, state, targets[:, t], context,
+                             input_feed=input_feed, simple=simple)
+            hts.append(ht)
+        return torch.stack(hts, dim=1)
+    layer0 = params["layers"][0]
+    E = params["embedding"].shape[1]
+    emb = params["embedding"][targets.t().long()]  # (T, B, E) scan-major
+    xp = matmul(emb.to(cd), layer0["wi"][:E].to(cd)) + layer0["bi"] \
+        + layer0["bh"]
+    xp = xp.to(cd)
+    if input_feed:
+        wfh0 = torch.cat([layer0["wi"][E:].to(cd), layer0["wh"].to(cd)], 0)
+    else:
+        wfh0 = layer0["wh"].to(cd)
+    rest = [(torch.cat([l["wi"].to(cd), l["wh"].to(cd)], 0), l["bi"],
+             l["bh"]) for l in params["layers"][1:]]
+    wa, wc = params["w_a"].to(cd), params["w_c"].to(cd)
+    inputs = (wfh0, wa, wc, xp, context, c0, h0) + tuple(
+        x for r in rest for x in r)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        htl = TFCoreFn.apply((input_feed, use_kernel), *inputs)
+    else:
+        fwd = (tf_fwd.decoder_fwd_scan if use_kernel
+               else tf_fwd.decoder_fwd_scan_plain)
+        htl = fwd(context.to(cd).transpose(0, 1).contiguous(),
+                  wfh0.contiguous(), rest, wa, wc, xp,
+                  c0.float().contiguous(), h0.float().contiguous(),
+                  input_feed, False)
+    return htl.transpose(0, 1)

@@ -1,5 +1,6 @@
 """The whole model: CNN -> bi-LSTM encoder -> attention decoder -> head
-(counterpart of aocr/models/model.py: init, encode, num_params).
+(counterpart of aocr/models/model.py: init, encode, forward_loss,
+loss_from_context, num_params).
 
 Parameters are the reference's five groups {cnn, encoder_fw, encoder_bw,
 decoder, projector} as nested dicts of tensors; the BatchNorm running
@@ -15,6 +16,7 @@ from typing import Tuple
 import torch
 
 from aocr.config import Config
+from aocr_torch import loss as loss_lib
 from aocr_torch.models import cnn, decoder, encoder, head
 
 
@@ -45,16 +47,52 @@ def init(cfg: Config, gen: torch.Generator, device="cpu"
 
 
 def encode(params: dict, batch_stats: dict, images: torch.Tensor,
-           cfg: Config):
-    """images (B, 32, W, 1) -> (context (B, L, 2H), dec_init (c0, h0)).
+           cfg: Config, train: bool = False):
+    """images (B, 32, W, 1) -> (context (B, L, 2H), dec_init (c0, h0)), and
+    with train=True also the new batch_stats (train-mode BatchNorm).
 
-    With cfg.use_pallas the conv1 and encoder kernels run (on CUDA
-    tensors); use_pallas=False is the plain route throughout."""
+    With cfg.use_pallas the kernels run (on CUDA tensors); use_pallas=False
+    is the plain route throughout."""
     cd = compute_dtype(cfg)
-    features = cnn.apply(params["cnn"], batch_stats, images, cd,
-                         use_kernel=cfg.use_pallas)
-    return encoder.apply(params["encoder_fw"], params["encoder_bw"],
-                         features, cd, use_kernel=cfg.use_pallas)
+    out = cnn.apply(params["cnn"], batch_stats, images, cd,
+                    use_kernel=cfg.use_pallas, train=train)
+    features, new_stats = out if train else (out, None)
+    context, dec_init = encoder.apply(params["encoder_fw"],
+                                      params["encoder_bw"], features, cd,
+                                      use_kernel=cfg.use_pallas)
+    return (context, dec_init, new_stats) if train else (context, dec_init)
+
+
+def forward_loss(params: dict, batch_stats: dict, images: torch.Tensor,
+                 targets: torch.Tensor, targets_eval: torch.Tensor,
+                 cfg: Config, train: bool = False):
+    """Teacher-forced forward pass: (token-sum NLL, new batch_stats,
+    log_probs (B, T, V) float32).  In eval mode batch_stats come back
+    unchanged."""
+    if train:
+        context, dec_init, new_stats = encode(params, batch_stats, images,
+                                              cfg, train=True)
+    else:
+        (context, dec_init), new_stats = encode(params, batch_stats, images,
+                                                cfg), batch_stats
+    nll, log_probs = loss_from_context(params, context, dec_init, targets,
+                                       targets_eval, cfg, train)
+    return nll, new_stats, log_probs
+
+
+def loss_from_context(params: dict, context: torch.Tensor, dec_init,
+                      targets: torch.Tensor, targets_eval: torch.Tensor,
+                      cfg: Config, train: bool = False):
+    """Teacher-forced decode + loss from an encoder context: (token-sum
+    NLL, log_probs)."""
+    cd = compute_dtype(cfg)
+    h_tildes = decoder.teacher_forced(
+        params["decoder"], dec_init, targets, context,
+        input_feed=cfg.input_feed, compute_dtype=cd, dropout=cfg.dropout,
+        train=train, remat=cfg.remat, simple=cfg.simple_attention,
+        custom_grad=cfg.decoder_custom_vjp, use_kernel=cfg.use_pallas)
+    log_probs = head.apply(params["projector"], h_tildes, cd)
+    return loss_lib.nll_sum(log_probs, targets_eval), log_probs
 
 
 def num_params(params: dict) -> int:

@@ -7,9 +7,9 @@ the sources and flags, so an edited source rebuilds and an unchanged one
 loads at once.  Nothing here runs at import time: the CPU tests import
 every module on a machine without `nvcc`.
 
-Each kernel module (`conv1_pool`, `lstm_fwd`, `decode_step`,
-`greedy_loop`) holds a wrapper, a plain PyTorch version, and a plain
-integer `launches` that the wrapper bumps at each kernel launch.
+Each kernel module (`KERNELS`) holds a wrapper, a plain PyTorch version,
+and a plain integer `launches` that the wrapper bumps at each kernel
+launch.
 """
 
 from __future__ import annotations
@@ -29,10 +29,11 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "aocr_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 # the kernel modules of this package, one per kernel
-KERNELS = ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop")
+KERNELS = ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",
+           "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd")
 
 _lock = threading.Lock()
 _lib = None
@@ -63,27 +64,45 @@ def _sources():
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless a library of the same sources exists;
-    returns its path.  The build writes to a temporary name and renames,
-    so concurrent processes never load a half-written file."""
+    returns its path.  Every source compiles in its own `nvcc` process,
+    all started together, then one link.  The library is written under a
+    temporary name and renamed, so concurrent processes never load a
+    half-written file."""
     srcs, digest = _sources()
     out = BUILD_DIR / f"libaocr_kernels_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *map(str, srcs)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        nvcc = _nvcc()
+        procs = []
+        for src in srcs:
+            obj = work / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                   str(src)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            procs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = [(p.args[-1], p.communicate()[0], p.returncode)
+                for _, p in procs]
+        failed = [f"{src} ({rc}):\n{log}" for src, log, rc in logs if rc]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = work / "lib.so"
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+             *(str(o) for o, _ in procs)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        if verbose:
+            print("".join(log for _, log, _ in logs))
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -106,8 +125,9 @@ def _declare(lib) -> None:
     sigs = {
         # x, w9, b, out, B, H, W, stream
         "conv1_pool": [_P, _P, _P, _P, _I, _I, _I, _P],
-        # wh, xp, xp_is_f32, c0, h0, hs, cf, hf, L, B, H, reverse, stream
-        "lstm_fwd": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # wh, xp, xp_is_f32, c0, h0, hs, cf, hf, ifog, cs, L, B, H,
+        # reverse, stream
+        "lstm_fwd": [_P, _P, _I] + [_P] * 7 + [_I] * 4 + [_P],
         # h, ctx, prev, wa, wc, pw, pb, htilde, tok, delta, L, B, H, Vp,
         # stream
         "decode_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -115,6 +135,18 @@ def _declare(lib) -> None:
         # ctx, c0, h0, eg, wfh0, wx, bx, wa, wc, pw, pb, labels, scores,
         # state, L, B, H, Vp, T, num_layers, input_feed, stream
         "greedy_loop": [_P] * 14 + [_I] * 7 + [_P],
+        # x, w9, b, dy, part, out, B, H, W, stream
+        "conv1_pool_bwd": [_P] * 6 + [_I] * 3 + [_P],
+        # wh, dhs, ifog, cs, c0, dcf, dhf, dg, dh0, dc0, L, B, H, reverse,
+        # stream
+        "lstm_bwd": [_P] * 10 + [_I] * 4 + [_P],
+        # ctx, c0, h0, xp, wfh0, wx, bi, bh, wa, wc, htl, hs, ifog, cs,
+        # alpha, cvec, state, L, B, H, T, num_layers, input_feed, stream
+        "tf_fwd": [_P] * 17 + [_I] * 6 + [_P],
+        # ctx, wfh0, wx, wc, wa, dys, htl, alpha, ifog, cs, c0, dg, dht, dq,
+        # dcvec, dscore, dc0, dh0, state, L, B, H, T, num_layers,
+        # input_feed, stream
+        "tf_bwd": [_P] * 19 + [_I] * 6 + [_P],
     }
     for name, args in sigs.items():
         for suffix in ("f32", "bf16"):
@@ -164,4 +196,7 @@ def reset_launch_counts() -> None:
     import importlib
 
     for k in KERNELS:
-        importlib.import_module(f"{__name__}.{k}").launches = 0
+        m = importlib.import_module(f"{__name__}.{k}")
+        m.launches = 0
+        if hasattr(m, "launches_collect"):
+            m.launches_collect = 0

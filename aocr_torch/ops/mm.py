@@ -27,3 +27,10 @@ def set_precision_policy() -> None:
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with float32 accumulation, returned in float32."""
     return torch.matmul(a.float(), b.float())
+
+
+def outer_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum over all leading axes of a[..., :, None] * b[..., None, :]: a
+    weight gradient batched over a whole sequence, float32 accumulation
+    (the reference's einsum("tbd,tbg->dg"))."""
+    return matmul(a.reshape(-1, a.shape[-1]).t(), b.reshape(-1, b.shape[-1]))

@@ -1,0 +1,109 @@
+"""Training and evaluation steps (counterpart of aocr/train_step.py).
+
+`make_train_step(cfg)` returns the step the reference jits: one forward
+in train mode (BatchNorm on the batch's moments), the token-sum NLL
+divided by the batch size before the backward -- so gradients, and the
+clip-at-5 threshold, are on the mean-over-batch scale -- then the
+optimizer update.  It reports `loss_sum`, the token sum, as the
+reference's step loss does.  On CUDA tensors every kernel of the path
+runs: conv1 forward and backward, both encoder directions' forward (with
+residuals) and backward recurrences, and the teacher-forced decoder's.
+
+Parameters are nested dicts of float32 tensors; a step returns new
+tensors and leaves its inputs as they were.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import NamedTuple
+
+import torch
+
+from aocr.config import Config
+from aocr_torch import loss as loss_lib
+from aocr_torch import optim
+from aocr_torch.models import model
+from aocr_torch.weights import tree_map
+
+
+class TrainOutput(NamedTuple):
+    params: dict
+    batch_stats: dict
+    opt_state: object  # optim.SGDState or optim.AdadeltaState
+    loss_sum: torch.Tensor  # token-sum NLL (the reference's step loss)
+    grad_norms: dict
+
+
+def _on(x, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on `device`."""
+    return torch.as_tensor(x, device=device)
+
+
+def _train_step(params: dict, batch_stats: dict, opt_state, images,
+                targets, targets_eval, lr, dropout_rng=None, *,
+                cfg: Config) -> TrainOutput:
+    """One step.  dropout_rng is accepted for the reference's signature;
+    dropout is not ported, so it is unused."""
+    if cfg.augment:
+        raise NotImplementedError(
+            "on-device augmentation is not ported: ROADMAP queue 1 item 10")
+    dev = optim.leaves(params)[0].device
+    images = _on(images, dev).float()
+    targets, targets_eval = _on(targets, dev), _on(targets_eval, dev)
+    batch_size = images.shape[0]
+    leaves = [x.detach().requires_grad_() for x in optim.leaves(params)]
+    it = iter(leaves)
+    p = tree_map(params, lambda _p, _x: next(it))
+    with torch.enable_grad():
+        nll, new_stats, _ = model.forward_loss(
+            p, batch_stats, images, targets, targets_eval, cfg, train=True)
+        mean_loss = nll / batch_size
+        flat = torch.autograd.grad(mean_loss, leaves)
+    it = iter(flat)
+    grads = tree_map(params, lambda _p, _x: next(it))
+    if cfg.optimizer == "adadelta":
+        new_params, new_opt, norms = optim.adadelta_update(
+            params, grads, opt_state, weight_decay=cfg.weight_decay)
+    else:
+        new_params, new_opt, norms = optim.sgd_update(
+            params, grads, opt_state, lr, optim.hyper_from_config(cfg))
+    return TrainOutput(
+        params=new_params,
+        batch_stats=tree_map(new_stats, lambda _p, x: x.detach()),
+        opt_state=new_opt, loss_sum=mean_loss.detach() * batch_size,
+        grad_norms=norms)
+
+
+def make_train_step(cfg: Config):
+    """The train step for this configuration:
+    step(params, batch_stats, opt_state, images, targets, targets_eval,
+    lr, dropout_rng) -> TrainOutput."""
+    return partial(_train_step, cfg=cfg.validate())
+
+
+def init_opt_state(params: dict, cfg: Config):
+    """The optimizer state the configuration asks for."""
+    if cfg.optimizer == "adadelta":
+        return optim.adadelta_init(params)
+    return optim.sgd_init(params, optim.hyper_from_config(cfg))
+
+
+def gold_scores_from_logprobs(log_probs: torch.Tensor,
+                              targets_eval: torch.Tensor) -> torch.Tensor:
+    """Per-sample summed gold log-prob: the same pick and PAD mask as the
+    loss."""
+    return loss_lib.gold_scores(log_probs, targets_eval)
+
+
+@torch.no_grad()
+def eval_loss_step(params: dict, batch_stats: dict, images, targets,
+                   targets_eval, cfg: Config):
+    """Eval-mode teacher-forced pass: (token-sum NLL, per-sample gold
+    score (B,))."""
+    dev = optim.leaves(params)[0].device
+    targets_eval = _on(targets_eval, dev)
+    nll, _, log_probs = model.forward_loss(
+        params, batch_stats, _on(images, dev).float(), _on(targets, dev),
+        targets_eval, cfg, train=False)
+    return nll, gold_scores_from_logprobs(log_probs, targets_eval)

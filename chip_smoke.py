@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""Smoke run of aocr_torch on one NVIDIA GPU (H100): greedy recognition at
-the full width of the default model, through its four CUDA kernels.
+"""Smoke run of aocr_torch on one NVIDIA GPU (H100): greedy recognition
+and the training step at the full width of the default model, through
+their eight CUDA kernels.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, each raising on failure:
   1. environment: the card (nvidia-smi), CUDA, the kernel build from
-     aocr_torch/csrc (nvcc, sm_90a);
+     aocr_torch/csrc (nvcc, sm_90a, one process per source);
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, in float32 and bfloat16, with stated tolerances;
-  3. end to end: numpy weights from --seed through aocr_torch.weights,
-     AttentionOCR.recognize on requests of 1, 8, 32 and 512 word images
-     (W=100) and a mixed-width list, bf16 (the serving configuration) and
-     float32, pallas_greedy "loop" and "tail"; every kernel's launch count
-     must move; float32 transcripts must equal the plain route's on the
-     card and the CPU's on a small input;
-  4. timing: each kernel against its plain version (CUDA events), and
-     recognize images/s at B=512, W=100, bf16, T=50.
+     main paths' shapes (recognition B=512, T=50; training B=400, T=11),
+     in float32 and bfloat16, with stated tolerances;
+  3. recognition end to end: numpy weights from --seed through
+     aocr_torch.weights, AttentionOCR.recognize on requests of 1, 8, 32
+     and 512 word images (W=100) and a mixed-width list, bf16 (the
+     serving configuration) and float32, pallas_greedy "loop" and "tail";
+     every kernel's launch count must move; float32 transcripts must
+     equal the plain route's on the card and the CPU's on a small input;
+  4. training end to end: 5 make_train_step steps (SGD) at B=400 on
+     32x100 crops of 10-letter words (T=11), bf16 and float32, from the
+     same numpy weights; every training kernel's launch count must move;
+     float32 step 1 (loss_sum, grad norms, updated params) must match
+     the plain route on the card and the CPU at a small size; loss_sum
+     must fall over the steps; AttentionOCR.score once;
+  5. timing: each kernel against its plain version (CUDA events),
+     recognize images/s at B=512, W=100, bf16, T=50, the bf16 train step
+     (ms, images/s) and one profile of each.
 Prints the card's name and power limit, one JSON line of kernel results,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device or outside a checkout of the repo.  Never imports jax.
@@ -37,6 +46,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # The serving batch and crop of the default model (aocr.serve's ladder)
 B_SERVE, W_SERVE, T_MAX = 512, 100, 50
+# The train step bench.py times: B=400 crops of 10-letter words (T=11)
+B_TRAIN, WORD_LEN, TRAIN_STEPS = 400, 10, 5
 
 
 def base_config():
@@ -138,6 +149,16 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def time_pair(kernel, plain, n: int):
+    """(kernel ms, kernel ms, plain ms, plain ms) in turns plain, kernel,
+    kernel, plain; the plain version runs n//2 times a turn."""
+    p1 = cuda_ms(plain, max(1, n // 2), 1)
+    k1 = cuda_ms(kernel, n)
+    k2 = cuda_ms(kernel, n)
+    p2 = cuda_ms(plain, max(1, n // 2), 1)
+    return k1, k2, p1, p2
 
 
 @contextlib.contextmanager
@@ -360,9 +381,10 @@ def end_to_end(dev, seed: int):
             for k, m in models.items()}
     torch.cuda.synchronize()
     counts = cuda.launch_counts()
-    log(f"main path launch counts: {counts}")
-    for k, v in counts.items():
-        check(v > 0, f"kernel {k} never launched on the recognize path")
+    log(f"recognize path launch counts: {counts}")
+    for k in ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop"):
+        check(counts[k] > 0, f"kernel {k} never launched on the recognize "
+                             "path")
 
     for (dt, route), res in outs.items():
         for req, (words, scores) in zip(requests, res):
@@ -450,11 +472,7 @@ def timings(dev, models, requests, card: str) -> dict:
             lambda: greedy_loop.fused_greedy_loop(*loop_args),
             lambda: greedy_loop.fused_greedy_loop_plain(*loop_args), 3)
         for k, (fk, fp, n) in pairs.items():
-            # plain, kernel, kernel, plain
-            p1 = cuda_ms(fp, max(1, n // 2), 1)
-            k1 = cuda_ms(fk, n)
-            k2 = cuda_ms(fk, n)
-            p2 = cuda_ms(fp, max(1, n // 2), 1)
+            k1, k2, p1, p2 = time_pair(fk, fp, n)
             ms[(k, name)] = (min(k1, k2), min(p1, p2))
             extra = f" ({steps} of {T} steps run)" if k == "greedy_loop" else ""
             log(f"time {k} {name}: kernel {k1:.4f} / {k2:.4f} ms, plain "
@@ -479,7 +497,7 @@ def timings(dev, models, requests, card: str) -> dict:
     log(f"recognize bf16 loop B={len(batch)} W={W_SERVE} T={T_MAX}: "
         f"{len(batch) / med:.1f} images/s (median of 5: {med * 1e3:.2f} ms; "
         f"mean transcript length {mean_len:.2f}) on {card}")
-    profile_recognize(m, batch)
+    profile(f"recognize bf16 loop B={len(batch)}", lambda: m.recognize(batch))
     for dt, route in (("bfloat16", "tail"), ("float32", "loop")):
         mm = models[(dt, route)]
         mm.recognize(batch)
@@ -491,16 +509,16 @@ def timings(dev, models, requests, card: str) -> dict:
     return ms
 
 
-def profile_recognize(model, batch) -> None:
-    """Where one recognize call spends its time: device time by kernel
+def profile(label: str, fn) -> None:
+    """Where one call of fn spends its time: device time by kernel
     (torch.profiler / CUPTI) against the host wall clock."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.recognize(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -508,12 +526,341 @@ def profile_recognize(model, batch) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(k[1] for k in kernels)
     if not kernels:
-        log("profile recognize: device time not measured (no CUDA events)")
+        log(f"profile {label}: device time not measured (no CUDA events)")
         return
-    log(f"profile recognize bf16 loop B={len(batch)}: device busy "
-        f"{busy:.2f} ms of {wall_ms:.2f} ms wall (profiled)")
-    for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:10]:
+    log(f"profile {label}: device busy {busy:.2f} ms of {wall_ms:.2f} ms "
+        f"wall ({busy / wall_ms:.1%}, profiled)")
+    for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:12]:
         log(f"  {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+
+
+# ------------------------------------------------------------ training
+
+def train_config(dtype: str, small: bool = False):
+    """The default model at full width in training (SGD at the default
+    rate); small: a narrow encoder and decoder for the CPU reference."""
+    cfg = base_config().replace(compute_dtype=dtype, batch_size=B_TRAIN)
+    if small:
+        cfg = cfg.replace(encoder_num_hidden=32, target_embedding_size=8)
+    return cfg
+
+
+def train_batch(rs, n: int):
+    """n word images (W=100) and random 10-letter transcripts: (images
+    (n, 32, 100, 1), words, targets (n, 11), targets_eval (n, 11))."""
+    import numpy as np
+
+    from aocr import vocab
+
+    letters = "abcdefghijklmnopqrstuvwxyz0123456789"
+    words = ["".join(rs.choice(list(letters), WORD_LEN)) for _ in range(n)]
+    targets, targets_eval, _ = vocab.encode_batch(words)
+    return (word_images(rs, n, W_SERVE)[..., None], words, targets,
+            targets_eval)
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want|"""
+    import torch
+
+    got, want = torch.as_tensor(got).float().cpu(), \
+        torch.as_tensor(want).float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def errs(got, want):
+    """(max abs error, max of rel_err) over matching tensors."""
+    return (max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want)),
+            max(rel_err(a, b) for a, b in zip(got, want)))
+
+
+def train_kernel_checks(dev, results: dict) -> None:
+    """The five training kernel rows against their plain versions at the
+    train step's shapes (B=400, L=24, T=11, H_enc=512, H_dec=1024).  Each
+    check holds max|kernel - plain| <= tol * max|plain|; the kernels'
+    residual inputs come from the plain forward."""
+    import numpy as np
+    import torch
+
+    from aocr_torch.ops.cuda import (conv1_pool_bwd, lstm_bwd, lstm_fwd,
+                                     tf_bwd, tf_fwd)
+
+    g = torch.Generator().manual_seed(17)
+    rand = lambda *s, lo=-1.0, hi=1.0: (torch.rand(*s, generator=g)
+                                        * (hi - lo) + lo)
+    cfg = base_config()
+    B, L, T = B_TRAIN, W_SERVE // 4 - 1, WORD_LEN + 1
+    He, Hd = cfg.encoder_num_hidden, cfg.decoder_num_hidden
+    nl = cfg.decoder_num_layers
+    rs = np.random.RandomState(18)
+    words = (word_images(rs, B, W_SERVE)[..., None] - 128.0) / 128.0
+
+    def record(name, dt, got, want, tol, what):
+        err, rel = errs(got, want)
+        check(rel <= tol, f"{name} {dt}{what}: max err {rel} of the scale")
+        results.setdefault((name, dt), []).append(err)
+        log(f"check {name} {dt}{what}: max_abs_err {err:.3g}, {rel:.3g} of "
+            f"the plain version's max abs (tol {tol:.3g})")
+
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        f32 = dt == torch.float32
+        # conv1 backward: word crops (white background: many tied pool
+        # windows) and uniform noise; dy as an NCHW conv2 backward leaves
+        # it.  The routing is bit-identical, so only summation order
+        # differs: 1e-4 of the scale.
+        w = rand(64, 1, 3, 3, lo=-1 / 3, hi=1 / 3).to(dev)
+        b = rand(64, lo=-1 / 3, hi=1 / 3).to(dev)
+        for kind, x in (("word crops", torch.from_numpy(words)),
+                        ("noise", rand(B, 32, W_SERVE, 1))):
+            x = x.to(dev, dt)
+            dy = rand(B, 64, 16, W_SERVE // 2).to(dev, dt).permute(0, 2, 3, 1)
+            got = conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy)
+            want = conv1_pool_bwd.conv1_relu_pool_bwd_plain(x, w, b, dy)
+            record("conv1_pool_bwd", name, got, want, 1e-4,
+                   f" B={B} ({kind})")
+        # encoder: one direction, H=512, L=24, both directions
+        tol = 1e-4 if f32 else 3e-2
+        wh = rand(He, 4 * He, lo=-He ** -0.5, hi=He ** -0.5).to(dev, dt)
+        xp = rand(L, B, 4 * He).to(dev, dt)
+        z = torch.zeros(B, He, device=dev)
+        for reverse in (False, True):
+            got = lstm_fwd.lstm_fwd_scan(wh, xp, z, z, reverse, collect=True)
+            want = lstm_fwd.lstm_fwd_scan_plain(wh, xp, z, z, reverse,
+                                                collect=True)
+            flat = lambda o: (o[0], *o[1], *o[2])
+            record("lstm_fwd", name, flat(got), flat(want), tol,
+                   f" collect=True B={B} L={L} H={He} reverse={reverse}")
+            hs, _, (ifog, cs) = want
+            dhs = (rand(L, B, He) * 0.1).to(dev)
+            dcf, dhf = (rand(B, He) * 0.1).to(dev), (rand(B, He) * 0.1).to(dev)
+            args = (wh, dhs, ifog, cs, z, dcf, dhf, reverse)
+            record("lstm_bwd", name, lstm_bwd.lstm_bwd_scan(*args),
+                   lstm_bwd.lstm_bwd_scan_plain(*args), tol,
+                   f" B={B} L={L} H={He} reverse={reverse}")
+        # decoder: the default model's layers at the init law
+        u = lambda bound, *s: rand(*s, lo=-bound, hi=bound)
+        wfh0 = u(Hd ** -0.5, 2 * Hd, 4 * Hd).to(dev, dt)
+        rest = [(u(Hd ** -0.5, 2 * Hd, 4 * Hd).to(dev, dt),
+                 u(Hd ** -0.5, 4 * Hd).to(dev), u(Hd ** -0.5, 4 * Hd).to(dev))
+                for _ in range(nl - 1)]
+        wa = u(Hd ** -0.5, Hd, Hd).to(dev, dt)
+        wc = u((2 * Hd) ** -0.5, 2 * Hd, Hd).to(dev, dt)
+        ctx = rand(L, B, Hd).to(dev, dt)
+        xpd = rand(T, B, 4 * Hd).to(dev, dt)
+        c0, h0 = rand(B, Hd).to(dev), rand(B, Hd).to(dev)
+        fargs = (ctx, wfh0, rest, wa, wc, xpd, c0, h0, True, True)
+        want = tf_fwd.decoder_fwd_scan_plain(*fargs)
+        record("tf_fwd", name, tf_fwd.decoder_fwd_scan(*fargs), want, tol,
+               f" B={B} T={T} L={L} H={Hd}")
+        htl, _, ifog, cs, alpha, _ = want
+        bargs = (ctx, wfh0, [r[0] for r in rest], wc, wa,
+                 (rand(T, B, Hd) * 0.1).to(dev), htl, alpha, ifog, cs, c0,
+                 True)
+        record("tf_bwd", name, tf_bwd.decoder_bwd_scan(*bargs),
+               tf_bwd.decoder_bwd_scan_plain(*bargs), tol,
+               f" B={B} T={T} L={L} H={Hd}")
+    torch.cuda.synchronize()
+
+
+def run_steps(cfg, np_params, np_stats, batch, dev, n: int):
+    """n train steps on a fixed batch from the numpy weights; returns the
+    TrainOutput of each."""
+    from aocr_torch import train_step, weights
+
+    params, stats = weights.from_numpy(np_params, np_stats, dev)
+    opt = train_step.init_opt_state(params, cfg)
+    step = train_step.make_train_step(cfg)
+    images, _words, targets, targets_eval = batch
+    outs = []
+    for _ in range(n):
+        out = step(params, stats, opt, images, targets, targets_eval,
+                   cfg.learning_rate, None)
+        params, stats, opt = out.params, out.batch_stats, out.opt_state
+        outs.append(out)
+    return outs
+
+
+def step_agreement(got, want):
+    """(loss_sum relative error, max grad-norm relative error, max
+    |param difference|) of two steps' outputs."""
+    from aocr_torch.optim import leaves
+
+    loss = rel_err(got.loss_sum, want.loss_sum)
+    norms = max(rel_err(got.grad_norms[k], want.grad_norms[k])
+                for k in want.grad_norms)
+    params = max(float((a.cpu() - b.cpu()).abs().max())
+                 for a, b in zip(leaves(got.params), leaves(want.params)))
+    return loss, norms, params
+
+
+def train_end_to_end(dev, seed: int):
+    """Drive make_train_step; returns (launch counts, the bf16 config,
+    the numpy weights, the batch)."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import lstm_fwd
+    from aocr_torch.optim import leaves
+
+    np_params, np_stats = numpy_model(base_config(), seed)
+    batch = train_batch(np.random.RandomState(seed + 2), B_TRAIN)
+    cfgs = {dt: train_config(dt) for dt in ("bfloat16", "float32")}
+    cuda.reset_launch_counts()
+    runs = {dt: run_steps(cfg, np_params, np_stats, batch, dev, TRAIN_STEPS)
+            for dt, cfg in cfgs.items()}
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    counts["lstm_fwd_collect"] = lstm_fwd.launches_collect
+    log(f"train path launch counts: {counts}")
+    for k in ("conv1_pool", "conv1_pool_bwd", "lstm_fwd_collect", "lstm_bwd",
+              "tf_fwd", "tf_bwd"):
+        check(counts[k] > 0, f"kernel {k} never launched on the train path")
+
+    for dt, outs in runs.items():
+        losses = [float(o.loss_sum) for o in outs]
+        check(all(np.isfinite(losses)), f"{dt}: non-finite loss")
+        for o in outs:
+            check(all(bool(torch.isfinite(x).all()) for x in leaves(o.params)),
+                  f"{dt}: non-finite params")
+        check(losses[-1] < losses[0], f"{dt}: loss_sum did not fall over "
+                                      f"{TRAIN_STEPS} steps: {losses}")
+        norms = {k: round(float(v), 4) for k, v in outs[0].grad_norms.items()}
+        log(f"train {dt} B={B_TRAIN} T={WORD_LEN + 1}: loss_sum over "
+            f"{TRAIN_STEPS} steps {[round(x, 2) for x in losses]}; step-1 "
+            f"grad norms {norms}")
+    # step 1 against the plain route on the card (cfg.use_pallas=False)
+    tols = (1e-5, 1e-4, 1e-4)
+    for dt, cfg in cfgs.items():
+        plain = run_steps(cfg.replace(use_pallas=False), np_params, np_stats,
+                          batch, dev, 1)[0]
+        loss, norms, params = step_agreement(runs[dt][0], plain)
+        log(f"train {dt} step 1, kernel route vs plain route on the card: "
+            f"loss_sum rel err {loss:.3g}, grad norm rel err {norms:.3g}, "
+            f"param max abs err {params:.3g}"
+            + (f" (tol {tols})" if dt == "float32" else " (reported)"))
+        if dt == "float32":
+            check(loss <= tols[0] and norms <= tols[1] and params <= tols[2],
+                  "float32 train step: kernel and plain routes disagree")
+    # a reference on a small input: the port on the CPU (plain versions)
+    small = train_config("float32", small=True)
+    sp, ss = numpy_model(small, seed + 3)
+    sb = train_batch(np.random.RandomState(seed + 4), 8)
+    got = run_steps(small, sp, ss, sb, dev, 1)[0]
+    want = run_steps(small, sp, ss, sb, torch.device("cpu"), 1)[0]
+    loss, norms, params = step_agreement(got, want)
+    log(f"train float32 small (H_enc=32, B=8), card vs CPU: loss_sum rel err "
+        f"{loss:.3g}, grad norm rel err {norms:.3g}, param max abs err "
+        f"{params:.3g} (tol {tols})")
+    check(loss <= tols[0] and norms <= tols[1] and params <= tols[2],
+          "float32 train step: card and CPU disagree")
+    # score: teacher-forced gold log-probs of the transcripts
+    cfg = cfgs["bfloat16"]
+    ocr = AttentionOCR(cfg, *weights.from_numpy(np_params, np_stats),
+                       device=dev)
+    images, words = batch[0][:32], batch[1][:32]
+    gold = ocr.score(images, words)
+    check(gold.shape == (len(words),) and bool(np.isfinite(gold).all())
+          and bool((gold <= 0).all()), f"score: {gold}")
+    log(f"score bf16 on {len(words)} crops: gold log-prob mean "
+        f"{gold.mean():.3f} "
+        f"(per token {gold.mean() / (WORD_LEN + 1):.3f}; uniform would be "
+        f"{-math.log(cfg.target_vocab_size):.3f})")
+    return counts, cfg, (np_params, np_stats), batch
+
+
+def train_timings(dev, cfg, np_model, batch, card: str) -> dict:
+    """Each training kernel against its plain version (CUDA events), the
+    bf16 train step's ms and images/s (median of 5 after warm-up), and
+    one profile of a step."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import train_step, weights
+    from aocr_torch.ops.cuda import (conv1_pool_bwd, lstm_bwd, lstm_fwd,
+                                     tf_bwd, tf_fwd)
+
+    g = torch.Generator().manual_seed(19)
+    rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
+    B, L, T = B_TRAIN, W_SERVE // 4 - 1, WORD_LEN + 1
+    He, Hd = cfg.encoder_num_hidden, cfg.decoder_num_hidden
+    ms = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        x = rand(B, 32, W_SERVE, 1).to(dev, dt)
+        w, b = (rand(64, 1, 3, 3) / 3).to(dev), (rand(64) / 3).to(dev)
+        dy = rand(B, 16, W_SERVE // 2, 64).to(dev, dt)
+        wh = (rand(He, 4 * He) * He ** -0.5).to(dev, dt)
+        xp = rand(L, B, 4 * He).to(dev, dt)
+        z = torch.zeros(B, He, device=dev)
+        hs, _, (ifog, cs) = lstm_fwd.lstm_fwd_scan_plain(wh, xp, z, z, False,
+                                                         collect=True)
+        dhs = (rand(L, B, He) * 0.1).to(dev)
+        u = lambda bound, *s: rand(*s) * bound
+        wfh0 = u(Hd ** -0.5, 2 * Hd, 4 * Hd).to(dev, dt)
+        rest = [(u(Hd ** -0.5, 2 * Hd, 4 * Hd).to(dev, dt),
+                 u(Hd ** -0.5, 4 * Hd).to(dev), u(Hd ** -0.5, 4 * Hd).to(dev))]
+        wa = u(Hd ** -0.5, Hd, Hd).to(dev, dt)
+        wc = u((2 * Hd) ** -0.5, 2 * Hd, Hd).to(dev, dt)
+        ctx = rand(L, B, Hd).to(dev, dt)
+        xpd = rand(T, B, 4 * Hd).to(dev, dt)
+        c0, h0 = rand(B, Hd).to(dev), rand(B, Hd).to(dev)
+        fargs = (ctx, wfh0, rest, wa, wc, xpd, c0, h0, True, True)
+        htl, _, difog, dcs, alpha, _ = tf_fwd.decoder_fwd_scan_plain(*fargs)
+        bargs = (ctx, wfh0, [rest[0][0]], wc, wa,
+                 (rand(T, B, Hd) * 0.1).to(dev), htl, alpha, difog, dcs, c0,
+                 True)
+        largs = (wh, dhs, ifog, cs, z, z, z, False)
+        pairs = {
+            "conv1_pool_bwd": (
+                lambda: conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy),
+                lambda: conv1_pool_bwd.conv1_relu_pool_bwd_plain(x, w, b, dy),
+                20),
+            "lstm_fwd_collect": (
+                lambda: lstm_fwd.lstm_fwd_scan(wh, xp, z, z, False, True),
+                lambda: lstm_fwd.lstm_fwd_scan_plain(wh, xp, z, z, False,
+                                                     True), 10),
+            "lstm_bwd": (lambda: lstm_bwd.lstm_bwd_scan(*largs),
+                         lambda: lstm_bwd.lstm_bwd_scan_plain(*largs), 10),
+            "tf_fwd": (lambda: tf_fwd.decoder_fwd_scan(*fargs),
+                       lambda: tf_fwd.decoder_fwd_scan_plain(*fargs), 3),
+            "tf_bwd": (lambda: tf_bwd.decoder_bwd_scan(*bargs),
+                       lambda: tf_bwd.decoder_bwd_scan_plain(*bargs), 3),
+        }
+        for k, (fk, fp, n) in pairs.items():
+            k1, k2, p1, p2 = time_pair(fk, fp, n)
+            ms[(k, name)] = (min(k1, k2), min(p1, p2))
+            log(f"time {k} {name} (training shapes): kernel {k1:.4f} / "
+                f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+
+    params, stats = weights.from_numpy(*np_model, dev)
+    opt = train_step.init_opt_state(params, cfg)
+    step = train_step.make_train_step(cfg)
+    images, _w, targets, targets_eval = batch
+    images = torch.from_numpy(images).to(dev)
+    targets = torch.from_numpy(targets).to(dev)
+    targets_eval = torch.from_numpy(targets_eval).to(dev)
+    run = lambda: step(params, stats, opt, images, targets, targets_eval,
+                       cfg.learning_rate, None)
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = run()
+        float(out.loss_sum)
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    ms[("train_step", "bf16")] = med * 1e3
+    log(f"train step bf16 B={B} T={T} W={W_SERVE}: {med * 1e3:.2f} ms "
+        f"(median of 5: {[round(t * 1e3, 2) for t in times]}), "
+        f"{B / med:.1f} images/s on {card}")
+    profile(f"train step bf16 B={B}", lambda: float(run().loss_sum))
+    return ms
 
 
 # ------------------------------------------------------------ main
@@ -554,24 +901,45 @@ def main() -> int:
 
     results: dict = {}
     kernel_checks(dev, results)
+    train_kernel_checks(dev, results)
     counts, models, requests = end_to_end(dev, args.seed)
+    tcounts, tcfg, np_model, batch = train_end_to_end(dev, args.seed)
     ms = timings(dev, models, requests, card)
+    ms.update(train_timings(dev, tcfg, np_model, batch, card))
 
     check("jax" not in sys.modules, "jax was imported")
+    # each kernel's figures in the dtype of its main path
     main_dtype = {"conv1_pool": "bf16", "lstm_fwd": "bf16",
-                  "decode_step": "f32", "greedy_loop": "bf16"}
+                  "decode_step": "f32", "greedy_loop": "bf16",
+                  "conv1_pool_bwd": "bf16", "lstm_bwd": "bf16",
+                  "tf_fwd": "bf16", "tf_bwd": "bf16"}
     replaces = {"conv1_pool": "aocr/ops/pallas/conv1_pool.py:244",
                 "lstm_fwd": "aocr/ops/pallas/lstm_fwd.py:158",
                 "decode_step": "aocr/ops/pallas/decode_step.py:199",
-                "greedy_loop": "aocr/ops/pallas/greedy_loop.py:362"}
+                "greedy_loop": "aocr/ops/pallas/greedy_loop.py:362",
+                "conv1_pool_bwd": "aocr/ops/pallas/conv1_pool.py:266",
+                "lstm_bwd": "aocr/ops/pallas/lstm_bwd.py:131",
+                "tf_fwd": "aocr/ops/pallas/tf_fwd.py:252",
+                "tf_bwd": "aocr/ops/pallas/tf_bwd.py:276"}
     kernels = []
     for k in cuda.KERNELS:
         d = main_dtype[k]
-        kernels.append({
+        entry = {
             "name": k, "route": "cuda", "source": f"aocr_torch/csrc/{k}.cu",
-            "replaces": replaces[k], "launches": counts[k],
+            "replaces": replaces[k],
+            # recognition's run and the train steps' run, each read
+            # right after it
+            "launches": counts[k] + tcounts[k],
             "max_abs_err": max(results[(k, d)]), "dtype": d,
-            "ms": ms[(k, d)][0], "plain_ms": ms[(k, d)][1]})
+            "ms": ms[(k, d)][0], "plain_ms": ms[(k, d)][1]}
+        if k == "lstm_fwd":
+            entry["modes"] = {
+                "collect=False": {"launches": counts[k] + tcounts[k]
+                                  - tcounts["lstm_fwd_collect"]},
+                "collect=True": {"launches": tcounts["lstm_fwd_collect"],
+                                 "ms": ms[("lstm_fwd_collect", d)][0],
+                                 "plain_ms": ms[("lstm_fwd_collect", d)][1]}}
+        kernels.append(entry)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,16 +9,22 @@ imports no jax, so it also runs where only PyTorch is installed:
 but keep the slice's structure: ragged batch tiles (B not a multiple of
 the kernels' 4-row tiles), odd widths, both directions, both dtypes.
 Tolerances: float32 1e-4 (the kernels sum in another order); bfloat16
-outputs within a few bf16 steps.
+outputs within a few bf16 steps.  The training kernels (conv1 backward,
+lstm_fwd with residuals, lstm_bwd, tf_fwd, tf_bwd) are held the same way,
+on residuals their plain forward wrote.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from aocr import vocab
 from aocr.config import Config
+from aocr_torch import train_step
 from aocr_torch.api import AttentionOCR
-from aocr_torch.ops.cuda import conv1_pool, decode_step, greedy_loop, lstm_fwd
+from aocr_torch.ops.cuda import (conv1_pool, conv1_pool_bwd, decode_step,
+                                 greedy_loop, lstm_bwd, lstm_fwd, tf_bwd,
+                                 tf_fwd)
 
 pytestmark = pytest.mark.cuda
 
@@ -145,3 +151,148 @@ def test_recognize_on_cuda_matches_cpu(dev, route):
     wg, sg = gpu.recognize(images)
     assert wg == wc
     np.testing.assert_allclose(sg, sc, rtol=1e-4, atol=1e-3)
+
+
+def _close_all(got, want, tol):
+    for a, b in zip(got, want):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("W,ties", [(100, False), (81, False), (36, True)])
+def test_conv1_pool_bwd_kernel(dev, dtype, W, ties):
+    """dW, db against the plain version.  ties: an image of a few grey
+    levels, so many pool windows hold equal maxima (first-max routing);
+    dy arrives non-contiguous, as an NCHW conv2 backward hands it."""
+    g = torch.Generator().manual_seed(8)
+    B = 5
+    x = _rand(g, B, 32, W, 1)
+    if ties:
+        x = (x * 2).round() / 2
+    x = x.to(dev, dtype)
+    w = _rand(g, 64, 1, 3, 3, lo=-0.3, hi=0.3).to(dev)
+    b = _rand(g, 64, lo=-0.3, hi=0.3).to(dev)
+    dy = _rand(g, B, 64, 16, W // 2).to(dev, dtype).permute(0, 2, 3, 1)
+    n = conv1_pool_bwd.launches
+    dw, db = conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy)
+    assert conv1_pool_bwd.launches == n + 1
+    torch.cuda.synchronize()
+    dw_p, db_p = conv1_pool_bwd.conv1_relu_pool_bwd_plain(x, w, b, dy)
+    # the routing is bit-identical, so only the summation order differs
+    for got, want in ((dw, dw_p), (db, db_p)):
+        _close(got, want, 1e-4 * float(want.abs().max()) + 1e-5)
+
+
+def _lstm_case(g, dev, dtype, L=7, B=6, H=128):
+    wh = _rand(g, H, 4 * H, lo=-0.1, hi=0.1).to(dev, dtype)
+    xp = _rand(g, L, B, 4 * H).to(dev, dtype)
+    c0, h0 = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
+    return wh, xp, c0, h0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_fwd_collect_kernel(dev, dtype, reverse):
+    g = torch.Generator().manual_seed(9)
+    wh, xp, c0, h0 = _lstm_case(g, dev, dtype)
+    hs, fin, (ifog, cs) = lstm_fwd.lstm_fwd_scan(wh, xp, c0, h0, reverse,
+                                                 collect=True)
+    torch.cuda.synchronize()
+    hs_p, fin_p, (ifog_p, cs_p) = lstm_fwd.lstm_fwd_scan_plain(
+        wh, xp, c0, h0, reverse, collect=True)
+    _close_all((hs, *fin, ifog, cs), (hs_p, *fin_p, ifog_p, cs_p),
+               TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_bwd_kernel(dev, dtype, reverse):
+    g = torch.Generator().manual_seed(10)
+    wh, xp, c0, h0 = _lstm_case(g, dev, dtype)
+    hs, _, (ifog, cs) = lstm_fwd.lstm_fwd_scan_plain(wh, xp, c0, h0, reverse,
+                                                     collect=True)
+    L, B, H = hs.shape
+    dhs = _rand(g, L, B, H).to(dev)
+    dcf, dhf = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
+    got = lstm_bwd.lstm_bwd_scan(wh, dhs, ifog, cs, c0, dcf, dhf, reverse)
+    torch.cuda.synchronize()
+    want = lstm_bwd.lstm_bwd_scan_plain(wh, dhs, ifog, cs, c0, dcf, dhf,
+                                        reverse)
+    _close_all(got, want, TOL[dtype])
+
+
+def _tf_case(g, dev, dtype, input_feed, L=9, B=6, H=128, T=5, nl=2):
+    u = lambda *s: _rand(g, *s, lo=-0.1, hi=0.1)
+    wfh0 = u(2 * H if input_feed else H, 4 * H).to(dev, dtype)
+    rest = [(u(2 * H, 4 * H).to(dev, dtype), u(4 * H).to(dev),
+             u(4 * H).to(dev)) for _ in range(nl - 1)]
+    wa, wc = u(H, H).to(dev, dtype), u(2 * H, H).to(dev, dtype)
+    ctx = _rand(g, L, B, H).to(dev, dtype)
+    xp = _rand(g, T, B, 4 * H).to(dev, dtype)
+    c0, h0 = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
+    return ctx, wfh0, rest, wa, wc, xp, c0, h0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("input_feed", [True, False])
+def test_tf_fwd_kernel(dev, dtype, input_feed):
+    g = torch.Generator().manual_seed(11)
+    args = _tf_case(g, dev, dtype, input_feed)
+    got = tf_fwd.decoder_fwd_scan(*args, input_feed, True)
+    torch.cuda.synchronize()
+    want = tf_fwd.decoder_fwd_scan_plain(*args, input_feed, True)
+    _close_all(got, want, TOL[dtype])
+    _close(tf_fwd.decoder_fwd_scan(*args, input_feed, False), want[0],
+           TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("input_feed", [True, False])
+def test_tf_bwd_kernel(dev, dtype, input_feed):
+    g = torch.Generator().manual_seed(12)
+    ctx, wfh0, rest, wa, wc, xp, c0, h0 = _tf_case(g, dev, dtype, input_feed)
+    htl, _hs, ifog, cs, alpha, _cv = tf_fwd.decoder_fwd_scan_plain(
+        ctx, wfh0, rest, wa, wc, xp, c0, h0, input_feed, True)
+    dys = _rand(g, *htl.shape).to(dev)
+    args = (ctx, wfh0, [w for w, _, _ in rest], wc, wa, dys, htl, alpha,
+            ifog, cs, c0, input_feed)
+    got = tf_bwd.decoder_bwd_scan(*args)
+    torch.cuda.synchronize()
+    want = tf_bwd.decoder_bwd_scan_plain(*args)
+    _close_all(got, want, TOL[dtype])
+
+
+def test_train_step_on_cuda_matches_cpu(dev):
+    """One float32 SGD step through every training kernel equals the
+    CPU's (plain versions): loss within 1e-5, grad norms 1e-4 relative,
+    params and batch stats within 1e-4.  Not closer: at this size a 1e-7
+    relative change of the images alone moves conv weights by up to ~1e-5
+    on the CPU (a ReLU or pool decision flips; B=5 moved them 7e-5), and
+    the card sums in another order."""
+    cfg = Config(input_feed=True, encoder_num_hidden=32,
+                 target_embedding_size=8)
+    cpu = AttentionOCR.create(cfg, seed=13, device="cpu")
+    rs = np.random.RandomState(14)
+    images = rs.uniform(0, 255, (16, 32, 100, 1)).astype(np.float32)
+    t, te, _ = vocab.encode_batch(["abc", "x", "hello", "42", "word"] * 3
+                                  + ["z"])
+    step = train_step.make_train_step(cfg)
+    outs = []
+    for d in ("cpu", dev):
+        m = AttentionOCR(cfg, cpu.params, cpu.batch_stats, device=d)
+        outs.append(step(m.params, m.batch_stats,
+                         train_step.init_opt_state(m.params, cfg), images,
+                         t, te, 0.1))
+    (want, got) = outs
+    _close(got.loss_sum, want.loss_sum, 1e-5)
+    for k in want.grad_norms:
+        _close(got.grad_norms[k], want.grad_norms[k], 1e-4)
+    for tree in ("params", "batch_stats"):
+        _close_all(_leaves(getattr(got, tree)), _leaves(getattr(want, tree)),
+                   1e-4)
+
+
+def _leaves(tree):
+    from aocr_torch.optim import leaves
+
+    return leaves(tree)
