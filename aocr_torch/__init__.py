@@ -1,12 +1,13 @@
 """aocr_torch: the attention-OCR system in PyTorch on an NVIDIA H100.
 
 A port of the JAX package `aocr` (which stays as the reference), slice by
-slice; this slice is greedy recognition (`aocr_torch.api.AttentionOCR`).
-The TPU Pallas kernels on its path are hand-written CUDA kernels for
-sm_90a (`aocr_torch/csrc`, built at first use); on CPU tensors each runs
-its plain PyTorch version.  Framework-neutral reference modules are
-imported, not copied: `aocr.config`, `aocr.vocab`, `aocr.checkpoint`.
-This package never imports jax.
+slice: greedy, beam and dictionary recognition and scoring
+(`aocr_torch.api.AttentionOCR`) and the training step
+(`aocr_torch.train_step`).  The TPU Pallas kernels on these paths are
+hand-written CUDA kernels for sm_90a (`aocr_torch/csrc`, built at first
+use); on CPU tensors each runs its plain PyTorch version.  The package
+keeps its own copies of the framework-neutral modules (`config`, `vocab`,
+`checkpoint`, `utils/trie`) and imports neither jax nor `aocr`.
 
 Importing it switches TF32 off for cuBLAS matmuls and cuDNN convolutions
 (`ops.mm.set_precision_policy`): float32 means full float32, as the

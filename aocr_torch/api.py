@@ -1,12 +1,16 @@
-"""Library API (counterpart of aocr/api.py: greedy recognition and
-scoring):
+"""Library API (counterpart of aocr/api.py: greedy, beam and dictionary
+recognition, and scoring):
 
-    ocr = AttentionOCR.load("train/", device="cuda")   # an aocr checkpoint
+    ocr = AttentionOCR.load("train/")        # an aocr checkpoint, on cuda
     words, scores = ocr.recognize(images)    # (B, 32, W, 1) or a list
+    words, scores = ocr.recognize(images, beam_size=5)
+    ocr.use_dictionary(["word", ...])        # constrain to a lexicon
     gold = ocr.score(images, ["word", ...])  # teacher-forced log-probs
 
-Image paths, device-side preprocessing, `shard()` and the dictionary
-constraint are not ported yet (ROADMAP).
+Every entry point runs on the first CUDA device unless the caller names
+another device (`device="cpu"`); without CUDA the default raises.  Image
+paths, device-side preprocessing and `shard()` are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -18,16 +22,17 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from aocr import checkpoint, vocab
-from aocr.config import GEOMETRY_FIELDS, STRUCT_FIELDS, Config
+from aocr_torch import checkpoint, vocab
+from aocr_torch.config import GEOMETRY_FIELDS, STRUCT_FIELDS, Config
 from aocr_torch import decode, train_step, weights
 from aocr_torch.models import model as model_lib
+from aocr_torch.utils import trie as trie_lib
 
 
 def _device(device) -> torch.device:
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    """The named device; None means "cuda".  Raises for a CUDA device when
+    CUDA is absent: the CPU runs only when the caller names it."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
@@ -36,7 +41,7 @@ def _device(device) -> torch.device:
 
 class AttentionOCR:
     """A loaded (or freshly initialized) attention-OCR model on one
-    device (default: the first CUDA device if there is one, else CPU)."""
+    device (default: the current CUDA device)."""
 
     def __init__(self, cfg: Config, params: dict, batch_stats: dict,
                  global_step: int = 0, device=None):
@@ -47,6 +52,7 @@ class AttentionOCR:
         self.params = move(params)
         self.batch_stats = move(batch_stats)
         self.global_step = global_step
+        self._trie: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: Optional[Config] = None, seed: Optional[int] = None,
@@ -89,14 +95,30 @@ class AttentionOCR:
 
     def use_dictionary(self, words: Sequence[str],
                        allow_digit_prefix: bool = False) -> None:
-        raise NotImplementedError(
-            "dictionary decoding is not ported yet: the trie operands of "
-            "the greedy kernels are the next ROADMAP item")
+        """Constrain decoding to a word list (trie transition table).  For
+        a word-list file prefer set_dictionary_table(
+        trie.load_dictionary(path)), which caches the built DAWG."""
+        self.set_dictionary_table(
+            trie_lib.build_transition_table(words, allow_digit_prefix))
 
     def set_dictionary_table(self, table) -> None:
-        raise NotImplementedError(
-            "dictionary decoding is not ported yet: the trie operands of "
-            "the greedy kernels are the next ROADMAP item")
+        """Constrain decoding to a prebuilt (nodes, V) int32 transition
+        table (utils.trie.build_transition_table / load_dictionary), kept
+        on self.device."""
+        table = torch.as_tensor(np.asarray(table, np.int32))
+        if table.ndim != 2 or table.shape[1] != self.cfg.target_vocab_size:
+            raise ValueError(f"trie table of shape {tuple(table.shape)}, "
+                             f"expected (nodes, {self.cfg.target_vocab_size})")
+        self._trie = table.to(self.device).contiguous()
+
+    def clear_dictionary(self) -> None:
+        """Drop the dictionary constraint set by use_dictionary()."""
+        self._trie = None
+
+    @property
+    def dictionary_table(self) -> Optional[torch.Tensor]:
+        """The active trie transition table (None when unconstrained)."""
+        return self._trie
 
     def _prepare_groups(self, images) -> List[Tuple[List[int], np.ndarray]]:
         """A stacked (B, H, W[, 1]) array, or a list of (H, W[, 1]) arrays
@@ -146,7 +168,7 @@ class AttentionOCR:
             labels, sc = decode.beam_decode(
                 self.params, self.batch_stats,
                 torch.from_numpy(x).to(self.device), self.cfg,
-                beam_size=K, max_len=T)
+                beam_size=K, max_len=T, trie_table=self._trie)
             labels, sc = labels.cpu().numpy(), sc.cpu().numpy()
             for j, i in enumerate(idx):
                 words[i] = vocab.decode(labels[j])

@@ -2,7 +2,10 @@
 // log-softmax, PAD/EOS freeze, argmax.
 //
 // Replaces aocr/ops/pallas/decode_step.py::fused_decode_tail (pl.pallas_call
-// at decode_step.py:199) without the optional trie plane (later work).
+// at decode_step.py:199), with its optional trie plane: a (B, Vp) float32
+// 0/1 validity plane that the caller gathers from the transition table;
+// invalid log-probs count as -1e30 before the argmax, then the freeze
+// (decode_step.py:115-128).
 //
 // Bound on the H100: weight reads.  Per step a block of BT rows reads
 // W_a (H x H), W_c (2H x H) and W_p (H x Vp) once -- 6.3 MiB in bf16, 12.5
@@ -25,6 +28,7 @@ decode_step_kernel(const T* __restrict__ h,      // (B, H)
                    const int* __restrict__ prev, // (B,)
                    const T* __restrict__ wa, const T* __restrict__ wc,
                    const T* __restrict__ pw, const float* __restrict__ pb,
+                   const float* __restrict__ valid,  // (B, Vp) or null
                    float* __restrict__ htilde,   // (B, H)
                    int* __restrict__ tok, float* __restrict__ delta,  // (B,)
                    int L, int B, int H, int Vp) {
@@ -40,10 +44,12 @@ decode_step_kernel(const T* __restrict__ h,      // (B, H)
   if (threadIdx.x < DEC_BT)
     sm.prev[threadIdx.x] = threadIdx.x < nrows ? prev[b0 + threadIdx.x] : PAD;
   __syncthreads();
-  attention_tail<T>(ctx, L, B, H, b0, nrows, wa, wc, pw, pb, Vp, sm,
-                    [&](int r, int j, float v) {
-                      htilde[(size_t)(b0 + r) * H + j] = v;
-                    });
+  attention_tail<T>(
+      ctx, L, B, H, b0, nrows, wa, wc, pw, pb, Vp, sm,
+      [&](int r, int j, float v) { htilde[(size_t)(b0 + r) * H + j] = v; },
+      [&](int r, int v) {
+        return valid == nullptr || valid[(size_t)(b0 + r) * Vp + v] > 0.f;
+      });
   if (threadIdx.x < nrows) {
     tok[b0 + threadIdx.x] = sm.tok[threadIdx.x];
     delta[b0 + threadIdx.x] = sm.delta[threadIdx.x];
@@ -53,38 +59,35 @@ decode_step_kernel(const T* __restrict__ h,      // (B, H)
 template <typename T>
 static int launch(const void* h, const void* ctx, const void* prev,
                   const void* wa, const void* wc, const void* pw,
-                  const void* pb, void* htilde, void* tok, void* delta, int L,
-                  int B, int H, int Vp, cudaStream_t stream) {
+                  const void* pb, const void* valid, void* htilde, void* tok,
+                  void* delta, int L, int B, int H, int Vp,
+                  cudaStream_t stream) {
   size_t smem = TailSmem::bytes(H, L, Vp, 0);
   cudaError_t e = set_smem((const void*)decode_step_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((B + DEC_BT - 1) / DEC_BT);
   decode_step_kernel<T><<<grid, DEC_THREADS, smem, stream>>>(
       (const T*)h, (const T*)ctx, (const int*)prev, (const T*)wa,
-      (const T*)wc, (const T*)pw, (const float*)pb, (float*)htilde,
-      (int*)tok, (float*)delta, L, B, H, Vp);
+      (const T*)wc, (const T*)pw, (const float*)pb, (const float*)valid,
+      (float*)htilde, (int*)tok, (float*)delta, L, B, H, Vp);
   return (int)cudaGetLastError();
 }
 
 }  // namespace aocr
 
-extern "C" int aocr_decode_step_f32(const void* h, const void* ctx,
-                                    const void* prev, const void* wa,
-                                    const void* wc, const void* pw,
-                                    const void* pb, void* htilde, void* tok,
-                                    void* delta, int L, int B, int H, int Vp,
-                                    void* stream) {
-  return aocr::launch<float>(h, ctx, prev, wa, wc, pw, pb, htilde, tok, delta,
-                             L, B, H, Vp, (cudaStream_t)stream);
+#define AOCR_STEP_ARGS                                                      \
+  const void *h, const void *ctx, const void *prev, const void *wa,         \
+      const void *wc, const void *pw, const void *pb, const void *valid,    \
+      void *htilde, void *tok, void *delta, int L, int B, int H, int Vp,    \
+      void *stream
+
+extern "C" int aocr_decode_step_f32(AOCR_STEP_ARGS) {
+  return aocr::launch<float>(h, ctx, prev, wa, wc, pw, pb, valid, htilde, tok,
+                             delta, L, B, H, Vp, (cudaStream_t)stream);
 }
 
-extern "C" int aocr_decode_step_bf16(const void* h, const void* ctx,
-                                     const void* prev, const void* wa,
-                                     const void* wc, const void* pw,
-                                     const void* pb, void* htilde, void* tok,
-                                     void* delta, int L, int B, int H, int Vp,
-                                     void* stream) {
-  return aocr::launch<__nv_bfloat16>(h, ctx, prev, wa, wc, pw, pb, htilde,
-                                     tok, delta, L, B, H, Vp,
+extern "C" int aocr_decode_step_bf16(AOCR_STEP_ARGS) {
+  return aocr::launch<__nv_bfloat16>(h, ctx, prev, wa, wc, pw, pb, valid,
+                                     htilde, tok, delta, L, B, H, Vp,
                                      (cudaStream_t)stream);
 }

@@ -1,46 +1,60 @@
 // The decoder step shared by the decoder kernels, for one block of BT
-// batch rows: the LSTM stack over the per-row state (decoder_stack_step;
-// greedy_loop.cu and tf_fwd.cu), Luong attention and
+// rows: the LSTM stack over the per-row state (decoder_stack_step;
+// greedy_loop.cu, tf_fwd.cu and beam_loop.cu), Luong attention and
 // h~ = tanh(W_c [ctx; h]) (attention_htilde, also the teacher-forced
-// forward's), then the projector, float32 log-softmax, the PAD/EOS freeze
-// and the argmax (projector_pick; decode_step.cu and greedy_loop.cu).
+// forward's), then the projector and float32 log-softmax with the PAD/EOS
+// freeze (projector_logp) and the argmax (projector_pick; decode_step.cu
+// and greedy_loop.cu) or the beams' top-K (beam_tail.cuh).
 // Counterpart of aocr/ops/pallas/decode_step.py::attention_logp_tail plus
 // the freeze/argmax of its _kernel_body, which all the TPU decode kernels
 // share.
+//
+// BT, the rows of a block, is a template parameter: DEC_BT (4 batch rows)
+// for the greedy and teacher-forced kernels; the beam kernels give a block
+// whole batch rows with all their K beams (beam_tail.cuh).
 #pragma once
 
 #include "common.cuh"
 
 namespace aocr {
 
-constexpr int DEC_BT = 4;       // batch rows per block
-constexpr int DEC_U = 4;        // consecutive columns per thread
+constexpr int DEC_BT = 4;       // batch rows per block (greedy, training)
 constexpr int DEC_THREADS = 256;
 
+// consecutive columns per thread in the matmuls: 4, or 2 above 5 rows
+// (the accumulators are 4 * U * BT registers in decoder_layer)
+template <int BT>
+struct DecU {
+  static constexpr int value = BT > 5 ? 2 : 4;
+};
+
 // Shared-memory views of one block (float unless noted).
-struct TailSmem {
+template <int BT = DEC_BT>
+struct TailSmemT {
   float* X;      // BT x 2H: [round_cd(ctx) ; round_cd(h_top)]
   float* S;      // BT x H: q, then round_cd(h~)
   float* A;      // BT x L: scores, then alpha
-  float* P;      // BT x Vp: logits
+  float* P;      // BT x Vp: logits, then log-probs
   int* prev;     // BT: previous token (PAD for rows past the batch)
   int* tok;      // BT: picked token
   float* delta;  // BT: picked log-prob after the freeze
 
-  __device__ TailSmem(float* base, int H, int L, int Vp) {
+  __device__ TailSmemT(float* base, int H, int L, int Vp) {
     X = base;
-    S = X + DEC_BT * 2 * H;
-    A = S + DEC_BT * H;
-    P = A + DEC_BT * L;
-    prev = reinterpret_cast<int*>(P + DEC_BT * Vp);
-    tok = prev + DEC_BT;
-    delta = reinterpret_cast<float*>(tok + DEC_BT);
+    S = X + BT * 2 * H;
+    A = S + BT * H;
+    P = A + BT * L;
+    prev = reinterpret_cast<int*>(P + BT * Vp);
+    tok = prev + BT;
+    delta = reinterpret_cast<float*>(tok + BT);
   }
+  // bytes of the views, then extra_floats more (from delta + BT on)
   static size_t bytes(int H, int L, int Vp, int extra_floats) {
     return sizeof(float) *
-           ((size_t)DEC_BT * (3 * H + L + Vp) + 3 * DEC_BT + extra_floats);
+           ((size_t)BT * (3 * H + L + Vp) + 3 * BT + extra_floats);
   }
 };
+using TailSmem = TailSmemT<DEC_BT>;
 
 // The per-row decoder state of the step loops (greedy_loop.cu, tf_fwd.cu)
 // lives in a global scratch buffer (B, 2*nl+1, H) float32 that only the
@@ -66,13 +80,13 @@ __device__ void decoder_state_init(St st, const float* __restrict__ c0,
 
 // Layer l of decoder_stack_step: K is the width of its matmul operand, w
 // its weights.
-template <typename T, typename St, typename Pre, typename Seen>
+template <typename T, int BT, typename St, typename Pre, typename Seen>
 __device__ __forceinline__ void decoder_layer(St st, float* X,
                                               const T* __restrict__ w, int K,
                                               int l, int H, int nrows,
                                               int input_feed, Pre pre,
                                               Seen seen) {
-  constexpr int BT = DEC_BT, U = DEC_U;
+  constexpr int U = DecU<BT>::value;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int G = 4 * H;
   for (int i = tid; i < BT * K; i += nthr) {
@@ -127,19 +141,20 @@ __device__ __forceinline__ void decoder_layer(St st, float* X,
 // Layer 0 and the layers above are separate inlined copies of
 // decoder_layer: one loop over all layers ran the float32 greedy loop 38%
 // slower on an H100 (PERF.md).
-template <typename T, typename St, typename Pre, typename Seen>
+template <typename T, int BT = DEC_BT, typename St, typename Pre,
+          typename Seen>
 __device__ void decoder_stack_step(St st, float* X, const T* __restrict__ wfh0,
                                    const T* __restrict__ wx, int H, int nl,
                                    int nrows, int input_feed, Pre pre,
                                    Seen seen) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int G = 4 * H, H2 = 2 * H;
-  decoder_layer<T>(st, X, wfh0, input_feed ? H2 : H, 0, H, nrows, input_feed,
-                   pre, seen);
+  decoder_layer<T, BT>(st, X, wfh0, input_feed ? H2 : H, 0, H, nrows,
+                       input_feed, pre, seen);
   for (int l = 1; l < nl; ++l)
-    decoder_layer<T>(st, X, wx + (size_t)(l - 1) * H2 * G, H2, l, H, nrows,
-                     input_feed, pre, seen);
-  for (int i = tid; i < DEC_BT * H; i += nthr) {
+    decoder_layer<T, BT>(st, X, wx + (size_t)(l - 1) * H2 * G, H2, l, H,
+                         nrows, input_feed, pre, seen);
+  for (int i = tid; i < BT * H; i += nthr) {
     const int r = i / H, j = i % H;
     X[r * H2 + H + j] = r < nrows ? round_cd<T>(st(r, 2 * nl)[j]) : 0.f;
   }
@@ -159,14 +174,16 @@ __device__ void decoder_stack_step(St st, float* X, const T* __restrict__ wfh0,
 // and the XLA attention) does; the decode kernels keep both in float32.
 //
 // ctx (L, B, H) compute dtype, scan-major; wa (H, H), wc (2H, H) compute
-// dtype.
-template <bool kRoundQA, typename T, typename HOut>
+// dtype.  Row r attends over context row b0 + r / kg: kg = K groups the K
+// beams of a batch row on their one context row (the reference's
+// beam_replicate without the copy), kg = 1 is one row each.
+template <bool kRoundQA, int BT = DEC_BT, typename T, typename HOut>
 __device__ void attention_htilde(const T* __restrict__ ctx, int L, int B,
                                  int H, int b0, int nrows,
                                  const T* __restrict__ wa,
-                                 const T* __restrict__ wc, TailSmem sm,
-                                 HOut hout) {
-  constexpr int BT = DEC_BT, U = DEC_U;
+                                 const T* __restrict__ wc, TailSmemT<BT> sm,
+                                 HOut hout, int kg = 1) {
+  constexpr int U = DecU<BT>::value;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
   const int H2 = 2 * H;
@@ -188,7 +205,7 @@ __device__ void attention_htilde(const T* __restrict__ ctx, int L, int B,
   // scores[r][l] = sum_h ctx[l, r, h] * q[r, h]: one warp per (r, l)
   for (int p = warp; p < nrows * L; p += nwarps) {
     const int r = p / L, l = p % L;
-    const T* cr = ctx + ((size_t)l * B + b0 + r) * H;
+    const T* cr = ctx + ((size_t)l * B + b0 + r / kg) * H;
     float s = 0.f;
     for (int h = lane; h < H; h += 32) s = fmaf(to_f(cr[h]), sm.S[r * H + h], s);
     s = warp_sum(s);
@@ -218,7 +235,7 @@ __device__ void attention_htilde(const T* __restrict__ ctx, int L, int B,
     const int r = i / H, h = i % H;
     float v = 0.f;
     if (r < nrows) {
-      const T* cp = ctx + (size_t)(b0 + r) * H + h;
+      const T* cp = ctx + (size_t)(b0 + r / kg) * H + h;
       for (int l = 0; l < L; ++l) {
         const float a = sm.A[r * L + l];
         v = fmaf(kRoundQA ? round_cd<T>(a) : a, to_f(cp[(size_t)l * B * H]),
@@ -251,15 +268,16 @@ __device__ void attention_htilde(const T* __restrict__ ctx, int L, int B,
   __syncthreads();
 }
 
-// The projector, log-softmax, PAD/EOS freeze and argmax on round_cd(h~)
-// in S (attention_htilde's exit state) and prev[].  On exit tok[]/delta[]
-// hold the picks of the real rows, after a __syncthreads.  pw (H, Vp)
-// compute dtype; pb (Vp,) float32 with -1e30 on the padding.
-template <typename T>
-__device__ void projector_pick(int H, int nrows, const T* __restrict__ pw,
+// The projector, float32 log-softmax and PAD/EOS freeze on round_cd(h~)
+// in S (attention_htilde's exit state) and prev[].  On exit, after a
+// __syncthreads, P[r][v] holds the log-prob of token v for each real row,
+// with P[r][PAD] = 0 where prev[r] is PAD or EOS.  pw (H, Vp) compute
+// dtype; pb (Vp,) float32 with -1e30 on the padding.
+template <typename T, int BT>
+__device__ void projector_logp(int H, int nrows, const T* __restrict__ pw,
                                const float* __restrict__ pb, int Vp,
-                               TailSmem sm) {
-  constexpr int BT = DEC_BT, U = DEC_U;
+                               TailSmemT<BT> sm) {
+  constexpr int U = DecU<BT>::value;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
 
@@ -278,9 +296,9 @@ __device__ void projector_pick(int H, int nrows, const T* __restrict__ pw,
   }
   __syncthreads();
 
-  // log-softmax, freeze (logp[PAD] = 0 after PAD/EOS), argmax: a warp a row
+  // log-softmax and freeze: a warp a row
   for (int r = warp; r < nrows; r += nwarps) {
-    const float* lg = sm.P + r * Vp;
+    float* lg = sm.P + r * Vp;
     float m = -INFINITY;
     for (int v = lane; v < Vp; v += 32) m = fmaxf(m, lg[v]);
     m = warp_max(m);
@@ -289,15 +307,34 @@ __device__ void projector_pick(int H, int nrows, const T* __restrict__ pw,
     s = warp_sum(s);
     const float lse = m + logf(s);
     const bool frozen = sm.prev[r] == PAD || sm.prev[r] == EOS;
-    // bi starts at PAD, so a row whose logits are all NaN picks PAD and
+    for (int v = lane; v < Vp; v += 32)
+      lg[v] = (frozen && v == PAD) ? 0.f : lg[v] - lse;
+  }
+  __syncthreads();
+}
+
+// The argmax of each real row's log-probs in P (projector_logp's exit
+// state), ties to the lowest index.  valid(r, v) says whether token v may
+// follow: an invalid one counts as -1e30, except PAD of a frozen row
+// (the reference masks, then freezes).  On exit, after a __syncthreads,
+// tok[]/delta[] hold the picks.
+template <int BT, typename Valid>
+__device__ void projector_pick(int nrows, int Vp, TailSmemT<BT> sm,
+                               Valid valid) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  for (int r = warp; r < nrows; r += nwarps) {
+    const float* lp = sm.P + r * Vp;
+    const bool frozen = sm.prev[r] == PAD || sm.prev[r] == EOS;
+    // bi starts at PAD, so a row whose log-probs are all NaN picks PAD and
     // greedy_loop's emb_gates gather stays inside the table
     float best = -INFINITY;
     int bi = PAD;
     for (int v = lane; v < Vp; v += 32) {
-      float lp = lg[v] - lse;
-      if (frozen && v == PAD) lp = 0.f;
-      if (lp > best) {
-        best = lp;
+      const float x =
+          (valid(r, v) || (frozen && v == PAD)) ? lp[v] : -1e30f;
+      if (x > best) {
+        best = x;
         bi = v;
       }
     }
@@ -311,18 +348,19 @@ __device__ void projector_pick(int H, int nrows, const T* __restrict__ pw,
 }
 
 // The whole greedy tail: attention_htilde (q and alpha in float32), then
-// projector_pick.  On entry X[r][H + j] holds round_cd(h_top) (0 for
-// r >= nrows) and prev[] is set, after a __syncthreads.  On exit
-// tok[]/delta[] hold the picks of the real rows.
-template <typename T, typename HOut>
+// projector_logp and projector_pick.  On entry X[r][H + j] holds
+// round_cd(h_top) (0 for r >= nrows) and prev[] is set, after a
+// __syncthreads.  On exit tok[]/delta[] hold the picks of the real rows.
+template <typename T, typename HOut, typename Valid>
 __device__ void attention_tail(const T* __restrict__ ctx, int L, int B, int H,
                                int b0, int nrows, const T* __restrict__ wa,
                                const T* __restrict__ wc,
                                const T* __restrict__ pw,
                                const float* __restrict__ pb, int Vp,
-                               TailSmem sm, HOut hout) {
+                               TailSmem sm, HOut hout, Valid valid) {
   attention_htilde<false>(ctx, L, B, H, b0, nrows, wa, wc, sm, hout);
-  projector_pick<T>(H, nrows, pw, pb, Vp, sm);
+  projector_logp<T>(H, nrows, pw, pb, Vp, sm);
+  projector_pick(nrows, Vp, sm, valid);
 }
 
 }  // namespace aocr

@@ -1,13 +1,21 @@
 // The whole T-step greedy decode in one launch.
 //
 // Replaces aocr/ops/pallas/greedy_loop.py::fused_greedy_loop (pl.pallas_call
-// at greedy_loop.py:362) without the in-kernel trie (later work).
+// at greedy_loop.py:362), in-kernel trie included.
 //
 // Each step of each row: the emb_gates row of the previous token (a
 // gather; the TPU's one-hot matmul was a Mosaic workaround), layer 0 on
 // [attn; h0] @ [Wi[E:]; Wh], the other layers on [x; h_l] @ [Wi; Wh] + b,
 // then the shared attention tail (decode_tail.cuh), the PAD/EOS freeze,
 // the argmax, the score sum and the token history.
+//
+// Dictionary decoding: the dense (N, V) int32 transition table stays in
+// device memory, unpadded (a 110k-node lexicon is 17 MB), and each row
+// keeps its node id in shared memory; a step's validity is an integer read
+// of the node's row (the TPU's one-hot f32 matmul lookup was a Mosaic
+// workaround).  At t = 0 only the root's children are valid, PAD not;
+// later PAD always is.  PAD keeps the node, any other token steps it
+// (clamped at 0), as greedy_loop.py:153-187.
 //
 // Bound on the H100: one block's weight stream.  The TPU kernel kept
 // every decoder weight in VMEM for the whole decode; at H=1024 they are
@@ -40,15 +48,17 @@ greedy_loop_kernel(const T* __restrict__ ctx,     // (L, B, H)
                    const float* __restrict__ bx,  // (nl-1, 4H)
                    const T* __restrict__ wa, const T* __restrict__ wc,
                    const T* __restrict__ pw, const float* __restrict__ pb,
+                   const int* __restrict__ trie,  // (N, V) or null
                    int* __restrict__ labels,      // (B, T)
                    float* __restrict__ scores,    // (B,)
                    float* __restrict__ state,     // (B, 2*nl+1, H)
-                   int L, int B, int H, int Vp, int T_, int nl,
+                   int L, int B, int H, int Vp, int V, int T_, int nl,
                    int input_feed) {
   constexpr int BT = DEC_BT;
   extern __shared__ float smem[];
   TailSmem sm(smem, H, L, Vp);
   float* score = sm.delta + BT;
+  int* node = reinterpret_cast<int*>(score + BT);
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int b0 = blockIdx.x * BT;
   const int nrows = min(BT, B - b0);
@@ -71,6 +81,7 @@ greedy_loop_kernel(const T* __restrict__ ctx,     // (L, B, H)
   if (tid < BT) {
     sm.prev[tid] = tid < nrows ? GO : PAD;  // rows past B start frozen
     score[tid] = 0.f;
+    node[tid] = 0;  // the root
   }
   __syncthreads();
 
@@ -83,10 +94,19 @@ greedy_loop_kernel(const T* __restrict__ ctx,     // (L, B, H)
 
     decoder_stack_step<T>(st, sm.X, wfh0, wx, H, nl, nrows, input_feed, pre,
                           seen);
-    attention_tail<T>(ctx, L, B, H, b0, nrows, wa, wc, pw, pb, Vp, sm,
-                      [&](int r, int j, float v) { st(r, 0)[j] = v; });
+    attention_tail<T>(
+        ctx, L, B, H, b0, nrows, wa, wc, pw, pb, Vp, sm,
+        [&](int r, int j, float v) { st(r, 0)[j] = v; },
+        [&](int r, int v) {
+          return trie == nullptr ||
+                 (v < V && trie[(size_t)node[r] * V + v] >= 0) ||
+                 (v == PAD && t > 0);
+        });
     if (tid < nrows) {
       const int tk = sm.tok[tid];
+      if (trie != nullptr && !(tk == PAD && t > 0))
+        node[tid] =
+            tk < V ? max(trie[(size_t)node[tid] * V + tk], 0) : 0;
       score[tid] += sm.delta[tid];
       sm.prev[tid] = tk;
       labels[(size_t)(b0 + tid) * T_ + t] = tk;
@@ -100,18 +120,20 @@ template <typename T>
 static int launch(const void* ctx, const void* c0, const void* h0,
                   const void* eg, const void* wfh0, const void* wx,
                   const void* bx, const void* wa, const void* wc,
-                  const void* pw, const void* pb, void* labels, void* scores,
-                  void* state, int L, int B, int H, int Vp, int T_, int nl,
-                  int input_feed, cudaStream_t stream) {
-  size_t smem = TailSmem::bytes(H, L, Vp, DEC_BT);
+                  const void* pw, const void* pb, const void* trie,
+                  void* labels, void* scores, void* state, int L, int B,
+                  int H, int Vp, int V, int T_, int nl, int input_feed,
+                  cudaStream_t stream) {
+  size_t smem = TailSmem::bytes(H, L, Vp, 2 * DEC_BT);
   cudaError_t e = set_smem((const void*)greedy_loop_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((B + DEC_BT - 1) / DEC_BT);
   greedy_loop_kernel<T><<<grid, DEC_THREADS, smem, stream>>>(
       (const T*)ctx, (const float*)c0, (const float*)h0, (const T*)eg,
       (const T*)wfh0, (const T*)wx, (const float*)bx, (const T*)wa,
-      (const T*)wc, (const T*)pw, (const float*)pb, (int*)labels,
-      (float*)scores, (float*)state, L, B, H, Vp, T_, nl, input_feed);
+      (const T*)wc, (const T*)pw, (const float*)pb, (const int*)trie,
+      (int*)labels, (float*)scores, (float*)state, L, B, H, Vp, V, T_, nl,
+      input_feed);
   return (int)cudaGetLastError();
 }
 
@@ -120,19 +142,19 @@ static int launch(const void* ctx, const void* c0, const void* h0,
 #define AOCR_LOOP_ARGS                                                       \
   const void *ctx, const void *c0, const void *h0, const void *eg,          \
       const void *wfh0, const void *wx, const void *bx, const void *wa,     \
-      const void *wc, const void *pw, const void *pb, void *labels,         \
-      void *scores, void *state, int L, int B, int H, int Vp, int T_, int nl, \
-      int input_feed, void *stream
+      const void *wc, const void *pw, const void *pb, const void *trie,     \
+      void *labels, void *scores, void *state, int L, int B, int H, int Vp,  \
+      int V, int T_, int nl, int input_feed, void *stream
 
 extern "C" int aocr_greedy_loop_f32(AOCR_LOOP_ARGS) {
   return aocr::launch<float>(ctx, c0, h0, eg, wfh0, wx, bx, wa, wc, pw, pb,
-                             labels, scores, state, L, B, H, Vp, T_, nl,
-                             input_feed, (cudaStream_t)stream);
+                             trie, labels, scores, state, L, B, H, Vp, V, T_,
+                             nl, input_feed, (cudaStream_t)stream);
 }
 
 extern "C" int aocr_greedy_loop_bf16(AOCR_LOOP_ARGS) {
   return aocr::launch<__nv_bfloat16>(ctx, c0, h0, eg, wfh0, wx, bx, wa, wc,
-                                     pw, pb, labels, scores, state, L, B, H,
-                                     Vp, T_, nl, input_feed,
+                                     pw, pb, trie, labels, scores, state, L,
+                                     B, H, Vp, V, T_, nl, input_feed,
                                      (cudaStream_t)stream);
 }

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from aocr import vocab
+from aocr_torch import vocab
 
 
 def gold_scores(log_probs: torch.Tensor, targets_eval: torch.Tensor

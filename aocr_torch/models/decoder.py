@@ -1,6 +1,7 @@
 """Input-feeding attention LSTM decoder (counterpart of
 aocr/models/decoder.py: DecoderState, init_state, lstm_stack, attention,
-step, and the teacher-forced scan of training and scoring).
+attention_grouped, step, and the teacher-forced scan of training and
+scoring).
 
 Layer 1 takes [emb ; h~_prev] (input feed); the stacked layers use fused
 [i|f|o|g] gates; attention is Luong "general" on the top hidden state,
@@ -94,6 +95,25 @@ def attention(prep: dict, h_top: torch.Tensor, context: torch.Tensor,
                           query.to(cd).float())
     alpha = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bl,blh->bh", alpha.to(cd).float(), ctx_cd.float())
+    if simple:
+        return ctx + h_top.float()
+    cat = torch.cat([ctx, h_top.float()], dim=-1)
+    return torch.tanh(matmul(cat.to(cd), prep["w_c"]))
+
+
+def attention_grouped(prep: dict, h_top: torch.Tensor, context: torch.Tensor,
+                      simple: bool = False) -> torch.Tensor:
+    """attention for beam search: K query rows h_top (B, K, H) per context
+    row of context (B, L, H), as batched products against the unexpanded
+    context (the reference's beam_replicate copies it to B*K rows,
+    model.lua:322-359; no (B*K, L, H) tensor is built here).  Returns h~
+    (B, K, H) float32."""
+    cd = prep["w_a"].dtype
+    ctx_cd = context.to(cd).float()
+    query = matmul(h_top.to(cd), prep["w_a"])  # (B, K, H)
+    scores = torch.einsum("blh,bkh->bkl", ctx_cd, query.to(cd).float())
+    alpha = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bkl,blh->bkh", alpha.to(cd).float(), ctx_cd)
     if simple:
         return ctx + h_top.float()
     cat = torch.cat([ctx, h_top.float()], dim=-1)

@@ -15,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from aocr.config import Config
+from aocr_torch.config import Config
 from aocr_torch import loss as loss_lib
 from aocr_torch.models import cnn, decoder, encoder, head
 

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # the kernel modules of this package, one per kernel
 KERNELS = ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",
-           "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd")
+           "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd", "beam_step",
+           "beam_loop")
 
 _lock = threading.Lock()
 _lib = None
@@ -128,13 +129,12 @@ def _declare(lib) -> None:
         # wh, xp, xp_is_f32, c0, h0, hs, cf, hf, ifog, cs, L, B, H,
         # reverse, stream
         "lstm_fwd": [_P, _P, _I] + [_P] * 7 + [_I] * 4 + [_P],
-        # h, ctx, prev, wa, wc, pw, pb, htilde, tok, delta, L, B, H, Vp,
-        # stream
-        "decode_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _P],
-        # ctx, c0, h0, eg, wfh0, wx, bx, wa, wc, pw, pb, labels, scores,
-        # state, L, B, H, Vp, T, num_layers, input_feed, stream
-        "greedy_loop": [_P] * 14 + [_I] * 7 + [_P],
+        # h, ctx, prev, wa, wc, pw, pb, valid, htilde, tok, delta, L, B, H,
+        # Vp, stream
+        "decode_step": [_P] * 11 + [_I] * 4 + [_P],
+        # ctx, c0, h0, eg, wfh0, wx, bx, wa, wc, pw, pb, trie, labels,
+        # scores, state, L, B, H, Vp, V, T, num_layers, input_feed, stream
+        "greedy_loop": [_P] * 15 + [_I] * 8 + [_P],
         # x, w9, b, dy, part, out, B, H, W, stream
         "conv1_pool_bwd": [_P] * 6 + [_I] * 3 + [_P],
         # wh, dhs, ifog, cs, c0, dcf, dhf, dg, dh0, dc0, L, B, H, reverse,
@@ -147,6 +147,13 @@ def _declare(lib) -> None:
         # dcvec, dscore, dc0, dh0, state, L, B, H, T, num_layers,
         # input_feed, stream
         "tf_bwd": [_P] * 19 + [_I] * 6 + [_P],
+        # ctx, h, prev, scores, wa, wc, pw, pb, valid, htilde, nsc, par,
+        # tok, nvalid, L, B, H, Vp, V, K, stream
+        "beam_step": [_P] * 14 + [_I] * 6 + [_P],
+        # ctx, init, tok0, sc0, node0, eg, wfh0, wx, bx, wa, wc, pw, pb,
+        # trie, tok_hist, par_hist, fsc, flen, refills, minv, state, L, B,
+        # H, Vp, V, T, num_layers, input_feed, K, count_lengths, stream
+        "beam_loop": [_P] * 21 + [_I] * 10 + [_P],
     }
     for name, args in sigs.items():
         for suffix in ("f32", "bf16"):
@@ -168,6 +175,11 @@ def launch(name: str, dtype: torch.dtype, device: torch.device,
     if err != 0:
         raise RuntimeError(f"aocr_{name}_{suffix} launch failed: CUDA error "
                            f"{err}")
+
+
+def ptr(t) -> int:
+    """A tensor's device address, 0 (a null pointer) for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def check(t: torch.Tensor, name: str, shape, dtype, device) -> None:

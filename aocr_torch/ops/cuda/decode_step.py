@@ -3,8 +3,11 @@
 Replaces `aocr/ops/pallas/decode_step.py::fused_decode_tail` (and the
 `attention_logp_tail` it shares with the whole-loop kernel): q = W_a h, a
 float32 softmax over L, the context vector, h~ = tanh(W_c [ctx; h]), the
-padded projector, float32 log-softmax, the PAD/EOS freeze and the argmax.
-The trie validity plane is not ported yet.
+padded projector, float32 log-softmax, the PAD/EOS freeze and the argmax,
+with the optional trie validity plane: a (B, Vp) float32 0/1 plane that
+the caller gathers from the transition table and in which it bakes the
+PAD rule (no PAD at t=1, PAD always valid later); invalid log-probs count
+as -1e30 before the argmax, then the freeze (decode_step.py:115-128).
 
 The plain version mirrors the kernel's numerics, not the XLA route's:
 scores and the context vector are float32 sums over the compute-dtype
@@ -13,11 +16,11 @@ context (`decoder.attention` rounds q and alpha to the compute dtype).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from aocr import vocab
+from aocr_torch import vocab
 from aocr_torch.ops import cuda
 from aocr_torch.ops.mm import matmul
 
@@ -65,36 +68,49 @@ def attention_logp_tail(h, context, wa, wc, pw, pb, cd):
     return h_tilde, logits - lse
 
 
-def freeze_and_pick(logp: torch.Tensor, prev: torch.Tensor):
-    """PAD/EOS freeze (logp[PAD] := 0 where prev is PAD or EOS), then the
-    argmax (ties to the lowest index) and its value.  Returns (tokens
-    (B,) int32, delta (B,) float32, the frozen logp)."""
+def freeze_logp(logp: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """A copy of logp (..., V) with logp[PAD] := 0 where prev (...) is PAD
+    or EOS: a finished row or beam continues as PAD at no cost."""
     frozen = (prev == vocab.PAD) | (prev == vocab.EOS)
     logp = logp.clone()
-    logp[:, vocab.PAD] = torch.where(frozen, torch.zeros_like(
-        logp[:, vocab.PAD]), logp[:, vocab.PAD])
+    logp[..., vocab.PAD] = torch.where(frozen, torch.zeros_like(
+        logp[..., vocab.PAD]), logp[..., vocab.PAD])
+    return logp
+
+
+def freeze_and_pick(logp: torch.Tensor, prev: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None):
+    """The optional validity mask (logp := -1e30 where valid is not > 0),
+    then the PAD/EOS freeze (logp[PAD] := 0 where prev is PAD or EOS), then
+    the argmax (ties to the lowest index) and its value.  Returns (tokens
+    (B,) int32, delta (B,) float32, the masked and frozen logp)."""
+    if valid is not None:
+        logp = torch.where(valid > 0, logp, torch.full_like(logp, -1e30))
+    logp = freeze_logp(logp, prev)
     delta, tok = logp.max(dim=-1)
     return tok.to(torch.int32), delta, logp
 
 
 def fused_decode_tail_plain(h_top, context_lbh, prev, w_a, w_c, pw_padded,
-                            pb_padded):
+                            pb_padded, valid=None):
     """Plain PyTorch version; same arguments and results as
     fused_decode_tail."""
     cd = w_a.dtype
     h_tilde, logp = attention_logp_tail(h_top.to(cd), context_lbh, w_a, w_c,
                                         pw_padded, pb_padded, cd)
-    tok, delta, _ = freeze_and_pick(logp, prev)
+    tok, delta, _ = freeze_and_pick(logp, prev, valid)
     return h_tilde, tok, delta
 
 
 def fused_decode_tail(h_top: torch.Tensor, context_lbh: torch.Tensor,
                       prev: torch.Tensor, w_a: torch.Tensor,
                       w_c: torch.Tensor, pw_padded: torch.Tensor,
-                      pb_padded: torch.Tensor):
+                      pb_padded: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None):
     """h_top (B, H); context_lbh (L, B, H) scan-major, compute dtype; prev
     (B,) int32; w_a (H, H), w_c (2H, H), pw_padded (H, Vp) in the compute
-    dtype; pb_padded (Vp,) float32 (pad_projector).
+    dtype; pb_padded (Vp,) float32 (pad_projector); valid: an optional
+    (B, Vp) float32 0/1 trie validity plane.
 
     Returns (h_tilde (B, H) float32, tokens (B,) int32, score_delta (B,)
     float32): the picked token's log-prob after the freeze, 0 for frozen
@@ -103,7 +119,7 @@ def fused_decode_tail(h_top: torch.Tensor, context_lbh: torch.Tensor,
     global launches
     if h_top.device.type == "cpu":
         return fused_decode_tail_plain(h_top, context_lbh, prev, w_a, w_c,
-                                       pw_padded, pb_padded)
+                                       pw_padded, pb_padded, valid)
     if h_top.device.type != "cuda":
         raise ValueError(f"fused_decode_tail: unsupported device "
                          f"{h_top.device}")
@@ -121,13 +137,15 @@ def fused_decode_tail(h_top: torch.Tensor, context_lbh: torch.Tensor,
     cuda.check(w_c, "w_c", (2 * H, H), cd, dev)
     cuda.check(pw_padded, "pw_padded", (H, Vp), cd, dev)
     cuda.check(pb_padded, "pb_padded", (Vp,), torch.float32, dev)
+    if valid is not None:
+        cuda.check(valid, "valid", (B, Vp), torch.float32, dev)
     h_tilde = torch.empty((B, H), dtype=torch.float32, device=dev)
     tok = torch.empty((B,), dtype=torch.int32, device=dev)
     delta = torch.empty((B,), dtype=torch.float32, device=dev)
     cuda.launch("decode_step", cd, dev, h.data_ptr(), context_lbh.data_ptr(),
                 prev.data_ptr(), w_a.data_ptr(), w_c.data_ptr(),
                 pw_padded.data_ptr(), pb_padded.data_ptr(),
-                h_tilde.data_ptr(), tok.data_ptr(), delta.data_ptr(),
-                L, B, H, Vp)
+                cuda.ptr(valid), h_tilde.data_ptr(), tok.data_ptr(),
+                delta.data_ptr(), L, B, H, Vp)
     launches += 1
     return h_tilde, tok, delta

@@ -1,18 +1,25 @@
 """The whole greedy decode in one kernel (csrc/greedy_loop.cu).
 
 Replaces `aocr/ops/pallas/greedy_loop.py::fused_greedy_loop` and ports its
-`build_tables`; the in-kernel trie is not ported yet.  Every step of every
-row: the emb_gates row of the previous token, the LSTM layers with input
-feed, the attention tail of decode_step, the PAD/EOS freeze, the argmax,
-the score sum and the token history; each block of rows stops once all
-its rows are frozen.
+`build_tables`.  Every step of every row: the emb_gates row of the
+previous token, the LSTM layers with input feed, the attention tail of
+decode_step, the PAD/EOS freeze, the optional trie constraint, the
+argmax, the score sum and the token history; each block of rows stops
+once all its rows are frozen.
+
+The trie is the (N, V) int32 transition table (utils/trie.py), read by
+node id in device memory: at t=0 only the root's children are valid and
+PAD is not; later PAD always is; PAD keeps a row's node and any other
+token steps it, clamped at 0 (greedy_loop.py:153-187).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from aocr import vocab
+from aocr_torch import vocab
 from aocr_torch.ops import cuda, lstm
 from aocr_torch.ops.cuda import decode_step
 from aocr_torch.ops.mm import matmul
@@ -53,9 +60,34 @@ def build_tables(dec_params: dict, proj: dict, embedding_size: int,
             "pw": pw.to(cd).contiguous(), "pb": pb}
 
 
+def trie_valid(trie_table: torch.Tensor, nodes: torch.Tensor, vp: int,
+               pad_ok: bool) -> torch.Tensor:
+    """The (..., vp) float32 0/1 validity plane of the trie rows of `nodes`
+    (any shape): 1 where the node has a child for the token, PAD set to 1
+    with pad_ok, the columns past V 0."""
+    ok = trie_table[nodes.long()] >= 0
+    if pad_ok:
+        ok[..., vocab.PAD] = True
+    V = trie_table.shape[1]
+    plane = torch.zeros(ok.shape[:-1] + (vp,), dtype=torch.float32,
+                        device=ok.device)
+    plane[..., :V] = ok.float()
+    return plane
+
+
+def trie_step(trie_table: torch.Tensor, nodes: torch.Tensor,
+              toks: torch.Tensor) -> torch.Tensor:
+    """The trie node after emitting toks at nodes, clamped at the root (0)
+    where the table has no edge or the token is past V."""
+    V = trie_table.shape[1]
+    stepped = trie_table[nodes.long(), toks.long().clamp(max=V - 1)]
+    return torch.where(toks < V, stepped, 0).clamp(min=0).to(torch.int32)
+
+
 def fused_greedy_loop_plain(context_lbh, c0, h0, tables, num_layers: int,
                             input_feed: bool, T: int,
-                            return_margins: bool = False):
+                            return_margins: bool = False,
+                            trie_table: Optional[torch.Tensor] = None):
     """Plain PyTorch version; same arguments and results as
     fused_greedy_loop.  With return_margins it also returns (B, T) float32
     gaps between the best and second-best log-prob of each step (inf
@@ -64,6 +96,8 @@ def fused_greedy_loop_plain(context_lbh, c0, h0, tables, num_layers: int,
     L, B, H = context_lbh.shape
     cd = tables["wa"].dtype
     dev = context_lbh.device
+    Vp = tables["pw"].shape[1]
+    nodes = torch.zeros((B,), dtype=torch.int32, device=dev)
     attn = torch.zeros((B, H), dtype=torch.float32, device=dev)
     cs = [c0.float()] + [torch.zeros_like(attn)] * (num_layers - 1)
     hs = [h0.float()] + [torch.zeros_like(attn)] * (num_layers - 1)
@@ -88,7 +122,13 @@ def fused_greedy_loop_plain(context_lbh, c0, h0, tables, num_layers: int,
         attn, logp = decode_step.attention_logp_tail(
             x, context_lbh, tables["wa"], tables["wc"], tables["pw"],
             tables["pb"], cd)
-        tok, delta, logp = decode_step.freeze_and_pick(logp, prev)
+        valid = (None if trie_table is None else
+                 trie_valid(trie_table, nodes, Vp, pad_ok=t > 0))
+        tok, delta, logp = decode_step.freeze_and_pick(logp, prev, valid)
+        if trie_table is not None:
+            stepped = trie_step(trie_table, nodes, tok)
+            nodes = stepped if t == 0 else torch.where(
+                tok == vocab.PAD, nodes, stepped)
         if return_margins:
             top2 = logp.topk(2, dim=-1).values
             margins[:, t] = top2[:, 0] - top2[:, 1]
@@ -102,18 +142,21 @@ def fused_greedy_loop_plain(context_lbh, c0, h0, tables, num_layers: int,
 
 def fused_greedy_loop(context_lbh: torch.Tensor, c0: torch.Tensor,
                       h0: torch.Tensor, tables: dict, num_layers: int,
-                      input_feed: bool, T: int):
+                      input_feed: bool, T: int,
+                      trie_table: Optional[torch.Tensor] = None):
     """Run the whole greedy decode.
 
     context_lbh (L, B, H) scan-major in the compute dtype; c0, h0 (B, H)
     float32 layer-1 state from the encoder finals; tables from
-    build_tables.  Returns (labels (B, T) int32, PAD after EOS, and
-    scores (B,) float32, cumulative log-probs after the freeze).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    build_tables; trie_table an optional (N, V) int32 transition table.
+    Returns (labels (B, T) int32, PAD after EOS, and scores (B,) float32,
+    cumulative log-probs after the freeze).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     global launches
     if context_lbh.device.type == "cpu":
         return fused_greedy_loop_plain(context_lbh, c0, h0, tables,
-                                       num_layers, input_feed, T)
+                                       num_layers, input_feed, T,
+                                       trie_table=trie_table)
     if context_lbh.device.type != "cuda":
         raise ValueError(f"fused_greedy_loop: unsupported device "
                          f"{context_lbh.device}")
@@ -136,6 +179,8 @@ def fused_greedy_loop(context_lbh: torch.Tensor, c0: torch.Tensor,
     cuda.check(tables["wc"], "wc", (2 * H, H), cd, dev)
     cuda.check(tables["pw"], "pw", (H, Vp), cd, dev)
     cuda.check(tables["pb"], "pb", (Vp,), torch.float32, dev)
+    if trie_table is not None:
+        cuda.check(trie_table, "trie_table", (None, V), torch.int32, dev)
     labels = torch.empty((B, T), dtype=torch.int32, device=dev)
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     state = torch.empty((B, 2 * num_layers + 1, H), dtype=torch.float32,
@@ -145,8 +190,8 @@ def fused_greedy_loop(context_lbh: torch.Tensor, c0: torch.Tensor,
                 c0.data_ptr(), h0.data_ptr(), t["eg"].data_ptr(),
                 t["wfh0"].data_ptr(), t["wx"].data_ptr(), t["bx"].data_ptr(),
                 t["wa"].data_ptr(), t["wc"].data_ptr(), t["pw"].data_ptr(),
-                t["pb"].data_ptr(), labels.data_ptr(), scores.data_ptr(),
-                state.data_ptr(), L, B, H, Vp, T, num_layers,
-                int(input_feed))
+                t["pb"].data_ptr(), cuda.ptr(trie_table), labels.data_ptr(),
+                scores.data_ptr(), state.data_ptr(), L, B, H, Vp, V, T,
+                num_layers, int(input_feed))
     launches += 1
     return labels, scores

@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from aocr.config import Config
+from aocr_torch.config import Config
 from aocr_torch import loss as loss_lib
 from aocr_torch import optim
 from aocr_torch.models import model

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of aocr_torch on one NVIDIA GPU (H100): greedy recognition
-and the training step at the full width of the default model, through
-their eight CUDA kernels.
+"""Smoke run of aocr_torch on one NVIDIA GPU (H100): greedy recognition,
+the training step, and beam and dictionary recognition at the full width
+of the default model, through their ten CUDA kernels.
 
     python3 chip_smoke.py [--seed N]
 
@@ -17,15 +17,24 @@ Phases, each raising on failure:
      serving configuration) and float32, pallas_greedy "loop" and "tail";
      every kernel's launch count must move; float32 transcripts must
      equal the plain route's on the card and the CPU's on a small input;
+  3b. beam and dictionary recognition end to end: recognize(beam_size=5)
+     at B=512 and on a mixed-width list, bf16 and float32, pallas_beam
+     "loop" and "tail"; greedy and beam-5 under the 88k-word synthetic
+     lexicon of bench.py; beam_step and beam_loop (and the trie operands
+     of decode_step and greedy_loop) must launch; float32 transcripts
+     equal the plain route's and the CPU's;
   4. training end to end: 5 make_train_step steps (SGD) at B=400 on
      32x100 crops of 10-letter words (T=11), bf16 and float32, from the
      same numpy weights; every training kernel's launch count must move;
      float32 step 1 (loss_sum, grad norms, updated params) must match
      the plain route on the card and the CPU at a small size; loss_sum
      must fall over the steps; AttentionOCR.score once;
-  5. timing: each kernel against its plain version (CUDA events),
-     recognize images/s at B=512, W=100, bf16, T=50, the bf16 train step
-     (ms, images/s) and one profile of each.
+  5. timing: each kernel against its plain version (CUDA events), its
+     bound (the larger of its operations over the card's peak and its
+     bytes over 3.35 TB/s) and, where one PyTorch call computes the same
+     function (cuDNN's LSTM), that call; recognize images/s at B=512,
+     W=100, bf16, T=50, greedy, beam-5 and dictionary beam-5; the bf16
+     train step (ms, images/s); one profile of each path.
 Prints the card's name and power limit, one JSON line of kernel results,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device or outside a checkout of the repo.  Never imports jax.
@@ -48,13 +57,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B_SERVE, W_SERVE, T_MAX = 512, 100, 50
 # The train step bench.py times: B=400 crops of 10-letter words (T=11)
 B_TRAIN, WORD_LEN, TRAIN_STEPS = 400, 10, 5
+# The reference's beam width (-beam_size 5)
+BEAM = 5
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W)
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def base_config():
     """The repo's default model at full width, as AttentionOCR.create
     makes it: CNN 64->512, encoder 512 per direction, decoder 1024 x 2
     layers with input feed, E=20, V=39."""
-    from aocr.config import Config
+    from aocr_torch.config import Config
 
     return Config(input_feed=True, max_decoder_l=T_MAX)
 
@@ -165,15 +179,17 @@ def time_pair(kernel, plain, n: int):
 def plain_route():
     """Run each kernel's plain PyTorch version in its wrapper's place (on
     the card), to hold the kernel route against it."""
-    from aocr_torch.ops.cuda import (conv1_pool, decode_step, greedy_loop,
-                                     lstm_fwd)
+    from aocr_torch.ops.cuda import (beam_loop, beam_step, conv1_pool,
+                                     decode_step, greedy_loop, lstm_fwd)
 
     swaps = [(conv1_pool, "conv1_relu_pool", conv1_pool.conv1_relu_pool_plain),
              (lstm_fwd, "lstm_fwd_scan", lstm_fwd.lstm_fwd_scan_plain),
              (decode_step, "fused_decode_tail",
               decode_step.fused_decode_tail_plain),
              (greedy_loop, "fused_greedy_loop",
-              greedy_loop.fused_greedy_loop_plain)]
+              greedy_loop.fused_greedy_loop_plain),
+             (beam_step, "fused_beam_tail", beam_step.fused_beam_tail_plain),
+             (beam_loop, "fused_beam_loop", beam_loop.fused_beam_loop_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     try:
         for m, n, f in swaps:
@@ -184,15 +200,80 @@ def plain_route():
             setattr(m, n, f)
 
 
+FAILURES: list = []
+
+
 def check(ok: bool, what: str) -> None:
+    """Record a failed check; the run goes on so that one call shows every
+    failure and every reading, and exits non-zero at its end."""
     if not ok:
-        raise AssertionError(what)
+        FAILURES.append(what)
+        log(f"FAIL: {what}")
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of every tensor in objs (nested tuples, lists, dicts)."""
+    import torch
+
+    if len(objs) != 1:
+        return sum(tensor_bytes(o) for o in objs)
+    o = objs[0]
+    if isinstance(o, torch.Tensor):
+        return o.numel() * o.element_size()
+    if isinstance(o, dict):
+        return tensor_bytes(*o.values()) if o else 0
+    if isinstance(o, (tuple, list)):
+        return tensor_bytes(*o) if o else 0
+    return 0
+
+
+def bound(flops: float, nbytes: int, name: str):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of flops over the peak of the dtype `name` and nbytes (each
+    input read once, each output written once) over 3.35 TB/s."""
+    t_ops = flops / PEAK_FLOPS[name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def step_flops(H: int, L: int, V: int, nl: int, input_feed: bool,
+               gates: bool = True, proj: bool = True) -> float:
+    """Multiply-adds x 2 of one decoder row step: the LSTM stack's gate
+    matmuls, q = W_a h, the scores and context vector over L, W_c, and the
+    projector over the V real columns."""
+    k0 = 2 * H if input_feed else H
+    f = 2 * H * H + 4 * L * H + 4 * H * H + (2 * H * V if proj else 0)
+    if gates:
+        f += 2 * 4 * H * (k0 + (nl - 1) * 2 * H)
+    return float(f)
+
+
+def synthetic_lexicon():
+    """bench.py's stand-in for the Synth90k lexicon: 88,172 random
+    lowercase words of 3-13 letters (lengths from a gamma law), seed 7;
+    returns (words, (N, V) int32 DAWG table)."""
+    import string
+
+    import numpy as np
+
+    from aocr_torch.utils import trie
+
+    rng = np.random.RandomState(7)
+    chars = list(string.ascii_lowercase)
+    words = set()
+    while len(words) < 88172:
+        n = max(3, min(13, int(rng.gamma(4.0, 1.6))))
+        words.add("".join(rng.choice(chars, size=n)))
+    words = sorted(words)
+    return words, trie.build_transition_table(words)
 
 
 # ------------------------------------------------------------ phase 2
 
-def kernel_checks(dev, results: dict) -> None:
-    """Each kernel vs its plain version at the main path's shapes."""
+def kernel_checks(dev, results: dict, table) -> None:
+    """Each kernel vs its plain version at the main path's shapes; the
+    trie operands of decode_step and greedy_loop with `table`, the 88k
+    lexicon's DAWG on the card."""
     import torch
 
     from aocr_torch import weights
@@ -255,10 +336,10 @@ def kernel_checks(dev, results: dict) -> None:
         ht_p, tok_p, d_p = decode_step.fused_decode_tail_plain(
             h, ctx, prev, tables["wa"], tables["wc"], tables["pw"],
             tables["pb"])
-        _, logp = decode_step.attention_logp_tail(
+        _, logp0 = decode_step.attention_logp_tail(
             h, ctx, tables["wa"], tables["wc"], tables["pw"], tables["pb"],
             dt)
-        _, _, logp = decode_step.freeze_and_pick(logp, prev)
+        _, _, logp = decode_step.freeze_and_pick(logp0, prev)
         top2 = logp.topk(2, dim=-1).values
         tol = 1e-4 if dt == torch.float32 else 3e-2
         clear = (top2[:, 0] - top2[:, 1]) > tol
@@ -284,12 +365,41 @@ def kernel_checks(dev, results: dict) -> None:
             err = check_loop(name, eos, loop_args, tol,
                              f", EOS at step 1 for ~{frac:.0%} of rows")
             results[("greedy_loop", name)].append(err)
+        # the trie operands: decode_step's validity plane gathered at nodes
+        # of the 88k lexicon that have children, greedy_loop's table
+        inner = (table >= 0).any(1).nonzero().flatten()
+        nodes = inner[torch.randint(0, len(inner), (B,), generator=g)
+                      .to(dev)].to(torch.int32)
+        plane = greedy_loop.trie_valid(table, nodes, tables["pw"].shape[1],
+                                       pad_ok=True)
+        args = (h, ctx, prev, tables["wa"], tables["wc"], tables["pw"],
+                tables["pb"])
+        ht, tok, d = decode_step.fused_decode_tail(*args, valid=plane)
+        ht_p, tok_p, d_p = decode_step.fused_decode_tail_plain(*args,
+                                                               valid=plane)
+        _, _, logp = decode_step.freeze_and_pick(logp0, prev, plane)
+        top2 = logp.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        err = max((ht - ht_p).abs().max().item(), (d - d_p).abs().max().item())
+        check(err <= tol, f"decode_step {name} 88k trie plane: max err {err}")
+        check(bool((tok == tok_p)[clear].all()),
+              f"decode_step {name} 88k trie plane: tokens differ beyond "
+              "near-ties")
+        check(bool((plane.gather(1, tok.long()[:, None]) > 0).all()),
+              f"decode_step {name}: a token the plane forbids")
+        results[("decode_step", name)].append(err)
+        log(f"check decode_step {name} B={B} 88k trie plane: max_abs_err "
+            f"{err:.3g} (tol {tol:.3g}); tokens agree "
+            f"{(tok == tok_p).float().mean().item():.4f}")
+        err = check_loop(name, tables, loop_args, tol, ", 88k trie",
+                         trie_table=table)
+        results[("greedy_loop", name)].append(err)
 
 
 def eos_tables(tables: dict, loop_args, frac: float) -> dict:
     """A copy of the loop tables whose EOS bias makes `frac` of the rows
     emit EOS at step 1 (bisection on the plain version's first step)."""
-    from aocr import vocab
+    from aocr_torch import vocab
     from aocr_torch.ops.cuda import greedy_loop
 
     ctx, c0, h0, nl, _T = loop_args
@@ -309,21 +419,24 @@ def eos_tables(tables: dict, loop_args, frac: float) -> dict:
     return t
 
 
-def check_loop(name: str, tables: dict, loop_args, tol: float,
-               what: str) -> float:
+def check_loop(name: str, tables: dict, loop_args, tol: float, what: str,
+               trie_table=None) -> float:
     """greedy_loop against its plain version: rows agree up to the first
     step whose plain margin is a near-tie (< tol); after EOS a row holds
-    PAD; scores of agreeing rows within stol.  Returns the score error."""
+    PAD; scores of agreeing rows within stol; under a trie every
+    transcript is a path of it.  Returns the score error."""
     import torch
 
-    from aocr import vocab
+    from aocr_torch import vocab
     from aocr_torch.ops.cuda import greedy_loop
 
     ctx, c0, h0, nl, T = loop_args
     B = ctx.shape[1]
-    lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, tables, nl, True, T)
+    lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, tables, nl, True, T,
+                                            trie_table=trie_table)
     lab_p, sc_p, margin = greedy_loop.fused_greedy_loop_plain(
-        ctx, c0, h0, tables, nl, True, T, return_margins=True)
+        ctx, c0, h0, tables, nl, True, T, return_margins=True,
+        trie_table=trie_table)
     differ = lab != lab_p
     first = torch.where(differ.any(1), differ.float().argmax(1),
                         torch.full_like(differ[:, 0], T, dtype=torch.long))
@@ -335,8 +448,17 @@ def check_loop(name: str, tables: dict, loop_args, tol: float,
     after = torch.cat([torch.zeros_like(ended[:, :1]), ended[:, :-1]], 1)
     check(bool((lab[after] == vocab.PAD).all()),
           f"greedy_loop {name}{what}: a token after EOS is not PAD")
+    if trie_table is not None:
+        node = torch.zeros_like(lab[:, 0])
+        for t in range(T):
+            tok = lab[:, t]
+            step = trie_table[node.long(), tok.long()]
+            ok = (step >= 0) | ((tok == vocab.PAD) & (t > 0))
+            check(bool(ok.all()), f"greedy_loop {name}{what}: step {t} "
+                                  "leaves the trie")
+            node = torch.where(tok == vocab.PAD, node, step.clamp(min=0))
     same = ~differ.any(1)
-    err = (sc - sc_p)[same].abs().max().item()
+    err = (sc - sc_p)[same].abs().max().item() if bool(same.any()) else 0.0
     stol = 1e-3 if tables["wa"].dtype == torch.float32 else 0.5
     check(err <= stol, f"greedy_loop {name}{what}: score err {err}")
     steps = (lab != vocab.PAD).sum(1).float()
@@ -423,12 +545,493 @@ def end_to_end(dev, seed: int):
     return counts, models, requests
 
 
-# ------------------------------------------------------------ phase 4
+# ------------------------------------------------------------ beam kernels
 
-def timings(dev, models, requests, card: str) -> dict:
+def beam_parting(name, what, got, want, margin, tol) -> int:
+    """Rows of (T, B, K) histories where the kernel's and the plain
+    version's part must part at a step whose plain margin (T, B) is a
+    near-tie (< tol); returns how many rows parted."""
+    differ = (got != want).any(-1)  # (T, B)
+    rows = differ.any(0).nonzero().flatten().tolist()
+    worst = 0.0
+    for b in rows:
+        t = int(differ[:, b].float().argmax())
+        worst = max(worst, margin[t, b].item())
+        check(margin[t, b].item() < tol,
+              f"beam_loop {name}{what}: row {b} parts at step {t} with "
+              f"plain margin {margin[t, b].item():.3g}")
+    if rows:
+        log(f"  beam_loop {name}{what}: the widest plain margin at a "
+            f"parting step is {worst:.3g}")
+    return len(rows)
+
+
+def beam_kernel_checks(dev, results: dict, table) -> None:
+    """beam_step and beam_loop against their plain versions at the beam
+    path's shapes (B=512, K=5, T=50, L=24, the default decoder), float32
+    and bf16: without a trie, with the 88k lexicon's table, under
+    length_normalize, and with a tiny lexicon where most beams dead-end
+    (the beam_step plane then has no PAD, so rows run short of K valid
+    candidates and refill)."""
+    import torch
+
+    from aocr_torch import vocab, weights
+    from aocr_torch.models.decoder import DecoderState
+    from aocr_torch.ops.cuda import beam_loop, beam_step, greedy_loop
+    from aocr_torch.utils import trie
+
+    g = torch.Generator().manual_seed(27)
+    rand = lambda *s, lo=-1.0, hi=1.0: (torch.rand(*s, generator=g)
+                                        * (hi - lo) + lo)
+    cfg = base_config()
+    B, L, T, K = B_SERVE, W_SERVE // 4 - 1, T_MAX, BEAM
+    V, Hd, E = (cfg.target_vocab_size, cfg.decoder_num_hidden,
+                cfg.target_embedding_size)
+    nl = cfg.decoder_num_layers
+    p, _ = numpy_model(cfg, 3)
+    tp, _ = weights.from_numpy({"decoder": p["decoder"],
+                                "projector": p["projector"]}, {}, dev)
+    tiny = torch.from_numpy(trie.build_transition_table(
+        ["zq", "zz", "qz"])).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        f32 = dt == torch.float32
+        tol = 1e-4 if f32 else 3e-2   # h~ and near-tie margins, as decode
+        tables = greedy_loop.build_tables(tp["decoder"], tp["projector"], E,
+                                          True, dt)
+        vp = tables["pw"].shape[1]
+        ctx = rand(L, B, Hd).to(dev, dt)
+        # beam_step: one step of B x K beams, some frozen
+        h = rand(B, K * Hd).to(dev, dt)
+        prev = torch.randint(3, V, (B, K), generator=g, dtype=torch.int32)
+        prev[::7, 1], prev[::11] = vocab.EOS, vocab.PAD
+        scores = (-20 * torch.rand(B, K, generator=g)).sort(
+            1, descending=True)[0]
+        prev, scores = prev.to(dev), scores.to(dev)
+        inner = (table >= 0).any(1).nonzero().flatten()
+        nodes = inner[torch.randint(0, len(inner), (B, K), generator=g)
+                      .to(dev)].to(torch.int32)
+        tnodes = torch.randint(0, tiny.shape[0], (B, K), generator=g,
+                               dtype=torch.int32).to(dev)
+        planes = {
+            "": None,
+            ", 88k trie": greedy_loop.trie_valid(
+                table, nodes, vp, pad_ok=True).reshape(B, -1),
+            ", refill (tiny lexicon, no PAD)": greedy_loop.trie_valid(
+                tiny, tnodes, vp, pad_ok=False).reshape(B, -1)}
+        for what, plane in planes.items():
+            args = (ctx, h, prev, scores, tables["wa"], tables["wc"],
+                    tables["pw"], tables["pb"], K, V)
+            got = beam_step.fused_beam_tail(*args, valid=plane)
+            want = beam_step.fused_beam_tail_plain(*args, valid=plane)
+            _, total = beam_step.beam_totals(*args, valid=plane)
+            margin = beam_step.topk_margin(total, K)
+            differ = ((got[2] != want[2]) | (got[3] != want[3])).any(1)
+            if plane is not None:
+                differ |= got[4] != want[4]
+            same = ~differ
+            herr = (got[0] - want[0]).abs().max().item()
+            serr = ((got[1] - want[1]).abs() / want[1].abs().clamp(
+                min=1e-30))[same].max().item()
+            check(herr <= tol, f"beam_step {name}{what}: h~ err {herr}")
+            check(bool((margin[differ] < tol).all()),
+                  f"beam_step {name}{what}: picks differ beyond near-ties")
+            check(serr <= (1e-5 if f32 else 1e-2),
+                  f"beam_step {name}{what}: score rel err {serr}")
+            results.setdefault(("beam_step", name), []).append(herr)
+            nv = (f", rows short of K valid {(got[4] < K).sum().item()}"
+                  if plane is not None else "")
+            log(f"check beam_step {name} B={B} K={K} L={L} H={Hd}{what}: "
+                f"h~ max_abs_err {herr:.3g} (tol {tol:.3g}); rows with "
+                f"identical picks {same.float().mean().item():.4f} (the rest"
+                f" at near-ties < {tol:.3g}); score rel err {serr:.3g}{nv}")
+        if plane is not None:
+            check(bool((got[4] < K).any()),
+                  f"beam_step {name}: the refill case never refilled")
+        # beam_loop: the whole search from one t=1 state
+        st = DecoderState(attn=rand(B, Hd).to(dev),
+                          cs=tuple(rand(B, Hd).to(dev) for _ in range(nl)),
+                          hs=tuple(rand(B, Hd).to(dev) for _ in range(nl)))
+        for what, tr, lennorm in (("", None, False),
+                                  (", length_normalize", None, True),
+                                  (", 88k trie", table, False),
+                                  (", tiny lexicon (dead ends)", tiny,
+                                   True)):
+            err = check_beam_loop(name, what, ctx, st, tables, tr, lennorm,
+                                  tol, g)
+            results.setdefault(("beam_loop", name), []).append(err)
+
+
+def check_beam_loop(name, what, ctx, st, tables, table, lennorm, tol, g):
+    """beam_loop against its plain version from one t=1 state: histories
+    part only at plain near-ties; scores (1e-5 relative in float32, 0.5
+    in bf16), lengths and refill counts of the other rows agree.  Returns
+    the rows' max score error."""
+    import torch
+
+    from aocr_torch import vocab
+    from aocr_torch.ops.cuda import beam_loop
+
+    cfg = base_config()
+    L, B, H = ctx.shape
+    K, T, V = BEAM, T_MAX, cfg.target_vocab_size
+    nl = cfg.decoder_num_layers
+    dev = ctx.device
+    if table is None:
+        tok0 = torch.randint(3, V, (B, K), generator=g, dtype=torch.int32)
+        tok0, nodes0 = tok0.to(dev), None
+    else:
+        roots = (table[0] >= 0).nonzero().flatten()
+        tok0 = roots[torch.randint(0, len(roots), (B, K), generator=g)
+                     .to(dev)].to(torch.int32)
+        nodes0 = table[0][tok0.long()].clamp(min=0).to(torch.int32)
+    sc0 = (-3 * torch.rand(B, K, generator=g)).sort(1, descending=True)[0]
+    args = (ctx, st, tok0, sc0.to(dev), nodes0, tables, nl, True, T, K,
+            lennorm)
+    got = beam_loop.fused_beam_loop(*args, trie_table=table)
+    want = beam_loop.fused_beam_loop_plain(*args, trie_table=table,
+                                           return_margins=True)
+    margin = want[-1]
+    parted = beam_parting(name, what, got[0], want[0], margin, tol)
+    differ = ((got[0] != want[0]) | (got[1] != want[1])).any(-1).any(0)
+    parted = max(parted, int(differ.sum()))
+    same = ~differ
+    f32 = tables["wa"].dtype == torch.float32
+    rel = ((got[2] - want[2]).abs() / want[2].abs().clamp(min=1e-30))
+    err = (got[2] - want[2]).abs()[same].max().item() if bool(
+        same.any()) else 0.0
+    if f32:
+        check(rel[same].max().item() <= 1e-5 if bool(same.any()) else True,
+              f"beam_loop {name}{what}: score rel err "
+              f"{rel[same].max().item()}")
+        check(bool((got[3] == want[3])[same].all()),
+              f"beam_loop {name}{what}: lengths differ")
+    else:
+        check(err <= 0.5, f"beam_loop {name}{what}: score err {err}")
+    if table is not None and f32 and parted == 0:
+        check(int(got[4]) == int(want[4]) and int(got[5]) == int(want[5]),
+              f"beam_loop {name}{what}: refills {got[4:6]} vs {want[4:6]}")
+    live = ~((got[0][:-1] == vocab.PAD) | (got[0][:-1] == vocab.EOS)).all(-1)
+    steps = live.sum().item() / B
+    refills = (f", refills {int(got[4])} (plain {int(want[4])})"
+               if table is not None else "")
+    log(f"check beam_loop {name} B={B} K={K} T={T} L={L} H={H}{what}: rows "
+        f"identical {same.float().mean().item():.4f} ({parted} part at "
+        f"plain near-ties < {tol:.3g}); a row live {steps:.2f} of {T - 1} "
+        f"beam steps on average; score "
+        f"max_abs_err {err:.3g} (rel {rel[same].max().item() if bool(same.any()) else 0:.3g})"
+        f"{refills}")
+    return err
+
+
+# ------------------------------------------------------------ phase 3b
+
+def lexicon_prefixes(words) -> set:
+    return {w[:i] for w in words for i in range(len(w) + 1)}
+
+
+def beam_end_to_end(dev, seed: int, lexicon):
+    """Drive recognize(beam_size=5) and the dictionary; returns (launch
+    counts, the models, the requests)."""
     import numpy as np
     import torch
 
+    from aocr_torch import weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.ops import cuda
+
+    words, table = lexicon
+    prefixes = lexicon_prefixes(words)
+    base = base_config()
+    np_params, np_stats = numpy_model(base, seed)
+    rs = np.random.RandomState(seed + 5)
+    requests = [word_images(rs, B_SERVE, W_SERVE),
+                [im for w in (100, 81, 121, 100, 81, 181, 100, 81)
+                 for im in word_images(rs, 2, w)]]
+
+    def model(dtype, route):
+        cfg = base.replace(compute_dtype=dtype, pallas_beam=route,
+                           pallas_greedy="tail" if route == "tail"
+                           else "loop")
+        return AttentionOCR(cfg, *weights.from_numpy(np_params, np_stats),
+                            device=dev)
+
+    models = {(dt, r): model(dt, r) for dt in ("bfloat16", "float32")
+              for r in ("loop", "tail")}
+
+    def drive(m):
+        """beam-5 on each request, then greedy and beam-5 under the
+        lexicon: {(mode, request index): (words, scores)}"""
+        out = {}
+        for i, req in enumerate(requests):
+            out[("beam5", i)] = m.recognize(req, beam_size=BEAM)
+        m.set_dictionary_table(table)
+        for i, req in enumerate(requests):
+            out[("dict_greedy", i)] = m.recognize(req, beam_size=1)
+            out[("dict_beam5", i)] = m.recognize(req, beam_size=BEAM)
+        m.clear_dictionary()
+        return out
+
+    cuda.reset_launch_counts()
+    outs = {k: drive(m) for k, m in models.items()}
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    log(f"beam path launch counts: {counts}")
+    for k in ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",
+              "beam_step", "beam_loop"):
+        check(counts[k] > 0, f"kernel {k} never launched on the beam path")
+
+    for (dt, route), res in outs.items():
+        for (mode, i), (ws, sc) in res.items():
+            check(len(ws) == len(requests[i]) and sc.shape == (len(ws),),
+                  "recognize returned the wrong number of results")
+            check(bool(np.isfinite(sc).all()) and bool((sc <= 0).all()),
+                  f"{dt} {route} {mode}: bad scores")
+            if mode.startswith("dict"):
+                check(all(w in prefixes for w in ws),
+                      f"{dt} {route} {mode}: a transcript off the lexicon")
+    with plain_route():
+        plain = {k: drive(m) for k, m in models.items()}
+    for (dt, route), res in outs.items():
+        for mode in ("beam5", "dict_greedy", "dict_beam5"):
+            got = [w for i in range(len(requests)) for w in res[(mode, i)][0]]
+            want = [w for i in range(len(requests))
+                    for w in plain[(dt, route)][(mode, i)][0]]
+            agree = float(np.mean([a == b for a, b in zip(got, want)]))
+            lens = [len(w) for w in got]
+            in_lex = float(np.mean([w in set(words) for w in got]))
+            log(f"e2e {dt} {route} {mode}: {len(got)} transcripts, "
+                f"{len(set(got))} distinct, mean length {np.mean(lens):.2f}"
+                + (f", in the lexicon {in_lex:.4f}" if mode != "beam5"
+                   else "")
+                + f"; agreement with the plain route on the card "
+                f"{agree:.4f}")
+            if dt == "float32":
+                check(got == want, f"float32 {route} {mode}: kernel and "
+                                   "plain routes disagree")
+                dsc = max(np.abs(res[(mode, i)][1]
+                                 - plain[(dt, route)][(mode, i)][1]).max()
+                          for i in range(len(requests)))
+                check(dsc <= 1e-3, f"float32 {route} {mode}: score gap "
+                                   f"{dsc}")
+    # a reference on a small input: the port on the CPU (plain versions)
+    small = requests[0][:4]
+    ref = AttentionOCR(models[("float32", "loop")].cfg,
+                       *weights.from_numpy(np_params, np_stats), device="cpu")
+    for dictionary in (False, True):
+        if dictionary:
+            ref.set_dictionary_table(table)
+        want_w, want_s = ref.recognize(small, beam_size=BEAM)
+        for route in ("loop", "tail"):
+            m = models[("float32", route)]
+            if dictionary:
+                m.set_dictionary_table(table)
+            got_w, got_s = m.recognize(small, beam_size=BEAM)
+            m.clear_dictionary()
+            check(got_w == want_w, f"float32 {route} beam-5 dictionary="
+                                   f"{dictionary}: card and CPU disagree")
+            check(bool(np.allclose(got_s, want_s, rtol=1e-4, atol=1e-3)),
+                  f"float32 {route} beam-5: card and CPU scores differ")
+        log(f"e2e float32 beam-5{' dictionary' if dictionary else ''} card "
+            f"== CPU on 4 images: {want_w}")
+    return counts, models, requests
+
+
+def live_steps(m, batch) -> float:
+    """Mean beam steps a row of `batch` stays live in m's beam-5 search
+    (the whole-loop kernel's histories, read through its module), which
+    tells an early-exit regime from a full one."""
+    from aocr_torch import vocab
+    from aocr_torch.ops.cuda import beam_loop
+
+    seen, kernel = [], beam_loop.fused_beam_loop
+
+    def recorded(*a, **k):
+        out = kernel(*a, **k)
+        seen.append(out[0])
+        return out
+
+    beam_loop.fused_beam_loop = recorded
+    try:
+        m.recognize(batch, beam_size=BEAM)
+    finally:
+        beam_loop.fused_beam_loop = kernel
+    hist = seen[0]
+    live = ~((hist[:-1] == vocab.PAD) | (hist[:-1] == vocab.EOS)).all(-1)
+    return live.sum().item() / hist.shape[1]
+
+
+def unported_bounds() -> None:
+    """The bounds of the two TPU kernels the port has not ported yet, at
+    the train step's shapes (B=400, 32x100 crops, bf16): the conv1 image
+    cotangent (conv1_pool.py:287 _dx_kernel: recompute the routing, then
+    the 64->1 transposed conv) and the fused ReLU + max-pool backward of
+    pool1 (pool_bwd.py:117 relu_pool_bwd: read y and dy, write dz)."""
+    B, W, b2 = B_TRAIN, W_SERVE, 2
+    conv = 2.0 * 9 * 64 * B * 32 * W
+    dx = bound(2 * conv, b2 * (2 * B * 32 * W + B * 16 * (W // 2) * 64)
+               + 4 * (9 * 64 + 64), "bf16")
+    pool = bound(4.0 * B * 32 * W * 64,
+                 b2 * (2 * B * 32 * W * 64 + B * 16 * (W // 2) * 64), "bf16")
+    log(f"bound (not ported) conv1 _dx_kernel bf16 B={B}: {dx[0]:.4f} ms "
+        f"({dx[1]}); relu_pool_bwd of pool1 bf16 B={B}: {pool[0]:.4f} ms "
+        f"({pool[1]})")
+
+
+def beam_timings(dev, models, requests, lexicon, card: str):
+    """beam_step and beam_loop against their plain versions (CUDA events)
+    and their bounds at B=512, K=5; beam-5 and dictionary beam-5 images/s
+    at B=512, W=100, T=50 (host clock, median of 5); a profile of beam-5.
+    Returns ({(kernel, dtype): (ms, plain_ms)}, {(kernel, dtype): bound},
+    {label: images/s})."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import vocab
+    from aocr_torch.models.decoder import DecoderState
+    from aocr_torch.ops.cuda import beam_loop, beam_step, greedy_loop
+
+    words, table_np = lexicon
+    g = torch.Generator().manual_seed(29)
+    rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
+    cfg = base_config()
+    B, L, T, K = B_SERVE, W_SERVE // 4 - 1, T_MAX, BEAM
+    V, Hd, E = (cfg.target_vocab_size, cfg.decoder_num_hidden,
+                cfg.target_embedding_size)
+    nl = cfg.decoder_num_layers
+    ms, bounds, rates = {}, {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        m = models[("float32" if dt == torch.float32 else "bfloat16",
+                    "loop")]
+        tables = greedy_loop.build_tables(
+            m.params["decoder"], m.params["projector"], E, True, dt)
+        ctx = rand(L, B, Hd).to(dev, dt)
+        h = rand(B, K * Hd).to(dev, dt)
+        prev = torch.full((B, K), 5, dtype=torch.int32, device=dev)
+        scores = (-torch.arange(K, dtype=torch.float32, device=dev)
+                  ).expand(B, K).contiguous()
+        sargs = (ctx, h, prev, scores, tables["wa"], tables["wc"],
+                 tables["pw"], tables["pb"], K, V)
+        st = DecoderState(attn=rand(B, Hd).to(dev),
+                          cs=tuple(rand(B, Hd).to(dev) for _ in range(nl)),
+                          hs=tuple(rand(B, Hd).to(dev) for _ in range(nl)))
+        tok0 = torch.randint(3, V, (B, K), generator=g,
+                             dtype=torch.int32).to(dev)
+        largs = (ctx, st, tok0, scores, None, tables, nl, True, T, K, False)
+        hist = beam_loop.fused_beam_loop(*largs)[0]
+        live = ~((hist[:-1] == vocab.PAD) | (hist[:-1] == vocab.EOS)).all(-1)
+        row_steps = int(live.sum().item())
+        pairs = {"beam_step": (
+            lambda: beam_step.fused_beam_tail(*sargs),
+            lambda: beam_step.fused_beam_tail_plain(*sargs), 20),
+            "beam_loop": (lambda: beam_loop.fused_beam_loop(*largs),
+                          lambda: beam_loop.fused_beam_loop_plain(*largs),
+                          3)}
+        for k, (fk, fp, n) in pairs.items():
+            k1, k2, p1, p2 = time_pair(fk, fp, n)
+            ms[(k, name)] = (min(k1, k2), min(p1, p2))
+            log(f"time {k} {name} (B={B}, K={K}): kernel {k1:.4f} / "
+                f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms"
+                + (f" ({row_steps / B:.2f} of {T - 1} steps run)"
+                   if k == "beam_loop" else ""))
+        out = beam_step.fused_beam_tail(*sargs)
+        bounds[("beam_step", name)] = bound(
+            B * K * step_flops(Hd, L, V, nl, True, gates=False),
+            tensor_bytes(sargs, out), name)
+        out = beam_loop.fused_beam_loop(*largs)
+        bounds[("beam_loop", name)] = bound(
+            row_steps * K * step_flops(Hd, L, V, nl, True),
+            tensor_bytes(largs, out), name)
+        for k in ("beam_step", "beam_loop"):
+            b = bounds[(k, name)]
+            log(f"bound {k} {name}: {b[0]:.4f} ms ({b[1]}; kernel "
+                f"{ms[(k, name)][0] / b[0]:.1f}x it)")
+
+    # end to end, bf16, loop route, B=512
+    m = models[("bfloat16", "loop")]
+    batch = requests[0]
+    for label, table in (("beam-5", None), ("dict-beam-5", table_np)):
+        if table is not None:
+            m.set_dictionary_table(table)
+        steps = live_steps(m, batch)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ws, _ = m.recognize(batch, beam_size=K)
+            times.append(time.perf_counter() - t0)
+        med = float(np.median(times))
+        rates[label] = len(batch) / med
+        lens = [len(w) for w in ws]
+        lex = ""
+        if table is not None:
+            lex = (f"; in the lexicon "
+                   f"{np.mean([w in set(words) for w in ws]):.4f}")
+        log(f"recognize {label} bf16 loop B={len(batch)} W={W_SERVE} "
+            f"T={T_MAX}: {rates[label]:.1f} images/s (median of 5: "
+            f"{med * 1e3:.2f} ms; {[round(t * 1e3, 2) for t in times]}; "
+            f"mean transcript length {np.mean(lens):.2f}{lex}; a row stays "
+            f"live {steps:.2f} of {T_MAX - 1} beam steps on average, "
+            f"random weights) on {card}")
+        if table is None:
+            profile(f"recognize beam-5 bf16 loop B={len(batch)}",
+                    lambda: m.recognize(batch, beam_size=K))
+        m.clear_dictionary()
+    mt = models[("bfloat16", "tail")]
+    mt.recognize(batch, beam_size=K)
+    t0 = time.perf_counter()
+    mt.recognize(batch, beam_size=K)
+    el = time.perf_counter() - t0
+    log(f"recognize beam-5 bf16 tail B={len(batch)}: "
+        f"{len(batch) / el:.1f} images/s ({el * 1e3:.2f} ms, one run)")
+    return ms, bounds, rates
+
+
+# ------------------------------------------------------------ phase 4
+
+def cudnn_lstm(dev, dt, L: int, B: int, D: int, H: int, train: bool):
+    """One cuDNN LSTM direction (nn.LSTM, input D, hidden H) on (L, B, D)
+    inputs in dt: the library yardstick of lstm_fwd and lstm_bwd.  It also
+    runs the input projection the port hoists out of its scan.  Returns
+    (forward fn, backward fn or None)."""
+    import torch
+
+    lstm = torch.nn.LSTM(D, H).to(dev, dt)
+    lstm.flatten_parameters()
+    x = torch.rand(L, B, D, device=dev, dtype=dt).requires_grad_(train)
+    if not train:
+        def fwd():
+            with torch.no_grad():
+                return lstm(x)
+        return fwd, None
+    y, _ = lstm(x)
+    dy = torch.rand_like(y)
+    params = [x] + list(lstm.parameters())
+    return (lambda: lstm(x),
+            lambda: torch.autograd.grad(y, params, dy, retain_graph=True))
+
+
+def library_ms(what: str, fn, n: int):
+    """CUDA-event ms of a library call, None (logged) where it does not
+    run on this card for this dtype."""
+    try:
+        t = cuda_ms(fn, n)
+    except RuntimeError as e:
+        log(f"library {what}: not measured ({str(e).splitlines()[0]})")
+        return None
+    log(f"library {what}: {t:.4f} ms")
+    return t
+
+
+def timings(dev, models, requests, card: str, table):
+    """Each recognition kernel against its plain version, its bound and
+    its library call; recognize images/s; a profile.  Returns (ms,
+    bounds, library) keyed by (kernel, dtype)."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import vocab
     from aocr_torch.ops.cuda import (conv1_pool, decode_step, greedy_loop,
                                      lstm_fwd)
 
@@ -439,7 +1042,8 @@ def timings(dev, models, requests, card: str) -> dict:
     He, Hd, E = (cfg.encoder_num_hidden, cfg.decoder_num_hidden,
                  cfg.target_embedding_size)
     nl = cfg.decoder_num_layers
-    ms = {}
+    V = cfg.target_vocab_size
+    ms, bounds, lib = {}, {}, {}
     for dt in (torch.float32, torch.bfloat16):
         name = "f32" if dt == torch.float32 else "bf16"
         x = rand(B, 32, W_SERVE, 1).to(dev, dt)
@@ -466,8 +1070,31 @@ def timings(dev, models, requests, card: str) -> dict:
                                     *args), 20)
         c0, h0 = rand(B, Hd).to(dev), rand(B, Hd).to(dev)
         loop_args = (ctx, c0, h0, tables, nl, True, T)
-        lab, _ = greedy_loop.fused_greedy_loop(*loop_args)
+        lab, lab_sc = greedy_loop.fused_greedy_loop(*loop_args)
         steps = int((lab != 0).sum(1).max().item())
+        ended = (lab == vocab.EOS).cumsum(1) > 0
+        row_steps = int((~torch.cat([torch.zeros_like(ended[:, :1]),
+                                     ended[:, :-1]], 1)).sum().item())
+        conv_flops = 2.0 * 9 * 64 * B * 32 * W_SERVE
+        bounds[("conv1_pool", name)] = bound(
+            conv_flops, tensor_bytes((x, w, b),
+                                     conv1_pool.conv1_relu_pool(x, w, b)),
+            name)
+        bounds[("lstm_fwd", name)] = bound(
+            2.0 * L * B * He * 4 * He,
+            tensor_bytes((wh, xp, z, z),
+                         lstm_fwd.lstm_fwd_scan(wh, xp, z, z, False)), name)
+        bounds[("decode_step", name)] = bound(
+            B * step_flops(Hd, L, V, nl, True, gates=False),
+            tensor_bytes(args, decode_step.fused_decode_tail(*args)), name)
+        bounds[("greedy_loop", name)] = bound(
+            row_steps * step_flops(Hd, L, V, nl, True),
+            tensor_bytes(loop_args[:4], lab, lab_sc), name)
+        fwd, _bwd = cudnn_lstm(dev, dt, L, B, cfg.cnn_feature_size, He,
+                               False)
+        lib[("lstm_fwd", name)] = library_ms(
+            f"lstm_fwd {name}: cuDNN nn.LSTM one direction, projection "
+            f"included, B={B} L={L} H={He}", fwd, 10)
         pairs["greedy_loop"] = (
             lambda: greedy_loop.fused_greedy_loop(*loop_args),
             lambda: greedy_loop.fused_greedy_loop_plain(*loop_args), 3)
@@ -476,7 +1103,27 @@ def timings(dev, models, requests, card: str) -> dict:
             ms[(k, name)] = (min(k1, k2), min(p1, p2))
             extra = f" ({steps} of {T} steps run)" if k == "greedy_loop" else ""
             log(f"time {k} {name}: kernel {k1:.4f} / {k2:.4f} ms, plain "
-                f"{p1:.4f} / {p2:.4f} ms{extra}")
+                f"{p1:.4f} / {p2:.4f} ms{extra}; bound "
+                f"{bounds[(k, name)][0]:.4f} ms ({bounds[(k, name)][1]})")
+        # the trie operands, 88k lexicon: the plane at inner nodes, the
+        # table in the loop
+        inner = (table >= 0).any(1).nonzero().flatten()
+        nodes = inner[torch.randint(0, len(inner), (B,), generator=g)
+                      .to(dev)].to(torch.int32)
+        plane = greedy_loop.trie_valid(table, nodes, tables["pw"].shape[1],
+                                       pad_ok=True)
+        kp = cuda_ms(lambda: decode_step.fused_decode_tail(
+            *args, valid=plane), 20)
+        kt = cuda_ms(lambda: greedy_loop.fused_greedy_loop(
+            *loop_args, trie_table=table), 3)
+        lab_t, _ = greedy_loop.fused_greedy_loop(*loop_args,
+                                                 trie_table=table)
+        log(f"time decode_step {name} with the 88k trie plane: kernel "
+            f"{kp:.4f} ms; greedy_loop {name} with the 88k trie: kernel "
+            f"{kt:.4f} ms ({int((lab_t != 0).sum(1).max().item())} of {T} "
+            f"steps run)")
+        ms[("decode_step_trie", name)] = kp
+        ms[("greedy_loop_trie", name)] = kt
         eos = eos_tables(tables, (ctx, c0, h0, nl, T), 1.0)
         ke = cuda_ms(lambda: greedy_loop.fused_greedy_loop(
             ctx, c0, h0, eos, nl, True, T), 10)
@@ -506,7 +1153,7 @@ def timings(dev, models, requests, card: str) -> dict:
         el = time.perf_counter() - t0
         log(f"recognize {dt} {route} B={len(batch)}: "
             f"{len(batch) / el:.1f} images/s ({el * 1e3:.2f} ms, one run)")
-    return ms
+    return ms, bounds, lib
 
 
 def profile(label: str, fn) -> None:
@@ -550,7 +1197,7 @@ def train_batch(rs, n: int):
     (n, 32, 100, 1), words, targets (n, 11), targets_eval (n, 11))."""
     import numpy as np
 
-    from aocr import vocab
+    from aocr_torch import vocab
 
     letters = "abcdefghijklmnopqrstuvwxyz0123456789"
     words = ["".join(rs.choice(list(letters), WORD_LEN)) for _ in range(n)]
@@ -773,10 +1420,11 @@ def train_end_to_end(dev, seed: int):
     return counts, cfg, (np_params, np_stats), batch
 
 
-def train_timings(dev, cfg, np_model, batch, card: str) -> dict:
-    """Each training kernel against its plain version (CUDA events), the
-    bf16 train step's ms and images/s (median of 5 after warm-up), and
-    one profile of a step."""
+def train_timings(dev, cfg, np_model, batch, card: str):
+    """Each training kernel against its plain version (CUDA events), its
+    bound and its library call, the bf16 train step's ms and images/s
+    (median of 5 after warm-up), and one profile of a step.  Returns (ms,
+    bounds, library)."""
     import numpy as np
     import torch
 
@@ -788,7 +1436,7 @@ def train_timings(dev, cfg, np_model, batch, card: str) -> dict:
     rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
     B, L, T = B_TRAIN, W_SERVE // 4 - 1, WORD_LEN + 1
     He, Hd = cfg.encoder_num_hidden, cfg.decoder_num_hidden
-    ms = {}
+    ms, bounds, lib = {}, {}, {}
     for dt in (torch.float32, torch.bfloat16):
         name = "f32" if dt == torch.float32 else "bf16"
         x = rand(B, 32, W_SERVE, 1).to(dev, dt)
@@ -831,11 +1479,30 @@ def train_timings(dev, cfg, np_model, batch, card: str) -> dict:
             "tf_bwd": (lambda: tf_bwd.decoder_bwd_scan(*bargs),
                        lambda: tf_bwd.decoder_bwd_scan_plain(*bargs), 3),
         }
+        conv_flops = 2.0 * 9 * 64 * B * 32 * W_SERVE
+        tf_flops = T * B * step_flops(Hd, L, cfg.target_vocab_size, 2, True,
+                                      proj=False)
+        work = {  # (operations, the call's inputs and outputs)
+            "conv1_pool_bwd": (2 * conv_flops, (x, w, b, dy)),
+            "lstm_fwd_collect": (2.0 * L * B * He * 4 * He, (wh, xp, z, z)),
+            "lstm_bwd": (2.0 * L * B * 4 * He * He, largs),
+            "tf_fwd": (tf_flops, fargs),
+            "tf_bwd": (tf_flops + 4.0 * T * B * L * Hd, bargs)}
         for k, (fk, fp, n) in pairs.items():
             k1, k2, p1, p2 = time_pair(fk, fp, n)
             ms[(k, name)] = (min(k1, k2), min(p1, p2))
+            flops, ins = work[k]
+            bounds[(k, name)] = bound(flops, tensor_bytes(ins, fk()), name)
             log(f"time {k} {name} (training shapes): kernel {k1:.4f} / "
-                f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+                f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
+                f"{bounds[(k, name)][0]:.4f} ms ({bounds[(k, name)][1]})")
+        fwd, bwd = cudnn_lstm(dev, dt, L, B, cfg.cnn_feature_size, He, True)
+        lib[("lstm_fwd_collect", name)] = library_ms(
+            f"lstm_fwd collect {name}: cuDNN nn.LSTM forward for training, "
+            f"projection included, B={B} L={L} H={He}", fwd, 10)
+        lib[("lstm_bwd", name)] = library_ms(
+            f"lstm_bwd {name}: cuDNN nn.LSTM backward (dx and the weight "
+            f"gradients too), B={B} L={L} H={He}", bwd, 10)
 
     params, stats = weights.from_numpy(*np_model, dev)
     opt = train_step.init_opt_state(params, cfg)
@@ -860,7 +1527,7 @@ def train_timings(dev, cfg, np_model, batch, card: str) -> dict:
         f"(median of 5: {[round(t * 1e3, 2) for t in times]}), "
         f"{B / med:.1f} images/s on {card}")
     profile(f"train step bf16 B={B}", lambda: float(run().loss_sum))
-    return ms
+    return ms, bounds, lib
 
 
 # ------------------------------------------------------------ main
@@ -873,8 +1540,6 @@ def main() -> int:
         print("chip_smoke.py: run it from a checkout of the repo "
               "(aocr_torch/ not found)", file=sys.stderr)
         return 2
-    # aocr/__init__ imports jax when JAX_PLATFORM_NAME=cpu; the port must not
-    os.environ.pop("JAX_PLATFORM_NAME", None)
     sys.path.insert(0, ROOT)
     import torch
 
@@ -899,20 +1564,43 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(lib, ROOT)}")
 
+    t0 = time.perf_counter()
+    words, table_np = synthetic_lexicon()
+    table = torch.from_numpy(table_np).to(dev)
+    log(f"synthetic lexicon: {len(words)} words -> {table.shape[0]} DAWG "
+        f"nodes, {table.numel() * 4 / 2 ** 20:.1f} MiB int32 on the card "
+        f"({time.perf_counter() - t0:.1f} s to build)")
+
     results: dict = {}
-    kernel_checks(dev, results)
+    kernel_checks(dev, results, table)
+    beam_kernel_checks(dev, results, table)
     train_kernel_checks(dev, results)
+    # the three paths, each driven with the counts set to 0 just before
+    # it and read just after
     counts, models, requests = end_to_end(dev, args.seed)
+    bcounts, bmodels, brequests = beam_end_to_end(dev, args.seed,
+                                                  (words, table_np))
     tcounts, tcfg, np_model, batch = train_end_to_end(dev, args.seed)
-    ms = timings(dev, models, requests, card)
-    ms.update(train_timings(dev, tcfg, np_model, batch, card))
+    ms, bounds, lib = timings(dev, models, requests, card, table)
+    bms, bbounds, rates = beam_timings(dev, bmodels, brequests,
+                                       (words, table_np), card)
+    ms.update(bms)
+    bounds.update(bbounds)
+    tms, tbounds, tlib = train_timings(dev, tcfg, np_model, batch, card)
+    unported_bounds()
+    ms.update(tms)
+    bounds.update(tbounds)
+    lib.update(tlib)
 
     check("jax" not in sys.modules, "jax was imported")
+    check(not any(k == "aocr" or k.startswith("aocr.") for k in sys.modules),
+          "a module of the JAX package was imported")
     # each kernel's figures in the dtype of its main path
     main_dtype = {"conv1_pool": "bf16", "lstm_fwd": "bf16",
                   "decode_step": "f32", "greedy_loop": "bf16",
                   "conv1_pool_bwd": "bf16", "lstm_bwd": "bf16",
-                  "tf_fwd": "bf16", "tf_bwd": "bf16"}
+                  "tf_fwd": "bf16", "tf_bwd": "bf16", "beam_step": "bf16",
+                  "beam_loop": "bf16"}
     replaces = {"conv1_pool": "aocr/ops/pallas/conv1_pool.py:244",
                 "lstm_fwd": "aocr/ops/pallas/lstm_fwd.py:158",
                 "decode_step": "aocr/ops/pallas/decode_step.py:199",
@@ -920,26 +1608,41 @@ def main() -> int:
                 "conv1_pool_bwd": "aocr/ops/pallas/conv1_pool.py:266",
                 "lstm_bwd": "aocr/ops/pallas/lstm_bwd.py:131",
                 "tf_fwd": "aocr/ops/pallas/tf_fwd.py:252",
-                "tf_bwd": "aocr/ops/pallas/tf_bwd.py:276"}
+                "tf_bwd": "aocr/ops/pallas/tf_bwd.py:276",
+                "beam_step": "aocr/ops/pallas/beam_step.py:185",
+                "beam_loop": "aocr/ops/pallas/beam_loop.py:514"}
     kernels = []
     for k in cuda.KERNELS:
         d = main_dtype[k]
         entry = {
             "name": k, "route": "cuda", "source": f"aocr_torch/csrc/{k}.cu",
             "replaces": replaces[k],
-            # recognition's run and the train steps' run, each read
-            # right after it
-            "launches": counts[k] + tcounts[k],
+            # the recognize, beam and train paths' runs, each read right
+            # after it
+            "launches": counts[k] + bcounts[k] + tcounts[k],
             "max_abs_err": max(results[(k, d)]), "dtype": d,
-            "ms": ms[(k, d)][0], "plain_ms": ms[(k, d)][1]}
+            "ms": ms[(k, d)][0], "plain_ms": ms[(k, d)][1],
+            "bound_ms": bounds[(k, d)][0], "bound_by": bounds[(k, d)][1],
+            "library_ms": lib.get((k, d))}
         if k == "lstm_fwd":
+            c = tcounts["lstm_fwd_collect"]
             entry["modes"] = {
-                "collect=False": {"launches": counts[k] + tcounts[k]
-                                  - tcounts["lstm_fwd_collect"]},
-                "collect=True": {"launches": tcounts["lstm_fwd_collect"],
-                                 "ms": ms[("lstm_fwd_collect", d)][0],
-                                 "plain_ms": ms[("lstm_fwd_collect", d)][1]}}
+                "collect=False": {"launches": entry["launches"] - c},
+                "collect=True": {
+                    "launches": c,
+                    "ms": ms[("lstm_fwd_collect", d)][0],
+                    "plain_ms": ms[("lstm_fwd_collect", d)][1],
+                    "bound_ms": bounds[("lstm_fwd_collect", d)][0],
+                    "bound_by": bounds[("lstm_fwd_collect", d)][1],
+                    "library_ms": lib.get(("lstm_fwd_collect", d))}}
         kernels.append(entry)
+    log(f"end to end, bf16, B={B_SERVE}, W={W_SERVE}, T={T_MAX}: beam-5 "
+        f"{rates['beam-5']:.1f} images/s, dictionary beam-5 "
+        f"{rates['dict-beam-5']:.1f} images/s on {card}")
+    if FAILURES:
+        print(f"chip_smoke.py: {len(FAILURES)} check(s) failed:\n  "
+              + "\n  ".join(FAILURES), file=sys.stderr)
+        return 1
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
 """aocr_torch's library surface against the JAX package on CPU: a
 checkpoint that `aocr` writes loads into `aocr_torch` and recognizes
-mixed-width images to the same transcripts (float32), the weight bridge
-round-trips, and the port never imports jax."""
+mixed-width images to the same transcripts (float32), greedy and beam-5,
+with and without a dictionary; the weight bridge round-trips; the entry
+points run on CUDA unless the caller names the CPU; and neither the port
+nor chip_smoke.py imports jax or the JAX package."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -19,15 +22,26 @@ from aocr.config import Config
 from aocr.models import model as jmodel
 from aocr_torch import weights
 from aocr_torch.api import AttentionOCR
+from aocr_torch.config import Config as TConfig
 from aocr_torch.models import model
 from tests import synth
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _kw(**kw):
+    return dict(input_feed=True, encoder_num_hidden=64,
+                target_embedding_size=8, max_decoder_l=8, **kw)
+
+
 def _cfg(**kw):
-    return Config(input_feed=True, encoder_num_hidden=64,
-                  target_embedding_size=8, max_decoder_l=8, **kw)
+    """The reference's Config."""
+    return Config(**_kw(**kw))
+
+
+def _tcfg(**kw):
+    """The port's Config, from the same arguments as _cfg's."""
+    return TConfig(**_kw(**kw))
 
 
 def _sharpened(ocr):
@@ -60,7 +74,7 @@ def test_checkpoint_from_aocr_recognizes_identically(tmp_path, pallas_greedy):
     images = _mixed_images()
     want_words, want_scores = jocr.recognize(images)
     ocr = AttentionOCR.load(str(tmp_path), device="cpu",
-                            cfg=Config(pallas_greedy=pallas_greedy))
+                            cfg=TConfig(pallas_greedy=pallas_greedy))
     assert ocr.cfg.encoder_num_hidden == 64 and ocr.cfg.input_feed
     assert ocr.cfg.pallas_greedy == pallas_greedy
     words, scores = ocr.recognize(images)
@@ -84,17 +98,17 @@ def test_param_count_and_weight_round_trip(tmp_path):
     jax.tree.map(np.testing.assert_array_equal, back_p, params)
     jax.tree.map(np.testing.assert_array_equal, back_s, stats)
     # the port's save is an npz-v2 checkpoint the reference reads
-    AttentionOCR(cfg, tp, ts, device="cpu").save(str(tmp_path))
+    AttentionOCR(_tcfg(), tp, ts, device="cpu").save(str(tmp_path))
     ck = checkpoint.load(checkpoint.final_path(str(tmp_path)))
     jax.tree.map(np.testing.assert_array_equal, ck["params"], params)
 
 
 def test_create_is_seeded_and_sized():
-    cfg = _cfg()
+    cfg = _tcfg()
     a = AttentionOCR.create(cfg, seed=1, device="cpu")
     b = AttentionOCR.create(cfg, seed=1, device="cpu")
     c = AttentionOCR.create(cfg, seed=2, device="cpu")
-    ref = jmodel.init(jax.random.PRNGKey(0), cfg)
+    ref = jmodel.init(jax.random.PRNGKey(0), _cfg())
     assert model.num_params(a.params) == jmodel.num_params(ref.params)
     wa = a.params["decoder"]["w_a"]
     assert torch.equal(wa, b.params["decoder"]["w_a"])
@@ -104,44 +118,134 @@ def test_create_is_seeded_and_sized():
 
 
 def test_unported_surfaces_raise():
-    ocr = AttentionOCR.create(_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ocr.use_dictionary(["abc"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ocr.set_dictionary_table(np.zeros((1, 39), np.int32))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        ocr.recognize(_mixed_images(), beam_size=5)
+    ocr = AttentionOCR.create(_tcfg(), device="cpu")
     with pytest.raises(NotImplementedError, match="paths"):
         ocr.recognize(["word.png"])
+
+
+@pytest.mark.parametrize("beam_size", [1, 5])
+def test_recognize_beam_and_dictionary_match_reference(tmp_path, beam_size):
+    """recognize(beam_size=...) without and with use_dictionary, through
+    AttentionOCR on the CPU, against aocr.api.AttentionOCR on the same
+    checkpoint (float32, mixed widths)."""
+    jocr = _sharpened(JaxOCR.create(_cfg(seed=906)))
+    jocr.save(str(tmp_path))
+    ocr = AttentionOCR.load(str(tmp_path), device="cpu")
+    images = _mixed_images()
+    lexicon = ["ab", "cd", "e1", "xyz", "0", "abc", "zz"]
+    for dictionary in (False, True):
+        if dictionary:
+            jocr.use_dictionary(lexicon)
+            ocr.use_dictionary(lexicon)
+        want_words, want_scores = jocr.recognize(images, beam_size=beam_size)
+        words, scores = ocr.recognize(images, beam_size=beam_size)
+        assert words == want_words
+        np.testing.assert_allclose(scores, want_scores, rtol=1e-5, atol=1e-5)
+    # the trie admits lexicon words and, as PAD is always valid, prefixes
+    assert all(any(x.startswith(w) for x in lexicon) for w in words)
+
+
+def test_dictionary_table_surface():
+    """set_dictionary_table keeps an int32 table on the model's device;
+    clear_dictionary drops it; a table of the wrong width raises."""
+    ocr = AttentionOCR.create(_tcfg(), device="cpu")
+    assert ocr.dictionary_table is None
+    table = np.full((3, 39), -1, np.int64)
+    table[0, 13] = 1
+    ocr.set_dictionary_table(table)
+    assert ocr.dictionary_table.dtype == torch.int32
+    assert ocr.dictionary_table.device == ocr.device
+    assert ocr.dictionary_table.shape == (3, 39)
+    ocr.clear_dictionary()
+    assert ocr.dictionary_table is None
+    with pytest.raises(ValueError, match="trie table"):
+        ocr.set_dictionary_table(np.zeros((2, 38), np.int32))
+    ocr.use_dictionary(["ab", "b"])
+    assert ocr.dictionary_table.shape[1] == 39
 
 
 def test_cuda_request_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        AttentionOCR.create(_cfg(), device="cuda")
+        AttentionOCR.create(_tcfg(), device="cuda")
 
 
-def test_port_never_imports_jax():
-    """Every aocr_torch module imports in a clean interpreter without
-    pulling in jax (JAX_PLATFORM_NAME unset: aocr/__init__ imports jax
-    when it is set to cpu)."""
+def test_default_device_is_cuda():
+    """No device means CUDA: without it, create and load raise, and the
+    CPU runs only when the caller names it."""
+    if torch.cuda.is_available():
+        assert AttentionOCR.create(_tcfg()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AttentionOCR.create(_tcfg())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AttentionOCR(_tcfg(), *weights.from_numpy(
+            jax.tree.map(np.asarray, jmodel.init(
+                jax.random.PRNGKey(0), _cfg()).params), {}))
+    assert AttentionOCR.create(_tcfg(), device="cpu").device.type == "cpu"
+
+
+def _jax_or_aocr(names):
+    return sorted(k for k in names if k in ("jax", "aocr")
+                  or k.startswith(("jax.", "aocr.", "jaxlib")))
+
+
+def _port_modules_loaded(platform):
+    """The modules loaded after importing every aocr_torch module in a
+    clean interpreter, with JAX_PLATFORM_NAME unset or set to platform."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import aocr_torch\n"
         "for m in pkgutil.walk_packages(aocr_torch.__path__, 'aocr_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert 'jax' not in sys.modules, sorted(\n"
-        "    k for k in sys.modules if k.startswith('jax'))\n"
-        "print(' '.join(k for k in sys.modules\n"
-        "               if k.startswith('aocr_torch')))\n")
+        "print(' '.join(sys.modules))\n")
     env = {k: v for k, v in os.environ.items()
            if k not in ("JAX_PLATFORM_NAME", "JAX_PLATFORMS")}
+    if platform is not None:
+        env["JAX_PLATFORM_NAME"] = platform
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    loaded = set(out.stdout.split())
-    assert len(loaded) >= 25
+    return set(out.stdout.split())
+
+
+def _assert_port_only(loaded):
+    assert _jax_or_aocr(loaded) == []
+    port = {k for k in loaded if k.startswith("aocr_torch")}
+    assert len(port) >= 30
     assert {"aocr_torch.loss", "aocr_torch.optim", "aocr_torch.train_step",
+            "aocr_torch.config", "aocr_torch.vocab", "aocr_torch.checkpoint",
+            "aocr_torch.utils.trie",
             *(f"aocr_torch.ops.cuda.{k}" for k in (
-                "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd"))} <= loaded
+                "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd",
+                "beam_step", "beam_loop"))} <= port
+
+
+def test_port_never_imports_jax():
+    """Every aocr_torch module imports in a clean interpreter without
+    loading jax or any module of the JAX package `aocr`
+    (JAX_PLATFORM_NAME unset)."""
+    _assert_port_only(_port_modules_loaded(None))
+
+
+def test_port_never_imports_jax_with_cpu_platform():
+    """The same with JAX_PLATFORM_NAME=cpu, where aocr/__init__ imports
+    jax: any import of `aocr` would load it."""
+    _assert_port_only(_port_modules_loaded("cpu"))
+
+
+def test_chip_smoke_imports_neither_jax_nor_aocr():
+    """Every import statement of chip_smoke.py, at any depth, names only
+    the port, the standard library, numpy or torch."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    assert names, "no imports found"
+    assert _jax_or_aocr(names) == []
+    assert {"aocr_torch.config", "aocr_torch.api"} <= names

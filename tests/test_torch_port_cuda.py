@@ -11,20 +11,25 @@ the kernels' 4-row tiles), odd widths, both directions, both dtypes.
 Tolerances: float32 1e-4 (the kernels sum in another order); bfloat16
 outputs within a few bf16 steps.  The training kernels (conv1 backward,
 lstm_fwd with residuals, lstm_bwd, tf_fwd, tf_bwd) are held the same way,
-on residuals their plain forward wrote.
+on residuals their plain forward wrote.  The beam kernels (beam_step,
+beam_loop) and the trie operands of decode_step and greedy_loop: float32
+tokens, parents, histories and refill counts identical to the plain
+version's (a row may part only at a step whose plain margin is a
+near-tie), scores within 1e-5 relative; bfloat16 as the decode checks.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from aocr import vocab
-from aocr.config import Config
-from aocr_torch import train_step
+from aocr_torch import train_step, vocab
 from aocr_torch.api import AttentionOCR
-from aocr_torch.ops.cuda import (conv1_pool, conv1_pool_bwd, decode_step,
-                                 greedy_loop, lstm_bwd, lstm_fwd, tf_bwd,
-                                 tf_fwd)
+from aocr_torch.config import Config
+from aocr_torch.models.decoder import DecoderState
+from aocr_torch.ops.cuda import (beam_loop, beam_step, conv1_pool,
+                                 conv1_pool_bwd, decode_step, greedy_loop,
+                                 lstm_bwd, lstm_fwd, tf_bwd, tf_fwd)
+from aocr_torch.utils import trie
 
 pytestmark = pytest.mark.cuda
 
@@ -296,3 +301,195 @@ def _leaves(tree):
     from aocr_torch.optim import leaves
 
     return leaves(tree)
+
+
+LEXICON = ["ab", "abc", "cd", "e1", "xyz", "zq", "m", "e10", "0", "hello"]
+
+
+def _trie(dev, words=LEXICON):
+    return torch.from_numpy(trie.build_transition_table(words)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_step_kernel_valid_plane(dev, dtype):
+    g = torch.Generator().manual_seed(20)
+    L, B, H = 9, 7, 256
+    t = _decoder_tables(g, dev, dtype, H)
+    h = _rand(g, B, H).to(dev, dtype)
+    ctx = _rand(g, L, B, H).to(dev, dtype)
+    prev = torch.tensor([1, 2, 0, 5, 17, 1, 9], dtype=torch.int32,
+                        device=dev)
+    table = _trie(dev)
+    inner = (table >= 0).any(1).nonzero().flatten().cpu()  # have children
+    nodes = inner[torch.arange(B) % len(inner)].to(torch.int32)
+    valid = greedy_loop.trie_valid(table, nodes.to(dev), t["pw"].shape[1],
+                                   pad_ok=False)
+    args = (h, ctx, prev, t["wa"], t["wc"], t["pw"], t["pb"])
+    n = decode_step.launches
+    ht, tok, d = decode_step.fused_decode_tail(*args, valid=valid)
+    assert decode_step.launches == n + 1
+    torch.cuda.synchronize()
+    ht_p, tok_p, d_p = decode_step.fused_decode_tail_plain(*args,
+                                                           valid=valid)
+    _close(ht, ht_p, TOL[dtype])
+    _close(d, d_p, TOL[dtype])
+    live = ~((prev == vocab.PAD) | (prev == vocab.EOS))
+    picked = valid.gather(1, tok.long()[:, None])[:, 0]
+    assert bool((picked[live] > 0).all())
+    if dtype == torch.float32:
+        assert torch.equal(tok.cpu(), tok_p.cpu())
+
+
+def _first_parting(got, want, margin, tol):
+    """Rows of (T, B[, K]) histories where got and want part: each must
+    part at a step whose margin (T, B) is a near-tie (< tol)."""
+    differ = (got != want).reshape(got.shape[0], got.shape[1], -1).any(-1)
+    for b in differ.any(0).nonzero().flatten().tolist():
+        t = int(differ[:, b].float().argmax())
+        assert margin[t, b] < tol, (b, t, float(margin[t, b]))
+    return int(differ.any(0).sum())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 6])
+def test_greedy_loop_kernel_trie(dev, dtype, B):
+    g = torch.Generator().manual_seed(21)
+    L, H, T = 9, 256, 10
+    t = _decoder_tables(g, dev, dtype, H)
+    t["pb"][vocab.EOS] += 2.0  # rows reach EOS at different steps
+    ctx = _rand(g, L, B, H).to(dev, dtype)
+    c0, h0 = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
+    table = _trie(dev)
+    lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, t, 2, True, T,
+                                            trie_table=table)
+    torch.cuda.synchronize()
+    lab_p, sc_p, margin = greedy_loop.fused_greedy_loop_plain(
+        ctx, c0, h0, t, 2, True, T, return_margins=True, trie_table=table)
+    parted = _first_parting(lab.t().cpu(), lab_p.t().cpu(),
+                            margin.t().cpu(), TOL[dtype])
+    if dtype == torch.float32:
+        assert parted == 0
+        _close(sc, sc_p, 1e-5)
+    for row in lab.cpu().numpy():
+        word = vocab.decode(row)
+        assert any(w.startswith(word) for w in LEXICON), word
+
+
+def _beam_case(g, dev, dtype, B, K, H=256, L=9):
+    t = _decoder_tables(g, dev, dtype, H)
+    t["pb"][vocab.EOS] += 2.0
+    ctx = _rand(g, L, B, H).to(dev, dtype)
+    return t, ctx
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,use_trie", [(3, False), (5, True), (12, False),
+                                        (5, "refill")])
+def test_beam_step_kernel(dev, dtype, K, use_trie):
+    g = torch.Generator().manual_seed(22)
+    B, V = 6, 39
+    t, ctx = _beam_case(g, dev, dtype, B, K)
+    H = ctx.shape[2]
+    h = _rand(g, B, K * H).to(dev, dtype)
+    prev = torch.randint(3, V, (B, K), generator=g, dtype=torch.int32)
+    prev[1, 1], prev[2, :] = vocab.EOS, vocab.PAD  # a frozen beam and row
+    scores = -torch.rand(B, K, generator=g).sort(dim=1, descending=True)[0]
+    prev, scores = prev.to(dev), (scores * 5).to(dev)
+    valid = None
+    if use_trie:
+        # refill: a tiny lexicon and a plane without PAD, so rows have
+        # fewer than K valid candidates
+        words = ["zq"] if use_trie == "refill" else LEXICON
+        table = _trie(dev, words)
+        nodes = torch.randint(0, table.shape[0], (B, K), generator=g,
+                              dtype=torch.int32)
+        valid = greedy_loop.trie_valid(table, nodes.to(dev),
+                                       t["pw"].shape[1],
+                                       pad_ok=use_trie != "refill")
+        valid = valid.reshape(B, -1)
+    args = (ctx, h, prev, scores, t["wa"], t["wc"], t["pw"], t["pb"], K, V)
+    n = beam_step.launches
+    got = beam_step.fused_beam_tail(*args, valid=valid)
+    assert beam_step.launches == n + 1
+    torch.cuda.synchronize()
+    want = beam_step.fused_beam_tail_plain(*args, valid=valid)
+    _close(got[0], want[0], TOL[dtype])
+    _close(got[1], want[1], TOL[dtype] if dtype == torch.bfloat16 else 1e-5)
+    if dtype == torch.float32:
+        for a, b in zip(got[2:], want[2:]):
+            assert torch.equal(a.cpu(), b.cpu())
+    if use_trie == "refill":
+        assert int(got[4].min()) < K
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,K,lennorm,use_trie", [
+    (7, 2, False, False), (5, 3, True, True), (6, 5, True, False),
+    (4, 5, False, True), (3, 8, False, False), (5, 4, False, "refill")])
+def test_beam_loop_kernel(dev, dtype, B, K, lennorm, use_trie):
+    """The whole search against its plain version from the same t=1
+    state: a ragged last block (B not a multiple of the block's batch
+    rows), each block-row count, length normalization, the trie, and a
+    tiny lexicon where most beams dead-end (PAD is always valid after
+    t=1, so the refills of a search come from its t=1 step)."""
+    g = torch.Generator().manual_seed(23 + K)
+    T, nl, V = 9, 2, 39
+    t, ctx = _beam_case(g, dev, dtype, B, K)
+    H = ctx.shape[2]
+    st = DecoderState(attn=_rand(g, B, H).to(dev),
+                      cs=tuple(_rand(g, B, H).to(dev) for _ in range(nl)),
+                      hs=tuple(_rand(g, B, H).to(dev) for _ in range(nl)))
+    table = nodes0 = None
+    tok0 = torch.randint(3, V, (B, K), generator=g, dtype=torch.int32)
+    if use_trie:
+        words = ["zq", "zz"] if use_trie == "refill" else LEXICON
+        table = _trie(dev, words)
+        roots = (table[0] >= 0).nonzero().flatten().cpu()
+        tok0 = roots[torch.randint(0, len(roots), (B, K), generator=g)]
+        tok0 = tok0.to(torch.int32)
+        nodes0 = table[0].cpu()[tok0.long()].clamp(min=0).to(dev)
+    sc0 = (-5 * torch.rand(B, K, generator=g)).sort(1, descending=True)[0]
+    args = (ctx, st, tok0.to(dev), sc0.to(dev), nodes0, t, nl, True, T, K,
+            lennorm)
+    n = beam_loop.launches
+    got = beam_loop.fused_beam_loop(*args, trie_table=table)
+    assert beam_loop.launches == n + 1
+    torch.cuda.synchronize()
+    want = beam_loop.fused_beam_loop_plain(*args, trie_table=table,
+                                           return_margins=True)
+    margin = want[-1].cpu()
+    parted = _first_parting(got[0].cpu(), want[0].cpu(), margin, TOL[dtype])
+    parted += _first_parting(got[1].cpu(), want[1].cpu(), margin,
+                             TOL[dtype])
+    if dtype == torch.float32:
+        assert parted == 0
+        assert torch.equal(got[3].cpu(), want[3].cpu())
+        _close(got[2], want[2], 1e-5)
+        for a, b in zip(got[4:6], want[4:6]):
+            assert int(a) == int(b)
+    assert (got[0][1:] != vocab.PAD).any()  # the search ran past t=0
+
+
+@pytest.mark.parametrize("route", ["loop", "tail"])
+def test_beam_recognize_on_cuda_matches_cpu(dev, route):
+    """recognize(beam_size=5), without and with a dictionary, on the card
+    against the CPU (float32)."""
+    cfg = Config(input_feed=True, encoder_num_hidden=64,
+                 target_embedding_size=8, max_decoder_l=10,
+                 pallas_beam=route)
+    cpu = AttentionOCR.create(cfg, seed=24, device="cpu")
+    gpu = AttentionOCR(cfg, cpu.params, cpu.batch_stats, device=dev)
+    rs = np.random.RandomState(25)
+    images = [rs.uniform(0, 255, (32, w)).astype(np.float32)
+              for w in (100, 81, 100, 32, 81)]
+    for dictionary in (False, True):
+        if dictionary:
+            cpu.use_dictionary(LEXICON)
+            gpu.use_dictionary(LEXICON)
+            assert gpu.dictionary_table.device.type == "cuda"
+        wc, sc = cpu.recognize(images, beam_size=5)
+        n = (beam_loop if route == "loop" else beam_step).launches
+        wg, sg = gpu.recognize(images, beam_size=5)
+        assert (beam_loop if route == "loop" else beam_step).launches > n
+        assert wg == wc
+        np.testing.assert_allclose(sg, sc, rtol=1e-4, atol=1e-3)

@@ -30,6 +30,7 @@ from aocr.ops import lstm as jlstm
 from aocr.ops.pallas import decode_step as jds
 from aocr.ops.pallas import greedy_loop as jgl
 from aocr_torch import decode, weights
+from aocr_torch.config import Config as TConfig
 from aocr_torch.models import decoder, head
 from aocr_torch.ops.cuda import decode_step, greedy_loop
 from tests import synth
@@ -122,13 +123,19 @@ def test_fused_greedy_loop_matches_kernel(B):
     np.testing.assert_allclose(sc.numpy(), _np(sc_j), rtol=1e-5, atol=1e-4)
 
 
+def _cfgs(**kw):
+    """The reference's and the port's Config from the same arguments."""
+    base = dict(input_feed=True, encoder_num_hidden=64,
+                target_embedding_size=E, max_decoder_l=8)
+    base.update(kw)
+    return Config(**base).validate(), TConfig(**base).validate()
+
+
 def _jax_model(seed):
     """A small model whose transcripts depend on the image: the reference
     init, with weights scaled up so that rows differ and some emit EOS
     (at init the CNN features barely vary between images)."""
-    cfg = Config(input_feed=True, encoder_num_hidden=64,
-                 target_embedding_size=E, max_decoder_l=8,
-                 seed=seed).validate()
+    cfg = _cfgs(seed=seed)[0]
     ms = jmodel.init(jax.random.PRNGKey(seed), cfg)
     p = jax.tree.map(lambda a: np.array(a), ms.params)
     for conv in p["cnn"].values():
@@ -161,8 +168,8 @@ def test_greedy_decode_matches_reference(monkeypatch, route, B, W):
     # a distinct cfg per route: Config is greedy_decode's jit key, and the
     # interpret flags are read while tracing
     seed = {"loop": 901, "tail": 902, "xla": 903}[route]
-    cfg, params, stats = _jax_model(seed)
-    cfg = cfg.replace(use_pallas=route != "xla",
+    _, params, stats = _jax_model(seed)
+    cfg, tcfg = _cfgs(seed=seed, use_pallas=route != "xla",
                       pallas_greedy="tail" if route == "tail" else "auto")
     images = _images(B, W)
     kernels = route != "xla"
@@ -175,7 +182,7 @@ def test_greedy_decode_matches_reference(monkeypatch, route, B, W):
     lab_j, sc_j = np.asarray(lab_j), _np(sc_j)
     tp, ts = weights.from_numpy(jax.tree.map(np.asarray, params),
                                 jax.tree.map(np.asarray, stats))
-    lab, sc = decode.greedy_decode(tp, ts, torch.from_numpy(images), cfg,
+    lab, sc = decode.greedy_decode(tp, ts, torch.from_numpy(images), tcfg,
                                    cfg.max_decoder_l)
     np.testing.assert_array_equal(lab.numpy(), lab_j)
     np.testing.assert_allclose(sc.numpy(), sc_j, rtol=1e-5, atol=1e-4)
@@ -211,10 +218,26 @@ def test_decoder_step_and_head_match_reference():
     np.testing.assert_allclose(lp.numpy(), _np(lp_j), rtol=1e-5, atol=1e-5)
 
 
-def test_beam_search_is_not_ported():
-    cfg, params, stats = _jax_model(904)
+def test_beam_decode_runs_and_clamps_beam_size():
+    """beam_decode at beam_size 5 decodes (its routes are held against
+    aocr in test_torch_port_beam.py); beam_size 1 is greedy, and a beam
+    wider than V is clamped to V."""
+    _, params, stats = _jax_model(904)
+    tcfg = _cfgs(seed=904)[1]
     tp, ts = weights.from_numpy(jax.tree.map(np.asarray, params),
                                 jax.tree.map(np.asarray, stats))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        decode.beam_decode(tp, ts, torch.zeros((1, 32, 32, 1)), cfg,
-                           beam_size=5, max_len=4)
+    images = torch.from_numpy(_images(5, 100))
+    lab, sc = decode.beam_decode(tp, ts, images, tcfg, beam_size=5,
+                                 max_len=6)
+    assert lab.shape == (5, 6) and lab.dtype == torch.int32
+    assert torch.isfinite(sc).all() and (sc <= 0).all()
+    g_lab, g_sc = decode.beam_decode(tp, ts, images, tcfg, beam_size=1,
+                                     max_len=6)
+    want = decode.greedy_decode(tp, ts, images, tcfg, 6)
+    assert torch.equal(g_lab, want[0]) and torch.equal(g_sc, want[1])
+    assert (sc >= g_sc - 1e-5).all()
+    wide = decode.beam_decode(tp, ts, images[:1], tcfg, beam_size=100,
+                              max_len=3)
+    clamped = decode.beam_decode(tp, ts, images[:1], tcfg, beam_size=39,
+                                 max_len=3)
+    assert torch.equal(wide[0], clamped[0])

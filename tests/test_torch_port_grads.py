@@ -302,6 +302,8 @@ def test_optimizers_match_reference(case):
     before the last step (a resume), buf_fresh included."""
     from aocr.config import Config
 
+    from aocr_torch.config import Config as TConfig
+
     params, grads = _opt_problem(46)
     j_params = jax.tree.map(jnp.asarray, params)
     t_params, _ = weights.from_numpy(params, {})
@@ -313,8 +315,8 @@ def test_optimizers_match_reference(case):
         t_upd = lambda p, g, s: optim.adadelta_update(p, g, s,
                                                       weight_decay=1e-3)
     else:
-        cfg = Config(**OPT_CASES[case]).validate()
-        jh, th = joptim.hyper_from_config(cfg), optim.hyper_from_config(cfg)
+        jh = joptim.hyper_from_config(Config(**OPT_CASES[case]).validate())
+        th = optim.hyper_from_config(TConfig(**OPT_CASES[case]).validate())
         assert tuple(jh) == tuple(th)
         j_state, t_state = joptim.sgd_init(j_params, jh), \
             optim.sgd_init(t_params, th)

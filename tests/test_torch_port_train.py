@@ -32,6 +32,7 @@ from aocr.models import model as jmodel
 from aocr.ops import lstm as jlstm
 from aocr_torch import optim, train_step, weights
 from aocr_torch.api import AttentionOCR
+from aocr_torch.config import Config as TConfig
 from aocr_torch.models import cnn
 
 WORDS = ["ab1", "xyz", "k", "wxyz"]
@@ -51,10 +52,19 @@ def jax_kernels(monkeypatch):
     monkeypatch.setattr(jdec, "_TF_VJP_CACHE", {})
 
 
+def _kw(**kw):
+    return dict(input_feed=True, encoder_num_hidden=16,
+                target_embedding_size=8, batch_size=len(WORDS), **kw)
+
+
 def _cfg(**kw):
-    return Config(input_feed=True, encoder_num_hidden=16,
-                  target_embedding_size=8, batch_size=len(WORDS),
-                  **kw).validate()
+    """The reference's Config."""
+    return Config(**_kw(**kw)).validate()
+
+
+def _tcfg(**kw):
+    """The port's Config, from the same arguments as _cfg's."""
+    return TConfig(**_kw(**kw)).validate()
 
 
 def _problem(cfg, seed=0):
@@ -84,15 +94,16 @@ def _assert_step(got, want, tols):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_train_step_matches_reference(jax_kernels, dtype):
-    cfg = _cfg(compute_dtype=dtype)
+    cfg, tcfg = _cfg(compute_dtype=dtype), _tcfg(compute_dtype=dtype)
     params, stats, images, t, te = _problem(cfg)
     want = jts.make_train_step(cfg)(
         jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats),
         joptim.sgd_init(params), jnp.asarray(images), jnp.asarray(t),
         jnp.asarray(te), jnp.float32(0.1), jax.random.PRNGKey(1))
     tp, ts = weights.from_numpy(params, stats)
-    got = train_step.make_train_step(cfg)(
-        tp, ts, train_step.init_opt_state(tp, cfg), images, t, te, 0.1, None)
+    got = train_step.make_train_step(tcfg)(
+        tp, ts, train_step.init_opt_state(tp, tcfg), images, t, te, 0.1,
+        None)
     _assert_step(got, want, TOLS[dtype])
     # a step leaves its inputs as they were
     np.testing.assert_array_equal(
@@ -110,11 +121,12 @@ def test_momentum_training_resumes_across_packages():
     within 1e-3 from the other package's step-1 state, whose rounding
     train-mode BN over few positions (32 at conv7) amplifies in the deep
     conv weights."""
-    cfg = _cfg(momentum=0.9, dampening=0.0, nesterov=True,
-               sgd_learning_rate_decay=0.5, weight_decay=1e-4)
+    kw = dict(momentum=0.9, dampening=0.0, nesterov=True,
+              sgd_learning_rate_decay=0.5, weight_decay=1e-4)
+    cfg, tcfg = _cfg(**kw), _tcfg(**kw)
     params, stats, images, t, te = _problem(cfg, seed=2)
     jstep = jts.make_train_step(cfg)
-    tstep = train_step.make_train_step(cfg)
+    tstep = train_step.make_train_step(tcfg)
     jargs = (jnp.asarray(images), jnp.asarray(t), jnp.asarray(te),
              jnp.float32(0.1), jax.random.PRNGKey(0))
     hyper = joptim.hyper_from_config(cfg)
@@ -123,7 +135,7 @@ def test_momentum_training_resumes_across_packages():
                joptim.sgd_init(params, hyper), *jargs)
     j2 = jstep(j1.params, j1.batch_stats, j1.opt_state, *jargs)
     tp, ts = weights.from_numpy(params, stats)
-    t1 = tstep(tp, ts, train_step.init_opt_state(tp, cfg), images, t, te,
+    t1 = tstep(tp, ts, train_step.init_opt_state(tp, tcfg), images, t, te,
                0.1)
     _assert_step(t1, j1, TOLS["float32"])
     # the port's state into the reference, one more step there
@@ -153,7 +165,8 @@ def test_momentum_training_resumes_across_packages():
 def test_adadelta_train_step_matches_reference():
     """cfg.optimizer="adadelta" through the whole step (float32, the
     reference's XLA route)."""
-    cfg = _cfg(optimizer="adadelta", weight_decay=1e-4)
+    kw = dict(optimizer="adadelta", weight_decay=1e-4)
+    cfg, tcfg = _cfg(**kw), _tcfg(**kw)
     params, stats, images, t, te = _problem(cfg, seed=5)
     want = jts.make_train_step(cfg)(
         jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats),
@@ -161,8 +174,8 @@ def test_adadelta_train_step_matches_reference():
         jnp.asarray(images), jnp.asarray(t), jnp.asarray(te),
         jnp.float32(0.1), jax.random.PRNGKey(1))
     tp, ts = weights.from_numpy(params, stats)
-    got = train_step.make_train_step(cfg)(
-        tp, ts, train_step.init_opt_state(tp, cfg), images, t, te, 0.1)
+    got = train_step.make_train_step(tcfg)(
+        tp, ts, train_step.init_opt_state(tp, tcfg), images, t, te, 0.1)
     assert isinstance(got.opt_state, optim.AdadeltaState)
     _assert_step(got, want, TOLS["float32"])
     back = weights.opt_state_to_numpy(got.opt_state)
@@ -178,7 +191,7 @@ def test_eval_loss_step_matches_reference(jax_kernels):
         jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats),
         jnp.asarray(images), jnp.asarray(t), jnp.asarray(te), cfg)
     nll, gold = train_step.eval_loss_step(*weights.from_numpy(params, stats),
-                                          images, t, te, cfg)
+                                          images, t, te, _tcfg())
     np.testing.assert_allclose(float(nll), float(nll_j), rtol=1e-5)
     np.testing.assert_allclose(gold.numpy(), np.asarray(gold_j), rtol=1e-5)
 
@@ -191,7 +204,7 @@ def test_score_matches_reference():
     images = [rs.uniform(0, 255, (32, w)).astype(np.float32)
               for w in (36, 100, 36, 81)]
     want = jocr.score(images, WORDS)
-    ocr = AttentionOCR(cfg, *weights.from_numpy(
+    ocr = AttentionOCR(_tcfg(), *weights.from_numpy(
         jax.tree.map(np.asarray, jocr.params),
         jax.tree.map(np.asarray, jocr.batch_stats)), device="cpu")
     np.testing.assert_allclose(ocr.score(images, WORDS), want, rtol=1e-5)
@@ -202,7 +215,7 @@ def test_score_matches_reference():
 @pytest.mark.parametrize("what", ["dropout", "remat", "simple_attention",
                                   "augment"])
 def test_unported_training_options_raise(what):
-    cfg = _cfg(**{what: 0.1 if what == "dropout" else True})
+    cfg = _tcfg(**{what: 0.1 if what == "dropout" else True})
     tp, ts = weights.from_numpy(*_problem(_cfg())[:2])
     images, t, te = _problem(_cfg())[2:]
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Time aocr_torch's greedy_loop kernel from several checkouts on one card.
+
+    python3 tools/ab_greedy_loop_torch.py DIR_A DIR_B [--turns 4]
+
+Each DIR is a checkout that holds aocr_torch/.  The kernel is timed at the
+recognition shape (B=512, L=24, T=50, the default decoder: H=1024, 2
+layers, input feed, V=39) in float32 and bf16, in turns A, B, B, A, ...,
+each turn in a fresh process that builds that checkout's kernels
+(CUDA events over back-to-back launches).  Prints one line a turn and the
+card's name and power limit.  Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+TURN = r"""
+import json, math, sys
+sys.path.insert(0, {root!r})
+import numpy as np, torch
+from aocr_torch import weights
+from aocr_torch.ops import cuda
+from aocr_torch.ops.cuda import greedy_loop
+cuda.build()
+dev = torch.device("cuda")
+rs = np.random.RandomState(3)
+H, E, V, B, L, T = 1024, 20, 39, 512, 24, 50
+u = lambda b, *s: rs.uniform(-b, b, s).astype(np.float32)
+layer = lambda i: {{"wi": u(i ** -0.5, i, 4 * H), "bi": u(i ** -0.5, 4 * H),
+                    "wh": u(H ** -0.5, H, 4 * H), "bh": u(H ** -0.5, 4 * H)}}
+dec = {{"embedding": rs.standard_normal((V, E)).astype(np.float32),
+       "layers": [layer(E + H), layer(H)], "w_a": u(H ** -0.5, H, H),
+       "w_c": u((2 * H) ** -0.5, 2 * H, H)}}
+proj = {{"w": u(2 * H ** -0.5, H, V), "b": u(H ** -0.5, V)}}
+tp, _ = weights.from_numpy({{"decoder": dec, "projector": proj}}, {{}}, dev)
+g = torch.Generator().manual_seed(11)
+out = {{}}
+for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+    t = greedy_loop.build_tables(tp["decoder"], tp["projector"], E, True, dt)
+    ctx = (torch.rand(L, B, H, generator=g) * 2 - 1).to(dev, dt)
+    c0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
+    h0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
+    run = lambda: greedy_loop.fused_greedy_loop(ctx, c0, h0, t, 2, True, T)
+    run()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(3):
+        run()
+    b.record()
+    torch.cuda.synchronize()
+    out[name] = a.elapsed_time(b) / 3
+print(json.dumps(out))
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("dirs", nargs=2)
+    ap.add_argument("--turns", type=int, default=4)
+    args = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
+    order = [args.dirs[(t + t // 2) % 2] for t in range(args.turns)]
+    for root in order:
+        root = os.path.abspath(root)
+        proc = subprocess.run([sys.executable, "-c", TURN.format(root=root)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:], file=sys.stderr)
+            return 1
+        ms = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"{root}: greedy_loop f32 {ms['f32']:.3f} ms, bf16 "
+              f"{ms['bf16']:.3f} ms (B=512, T=50)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
