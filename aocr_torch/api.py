@@ -7,10 +7,11 @@ recognition, and scoring):
     ocr.use_dictionary(["word", ...])        # constrain to a lexicon
     gold = ocr.score(images, ["word", ...])  # teacher-forced log-probs
 
+`recognize` and `score` take a stacked array, a list of (H, W[, 1])
+arrays, or image paths (decoded on the host by `data.images_to_arrays`).
 Every entry point runs on the first CUDA device unless the caller names
-another device (`device="cpu"`); without CUDA the default raises.  Image
-paths, device-side preprocessing and `shard()` are not ported yet
-(ROADMAP).
+another device (`device="cpu"`); without CUDA the default raises.
+Device-side preprocessing and `shard()` are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from aocr_torch import checkpoint, vocab
+from aocr_torch import checkpoint, data, vocab
 from aocr_torch.config import GEOMETRY_FIELDS, STRUCT_FIELDS, Config
 from aocr_torch import decode, train_step, weights
 from aocr_torch.models import model as model_lib
@@ -121,15 +122,11 @@ class AttentionOCR:
         return self._trie
 
     def _prepare_groups(self, images) -> List[Tuple[List[int], np.ndarray]]:
-        """A stacked (B, H, W[, 1]) array, or a list of (H, W[, 1]) arrays
-        of mixed widths -> width-homogeneous (indices, (b, H, W, 1))
-        batches, in ascending width order."""
-        if isinstance(images, str) or (
-                isinstance(images, (list, tuple)) and images
-                and isinstance(images[0], str)):
-            raise NotImplementedError(
-                "image paths are not ported yet; pass decoded (H, W) "
-                "float32 arrays in [0, 255]")
+        """A stacked (B, H, W[, 1]) array, a path, or a list of image paths
+        or (H, W[, 1]) arrays of mixed widths -> width-homogeneous
+        (indices, (b, H, W, 1)) batches, in ascending width order.  Paths
+        are decoded and preprocessed on the host by
+        data.images_to_arrays, as aocr.api does."""
         if hasattr(images, "ndim"):
             a = np.asarray(images, np.float32)
             if a.ndim == 3:
@@ -137,27 +134,26 @@ class AttentionOCR:
             if a.ndim != 4:
                 raise ValueError(f"bad image batch shape {a.shape}")
             return [(list(range(a.shape[0])), a)]
+        if self.cfg.device_preprocess and any(
+                isinstance(it, str) for it in (
+                    [images] if isinstance(images, str) else images)):
+            raise NotImplementedError(
+                "device_preprocess is not ported: ROADMAP queue 1 item 10")
+        arrs = data.images_to_arrays(images, self.cfg)
         by_width: dict = {}
-        arrs = []
-        for i, it in enumerate(images):
-            a = np.asarray(it, np.float32)
-            if a.ndim == 2:
-                a = a[..., None]
-            if a.ndim != 3:
-                raise ValueError(f"expected an (H, W[, 1]) image, got "
-                                 f"{a.shape}")
-            arrs.append(a)
+        for i, a in enumerate(arrs):
             by_width.setdefault(a.shape[1], []).append(i)
         return [(idx, np.stack([arrs[i] for i in idx]))
                 for _w, idx in sorted(by_width.items())]
 
     @torch.inference_mode()
-    def recognize(self, images: Union[np.ndarray, Sequence[np.ndarray]],
+    def recognize(self, images: Union[np.ndarray, Sequence[np.ndarray],
+                                      str, Sequence[str]],
                   beam_size: Optional[int] = None,
                   max_len: Optional[int] = None
                   ) -> Tuple[List[str], np.ndarray]:
-        """Decode a batch (stacked array or per-image arrays; widths may
-        mix).  Returns (transcripts, log-prob scores) in input order."""
+        """Decode a batch (stacked array, image paths or per-image arrays;
+        widths may mix).  Returns (transcripts, log-prob scores) in input order."""
         groups = self._prepare_groups(images)
         n = sum(len(idx) for idx, _ in groups)
         words: List[Optional[str]] = [None] * n

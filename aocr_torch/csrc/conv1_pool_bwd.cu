@@ -2,19 +2,13 @@
 // max-pool: the weight and bias gradients.
 //
 // Replaces aocr/ops/pallas/conv1_pool.py::_bwd_kernel (pl.pallas_call at
-// conv1_pool.py:266).  The image cotangent (the TPU's _dx_kernel, which
-// training never runs) is not ported.
+// conv1_pool.py:266).  The image cotangent is conv1_pool_dx.cu.
 //
-// For each pooled cell the kernel recomputes the four pre-pool scores as
-// the forward rounds them (float32 sum of the 9 taps -> compute dtype,
-// + the bias in the compute dtype -> compute dtype), routes the pooled
-// cotangent dy to the FIRST position attaining the window max in
-// row-major window order (select_and_scatter's tie rule,
-// conv1_pool.py:174-189), drops it unless the max is positive (the ReLU),
-// and accumulates dW (64 x 9) and db (64) in float32.  The 9-tap sum is
-// taken in tap order with separately rounded products and sums
-// (__fmul_rn / __fadd_rn), the same operations the plain version runs,
-// so the routing, ties included, is bit-identical to it.
+// For each pooled cell the kernel routes the pooled cotangent dy as
+// conv1_route.cuh does (the routing both backward kernels share: the
+// four pre-pool scores recomputed as the forward rounds them, the FIRST
+// position attaining the window max, nothing unless that max is
+// positive), and accumulates dW (64 x 9) and db (64) in float32.
 //
 // Bound on the H100: the read of dy (B x 800 x 64 values at W=100) and the
 // recompute (36 FMAs per cell and channel).  One block handles one image:
@@ -25,11 +19,11 @@
 // result is deterministic.
 #include <algorithm>
 
-#include "common.cuh"
+#include "conv1_route.cuh"
 
 namespace aocr {
 
-constexpr int CB_C = 64;      // conv1 output channels
+constexpr int CB_C = CONV1_C;
 constexpr int CB_ROWS = 4;    // thread rows per block
 constexpr int CB_OUT = 10;    // 9 weight taps + the bias, per channel
 
@@ -64,19 +58,8 @@ __global__ void conv1_pool_bwd_kernel(
   const T* dyb = dy + (size_t)b * Ho * Wo * CB_C;
   for (int cell = ty; cell < Ho * Wo; cell += CB_ROWS) {
     const int ho = cell / Wo, wo = cell % Wo;
-    float z[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const float* pt = img + (2 * ho + p / 2) * Wp + 2 * wo + p % 2;
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < 9; ++k)
-        s = __fadd_rn(s, __fmul_rn(pt[(k / 3) * Wp + k % 3], wt[k]));
-      z[p] = round_cd<T>(round_cd<T>(s) + bc);
-    }
-    const float m = fmaxf(fmaxf(z[0], z[1]), fmaxf(z[2], z[3]));
-    if (!(m > 0.f)) continue;  // the ReLU drops the cotangent
-    const int p = z[0] == m ? 0 : z[1] == m ? 1 : z[2] == m ? 2 : 3;
+    const int p = conv1_route<T>(img + 2 * ho * Wp + 2 * wo, Wp, wt, bc);
+    if (p < 0) continue;  // the ReLU drops the cotangent
     const float g = to_f(dyb[(size_t)cell * CB_C + c]);
     const float* pt = img + (2 * ho + p / 2) * Wp + 2 * wo + p % 2;
     db += g;

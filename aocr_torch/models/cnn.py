@@ -16,12 +16,15 @@ x*a + b in the compute dtype, with (a, b) computed in float32 from the
 stored running variance.
 
 Training (`train=True`) keeps the reference's custom backward passes:
-conv1's is the `conv1_pool_bwd` kernel (`Conv1PoolFn`); the other conv
-biases reduce their gradient in float32 (`BiasAddFn`, cnn.py:273-288);
-train-mode BatchNorm normalizes with the batch's biased variance, stores
-the unbiased n/(n-1) one in the running statistics, and runs the
-closed-form backward with both channel sums in float32 (`BNTrainFn`,
-cnn.py:303-383).
+conv1's is the `conv1_pool_bwd` kernel, and its image cotangent the
+`conv1_pool_dx` kernel (`Conv1PoolFn`); the other conv biases reduce
+their gradient in float32 (`BiasAddFn`, cnn.py:273-288); train-mode
+BatchNorm normalizes with the batch's biased variance, stores the
+unbiased n/(n-1) one in the running statistics, and runs the closed-form
+backward with both channel sums in float32 (`BNTrainFn`, cnn.py:303-383),
+or, under a row mask, weighted moments and plain autograd (cnn.py:
+384-422); the pools after convs 2, 4 and 6 run the `pool_bwd` kernel as
+their backward (`ReluPoolFn`, cnn.py:209-235) while `pool_bwd.ENABLE`.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from aocr_torch.ops.cuda import conv1_pool, conv1_pool_bwd
+from aocr_torch.ops.cuda import (conv1_pool, conv1_pool_bwd, conv1_pool_dx,
+                                 pool_bwd)
 
 # name, in_c, out_c, kh, kw, padding, bn  (aocr/models/cnn.py:_CONV_DEFS)
 CONV_DEFS = (
@@ -90,9 +94,11 @@ def _channels(v: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
 
 
 class Conv1PoolFn(torch.autograd.Function):
-    """conv1 + bias + ReLU + 2x2 pool: the `conv1_pool` kernel forward,
-    the `conv1_pool_bwd` kernel backward (dW, db).  x (B, H, W, 1) in the
-    compute dtype; returns (B, H//2, W//2, 64) NHWC."""
+    """conv1 + bias + ReLU + 2x2 pool: the `conv1_pool` kernel forward;
+    backward, the `conv1_pool_bwd` kernel (dW, db) and the `conv1_pool_dx`
+    kernel (the image cotangent), each run only when its gradient is
+    needed.  x (B, H, W, 1) in the compute dtype; returns (B, H//2, W//2,
+    64) NHWC."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -102,12 +108,30 @@ class Conv1PoolFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, b = ctx.saved_tensors
+        dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            raise NotImplementedError(
-                "the image cotangent of conv1 (the TPU's _dx_kernel) is not "
-                "ported: ROADMAP queue 2 item 6")
-        dw, db = conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy)
-        return None, dw, db
+            dx = conv1_pool_dx.conv1_relu_pool_dx(x, w, b, dy)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy)
+        return dx, dw, db
+
+
+class ReluPoolFn(torch.autograd.Function):
+    """max_pool(relu(z)) whose backward is the `pool_bwd` kernel, read
+    from y = relu(z) alone: the forward keeps no pool indices, only y.
+    Bit-identical to the autograd of F.max_pool2d over torch.relu."""
+
+    @staticmethod
+    def forward(ctx, z, window):
+        y = torch.relu(z)
+        ctx.save_for_backward(y)
+        ctx.window = window
+        return F.max_pool2d(y, window)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (y,) = ctx.saved_tensors
+        return pool_bwd.relu_pool_bwd(y, dy, ctx.window), None
 
 
 class BiasAddFn(torch.autograd.Function):
@@ -161,14 +185,44 @@ class BNTrainFn(torch.autograd.Function):
         return dx, sum_dyxh, sum_dy
 
 
-def _bn_train(x: torch.Tensor, p: dict, s: dict):
+def _bn_train(x: torch.Tensor, p: dict, s: dict, row_mask=None):
     """Train-mode BN: (y, new running stats); the running variance is the
-    unbiased n/(n-1) form (Torch7 parity, cnn.py:371-383)."""
-    y, mean, var = BNTrainFn.apply(x, p["scale"], p["bias"])
-    count = float(x.numel() // x.shape[1])
-    unbiased = var * (count / max(count - 1.0, 1.0))
+    unbiased n/(n-1) form (Torch7 parity, cnn.py:371-383).  row_mask (B,)
+    marks the real rows of a padded batch: the moments and the count
+    exclude the others, and the backward is plain autograd over the
+    weighted moments (cnn.py:384-422)."""
+    if row_mask is None:
+        y, mean, var = BNTrainFn.apply(x, p["scale"], p["bias"])
+        count = float(x.numel() // x.shape[1])
+        unbiased = var * (count / max(count - 1.0, 1.0))
+    else:
+        xf = x.float()
+        wgt = row_mask.float()[:, None, None, None]
+        count = (wgt.sum() * (x.shape[2] * x.shape[3])).clamp(min=1.0)
+        mean = (xf * wgt).sum((0, 2, 3)) / count
+        var = (xf.square() * wgt).sum((0, 2, 3)) / count - mean.square()
+        inv = torch.rsqrt(var + BN_EPS) * p["scale"]
+        y = (x * _channels(inv, x.dtype)
+             + _channels(p["bias"] - mean * inv, x.dtype))
+        mean, var = mean.detach(), var.detach()
+        unbiased = var * (count / (count - 1.0).clamp(min=1.0))
     return y, {"mean": BN_MOMENTUM * s["mean"] + (1.0 - BN_MOMENTUM) * mean,
                "var": BN_MOMENTUM * s["var"] + (1.0 - BN_MOMENTUM) * unbiased}
+
+
+def _relu_pool(x: torch.Tensor, idx: int, fused: bool) -> torch.Tensor:
+    """The ReLU after conv `idx` and the pool after it, if any: through
+    ReluPoolFn when `fused` (training on the kernel route with
+    pool_bwd.ENABLE) and the shape divides the window, else torch.relu +
+    F.max_pool2d."""
+    window = POOL_AFTER.get(idx)
+    if window is None:
+        return torch.relu(x)
+    if fused and pool_bwd.supported(x.shape, window):
+        return ReluPoolFn.apply(x, window)
+    if fused:
+        pool_bwd.launches_ragged += 1
+    return F.max_pool2d(torch.relu(x), window)
 
 
 def apply(params: dict, batch_stats: dict, images: torch.Tensor,
@@ -177,14 +231,16 @@ def apply(params: dict, batch_stats: dict, images: torch.Tensor,
           axis_name=None):
     """images (B, 32, W, 1) float32 in [0, 255] -> features (B, L, 512) in
     the compute dtype; with train=True -> (features, new batch_stats),
-    BatchNorm on the batch's moments.  use_kernel=False runs conv1 as a
-    plain conv.  row_mask and axis_name (masked moments, sync-BN) belong
-    to data-parallel training, which is not ported."""
-    if row_mask is not None or axis_name is not None:
+    BatchNorm on the batch's moments (only the rows row_mask marks, when
+    given).  use_kernel=False runs conv1 as a plain conv and the pools
+    under plain autograd.  axis_name (sync-BN) belongs to data-parallel
+    training, which is not ported."""
+    if axis_name is not None:
         raise NotImplementedError(
-            "masked and synchronized BatchNorm belong to data-parallel "
-            "training: ROADMAP queue 1 item 11")
+            "synchronized BatchNorm belongs to data-parallel training: "
+            "ROADMAP queue 1 item 11")
     cd = compute_dtype
+    fused = train and use_kernel and pool_bwd.ENABLE
     x = ((images - 128.0) / 128.0).to(cd)
     new_stats = dict(batch_stats)
     for idx, (name, _i, _o, _kh, _kw, pad, bn) in enumerate(CONV_DEFS):
@@ -199,12 +255,10 @@ def apply(params: dict, batch_stats: dict, images: torch.Tensor,
         x = BiasAddFn.apply(x, params[name]["b"])
         if bn and train:
             x, new_stats[name + "_bn"] = _bn_train(
-                x, params[name + "_bn"], batch_stats[name + "_bn"])
+                x, params[name + "_bn"], batch_stats[name + "_bn"], row_mask)
         elif bn:
             x = _bn_eval(x, params[name + "_bn"], batch_stats[name + "_bn"])
-        x = torch.relu(x)
-        if idx in POOL_AFTER:
-            x = F.max_pool2d(x, POOL_AFTER[idx])
+        x = _relu_pool(x, idx, fused)
     # (B, 512, 1, L) -> (B, L, 512)
     features = x.squeeze(2).transpose(1, 2)
     return (features, new_stats) if train else features

@@ -9,7 +9,7 @@ every module on a machine without `nvcc`.
 
 Each kernel module (`KERNELS`) holds a wrapper, a plain PyTorch version,
 and a plain integer `launches` that the wrapper bumps at each kernel
-launch.
+launch (some keep per-mode counters `launches_*` beside it).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the kernel modules of this package, one per kernel
 KERNELS = ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",
            "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd", "beam_step",
-           "beam_loop")
+           "beam_loop", "conv1_pool_dx", "pool_bwd")
 
 _lock = threading.Lock()
 _lib = None
@@ -154,6 +154,10 @@ def _declare(lib) -> None:
         # trie, tok_hist, par_hist, fsc, flen, refills, minv, state, L, B,
         # H, Vp, V, T, num_layers, input_feed, K, count_lengths, stream
         "beam_loop": [_P] * 21 + [_I] * 10 + [_P],
+        # x, w9, b, dy, out, B, H, W, stream
+        "conv1_pool_dx": [_P] * 5 + [_I] * 3 + [_P],
+        # y, dy, dz, B, H, W, C, wh, ww, stream
+        "pool_bwd": [_P] * 3 + [_I] * 6 + [_P],
     }
     for name, args in sigs.items():
         for suffix in ("f32", "bf16"):
@@ -205,10 +209,12 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Set every kernel module's counters (`launches` and the per-mode
+    `launches_*`) to 0."""
     import importlib
 
     for k in KERNELS:
         m = importlib.import_module(f"{__name__}.{k}")
-        m.launches = 0
-        if hasattr(m, "launches_collect"):
-            m.launches_collect = 0
+        for name in vars(m):
+            if name.startswith("launches"):
+                setattr(m, name, 0)

@@ -6,8 +6,9 @@ materializing the pre-pool activation.  Each cell's four pre-pool scores
 are recomputed as the forward rounds them; dy goes to the FIRST position
 attaining the window max in row-major window order (select_and_scatter's
 tie rule), and only where that max is positive (the ReLU); dW and db
-accumulate in float32.  The image cotangent (the TPU's `_dx_kernel`) is
-not ported: training never differentiates the images.
+accumulate in float32.  The image cotangent is `conv1_pool_dx`; both
+kernels route through `csrc/conv1_route.cuh`, and both plain versions
+through `routed` here.
 
 The 9-tap score sum runs in tap order with separately rounded products
 and sums on both sides, so the kernel and the plain version route every
@@ -42,20 +43,28 @@ def _scores(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return (s.to(cd) + b.to(cd)[:, None, None]).float()
 
 
-def conv1_relu_pool_bwd_plain(x, w, b, dy):
-    """Plain PyTorch version; same arguments and results as
-    conv1_relu_pool_bwd."""
+def routed(x, w, b, dy):
+    """The pooled cotangent routed to the window positions: (dz (B, 64,
+    Ho, Wo, 4) float32, positions in row-major window order, and g (B, 64,
+    Ho, Wo, 1) float32, dy where the window max is positive)."""
     B, H, W, _ = x.shape
     Ho, Wo = H // 2, W // 2
     z = _scores(x, w, b)[:, :, :2 * Ho, :2 * Wo]
-    # (B, 64, Ho, Wo, 4): window positions in row-major order
     z = z.reshape(B, C1, Ho, 2, Wo, 2).permute(0, 1, 2, 4, 3, 5)
     z = z.reshape(B, C1, Ho, Wo, 4)
     m = z.amax(-1, keepdim=True)
     eq = z == m
     first = eq & (eq.cumsum(-1) == 1)
     g = torch.where(m > 0, dy.permute(0, 3, 1, 2)[..., None].float(), 0.0)
-    dz = torch.where(first, g, 0.0)
+    return torch.where(first, g, 0.0), g
+
+
+def conv1_relu_pool_bwd_plain(x, w, b, dy):
+    """Plain PyTorch version; same arguments and results as
+    conv1_relu_pool_bwd."""
+    B, H, W, _ = x.shape
+    Ho, Wo = H // 2, W // 2
+    dz, g = routed(x, w, b, dy)
     db = g.sum((0, 2, 3, 4))
     dz = dz.reshape(B, C1, Ho, Wo, 2, 2).permute(0, 1, 2, 4, 3, 5)
     dz = F.pad(dz.reshape(B, C1, 2 * Ho, 2 * Wo),

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from aocr_torch.config import Config
+from aocr_torch import decode
 from aocr_torch import loss as loss_lib
 from aocr_torch import optim
 from aocr_torch.models import model
@@ -42,22 +43,29 @@ def _on(x, device: torch.device) -> torch.Tensor:
 
 def _train_step(params: dict, batch_stats: dict, opt_state, images,
                 targets, targets_eval, lr, dropout_rng=None, *,
-                cfg: Config) -> TrainOutput:
+                cfg: Config, real_bs=None, row_mask=None) -> TrainOutput:
     """One step.  dropout_rng is accepted for the reference's signature;
-    dropout is not ported, so it is unused."""
+    dropout is not ported, so it is unused.  For a batch padded to a
+    fixed size, real_bs is the number of real rows (the loss is divided by
+    it, as the reference divides by the real batch size) and row_mask
+    (B,) marks them, which keeps the padding out of the BatchNorm
+    moments; the padded rows carry PAD targets and so no loss."""
     if cfg.augment:
         raise NotImplementedError(
             "on-device augmentation is not ported: ROADMAP queue 1 item 10")
     dev = optim.leaves(params)[0].device
     images = _on(images, dev).float()
     targets, targets_eval = _on(targets, dev), _on(targets_eval, dev)
-    batch_size = images.shape[0]
+    if row_mask is not None:
+        row_mask = _on(row_mask, dev)
+    batch_size = images.shape[0] if real_bs is None else float(real_bs)
     leaves = [x.detach().requires_grad_() for x in optim.leaves(params)]
     it = iter(leaves)
     p = tree_map(params, lambda _p, _x: next(it))
     with torch.enable_grad():
         nll, new_stats, _ = model.forward_loss(
-            p, batch_stats, images, targets, targets_eval, cfg, train=True)
+            p, batch_stats, images, targets, targets_eval, cfg, train=True,
+            row_mask=row_mask)
         mean_loss = nll / batch_size
         flat = torch.autograd.grad(mean_loss, leaves)
     it = iter(flat)
@@ -78,7 +86,7 @@ def _train_step(params: dict, batch_stats: dict, opt_state, images,
 def make_train_step(cfg: Config):
     """The train step for this configuration:
     step(params, batch_stats, opt_state, images, targets, targets_eval,
-    lr, dropout_rng) -> TrainOutput."""
+    lr, dropout_rng, real_bs=None, row_mask=None) -> TrainOutput."""
     return partial(_train_step, cfg=cfg.validate())
 
 
@@ -87,6 +95,26 @@ def init_opt_state(params: dict, cfg: Config):
     if cfg.optimizer == "adadelta":
         return optim.adadelta_init(params)
     return optim.sgd_init(params, optim.hyper_from_config(cfg))
+
+
+@torch.no_grad()
+def eval_decode_step(params: dict, batch_stats: dict, images, targets,
+                     targets_eval, cfg: Config, beam_size: int, max_len: int,
+                     trie_table=None, return_refills: bool = False):
+    """Beam decode and the teacher-forced gold pass from ONE encode
+    (aocr/train_step.py:108-145): returns (beam_from_context's output,
+    token-sum NLL, per-sample gold scores (B,)).  The gold pass runs the
+    tf_fwd kernel on CUDA tensors with cfg.use_pallas."""
+    dev = optim.leaves(params)[0].device
+    targets_eval = _on(targets_eval, dev)
+    context, dec_init = model.encode(params, batch_stats,
+                                     _on(images, dev).float(), cfg)
+    out = decode.beam_from_context(params, context, dec_init, cfg, beam_size,
+                                   max_len, trie_table, return_refills)
+    nll, log_probs = model.loss_from_context(params, context, dec_init,
+                                             _on(targets, dev), targets_eval,
+                                             cfg)
+    return out, nll, gold_scores_from_logprobs(log_probs, targets_eval)
 
 
 def gold_scores_from_logprobs(log_probs: torch.Tensor,

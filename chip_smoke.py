@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of aocr_torch on one NVIDIA GPU (H100): greedy recognition,
-the training step, and beam and dictionary recognition at the full width
-of the default model, through their ten CUDA kernels.
+the training step, beam and dictionary recognition, the image gradient
+and the CLI trainer at the full width of the default model, through
+their twelve CUDA kernels.
 
     python3 chip_smoke.py [--seed N]
 
@@ -9,8 +10,9 @@ Phases, each raising on failure:
   1. environment: the card (nvidia-smi), CUDA, the kernel build from
      aocr_torch/csrc (nvcc, sm_90a, one process per source);
   2. each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes (recognition B=512, T=50; training B=400, T=11),
-     in float32 and bfloat16, with stated tolerances;
+     main paths' shapes (recognition B=512, T=50; training B=400, T=11,
+     the three pools after conv2/4/6), in float32 and bfloat16, with
+     stated tolerances;
   3. recognition end to end: numpy weights from --seed through
      aocr_torch.weights, AttentionOCR.recognize on requests of 1, 8, 32
      and 512 word images (W=100) and a mixed-width list, bf16 (the
@@ -29,12 +31,20 @@ Phases, each raising on failure:
      float32 step 1 (loss_sum, grad norms, updated params) must match
      the plain route on the card and the CPU at a small size; loss_sum
      must fall over the steps; AttentionOCR.score once;
+  4b. the image gradient through cnn.apply(train=True) at B=400, float32
+     (conv1_pool_dx and pool_bwd launch), against the plain route;
+  4c. the CLI trainer (aocr_torch.train.main) on 1,000 + 400 crops
+     written from --seed: bf16 train (a padded partial batch each
+     epoch), -load_model resume, beam-5 test and dictionary test, with
+     launch counts (pool_bwd 3 a step); float32 train and beam-5 test
+     with the kernels against -no_use_pallas;
   5. timing: each kernel against its plain version (CUDA events), its
      bound (the larger of its operations over the card's peak and its
-     bytes over 3.35 TB/s) and, where one PyTorch call computes the same
-     function (cuDNN's LSTM), that call; recognize images/s at B=512,
-     W=100, bf16, T=50, greedy, beam-5 and dictionary beam-5; the bf16
-     train step (ms, images/s); one profile of each path.
+     bytes over 3.35 TB/s) and, where PyTorch computes the same function
+     (cuDNN's LSTM; the unfused pool backward's two calls), that; the
+     recognize images/s at B=512, W=100, bf16, T=50, greedy, beam-5 and
+     dictionary beam-5; the bf16 train step (ms, images/s) and its
+     pool_bwd.ENABLE A/B; one profile of each path.
 Prints the card's name and power limit, one JSON line of kernel results,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device or outside a checkout of the repo.  Never imports jax.
@@ -57,6 +67,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B_SERVE, W_SERVE, T_MAX = 512, 100, 50
 # The train step bench.py times: B=400 crops of 10-letter words (T=11)
 B_TRAIN, WORD_LEN, TRAIN_STEPS = 400, 10, 5
+# the pools after conv2, conv4 and conv6 at the train step's shapes
+# (NCHW) and their windows: the pool_bwd kernel's three launches a step
+POOLS = [((B_TRAIN, 128, 16, 50), (2, 2)), ((B_TRAIN, 256, 8, 25), (2, 1)),
+         ((B_TRAIN, 512, 4, 25), (2, 1))]
+# the CLI trainer's data set: 1,000 train and 400 validation crops
+N_TRAIN, N_VAL = 1000, 400
 # The reference's beam width (-beam_size 5)
 BEAM = 5
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W)
@@ -861,23 +877,6 @@ def live_steps(m, batch) -> float:
     return live.sum().item() / hist.shape[1]
 
 
-def unported_bounds() -> None:
-    """The bounds of the two TPU kernels the port has not ported yet, at
-    the train step's shapes (B=400, 32x100 crops, bf16): the conv1 image
-    cotangent (conv1_pool.py:287 _dx_kernel: recompute the routing, then
-    the 64->1 transposed conv) and the fused ReLU + max-pool backward of
-    pool1 (pool_bwd.py:117 relu_pool_bwd: read y and dy, write dz)."""
-    B, W, b2 = B_TRAIN, W_SERVE, 2
-    conv = 2.0 * 9 * 64 * B * 32 * W
-    dx = bound(2 * conv, b2 * (2 * B * 32 * W + B * 16 * (W // 2) * 64)
-               + 4 * (9 * 64 + 64), "bf16")
-    pool = bound(4.0 * B * 32 * W * 64,
-                 b2 * (2 * B * 32 * W * 64 + B * 16 * (W // 2) * 64), "bf16")
-    log(f"bound (not ported) conv1 _dx_kernel bf16 B={B}: {dx[0]:.4f} ms "
-        f"({dx[1]}); relu_pool_bwd of pool1 bf16 B={B}: {pool[0]:.4f} ms "
-        f"({pool[1]})")
-
-
 def beam_timings(dev, models, requests, lexicon, card: str):
     """beam_step and beam_loop against their plain versions (CUDA events)
     and their bounds at B=512, K=5; beam-5 and dictionary beam-5 images/s
@@ -1222,6 +1221,29 @@ def errs(got, want):
             max(rel_err(a, b) for a, b in zip(got, want)))
 
 
+def bf16_steps(got, want) -> float:
+    """max |got - want| in bfloat16 steps (ulps) of the larger magnitude
+    of the two; equal values, zeros included, count 0."""
+    import torch
+
+    got, want = got.float(), want.float()
+    m = torch.maximum(got.abs(), want.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(m.clamp(min=1e-30))) - 7)
+    return float(((got - want).abs() / ulp).max())
+
+
+def pool_input(g, shape, dev, dt):
+    """relu(z), NCHW in channels_last memory as convs 2-7 leave it, for z
+    of a few levels: equal maxima inside windows, zeros, and the first two
+    rows of every image below zero (whole windows of zeros)."""
+    import torch
+
+    z = (torch.rand(*shape, generator=g) * 4 - 2).round() / 2
+    z[:, :, :2] = -1.0
+    return torch.relu(z).to(dev, dt).contiguous(
+        memory_format=torch.channels_last)
+
+
 def train_kernel_checks(dev, results: dict) -> None:
     """The five training kernel rows against their plain versions at the
     train step's shapes (B=400, L=24, T=11, H_enc=512, H_dec=1024).  Each
@@ -1229,9 +1251,11 @@ def train_kernel_checks(dev, results: dict) -> None:
     residual inputs come from the plain forward."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
-    from aocr_torch.ops.cuda import (conv1_pool_bwd, lstm_bwd, lstm_fwd,
-                                     tf_bwd, tf_fwd)
+    from aocr_torch.ops.cuda import (conv1_pool_bwd, conv1_pool_dx,
+                                     lstm_bwd, lstm_fwd, pool_bwd, tf_bwd,
+                                     tf_fwd)
 
     g = torch.Generator().manual_seed(17)
     rand = lambda *s, lo=-1.0, hi=1.0: (torch.rand(*s, generator=g)
@@ -1267,6 +1291,48 @@ def train_kernel_checks(dev, results: dict) -> None:
             want = conv1_pool_bwd.conv1_relu_pool_bwd_plain(x, w, b, dy)
             record("conv1_pool_bwd", name, got, want, 1e-4,
                    f" B={B} ({kind})")
+            # the image cotangent's 16 taps a cell: float32 within 1e-5 of
+            # the scale (summation order only), bf16 within one step
+            got = conv1_pool_dx.conv1_relu_pool_dx16(x, w, b, dy)
+            want = conv1_pool_dx.conv1_relu_pool_dx16_plain(x, w, b, dy)
+            err = float((got.float() - want.float()).abs().max())
+            results.setdefault(("conv1_pool_dx", name), []).append(err)
+            if f32:
+                rel = rel_err(got, want)
+                check(rel <= 1e-5, f"conv1_pool_dx {name} ({kind}): max err "
+                                   f"{rel} of the scale")
+                what = f"{rel:.3g} of the plain version's max abs (tol 1e-5)"
+            else:
+                steps = bf16_steps(got, want)
+                check(steps <= 1.0, f"conv1_pool_dx {name} ({kind}): "
+                                    f"{steps} bf16 steps off")
+                same = float((got == want).float().mean())
+                what = (f"equal elements {same:.6f}, at most {steps:.3g} "
+                        "bf16 steps off (tol 1)")
+            log(f"check conv1_pool_dx {name} B={B} ({kind}): max_abs_err "
+                f"{err:.3g}, {what}")
+        # the fused ReLU + max-pool backward at the three pools' shapes:
+        # bit-identical to its plain version and to autograd
+        for shape, window in POOLS:
+            y = pool_input(g, shape, dev, dt)
+            dy = rand(shape[0], shape[1], shape[2] // window[0],
+                      shape[3] // window[1]).to(dev, dt)
+            got = pool_bwd.relu_pool_bwd(y, dy, window)
+            want = pool_bwd.relu_pool_bwd_plain(y, dy, window)
+            yy = y.detach().requires_grad_()
+            (ref,) = torch.autograd.grad(F.max_pool2d(torch.relu(yy), window),
+                                         yy, dy)
+            err = float((got.float() - want.float()).abs().max())
+            err_ag = float((got.float() - ref.float()).abs().max())
+            check(err == 0 and err_ag == 0,
+                  f"pool_bwd {name} {shape}: differs from its plain version "
+                  f"({err}) or from autograd ({err_ag})")
+            results.setdefault(("pool_bwd", name), []).append(
+                max(err, err_ag))
+            zeros = float((y == 0).float().mean())
+            log(f"check pool_bwd {name} {tuple(shape)} window {window}: "
+                f"max_abs_err {err} vs plain, {err_ag} vs autograd of "
+                f"max_pool2d(relu) (tol 0); y == 0 for {zeros:.3f}")
         # encoder: one direction, H=512, L=24, both directions
         tol = 1e-4 if f32 else 3e-2
         wh = rand(He, 4 * He, lo=-He ** -0.5, hi=He ** -0.5).to(dev, dt)
@@ -1429,8 +1495,9 @@ def train_timings(dev, cfg, np_model, batch, card: str):
     import torch
 
     from aocr_torch import train_step, weights
-    from aocr_torch.ops.cuda import (conv1_pool_bwd, lstm_bwd, lstm_fwd,
-                                     tf_bwd, tf_fwd)
+    from aocr_torch.ops.cuda import (conv1_pool_bwd, conv1_pool_dx,
+                                     lstm_bwd, lstm_fwd, pool_bwd, tf_bwd,
+                                     tf_fwd)
 
     g = torch.Generator().manual_seed(19)
     rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
@@ -1478,6 +1545,10 @@ def train_timings(dev, cfg, np_model, batch, card: str):
                        lambda: tf_fwd.decoder_fwd_scan_plain(*fargs), 3),
             "tf_bwd": (lambda: tf_bwd.decoder_bwd_scan(*bargs),
                        lambda: tf_bwd.decoder_bwd_scan_plain(*bargs), 3),
+            "conv1_pool_dx": (
+                lambda: conv1_pool_dx.conv1_relu_pool_dx16(x, w, b, dy),
+                lambda: conv1_pool_dx.conv1_relu_pool_dx16_plain(x, w, b,
+                                                                 dy), 20),
         }
         conv_flops = 2.0 * 9 * 64 * B * 32 * W_SERVE
         tf_flops = T * B * step_flops(Hd, L, cfg.target_vocab_size, 2, True,
@@ -1487,7 +1558,11 @@ def train_timings(dev, cfg, np_model, batch, card: str):
             "lstm_fwd_collect": (2.0 * L * B * He * 4 * He, (wh, xp, z, z)),
             "lstm_bwd": (2.0 * L * B * 4 * He * He, largs),
             "tf_fwd": (tf_flops, fargs),
-            "tf_bwd": (tf_flops + 4.0 * T * B * L * Hd, bargs)}
+            "tf_bwd": (tf_flops + 4.0 * T * B * L * Hd, bargs),
+            # the routing's 4 x 9 taps and the winner's 9 tap products, a
+            # cell and channel
+            "conv1_pool_dx": (2.0 * 45 * B * 16 * (W_SERVE // 2) * 64,
+                              (x, w, b, dy))}
         for k, (fk, fp, n) in pairs.items():
             k1, k2, p1, p2 = time_pair(fk, fp, n)
             ms[(k, name)] = (min(k1, k2), min(p1, p2))
@@ -1496,6 +1571,7 @@ def train_timings(dev, cfg, np_model, batch, card: str):
             log(f"time {k} {name} (training shapes): kernel {k1:.4f} / "
                 f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
                 f"{bounds[(k, name)][0]:.4f} ms ({bounds[(k, name)][1]})")
+        pool_timings(dev, dt, name, g, ms, bounds, lib)
         fwd, bwd = cudnn_lstm(dev, dt, L, B, cfg.cnn_feature_size, He, True)
         lib[("lstm_fwd_collect", name)] = library_ms(
             f"lstm_fwd collect {name}: cuDNN nn.LSTM forward for training, "
@@ -1527,7 +1603,399 @@ def train_timings(dev, cfg, np_model, batch, card: str):
         f"(median of 5: {[round(t * 1e3, 2) for t in times]}), "
         f"{B / med:.1f} images/s on {card}")
     profile(f"train step bf16 B={B}", lambda: float(run().loss_sum))
+    # pool_bwd.ENABLE A/B: the fused pool backward against torch.relu +
+    # F.max_pool2d under autograd, turns on, off, off, on, on, off
+    turns = {True: [], False: []}
+    for on in (True, False, False, True, True, False):
+        pool_bwd.ENABLE = on
+        run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            float(run().loss_sum)
+            times.append((time.perf_counter() - t0) * 1e3)
+        turns[on].append(float(np.median(times)))
+    pool_bwd.ENABLE = True
+    ms[("enable_ab", "bf16")] = (min(turns[True]), min(turns[False]))
+    log(f"pool_bwd.ENABLE A/B, bf16 train step B={B}: on "
+        f"{[round(t, 3) for t in turns[True]]} ms, off "
+        f"{[round(t, 3) for t in turns[False]]} ms (median of 5 a turn, "
+        f"turns on/off/off/on/on/off) on {card}")
     return ms, bounds, lib
+
+
+def pool_timings(dev, dt, name: str, g, ms: dict, bounds: dict,
+                 lib: dict) -> None:
+    """pool_bwd at the three pools' shapes against its plain version, its
+    bound and the two PyTorch calls of the unfused backward
+    (max_pool2d_with_indices_backward, then threshold_backward); the
+    entries hold the sums over the three, one train step's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from aocr_torch.ops.cuda import pool_bwd
+
+    tot = {"k": 0.0, "p": 0.0, "b": 0.0, "l": 0.0}
+    for shape, window in POOLS:
+        y = pool_input(g, shape, dev, dt)
+        dy = (torch.rand(shape[0], shape[1], shape[2] // window[0],
+                         shape[3] // window[1], generator=g)
+              .to(dev, dt).contiguous(memory_format=torch.channels_last))
+        _, idx = F.max_pool2d(y, window, return_indices=True)
+        aten = torch.ops.aten
+
+        def unfused():
+            gy = aten.max_pool2d_with_indices_backward(
+                dy, y, list(window), list(window), [0, 0], [1, 1], False,
+                idx)
+            return aten.threshold_backward(gy, y, 0)
+
+        k1, k2, p1, p2 = time_pair(
+            lambda: pool_bwd.relu_pool_bwd(y, dy, window),
+            lambda: pool_bwd.relu_pool_bwd_plain(y, dy, window), 20)
+        lt = library_ms(f"pool_bwd {name} {tuple(shape)}: "
+                        "max_pool2d_with_indices_backward + "
+                        "threshold_backward (two calls)", unfused, 20)
+        b = bound(2.0 * y.numel(), tensor_bytes(
+            y, dy, pool_bwd.relu_pool_bwd(y, dy, window)), name)
+        log(f"time pool_bwd {name} {tuple(shape)} window {window}: kernel "
+            f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
+            f"{b[0]:.4f} ms ({b[1]})")
+        tot["k"] += min(k1, k2)
+        tot["p"] += min(p1, p2)
+        tot["b"] += b[0]
+        tot["l"] = None if lt is None or tot["l"] is None else tot["l"] + lt
+    ms[("pool_bwd", name)] = (tot["k"], tot["p"])
+    bounds[("pool_bwd", name)] = (tot["b"], "bytes")
+    lib[("pool_bwd", name)] = tot["l"]
+    log(f"time pool_bwd {name}, the three pools of a step: kernel "
+        f"{tot['k']:.4f} ms, plain {tot['p']:.4f} ms, bound {tot['b']:.4f} "
+        f"ms (bytes), library {tot['l']} ms")
+
+
+# ------------------------------------------------------------ image gradient
+
+def image_gradient(dev, seed: int) -> dict:
+    """d(features)/d(images) through cnn.apply(train=True) at B=400 on
+    32x100 noise crops, float32, from the numpy weights: the kernel route
+    (conv1_pool forward, conv1_pool_dx and pool_bwd backward) against the
+    plain route (use_kernel=False: F.conv2d, torch.relu, F.max_pool2d
+    under autograd) on the card.  A pool decision that flips at a float32
+    near-tie moves single pixels, so the gradient is held as a whole
+    (relative L2 error 1e-4) and element by element on all but 0.1%
+    (1e-5 of the scale).  Returns the kernel route's launch counts."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import weights
+    from aocr_torch.models import cnn
+    from aocr_torch.ops import cuda
+
+    p, s = weights.from_numpy(*numpy_model(base_config(), seed), dev)
+    rs = np.random.RandomState(seed + 8)
+    images = torch.from_numpy(rs.uniform(0, 255, (B_TRAIN, 32, W_SERVE, 1))
+                              .astype(np.float32)).to(dev)
+    r = torch.from_numpy(rs.uniform(-1, 1, (B_TRAIN, W_SERVE // 4 - 1, 512))
+                         .astype(np.float32)).to(dev)
+
+    def grad(kernel):
+        im = images.clone().requires_grad_()
+        feats, _ = cnn.apply(p["cnn"], s, im, torch.float32,
+                             use_kernel=kernel, train=True)
+        return torch.autograd.grad((feats * r).sum(), im)[0]
+
+    cuda.reset_launch_counts()
+    got = grad(True)
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    log(f"image-gradient path launch counts: {counts}")
+    for k, n in (("conv1_pool", 1), ("conv1_pool_dx", 1), ("pool_bwd", 3)):
+        check(counts[k] == n, f"image gradient: {k} launched {counts[k]} "
+                              f"times, not {n}")
+    want = grad(False)
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    l2 = float(err.norm() / want.norm())
+    within = float((err <= 1e-5 * scale).float().mean())
+    check(bool(torch.isfinite(got).all()) and scale > 0,
+          "image gradient: non-finite or zero")
+    check(l2 <= 1e-4 and within >= 0.999,
+          f"image gradient f32: kernel and plain routes disagree (L2 rel "
+          f"{l2}, share within 1e-5 of the scale {within})")
+    log(f"image gradient f32 B={B_TRAIN} 32x{W_SERVE}, kernel vs plain route "
+        f"on the card: L2 rel err {l2:.3g} (tol 1e-4), max_abs_err "
+        f"{float(err.max()):.3g} of scale {scale:.3g}, share within 1e-5 "
+        f"of the scale {within:.6f} (tol 0.999)")
+    return counts
+
+
+# ------------------------------------------------------------ CLI trainer
+
+def write_dataset(root: str, seed: int):
+    """N_TRAIN and N_VAL 32x100 .npy crops with random 10-letter words
+    (train.txt, val.txt) and dict.txt, the validation words and 1,000
+    others, under root.  Returns the lexicon."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed + 9)
+    letters = list("abcdefghijklmnopqrstuvwxyz0123456789")
+    word = lambda: "".join(rs.choice(letters, WORD_LEN))
+    out = {}
+    for split, n in (("train", N_TRAIN), ("val", N_VAL)):
+        os.makedirs(os.path.join(root, split))
+        words = [word() for _ in range(n)]
+        lines = []
+        for i, (w, img) in enumerate(zip(words, word_images(rs, n,
+                                                            W_SERVE))):
+            np.save(os.path.join(root, split, f"{i}.npy"), img)
+            lines.append(f"{split}/{i}.npy {w}")
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        out[split] = words
+    lexicon = sorted(set(out["val"]) | {word() for _ in range(1000)})
+    with open(os.path.join(root, "dict.txt"), "w") as f:
+        f.write("\n".join(lexicon) + "\n")
+    return lexicon
+
+
+def run_trainer(root: str, tag: str, seed: int, *args):
+    """aocr_torch.train.main on the card with the data under root and
+    args, its stdout kept out of this log; returns (its log messages, the
+    launch counts of the run, seconds)."""
+    import io
+
+    import torch
+
+    from aocr_torch import train
+    from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import lstm_fwd
+
+    log_path = os.path.join(root, f"{tag}.log")
+    argv = ["-data_base_dir", root, "-data_path", "train.txt",
+            "-val_data_path", "val.txt", "-log_path", log_path,
+            "-model_dir", os.path.join(root, tag), "-input_feed",
+            "-max_decoder_l", str(T_MAX), "-batch_size", str(B_TRAIN),
+            "-seed", str(seed), *args]
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = cuda.launch_counts()
+    counts["lstm_fwd_collect"] = lstm_fwd.launches_collect
+    with open(log_path) as f:
+        msgs = [line.split(" ", 2)[2] for line in f.read().splitlines()]
+    log(f"trainer {tag} ({' '.join(args)}): {secs:.1f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return msgs, counts, secs
+
+
+def step_perplexities(msgs):
+    """The per-step perplexity lines of a train run (the first is nan)."""
+    return [float(m) for m in msgs
+            if m == "nan" or m.replace(".", "", 1).isdigit()]
+
+
+def window_perplexities_ok(msgs) -> bool:
+    """Every 'training perplexity' line of a run is finite and above 1."""
+    vals = [float(m.rsplit("= ", 1)[1]) for m in msgs
+            if "training perplexity" in m]
+    return bool(vals) and all(math.isfinite(v) and v > 1 for v in vals)
+
+
+def perplexity_rel_err(a, b) -> float:
+    """max relative difference of two runs' step perplexities; a nan (a
+    step logged before any loss was summed) must be nan in both."""
+    if len(a) != len(b):
+        return float("inf")
+    err = 0.0
+    for x, y in zip(a, b):
+        if math.isnan(x) or math.isnan(y):
+            if not (math.isnan(x) and math.isnan(y)):
+                return float("inf")
+            continue
+        err = max(err, abs(x - y) / abs(y))
+    return err
+
+
+def last_value(msgs, key: str) -> float:
+    """The number after '= ' on the last message holding key."""
+    hits = [m for m in msgs if key in m]
+    check(bool(hits), f"trainer: no '{key}' line")
+    return float(hits[-1].rsplit("= ", 1)[1].split(",")[0]) if hits else \
+        float("nan")
+
+
+def read_results(path: str):
+    with open(path) as f:
+        return [line.rstrip("\n").split("\t") for line in f]
+
+
+def trainer_phase(dev, seed: int, card: str):
+    """python -m aocr_torch.train at the default model's full width on
+    N_TRAIN + N_VAL crops written from seed: bf16 train (one epoch: 2
+    full steps and a 200-row partial one, a checkpoint and a one-batch
+    validation every 2 steps), a -load_model resume of two epochs, a
+    beam-5 test and a beam-5 dictionary test; then a float32 train run
+    and a float32 beam-5 test with the kernels and with -no_use_pallas.
+    Returns (the launch counts of all runs, their readings)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aocr_torch import checkpoint, decode
+    from aocr_torch.ops.cuda import beam_step
+    from aocr_torch.optim import leaves
+
+    root = tempfile.mkdtemp(prefix="aocr_trainer_")
+    total: dict = {}
+    readings = {}
+
+    def run(tag, *args):
+        msgs, counts, secs = run_trainer(root, tag, seed, *args)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return msgs, counts, secs
+
+    def final(tag):
+        return checkpoint.load(checkpoint.final_path(os.path.join(root, tag)))
+
+    try:
+        t0 = time.perf_counter()
+        lexicon = write_dataset(root, seed)
+        log(f"trainer data: {N_TRAIN} + {N_VAL} crops and a {len(lexicon)}"
+            f"-word lexicon written in {time.perf_counter() - t0:.1f} s")
+        train_args = ("-phase", "train", "-steps_per_checkpoint", "2",
+                      "-num_batches_val", "1")
+        bf16 = ("-compute_dtype", "bfloat16")
+        # 1. bf16 train, one epoch: 3 steps
+        msgs, c, _ = run("bf16", *train_args, *bf16, "-num_epochs", "1")
+        ck = final("bf16")
+        check(ck["global_step"] == 3, f"trainer bf16: global_step "
+                                      f"{ck['global_step']}, not 3")
+        for name in ("model-2", "model-3", "final-model"):
+            check(os.path.exists(os.path.join(root, "bf16", name)),
+                  f"trainer bf16: no checkpoint {name}")
+        ppl = step_perplexities(msgs)
+        check(len(ppl) == 3 and window_perplexities_ok(msgs),
+              f"trainer bf16: step perplexities {ppl}")
+        for k, n in (("pool_bwd", 9), ("conv1_pool_bwd", 3), ("tf_bwd", 3),
+                     ("lstm_bwd", 6), ("lstm_fwd_collect", 6),
+                     ("greedy_loop", 2), ("tf_fwd", 5)):
+            check(c[k] == n, f"trainer bf16 train: {k} launched {c[k]} "
+                             f"times, not {n}")
+        check(c["conv1_pool_dx"] == 0, "trainer: conv1_pool_dx in training")
+        readings["bf16 train"] = (ppl, last_value(msgs, "Val Accuracy"))
+        # 2. resume for two epochs: steps 4-9
+        msgs, c, _ = run("resume", *train_args, *bf16, "-num_epochs", "2",
+                         "-load_model", "-model_dir",
+                         os.path.join(root, "bf16"))
+        check(any("Loading model from" in m for m in msgs),
+              "trainer resume: no checkpoint loaded")
+        check(final("bf16")["global_step"] == 9,
+              f"trainer resume: global_step {final('bf16')['global_step']}")
+        check(c["pool_bwd"] == 18, f"trainer resume: pool_bwd launched "
+                                   f"{c['pool_bwd']} times, not 18")
+        thr = [m for m in msgs if m.startswith("Throughput")]
+        ppl = step_perplexities(msgs)
+        check(len(ppl) == 6 and window_perplexities_ok(msgs),
+              f"trainer resume: step perplexities {ppl}")
+        readings["throughput"] = thr
+        log(f"trainer bf16 B={B_TRAIN} resume: step perplexities "
+            f"{[round(x, 3) for x in ppl]}; {thr} on {card}")
+        # 3. and 4. beam-5 tests, without and with the dictionary
+        prefixes = lexicon_prefixes(lexicon)
+        for tag, extra in (("test", ()),
+                           ("test_dict", ("-use_dictionary",
+                                          "-dictionary_path",
+                                          os.path.join(root, "dict.txt")))):
+            out = os.path.join(root, f"res_{tag}")
+            msgs, c, secs = run(tag, "-phase", "test", "-load_model",
+                                "-model_dir", os.path.join(root, "bf16"),
+                                *bf16, "-data_path", "val.txt",
+                                "-beam_size", str(BEAM), "-visualize",
+                                "-output_dir", out,
+                                "-steps_per_checkpoint", "1000", *extra)
+            acc = last_value(msgs, "Number of samples")
+            cer = last_value(msgs, "Character error rate")
+            rows = read_results(os.path.join(out, "results.txt"))
+            check(len(rows) == N_VAL, f"trainer {tag}: {len(rows)} rows")
+            check(abs(acc - np.mean([r[1] == r[2] for r in rows])) < 1e-6
+                  and 0.0 <= cer <= 1.0,
+                  f"trainer {tag}: accuracy {acc}, CER {cer}")
+            check(c["beam_loop"] == 1 and c["tf_fwd"] == 1
+                  and c["conv1_pool"] == 1,
+                  f"trainer {tag}: launches {c}")
+            if extra:
+                check(all(r[2] in prefixes for r in rows),
+                      f"trainer {tag}: a transcript off the lexicon")
+            log(f"trainer {tag} bf16 beam-5 B={N_VAL}: accuracy {acc:f}, "
+                f"CER {cer:f}, {len(set(r[2] for r in rows))} distinct "
+                f"transcripts, {secs:.2f} s with set-up")
+            readings[tag] = (acc, cer)
+        # 5. float32 train, kernels against -no_use_pallas
+        runs = {}
+        for tag, extra in (("f32k", ()), ("f32p", ("-no_use_pallas",))):
+            msgs, _c, _ = run(tag, *train_args, "-num_epochs", "1", *extra)
+            runs[tag] = (step_perplexities(msgs), final(tag))
+        (pk, ck), (pp, cp) = runs["f32k"], runs["f32p"]
+        perr = perplexity_rel_err(pk, pp)
+        werr = max(float(np.abs(a - b).max()) for a, b in
+                   zip(leaves(ck["params"]), leaves(cp["params"])))
+        check(perr <= 1e-5 and werr <= 1e-4,
+              f"trainer f32: kernels vs plain route: perplexity rel err "
+              f"{perr}, params max abs err {werr}")
+        log(f"trainer f32, kernels vs -no_use_pallas on the card, 3 steps: "
+            f"step perplexity rel err {perr:.3g} (tol 1e-5), final params "
+            f"max_abs_err {werr:.3g} (tol 1e-4)")
+        # 6. float32 beam-5 tests on the kernel run's checkpoint; the plain
+        # route's top-K margins recorded at every step
+        margins = []
+        topk = decode._apply_trie_and_topk
+
+        def recorded(total_, valid, K):
+            t = total_ if valid is None else torch.where(
+                valid, total_, torch.full_like(total_, beam_step.NEG))
+            margins.append(beam_step.topk_margin(t, K))
+            return topk(total_, valid, K)
+
+        res = {}
+        for tag, extra in (("test_f32k", ()),
+                           ("test_f32p", ("-no_use_pallas",))):
+            out = os.path.join(root, f"res_{tag}")
+            decode._apply_trie_and_topk = recorded if extra else topk
+            try:
+                run(tag, "-phase", "test", "-load_model", "-model_dir",
+                    os.path.join(root, "f32k"), "-data_path", "val.txt",
+                    "-beam_size", str(BEAM), "-visualize", "-output_dir", out,
+                    "-steps_per_checkpoint", "1000", *extra)
+            finally:
+                decode._apply_trie_and_topk = topk
+            res[tag] = read_results(os.path.join(out, "results.txt"))
+        got, want = res["test_f32k"], res["test_f32p"]
+        check([r[:2] for r in got] == [r[:2] for r in want],
+              "trainer f32 test: rows differ in path or gold")
+        near = torch.stack(margins).min(0).values.cpu().numpy() \
+            if margins else np.zeros(0)
+        parted = [i for i, (a, b) in enumerate(zip(got, want)) if a[2] != b[2]]
+        for i in parted:
+            ok = (i < len(near) and near[i] < 1e-4) or \
+                abs(float(got[i][3]) - float(want[i][3])) < 1e-4
+            check(ok, f"trainer f32 test: row {i} parts without a near-tie "
+                      f"(plain margin {near[i] if i < len(near) else None}, "
+                      f"scores {got[i][3]} / {want[i][3]})")
+        same = 1.0 - len(parted) / max(len(got), 1)
+        log(f"trainer f32 beam-5 test, kernels vs -no_use_pallas: "
+            f"transcripts identical for {same:.4f} of {len(got)} rows (the "
+            f"rest at plain near-ties < 1e-4)")
+        readings["f32 test identical"] = same
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total, readings
 
 
 # ------------------------------------------------------------ main
@@ -1581,13 +2049,14 @@ def main() -> int:
     bcounts, bmodels, brequests = beam_end_to_end(dev, args.seed,
                                                   (words, table_np))
     tcounts, tcfg, np_model, batch = train_end_to_end(dev, args.seed)
+    gcounts = image_gradient(dev, args.seed)
+    ccounts, readings = trainer_phase(dev, args.seed, card)
     ms, bounds, lib = timings(dev, models, requests, card, table)
     bms, bbounds, rates = beam_timings(dev, bmodels, brequests,
                                        (words, table_np), card)
     ms.update(bms)
     bounds.update(bbounds)
     tms, tbounds, tlib = train_timings(dev, tcfg, np_model, batch, card)
-    unported_bounds()
     ms.update(tms)
     bounds.update(tbounds)
     lib.update(tlib)
@@ -1600,7 +2069,8 @@ def main() -> int:
                   "decode_step": "f32", "greedy_loop": "bf16",
                   "conv1_pool_bwd": "bf16", "lstm_bwd": "bf16",
                   "tf_fwd": "bf16", "tf_bwd": "bf16", "beam_step": "bf16",
-                  "beam_loop": "bf16"}
+                  "beam_loop": "bf16", "conv1_pool_dx": "f32",
+                  "pool_bwd": "bf16"}
     replaces = {"conv1_pool": "aocr/ops/pallas/conv1_pool.py:244",
                 "lstm_fwd": "aocr/ops/pallas/lstm_fwd.py:158",
                 "decode_step": "aocr/ops/pallas/decode_step.py:199",
@@ -1610,22 +2080,25 @@ def main() -> int:
                 "tf_fwd": "aocr/ops/pallas/tf_fwd.py:252",
                 "tf_bwd": "aocr/ops/pallas/tf_bwd.py:276",
                 "beam_step": "aocr/ops/pallas/beam_step.py:185",
-                "beam_loop": "aocr/ops/pallas/beam_loop.py:514"}
+                "beam_loop": "aocr/ops/pallas/beam_loop.py:514",
+                "conv1_pool_dx": "aocr/ops/pallas/conv1_pool.py:287",
+                "pool_bwd": "aocr/ops/pallas/pool_bwd.py:117"}
     kernels = []
     for k in cuda.KERNELS:
         d = main_dtype[k]
         entry = {
             "name": k, "route": "cuda", "source": f"aocr_torch/csrc/{k}.cu",
             "replaces": replaces[k],
-            # the recognize, beam and train paths' runs, each read right
-            # after it
-            "launches": counts[k] + bcounts[k] + tcounts[k],
+            # the recognize, beam, train step, image-gradient and CLI
+            # trainer paths' runs, each read right after it
+            "launches": (counts[k] + bcounts[k] + tcounts[k] + gcounts[k]
+                         + ccounts[k]),
             "max_abs_err": max(results[(k, d)]), "dtype": d,
             "ms": ms[(k, d)][0], "plain_ms": ms[(k, d)][1],
             "bound_ms": bounds[(k, d)][0], "bound_by": bounds[(k, d)][1],
             "library_ms": lib.get((k, d))}
         if k == "lstm_fwd":
-            c = tcounts["lstm_fwd_collect"]
+            c = tcounts["lstm_fwd_collect"] + ccounts["lstm_fwd_collect"]
             entry["modes"] = {
                 "collect=False": {"launches": entry["launches"] - c},
                 "collect=True": {
@@ -1635,10 +2108,19 @@ def main() -> int:
                     "bound_ms": bounds[("lstm_fwd_collect", d)][0],
                     "bound_by": bounds[("lstm_fwd_collect", d)][1],
                     "library_ms": lib.get(("lstm_fwd_collect", d))}}
+        if k == "pool_bwd":
+            entry["per"] = "one train step: the three pools, summed"
+            entry["library"] = ("max_pool2d_with_indices_backward + "
+                                "threshold_backward (two calls)")
         kernels.append(entry)
     log(f"end to end, bf16, B={B_SERVE}, W={W_SERVE}, T={T_MAX}: beam-5 "
         f"{rates['beam-5']:.1f} images/s, dictionary beam-5 "
         f"{rates['dict-beam-5']:.1f} images/s on {card}")
+    on, off = ms[("enable_ab", "bf16")]
+    log(f"bf16 train step B={B_TRAIN}: make_train_step "
+        f"{ms[('train_step', 'bf16')]:.2f} ms; pool_bwd.ENABLE on {on:.2f} "
+        f"ms, off {off:.2f} ms (best turns); CLI trainer "
+        f"{readings['throughput']} on {card}")
     if FAILURES:
         print(f"chip_smoke.py: {len(FAILURES)} check(s) failed:\n  "
               + "\n  ".join(FAILURES), file=sys.stderr)

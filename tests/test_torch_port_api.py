@@ -24,6 +24,7 @@ from aocr_torch import weights
 from aocr_torch.api import AttentionOCR
 from aocr_torch.config import Config as TConfig
 from aocr_torch.models import model
+from aocr_torch.ops import cuda
 from tests import synth
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -118,9 +119,39 @@ def test_create_is_seeded_and_sized():
 
 
 def test_unported_surfaces_raise():
-    ocr = AttentionOCR.create(_tcfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="paths"):
+    """Image paths are decoded on the host; device-side preprocessing of
+    them is not ported and names its ROADMAP item."""
+    ocr = AttentionOCR.create(_tcfg(device_preprocess=True,
+                                    snap_width_ladder=False), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         ocr.recognize(["word.png"])
+
+
+@pytest.mark.parametrize("beam_size", [1, 2])
+def test_recognize_image_paths_matches_reference(tmp_path, beam_size):
+    """recognize() on .npy image paths of mixed sizes (decoded, luminance
+    and resize on the host by aocr_torch.data) against aocr.api on the same
+    checkpoint and paths: the same transcripts, scores within 1e-5
+    relative (float32); a bare path is one image."""
+    jocr = _sharpened(JaxOCR.create(_cfg(seed=907)))
+    jocr.save(str(tmp_path / "model"))
+    ocr = AttentionOCR.load(str(tmp_path / "model"), device="cpu")
+    rs = np.random.RandomState(8)
+    paths = []
+    for i, (word, w) in enumerate([("ab", 60), ("cd", 100), ("e1", 140),
+                                   ("xyz", 100), ("0", 45)]):
+        img = synth.render_word(word, 32, w)
+        if i % 2:  # an RGB crop at another height: luminance and resize
+            img = np.repeat(img[::2, :, None], 3, -1).astype(np.uint8)
+        p = str(tmp_path / f"{i}.npy")
+        np.save(p, img)
+        paths.append(p)
+    want_words, want_scores = jocr.recognize(paths, beam_size=beam_size)
+    words, scores = ocr.recognize(paths, beam_size=beam_size)
+    assert words == want_words
+    np.testing.assert_allclose(scores, want_scores, rtol=1e-5, atol=1e-5)
+    one_word, _ = ocr.recognize(paths[1], beam_size=beam_size)
+    assert one_word == [words[1]]
 
 
 @pytest.mark.parametrize("beam_size", [1, 5])
@@ -217,9 +248,13 @@ def _assert_port_only(loaded):
     assert {"aocr_torch.loss", "aocr_torch.optim", "aocr_torch.train_step",
             "aocr_torch.config", "aocr_torch.vocab", "aocr_torch.checkpoint",
             "aocr_torch.utils.trie",
-            *(f"aocr_torch.ops.cuda.{k}" for k in (
-                "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd",
-                "beam_step", "beam_loop"))} <= port
+            "aocr_torch.train", "aocr_torch.eval", "aocr_torch.data",
+            "aocr_torch.utils.logging_util", "aocr_torch.utils.native",
+            *(f"aocr_torch.ops.cuda.{k}" for k in cuda.KERNELS)} <= port
+    assert cuda.KERNELS == (
+        "conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",
+        "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd", "beam_step",
+        "beam_loop", "conv1_pool_dx", "pool_bwd")
 
 
 def test_port_never_imports_jax():

@@ -16,19 +16,27 @@ beam_loop) and the trie operands of decode_step and greedy_loop: float32
 tokens, parents, histories and refill counts identical to the plain
 version's (a row may part only at a step whose plain margin is a
 near-tie), scores within 1e-5 relative; bfloat16 as the decode checks.
+The pool backward (pool_bwd, ReluPoolFn) is bit-identical to its plain
+version and to autograd of F.max_pool2d over torch.relu, ties included;
+conv1's image cotangent (conv1_pool_dx) within 1e-5 of its scale in
+float32 and within one bfloat16 step per tap; the CLI trainer on the
+card within 1e-4 of the same run on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from aocr_torch import train_step, vocab
+from aocr_torch import checkpoint, train, train_step, vocab
 from aocr_torch.api import AttentionOCR
 from aocr_torch.config import Config
+from aocr_torch.models import cnn
 from aocr_torch.models.decoder import DecoderState
 from aocr_torch.ops.cuda import (beam_loop, beam_step, conv1_pool,
-                                 conv1_pool_bwd, decode_step, greedy_loop,
-                                 lstm_bwd, lstm_fwd, tf_bwd, tf_fwd)
+                                 conv1_pool_bwd, conv1_pool_dx, decode_step,
+                                 greedy_loop, lstm_bwd, lstm_fwd, pool_bwd,
+                                 tf_bwd, tf_fwd)
 from aocr_torch.utils import trie
 
 pytestmark = pytest.mark.cuda
@@ -186,6 +194,147 @@ def test_conv1_pool_bwd_kernel(dev, dtype, W, ties):
     # the routing is bit-identical, so only the summation order differs
     for got, want in ((dw, dw_p), (db, db_p)):
         _close(got, want, 1e-4 * float(want.abs().max()) + 1e-5)
+
+
+def bf16_steps(got, want):
+    """|got - want| in units of one bfloat16 step (ulp) of the larger
+    magnitude of the two (exact zeros on both sides count 0)."""
+    got, want = got.float(), want.float()
+    m = torch.maximum(got.abs(), want.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(m.clamp(min=1e-30))) - 7)
+    return ((got - want).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("W,ties", [(100, False), (81, False), (36, True)])
+def test_conv1_pool_dx_kernel(dev, dtype, W, ties):
+    """The image cotangent's 16 patch taps against the plain version
+    (float32 within 1e-5 of the scale, bfloat16 within one step), and the
+    unpatched (B, H, W, 1) cotangent; ties as in the dW test."""
+    g = torch.Generator().manual_seed(31)
+    B = 5
+    x = _rand(g, B, 32, W, 1)
+    if ties:
+        x = (x * 2).round() / 2
+    x = x.to(dev, dtype)
+    w = _rand(g, 64, 1, 3, 3, lo=-0.3, hi=0.3).to(dev)
+    b = _rand(g, 64, lo=-0.3, hi=0.3).to(dev)
+    dy = _rand(g, B, 64, 16, W // 2).to(dev, dtype).permute(0, 2, 3, 1)
+    n = conv1_pool_dx.launches
+    taps = conv1_pool_dx.conv1_relu_pool_dx16(x, w, b, dy)
+    assert conv1_pool_dx.launches == n + 1
+    torch.cuda.synchronize()
+    want = conv1_pool_dx.conv1_relu_pool_dx16_plain(x, w, b, dy)
+    assert taps.shape == want.shape == (B, 16, W // 2, 16)
+    if dtype == torch.float32:
+        _close(taps, want, 1e-5 * float(want.abs().max()))
+    else:
+        assert bf16_steps(taps, want) <= 1.0
+    dx = conv1_pool_dx.conv1_relu_pool_dx(x, w, b, dy)
+    dx_p = conv1_pool_dx.conv1_relu_pool_dx_plain(x, w, b, dy)
+    assert dx.shape == x.shape and dx.dtype == dtype
+    _close(dx, dx_p, (1e-5 if dtype == torch.float32 else 3e-2)
+           * float(dx_p.float().abs().max()))
+
+
+# (B, C, H, W) and the window: the CNN's three pools after conv2, 4, 6
+POOLS = [((3, 128, 16, 50), (2, 2)), ((3, 256, 8, 25), (2, 1)),
+         ((2, 512, 4, 25), (2, 1))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,window", POOLS)
+def test_pool_bwd_kernel(dev, dtype, shape, window):
+    """dz bit-identical to the plain version and to autograd of
+    F.max_pool2d over torch.relu, on channels_last activations of a few
+    levels (ties, zeros, all-negative windows); ReluPoolFn launches the
+    kernel once a backward."""
+    g = torch.Generator().manual_seed(32)
+    z = ((_rand(g, *shape) * 2).round() / 2).to(dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+    z[0, :, :2] = -1.0  # whole windows below zero
+    y = torch.relu(z)
+    B, C, H, W = shape
+    dy = _rand(g, B, C, H // window[0], W // window[1]).to(dev, dtype)
+    n = pool_bwd.launches
+    dz = pool_bwd.relu_pool_bwd(y, dy, window)
+    assert pool_bwd.launches == n + 1
+    assert dz.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(dz, pool_bwd.relu_pool_bwd_plain(y, dy, window))
+    zz = z.detach().requires_grad_()
+    (ref,) = torch.autograd.grad(F.max_pool2d(torch.relu(zz), window), zz,
+                                 dy)
+    assert torch.equal(dz, ref)
+    zz = z.detach().requires_grad_()
+    out = cnn.ReluPoolFn.apply(zz, window)
+    (got,) = torch.autograd.grad(out, zz, dy)
+    assert pool_bwd.launches == n + 2
+    assert torch.equal(out, F.max_pool2d(y, window))
+    assert torch.equal(got, ref)
+
+
+def test_image_gradient_on_cuda(dev):
+    """d(features)/d(images) through cnn.apply(train=True) on the kernel
+    route (conv1_pool_dx, pool_bwd) equals the plain route's on the card,
+    float32, within 1e-5 of the gradient's scale."""
+    cfg = Config(input_feed=True, encoder_num_hidden=32)
+    m = AttentionOCR.create(cfg, seed=33, device=dev)
+    rs = np.random.RandomState(33)
+    images = torch.from_numpy(rs.uniform(0, 255, (6, 32, 100, 1)).astype(
+        np.float32)).to(dev)
+    r = torch.from_numpy(rs.uniform(-1, 1, (6, 24, 512)).astype(
+        np.float32)).to(dev)
+    grads = []
+    n = (conv1_pool_dx.launches, pool_bwd.launches)
+    for kernel in (True, False):
+        im = images.clone().requires_grad_()
+        feats, _ = cnn.apply(m.params["cnn"], m.batch_stats, im,
+                             use_kernel=kernel, train=True)
+        grads.append(torch.autograd.grad((feats * r).sum(), im)[0])
+    assert conv1_pool_dx.launches == n[0] + 1
+    assert pool_bwd.launches == n[1] + 3
+    _close(grads[0], grads[1], 1e-5 * float(grads[1].abs().max()))
+
+
+def test_trainer_on_cuda_matches_cpu(tmp_path):
+    """python -m aocr_torch.train's main on the default device (CUDA): one
+    epoch of 20 crops at batch 8 (a padded partial batch of 4), a
+    checkpoint and a validation sweep every 2 steps; pool_bwd launches 3
+    times a step; final params within 1e-4 of the same run on the CPU.
+    At learning rate 0.01: three steps at this batch amplify rounding
+    (a ReLU or pool decision that flips between two summation orders),
+    and at 0.1 images perturbed by 1e-6 relative alone move conv1's
+    weights by 5.5e-4 on the CPU (1.2e-5 at 0.01)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rs = np.random.RandomState(34)
+    words = ["ab", "cd1", "xyz", "k", "wxyz", "q0", "mm", "abc", "z9",
+             "hi"] * 2
+    lines = []
+    for i, word in enumerate(words):
+        np.save(tmp_path / f"{i}.npy", rs.uniform(0, 255, (32, 100)))
+        lines.append(f"{i}.npy {word}")
+    (tmp_path / "m.txt").write_text("\n".join(lines) + "\n")
+    finals = []
+    for d in ("cuda", "cpu"):
+        args = ["-phase", "train", "-data_base_dir", str(tmp_path),
+                "-data_path", "m.txt", "-val_data_path", "m.txt",
+                "-model_dir", str(tmp_path / d), "-log_path",
+                str(tmp_path / f"{d}.log"), "-batch_size", "8",
+                "-num_epochs", "1", "-steps_per_checkpoint", "2",
+                "-num_batches_val", "1", "-input_feed",
+                "-encoder_num_hidden", "32", "-max_decoder_l", "8",
+                "-learning_rate", "0.01"]
+        n = pool_bwd.launches
+        train.main(args, device=None if d == "cuda" else "cpu")
+        if d == "cuda":
+            assert pool_bwd.launches == n + 3 * 3
+        finals.append(checkpoint.load(checkpoint.final_path(
+            str(tmp_path / d))))
+    assert finals[0]["global_step"] == finals[1]["global_step"] == 3
+    for a, b in zip(_leaves(finals[0]["params"]),
+                    _leaves(finals[1]["params"])):
+        _close(torch.from_numpy(a), torch.from_numpy(b), 1e-4)
 
 
 def _lstm_case(g, dev, dtype, L=7, B=6, H=128):

@@ -224,17 +224,35 @@ def test_unported_training_options_raise(what):
 
 
 def test_image_gradient_of_conv1_raises():
-    """The conv1 image cotangent (the TPU's _dx_kernel) is not ported."""
+    """The conv1 image cotangent (the TPU's _dx_kernel) no longer raises:
+    d(features)/d(images) through cnn.apply(train=True) on the kernel
+    route (Conv1PoolFn's conv1_pool_dx, ReluPoolFn's pool_bwd) equals
+    plain autograd over F.conv2d, torch.relu and F.max_pool2d
+    (use_kernel=False), float32, within 1e-5 of the gradient's scale."""
     tp, ts = weights.from_numpy(*_problem(_cfg())[:2])
-    images = torch.zeros((2, 32, 36, 1), requires_grad=True)
-    feats, _ = cnn.apply(tp["cnn"], ts, images, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 6"):
-        feats.sum().backward()
+    rs = np.random.RandomState(71)
+    images = rs.uniform(0, 255, (3, 32, 36, 1)).astype(np.float32)
+    r = torch.from_numpy(rs.uniform(-1, 1, (3, 8, 512)).astype(np.float32))
+    grads = []
+    for kernel in (True, False):
+        im = torch.from_numpy(images).requires_grad_()
+        feats, _ = cnn.apply(tp["cnn"], ts, im, use_kernel=kernel,
+                             train=True)
+        grads.append(torch.autograd.grad((feats * r).sum(), im)[0])
+    scale = float(grads[1].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=0,
+                               atol=1e-5 * scale)
 
 
 def test_masked_and_synced_batchnorm_raise():
+    """Sync-BN (axis_name) still raises, naming its ROADMAP item; the row
+    mask of a padded batch is ported (test_torch_port_eval.py holds it
+    against the reference)."""
     tp, ts = weights.from_numpy(*_problem(_cfg())[:2])
     images = torch.zeros((2, 32, 36, 1))
-    for kw in ({"row_mask": torch.ones(2)}, {"axis_name": "data"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cnn.apply(tp["cnn"], ts, images, train=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+        cnn.apply(tp["cnn"], ts, images, train=True, axis_name="data")
+    feats, _ = cnn.apply(tp["cnn"], ts, images, train=True,
+                         row_mask=torch.tensor([1.0, 0.0]))
+    assert bool(torch.isfinite(feats).all())

@@ -1,5 +1,5 @@
 """aocr_torch's own copies of the framework-neutral modules (config, vocab,
-checkpoint, utils/trie) against the JAX package's originals, and greedy
+checkpoint, utils/trie, utils/logging_util, utils/native) against the JAX package's originals, and greedy
 dictionary decoding against `aocr.decode.greedy_decode(..., use_trie=True)`
 on CPU: the port's loop, tail and plain routes against aocr's XLA path and
 its greedy_loop / decode_step kernels in interpret mode.
@@ -73,6 +73,54 @@ def test_checkpoint_crosses_packages(tmp_path, writer):
     jax.tree.map(np.testing.assert_array_equal, ck["params"], params)
     jax.tree.map(np.testing.assert_array_equal, ck["batch_stats"], stats)
     assert ck["config"]["beam_size"] == 3 and ck["global_step"] == 7
+
+
+def _code(module) -> str:
+    """A module's AST with every docstring dropped."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(module))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", ["utils.logging_util", "utils.native"])
+def test_host_module_copy_equals_the_original(name, tmp_path):
+    """The port's copies of the logger and the native-library bindings
+    hold the originals' code, docstrings aside, and take the same host
+    path: the same library (or the same numpy fallback), the same edit
+    distances and resizes, the same log lines."""
+    import importlib
+
+    mine = importlib.import_module(f"aocr_torch.{name}")
+    orig = importlib.import_module(f"aocr.{name}")
+    assert _code(mine) == _code(orig)
+    if name == "utils.native":
+        assert mine.available() == orig.available()
+        rs = np.random.RandomState(4)
+        pred = rs.randint(0, 12, (6, 9)).astype(np.int32)
+        gold = rs.randint(0, 12, (6, 9)).astype(np.int32)
+        for a, b in ((mine.edit_distance_batch(pred, gold, 2),
+                      orig.edit_distance_batch(pred, gold, 2)),
+                     (mine.luminance_resize(pred.astype(np.float32), 4, 5),
+                      orig.luminance_resize(pred.astype(np.float32), 4, 5))):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+    else:
+        for mod, f in ((mine, "a.txt"), (orig, "b.txt")):
+            log = mod.Logger(str(tmp_path / f))
+            log.info("line 1")
+            log.shutdown()
+        lines = [(tmp_path / f).read_text().split(" ", 2)[2]
+                 for f in ("a.txt", "b.txt")]
+        assert lines[0] == lines[1] == "line 1\n"
 
 
 @pytest.mark.parametrize("words,digit_prefix", [
