@@ -1,0 +1,98 @@
+// Hopper device helpers for kernels that keep their weights on chip:
+// the thread-block-cluster barrier, cp.async copies with zero fill, and
+// bf16 tensor-core fragments (ldmatrix + mma.sync.m16n8k16, float32
+// accumulators).  lstm_fwd.cu uses them.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace aocr {
+
+namespace cg = cooperative_groups;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One cluster-wide barrier: every thread of every block of the cluster
+// arrives (its earlier stores released at cluster scope, global memory
+// included) and waits (acquiring the others').  Call from all threads,
+// convergent.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// cp.async of BYTES (4, 8 or 16) from global src to shared dst; the
+// bytes past `valid` (0..BYTES) are filled with zeros and not read.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int valid) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(valid)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(BYTES), "r"(valid)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A fragment of m16n8k16 (16 x 16 bf16, row-major in shared memory, row
+// stride `ld` elements) at `tile`; 16-byte aligned rows.
+__device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4],
+                                           const __nv_bfloat16* tile,
+                                           int ld) {
+  const int l = threadIdx.x & 31;
+  const __nv_bfloat16* p = tile + ((l & 7) + ((l >> 3) & 1) * 8) * ld +
+                           (l >> 4) * 8;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_addr(p)));
+}
+
+// B fragments of two m16n8k16 products from a (16 x N) bf16 tile stored
+// [k][n] row-major in shared memory (row stride `ld` elements): columns
+// n0..n0+7 into b[0..1] and n1..n1+7 into b[2..3].
+__device__ __forceinline__ void ldmatrix_b2(uint32_t (&b)[4],
+                                            const __nv_bfloat16* rows,
+                                            int ld, int n0, int n1) {
+  const int l = threadIdx.x & 31;
+  const int m = l >> 3;
+  const __nv_bfloat16* p =
+      rows + ((l & 7) + (m & 1) * 8) * ld + ((m >> 1) ? n1 : n0);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(smem_addr(p)));
+}
+
+// d[0..3] += a (16 x 16) @ b (16 x 8), bf16 operands, float32
+// accumulators.  Thread l holds d[0..1] at (row l/4, cols 2(l%4) + 0..1)
+// and d[2..3] at row l/4 + 8.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+}  // namespace aocr

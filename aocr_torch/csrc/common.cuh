@@ -8,9 +8,10 @@
 // (round to nearest even, as XLA's convert) and kept as float in shared
 // memory.
 //
-// The matmuls are written for CUDA cores, one float FMA per
-// multiply-add: the kernels of this first port are right and simple;
-// tensor-core (wgmma) tiles are later work.
+// The helpers here multiply on CUDA cores, one float FMA per
+// multiply-add; every kernel but lstm_fwd uses them.  lstm_fwd.cu
+// multiplies bf16 on the tensor cores (mma.sync, cluster_mma.cuh);
+// tensor-core tiles for the decoder kernels are later work.
 #pragma once
 
 #include <cuda_bf16.h>

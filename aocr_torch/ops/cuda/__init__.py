@@ -164,6 +164,9 @@ def _declare(lib) -> None:
             fn = getattr(lib, f"aocr_{name}_{suffix}")
             fn.argtypes = args
             fn.restype = ctypes.c_int
+    # H, B, is_f32, xp_is_f32, out[9]
+    lib.aocr_lstm_fwd_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+    lib.aocr_lstm_fwd_plan.restype = ctypes.c_int
 
 
 def launch(name: str, dtype: torch.dtype, device: torch.device,

@@ -6,9 +6,17 @@ in float32, the reverse direction by walking L-1..0 and writing hs at the
 original time index; with collect=True (training) it also writes the
 residual stacks the backward kernel reads, the gate activations ifog
 (L, B, 4H) and the cell states cs (L, B, H), rounded to the compute
-dtype.  Each block owns a batch tile and all H columns and loops over L
-inside, so no step needs a grid-wide sync; Wh (2 MiB in bf16 at H=512) is
-re-read from L2 every step.
+dtype.
+
+The kernel is a persistent RNN on thread-block clusters (`plan` below):
+a cluster of up to 16 SMs owns a tile of batch rows for all L steps, each
+SM owns H/cs hidden units and keeps its slice of Wh in shared memory for
+the whole scan, multiplies on the tensor cores in bf16 (CUDA cores in
+float32), and hands its slice of h to the others through distributed
+shared memory, one cluster barrier a step.  What bounds it is no longer
+re-reading Wh from L2 (each block of the old design read all of it every
+step) but the per-step barrier and exchange, and in float32 the FMA loop
+and the part of the slice streamed from L2.
 
 Numerics as `aocr/ops/lstm.py::_scan_from_proj` / `_collect_from_proj`:
 gates = x_proj[t] (upcast) + h.astype(cd) @ Wh with float32 accumulation,
@@ -16,6 +24,10 @@ gate math in float32.
 """
 
 from __future__ import annotations
+
+import ctypes
+import logging
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,6 +38,131 @@ from aocr_torch.ops.mm import matmul
 launches = 0
 # launches with collect=True (training), a part of `launches`
 launches_collect = 0
+
+# csrc/lstm_fwd.cu's constants
+THREADS = 256
+SMEM_MAX = 232448  # the H100's shared memory a block, bytes
+MAX_CLUSTER = 16  # a non-portable cluster size on the H100
+MMA_TILES = 2  # (16-row, 8-unit) mma tiles a warp, bf16
+FMA_ROWS = 4  # batch rows a thread, float32
+BT_MAX = 64  # largest batch tile
+STEP_ROWS = 32  # a step's fixed cost in rows of the per-row cost
+CHUNK = 64  # most rows of a streamed chunk of the Wh slice
+STAGES = 2  # streamed chunks in shared memory
+
+# launch plans held against the kernel's, by shape key: (Plan, the line
+# logged for it)
+plans: dict = {}
+_log = logging.getLogger(__name__)
+
+
+class Plan(NamedTuple):
+    """How the kernel splits one direction's scan (csrc/lstm_fwd.cu
+    `lf_plan`, which this mirrors field for field)."""
+    cs: int  # blocks (SMs) in a cluster
+    bt: int  # batch rows a cluster
+    units: int  # hidden units a block, a multiple of 8
+    kp: int  # H rounded up to 16: the depth of the product
+    kres: int  # rows of the block's Wh slice resident in shared memory
+    kc: int  # rows a streamed chunk; 0: the whole slice is resident
+    smem: int  # dynamic shared memory bytes a block
+    clusters: int  # ceil(B / bt), one batch tile each
+
+    def unit_range(self, s: int, H: int) -> range:
+        """The hidden units block s of a cluster owns (maybe none)."""
+        return range(s * self.units, min((s + 1) * self.units, H))
+
+    def row_range(self, c: int, B: int) -> range:
+        """The batch rows cluster c owns."""
+        return range(c * self.bt, min((c + 1) * self.bt, B))
+
+
+def _round_up(a: int, m: int) -> int:
+    return (a + m - 1) // m * m
+
+
+def plan(H: int, B: int, dtype: torch.dtype, active: int) -> Optional[Plan]:
+    """The kernel's launch plan for hidden size H, batch B, the compute
+    dtype and the clusters of the plan's size the card runs at once
+    (`active`: 7 of 16 blocks on an H100 SXM); None where no plan fits the
+    card's shared memory.
+
+    The cluster is the smallest power of two that gives each block 8 of
+    the H units or more, up to 16 (U a block, a multiple of 8; the last
+    blocks may own fewer, or none, and are masked in the kernel).  The
+    batch tile bt is the multiple of 16 (bf16: mma rows) or 4 (float32)
+    up to 64 that fits and costs least, waves x (bt + STEP_ROWS), waves =
+    ceil(clusters / active), the smaller on a tie.  Shared memory holds the
+    tile's h (bt x (kp + 16 bytes)) and as many rows of the block's
+    (kp, 4U) slice of Wh as fit; the rest stream from L2 through STAGES
+    chunks of the most rows (CHUNK, halved down to 16) that fit."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    cs = 1
+    while cs < MAX_CLUSTER and cs * 8 < H:
+        cs *= 2
+    U = _round_up(-(-H // cs), 8)
+    kp, pad = _round_up(H, 16), 16 // esz
+    wrow, hrow = (4 * U + pad) * esz, (kp + pad) * esz
+    rowq = 16 if esz == 2 else FMA_ROWS
+    best, out = None, None
+    for bt in range(rowq, min(BT_MAX, B + rowq - 1) + 1, rowq):
+        tiles = (bt // 16) * (U // 8) if esz == 2 else (bt // FMA_ROWS) * U
+        if tiles > (THREADS // 32 * MMA_TILES if esz == 2 else THREADS):
+            continue
+        fixed, kres, kc = bt * hrow, kp, 0
+        if fixed + kp * wrow > SMEM_MAX:
+            # the largest chunk (64, 32 or 16 rows) whose stages fit;
+            # resident rows: what fits beside them, whole chunks streamed
+            for kc in (CHUNK, CHUNK // 2, CHUNK // 4):
+                avail = SMEM_MAX - fixed - STAGES * kc * wrow
+                kres = (kp - _round_up(kp - avail // wrow, kc)
+                        if avail >= 0 else -1)
+                if kres >= 0:
+                    break
+            if kres < 0:
+                continue
+        clusters = -(-B // bt)
+        cost = -(-clusters // active) * (bt + STEP_ROWS)
+        if best is not None and cost >= best:
+            continue
+        best = cost
+        smem = fixed + (kres + (STAGES * kc if kc else 0)) * wrow
+        out = Plan(cs, bt, U, kp, kres, kc, smem, clusters)
+    return out
+
+
+def _checked_plan(H: int, B: int, cd: torch.dtype,
+                  xd: torch.dtype) -> Plan:
+    """The launch's plan: ValueError where none fits; on a shape's first
+    launch the kernel's own plan, and the clusters the card runs at once,
+    are read from the library, the plan is held against it and logged."""
+    if plan(H, B, cd, 1) is None:
+        raise ValueError(f"lstm_fwd_scan: no kernel plan fits H={H}, B={B} "
+                         f"in {cd} (the h tile and the Wh chunks exceed "
+                         "the shared memory)")
+    key = (H, B, cd, xd)
+    if key not in plans:
+        out = (ctypes.c_int * 9)()
+        err = cuda.library().aocr_lstm_fwd_plan(
+            H, B, int(cd == torch.float32), int(xd == torch.float32), out)
+        if err != 0:
+            raise RuntimeError(f"aocr_lstm_fwd_plan failed: CUDA error {err}")
+        active = out[8]
+        p = plan(H, B, cd, active)
+        if tuple(out[:8]) != tuple(p):
+            raise RuntimeError(f"lstm_fwd plan mismatch: kernel {tuple(out)}"
+                               f", wrapper {p}")
+        row = 4 * p.units * torch.empty((), dtype=cd).element_size()
+        line = (
+            f"lstm_fwd plan H={H} B={B} {cd} (x_proj {xd}): cluster "
+            f"{p.cs} x {p.units} units, bt={p.bt}, {p.clusters} clusters, "
+            f"{active} at once ({-(-p.clusters // active)} waves); Wh slice "
+            f"{p.kp} x {4 * p.units}: {p.kres} rows ({p.kres * row} B) "
+            f"resident, {p.kp - p.kres} ({(p.kp - p.kres) * row} B) streamed "
+            f"in chunks of {p.kc}; smem {p.smem} B")
+        plans[key] = (p, line)
+        _log.info(line)
+    return plans[key][0]
 
 
 def lstm_fwd_scan_plain(wh, x_proj, c0, h0, reverse: bool,
@@ -74,6 +211,7 @@ def lstm_fwd_scan(wh: torch.Tensor, x_proj: torch.Tensor, c0: torch.Tensor,
     cuda.check(x_proj, "x_proj", (L, B, G), x_proj.dtype, dev)
     cuda.check(c0, "c0", (B, H), torch.float32, dev)
     cuda.check(h0, "h0", (B, H), torch.float32, dev)
+    _checked_plan(H, B, cd, x_proj.dtype)
     hs = torch.empty((L, B, H), dtype=cd, device=dev)
     cf = torch.empty((B, H), dtype=torch.float32, device=dev)
     hf = torch.empty((B, H), dtype=torch.float32, device=dev)

@@ -41,7 +41,10 @@ Phases, each raising on failure:
   5. timing: each kernel against its plain version (CUDA events), its
      bound (the larger of its operations over the card's peak and its
      bytes over 3.35 TB/s) and, where PyTorch computes the same function
-     (cuDNN's LSTM; the unfused pool backward's two calls), that; the
+     (cuDNN's LSTM; the unfused pool backward's two calls), that;
+     lstm_fwd at B=1, 8, 32, 512 (collect=False) and 400 (collect=True)
+     with cuDNN in the same turns, its launch plans and ptxas registers;
+     the
      recognize images/s at B=512, W=100, bf16, T=50, greedy, beam-5 and
      dictionary beam-5; the bf16 train step (ms, images/s) and its
      pool_bwd.ENABLE A/B; one profile of each path.
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -1023,16 +1027,97 @@ def library_ms(what: str, fn, n: int):
     return t
 
 
+# lstm_fwd's timed shapes: the serving batches (collect=False) and the
+# train step's (collect=True)
+LSTM_TIMED = [(1, False), (8, False), (32, False), (B_SERVE, False),
+              (B_TRAIN, True)]
+
+
+def lstm_fwd_timings(dev, results: dict):
+    """lstm_fwd (the thread-block-cluster design), L=24, H=512, both
+    dtypes, at LSTM_TIMED: the kernel against its plain version (checked,
+    then timed) and cuDNN's nn.LSTM (one direction, projection included,
+    a training forward at collect=True) in turns plain, cuDNN, kernel,
+    kernel, cuDNN, plain, each turn logged and the better kept; the input
+    projection + the kernel, what cuDNN's call also computes; the bound;
+    the launch plan.  Returns (ms, bounds, library): the main paths' shapes
+    under ("lstm_fwd", dt) (B=512) and ("lstm_fwd_collect", dt) (B=400),
+    every shape under ("lstm_fwd", dt, B, collect)."""
+    import torch
+
+    from aocr_torch.ops import lstm
+    from aocr_torch.ops.cuda import lstm_fwd
+
+    g = torch.Generator().manual_seed(23)
+    rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
+    cfg = base_config()
+    L, He, D = W_SERVE // 4 - 1, cfg.encoder_num_hidden, cfg.cnn_feature_size
+    ms, bounds, lib = {}, {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        tol = 1e-4 if dt == torch.float32 else 5e-2
+        wh = (rand(He, 4 * He) * He ** -0.5).to(dev, dt)
+        layer = {"wi": (rand(D, 4 * He) * D ** -0.5).to(dev),
+                 "bi": (rand(4 * He) * D ** -0.5).to(dev),
+                 "bh": (rand(4 * He) * He ** -0.5).to(dev)}
+        for B, collect in LSTM_TIMED:
+            x = rand(L, B, D).to(dev, dt)
+            xp = lstm.proj_input(layer, x, dt)
+            z = torch.zeros(B, He, device=dev)
+            kern = lambda: lstm_fwd.lstm_fwd_scan(wh, xp, z, z, False,
+                                                  collect)
+            plain = lambda: lstm_fwd.lstm_fwd_scan_plain(wh, xp, z, z, False,
+                                                         collect)
+            flat = lambda o: (o[0], *o[1], *(o[2] if collect else ()))
+            got, want = flat(kern()), flat(plain())
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+            what = f"lstm_fwd {name} B={B} collect={collect}"
+            check(err <= tol, f"{what}: max err {err}")
+            results.setdefault(("lstm_fwd", name), []).append(err)
+            fwd, _ = cudnn_lstm(dev, dt, L, B, D, He, collect)
+            n = 20
+            p1 = cuda_ms(plain, 3, 1)
+            l1 = library_ms(f"{what}: cuDNN turn 1", fwd, n)
+            k1, k2 = cuda_ms(kern, n), cuda_ms(kern, n)
+            l2 = library_ms(f"{what}: cuDNN turn 2", fwd, n)
+            p2 = cuda_ms(plain, 3, 1)
+            both = cuda_ms(lambda: lstm_fwd.lstm_fwd_scan(
+                wh, lstm.proj_input(layer, x, dt), z, z, False, collect), n)
+            bnd = bound(2.0 * L * B * He * 4 * He,
+                        tensor_bytes((wh, xp, z, z), got), name)
+            libs = [t for t in (l1, l2) if t is not None]
+            key = ("lstm_fwd", name, B, collect)
+            ms[key] = (min(k1, k2), min(p1, p2))
+            bounds[key] = bnd
+            lib[key] = min(libs) if libs else None
+            log(f"time {what} L={L} H={He}: kernel {k1:.4f} / {k2:.4f} ms, "
+                f"plain {p1:.4f} / {p2:.4f} ms, cuDNN "
+                + " / ".join(f"{t:.4f}" for t in libs) + " ms (turns "
+                f"plain, cuDNN, kernel, kernel, cuDNN, plain); projection + "
+                f"kernel {both:.4f} ms (cuDNN's call includes the "
+                f"projection); bound {bnd[0]:.4f} ms ({bnd[1]}); "
+                f"max_abs_err {err:.3g} (tol {tol:.3g})")
+        for k, main in (("lstm_fwd", (B_SERVE, False)),
+                        ("lstm_fwd_collect", (B_TRAIN, True))):
+            key = ("lstm_fwd", name, *main)
+            ms[(k, name)], bounds[(k, name)] = ms[key], bounds[key]
+            lib[(k, name)] = lib[key]
+    for _plan, line in lstm_fwd.plans.values():
+        log(line)
+    return ms, bounds, lib
+
+
 def timings(dev, models, requests, card: str, table):
-    """Each recognition kernel against its plain version, its bound and
-    its library call; recognize images/s; a profile.  Returns (ms,
+    """Each recognition kernel but lstm_fwd (lstm_fwd_timings) against
+    its plain version, its bound and its library call; recognize images/s;
+    a profile.  Returns (ms,
     bounds, library) keyed by (kernel, dtype)."""
     import numpy as np
     import torch
 
     from aocr_torch import vocab
-    from aocr_torch.ops.cuda import (conv1_pool, decode_step, greedy_loop,
-                                     lstm_fwd)
+    from aocr_torch.ops.cuda import conv1_pool, decode_step, greedy_loop
 
     g = torch.Generator().manual_seed(11)
     rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
@@ -1050,12 +1135,6 @@ def timings(dev, models, requests, card: str, table):
         pairs = {"conv1_pool": (lambda: conv1_pool.conv1_relu_pool(x, w, b),
                                 lambda: conv1_pool.conv1_relu_pool_plain(
                                     x, w, b), 20)}
-        wh = (rand(He, 4 * He) * He ** -0.5).to(dev, dt)
-        xp = rand(L, B, 4 * He).to(dev, dt)
-        z = torch.zeros(B, He, device=dev)
-        pairs["lstm_fwd"] = (
-            lambda: lstm_fwd.lstm_fwd_scan(wh, xp, z, z, False),
-            lambda: lstm_fwd.lstm_fwd_scan_plain(wh, xp, z, z, False), 10)
         m = models[("float32" if dt == torch.float32 else "bfloat16", "loop")]
         tables = greedy_loop.build_tables(
             m.params["decoder"], m.params["projector"], E, True, dt)
@@ -1079,21 +1158,12 @@ def timings(dev, models, requests, card: str, table):
             conv_flops, tensor_bytes((x, w, b),
                                      conv1_pool.conv1_relu_pool(x, w, b)),
             name)
-        bounds[("lstm_fwd", name)] = bound(
-            2.0 * L * B * He * 4 * He,
-            tensor_bytes((wh, xp, z, z),
-                         lstm_fwd.lstm_fwd_scan(wh, xp, z, z, False)), name)
         bounds[("decode_step", name)] = bound(
             B * step_flops(Hd, L, V, nl, True, gates=False),
             tensor_bytes(args, decode_step.fused_decode_tail(*args)), name)
         bounds[("greedy_loop", name)] = bound(
             row_steps * step_flops(Hd, L, V, nl, True),
             tensor_bytes(loop_args[:4], lab, lab_sc), name)
-        fwd, _bwd = cudnn_lstm(dev, dt, L, B, cfg.cnn_feature_size, He,
-                               False)
-        lib[("lstm_fwd", name)] = library_ms(
-            f"lstm_fwd {name}: cuDNN nn.LSTM one direction, projection "
-            f"included, B={B} L={L} H={He}", fwd, 10)
         pairs["greedy_loop"] = (
             lambda: greedy_loop.fused_greedy_loop(*loop_args),
             lambda: greedy_loop.fused_greedy_loop_plain(*loop_args), 3)
@@ -1535,10 +1605,6 @@ def train_timings(dev, cfg, np_model, batch, card: str):
                 lambda: conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy),
                 lambda: conv1_pool_bwd.conv1_relu_pool_bwd_plain(x, w, b, dy),
                 20),
-            "lstm_fwd_collect": (
-                lambda: lstm_fwd.lstm_fwd_scan(wh, xp, z, z, False, True),
-                lambda: lstm_fwd.lstm_fwd_scan_plain(wh, xp, z, z, False,
-                                                     True), 10),
             "lstm_bwd": (lambda: lstm_bwd.lstm_bwd_scan(*largs),
                          lambda: lstm_bwd.lstm_bwd_scan_plain(*largs), 10),
             "tf_fwd": (lambda: tf_fwd.decoder_fwd_scan(*fargs),
@@ -1555,7 +1621,6 @@ def train_timings(dev, cfg, np_model, batch, card: str):
                                       proj=False)
         work = {  # (operations, the call's inputs and outputs)
             "conv1_pool_bwd": (2 * conv_flops, (x, w, b, dy)),
-            "lstm_fwd_collect": (2.0 * L * B * He * 4 * He, (wh, xp, z, z)),
             "lstm_bwd": (2.0 * L * B * 4 * He * He, largs),
             "tf_fwd": (tf_flops, fargs),
             "tf_bwd": (tf_flops + 4.0 * T * B * L * Hd, bargs),
@@ -1572,10 +1637,8 @@ def train_timings(dev, cfg, np_model, batch, card: str):
                 f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
                 f"{bounds[(k, name)][0]:.4f} ms ({bounds[(k, name)][1]})")
         pool_timings(dev, dt, name, g, ms, bounds, lib)
-        fwd, bwd = cudnn_lstm(dev, dt, L, B, cfg.cnn_feature_size, He, True)
-        lib[("lstm_fwd_collect", name)] = library_ms(
-            f"lstm_fwd collect {name}: cuDNN nn.LSTM forward for training, "
-            f"projection included, B={B} L={L} H={He}", fwd, 10)
+        _fwd, bwd = cudnn_lstm(dev, dt, L, B, cfg.cnn_feature_size, He,
+                               True)
         lib[("lstm_bwd", name)] = library_ms(
             f"lstm_bwd {name}: cuDNN nn.LSTM backward (dx and the weight "
             f"gradients too), B={B} L={L} H={He}", bwd, 10)
@@ -2000,6 +2063,23 @@ def trainer_phase(dev, seed: int, card: str):
 
 # ------------------------------------------------------------ main
 
+def ptxas_summary(text: str, kernel: str) -> list:
+    """'<instance>: <registers>, <spills>' for each instance of a kernel in
+    the build's -Xptxas=-v output (empty where nvcc printed none)."""
+    out, name, spills = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            out.append(f"{name}: {regs}, {spills}")
+            name = None
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2027,10 +2107,15 @@ def main() -> int:
     from aocr_torch.ops import cuda
 
     t0 = time.perf_counter()
-    lib = cuda.build(verbose=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        lib = cuda.build(verbose=True)
+    print(out.getvalue(), end="", flush=True)
     cuda.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(lib, ROOT)}")
+    for line in ptxas_summary(out.getvalue(), "lstm_fwd_kernel"):
+        log(f"ptxas {line}")
 
     t0 = time.perf_counter()
     words, table_np = synthetic_lexicon()
@@ -2060,6 +2145,10 @@ def main() -> int:
     ms.update(tms)
     bounds.update(tbounds)
     lib.update(tlib)
+    lms, lbounds, llib = lstm_fwd_timings(dev, results)
+    ms.update(lms)
+    bounds.update(lbounds)
+    lib.update(llib)
 
     check("jax" not in sys.modules, "jax was imported")
     check(not any(k == "aocr" or k.startswith("aocr.") for k in sys.modules),
@@ -2099,6 +2188,8 @@ def main() -> int:
             "library_ms": lib.get((k, d))}
         if k == "lstm_fwd":
             c = tcounts["lstm_fwd_collect"] + ccounts["lstm_fwd_collect"]
+            entry["redesigned"] = ("thread-block clusters, the Wh slice in "
+                                   "shared memory, bf16 mma.sync")
             entry["modes"] = {
                 "collect=False": {"launches": entry["launches"] - c},
                 "collect=True": {

@@ -77,18 +77,79 @@ def test_conv1_pool_kernel(dev, dtype, W):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("collect", [False, True])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_lstm_fwd_kernel(dev, dtype, reverse):
+@pytest.mark.parametrize("H", [128, 256, 512, 200, 1024, 1030])
+@pytest.mark.parametrize("B", [1, 6, 33, 400])
+def test_lstm_fwd_kernel(dev, dtype, collect, reverse, H, B):
+    """The cluster kernel against its plain version: ragged batch tiles
+    (B=1, 6, 33, 400 against 4- to 32-row tiles), 16-block clusters whose
+    last blocks own fewer units or none (H=200: 12 blocks of 16 units and
+    one of 8; H=1030: 14 of 72, one of 22, one idle), the Wh slice
+    resident (bf16 up to H=512) or partly streamed by the copy engine
+    (float32 at H=512, H=1024) or, where its rows are no 16-byte
+    multiple, by 4-byte cp.async (H=1030), both directions and both
+    modes."""
     g = torch.Generator().manual_seed(2)
-    L, B, H = 7, 6, 128
-    wh = _rand(g, H, 4 * H, lo=-0.1, hi=0.1).to(dev, dtype)
-    xp = _rand(g, L, B, 4 * H).to(dev, dtype)
-    c0, h0 = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
-    hs, (cf, hf) = lstm_fwd.lstm_fwd_scan(wh, xp, c0, h0, reverse)
+    wh, xp, c0, h0 = _lstm_case(g, dev, dtype, L=5, B=B, H=H)
+    n, nc = lstm_fwd.launches, lstm_fwd.launches_collect
+    got = lstm_fwd.lstm_fwd_scan(wh, xp, c0, h0, reverse, collect=collect)
     torch.cuda.synchronize()
-    hs_p, (cf_p, hf_p) = lstm_fwd.lstm_fwd_scan_plain(wh, xp, c0, h0, reverse)
-    for a, b in ((hs, hs_p), (cf, cf_p), (hf, hf_p)):
-        _close(a, b, TOL[dtype])
+    assert lstm_fwd.launches == n + 1
+    assert lstm_fwd.launches_collect == nc + int(collect)
+    want = lstm_fwd.lstm_fwd_scan_plain(wh, xp, c0, h0, reverse,
+                                        collect=collect)
+    flat = lambda o: (o[0], *o[1], *(o[2] if collect else ()))
+    _close_all(flat(got), flat(want), TOL[dtype])
+
+
+def test_lstm_fwd_kernel_float32_xproj(dev):
+    """bf16 weights with a float32 x_proj (the xp_is_f32 route)."""
+    g = torch.Generator().manual_seed(3)
+    for B, H in ((33, 200), (6, 512)):
+        wh, xp, c0, h0 = _lstm_case(g, dev, torch.bfloat16, L=5, B=B, H=H)
+        xp = xp.float()
+        got = lstm_fwd.lstm_fwd_scan(wh, xp, c0, h0, True, collect=True)
+        torch.cuda.synchronize()
+        want = lstm_fwd.lstm_fwd_scan_plain(wh, xp, c0, h0, True,
+                                            collect=True)
+        _close_all((got[0], *got[1], *got[2]), (want[0], *want[1], *want[2]),
+                   TOL[torch.bfloat16])
+
+
+def test_lstm_fwd_plan_matches_kernel(dev):
+    """The wrapper's plan is the kernel's, field for field, and the card
+    runs at least one cluster of every plan the tests launch."""
+    import ctypes
+
+    from aocr_torch.ops import cuda
+
+    lib = cuda.library()
+    for dtype, xd in ((torch.float32, torch.float32),
+                      (torch.bfloat16, torch.bfloat16),
+                      (torch.bfloat16, torch.float32)):
+        for H in (2, 64, 128, 130, 200, 256, 512, 520, 1024, 1030, 2048):
+            for B in (1, 6, 33, 400, 512):
+                out = (ctypes.c_int * 9)()
+                err = lib.aocr_lstm_fwd_plan(H, B, int(dtype == torch.float32),
+                                             int(xd == torch.float32), out)
+                assert err == 0, (H, B, dtype, xd, err)
+                assert out[8] >= 1, (H, B, dtype, out[:])
+                p = lstm_fwd.plan(H, B, dtype, out[8])
+                assert tuple(out[:8]) == tuple(p), (H, B, dtype, out[:], p)
+
+
+def test_lstm_fwd_unserved_shape_raises(dev):
+    """A shape no plan fits raises ValueError; nothing falls back."""
+    H = 2400
+    assert lstm_fwd.plan(H, 4, torch.bfloat16, 1) is None
+    wh = torch.zeros(H, 4 * H, device=dev, dtype=torch.bfloat16)
+    xp = torch.zeros(2, 4, 4 * H, device=dev, dtype=torch.bfloat16)
+    z = torch.zeros(4, H, device=dev)
+    n = lstm_fwd.launches
+    with pytest.raises(ValueError, match="no kernel plan"):
+        lstm_fwd.lstm_fwd_scan(wh, xp, z, z, False)
+    assert lstm_fwd.launches == n
 
 
 def _decoder_tables(g, dev, dtype, H, V=39, E=8, nl=2):
@@ -338,7 +399,8 @@ def test_trainer_on_cuda_matches_cpu(tmp_path):
 
 
 def _lstm_case(g, dev, dtype, L=7, B=6, H=128):
-    wh = _rand(g, H, 4 * H, lo=-0.1, hi=0.1).to(dev, dtype)
+    bound = 0.1 if H == 128 else H ** -0.5
+    wh = _rand(g, H, 4 * H, lo=-bound, hi=bound).to(dev, dtype)
     xp = _rand(g, L, B, 4 * H).to(dev, dtype)
     c0, h0 = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
     return wh, xp, c0, h0
@@ -346,16 +408,24 @@ def _lstm_case(g, dev, dtype, L=7, B=6, H=128):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("reverse", [False, True])
-def test_lstm_fwd_collect_kernel(dev, dtype, reverse):
+def test_lstm_fwd_residuals_through_lstm_bwd(dev, dtype, reverse):
+    """lstm_bwd on the cluster kernel's ifog and cs (B=33: a ragged
+    32-row tile) against the plain pair."""
     g = torch.Generator().manual_seed(9)
-    wh, xp, c0, h0 = _lstm_case(g, dev, dtype)
-    hs, fin, (ifog, cs) = lstm_fwd.lstm_fwd_scan(wh, xp, c0, h0, reverse,
-                                                 collect=True)
+    wh, xp, c0, h0 = _lstm_case(g, dev, dtype, B=33)
+    hs, _, (ifog, cs) = lstm_fwd.lstm_fwd_scan(wh, xp, c0, h0, reverse,
+                                               collect=True)
     torch.cuda.synchronize()
-    hs_p, fin_p, (ifog_p, cs_p) = lstm_fwd.lstm_fwd_scan_plain(
-        wh, xp, c0, h0, reverse, collect=True)
-    _close_all((hs, *fin, ifog, cs), (hs_p, *fin_p, ifog_p, cs_p),
-               TOL[dtype])
+    _, _, (ifog_p, cs_p) = lstm_fwd.lstm_fwd_scan_plain(wh, xp, c0, h0,
+                                                        reverse, collect=True)
+    L, B, H = hs.shape
+    dhs = _rand(g, L, B, H).to(dev)
+    dcf, dhf = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
+    got = lstm_bwd.lstm_bwd_scan(wh, dhs, ifog, cs, c0, dcf, dhf, reverse)
+    torch.cuda.synchronize()
+    want = lstm_bwd.lstm_bwd_scan_plain(wh, dhs, ifog_p, cs_p, c0, dcf, dhf,
+                                        reverse)
+    _close_all(got, want, TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -24,10 +24,14 @@ from aocr_torch import weights
 from aocr_torch.models import encoder
 from aocr_torch.ops import lstm
 from aocr_torch.ops.cuda import lstm_fwd
+from aocr_torch.ops.mm import matmul
 
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# clusters of 16 blocks an H100 SXM runs at once (cudaOccupancyMaxActive-
+# Clusters, as chip_smoke.py logs it): the lstm_fwd plan's wave count
+ACTIVE = 7
 
 
 def _np(x):
@@ -122,3 +126,105 @@ def test_encoder_apply_matches_reference(monkeypatch, dtype, jax_kernel, B):
     for got, want in ((ctx, ctx_j), (c0, c0_j), (h0, h0_j)):
         np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=tol,
                                    atol=tol)
+
+
+def _plan_scan(wh, xp, c0, h0, reverse, p):
+    """lstm_fwd_scan_plain's recurrence (collect=True) routed through the
+    plan's tiles and slices, as csrc/lstm_fwd.cu routes it: cluster k owns
+    the rows p.row_range(k, B), block s of it the units p.unit_range(s, H)
+    and their four gate columns (j, H+j, 2H+j, 3H+j); a block gathers its
+    gates from its x_proj columns and the product, keeps its c, writes its
+    h, hs, cs and ifog, and the next step reads the h all blocks wrote.
+    The product and the gate math are taken once a step on the whole
+    batch, as the plain version takes them (a CPU BLAS and vectorized
+    tanh/sigmoid give results that depend on the operands' shapes in the
+    last bit); each block gathers and scatters its rows and columns.
+    Returns the plain version's results and the number of times each
+    (row, unit) was computed a step."""
+    L, B, G = xp.shape
+    H, cd = G // 4, wh.dtype
+    c, h = c0.float().clone(), h0.float().clone()
+    hs = torch.empty((L, B, H), dtype=cd)
+    ifog = torch.empty((L, B, G), dtype=cd)
+    cs = torch.empty((L, B, H), dtype=cd)
+    count = torch.zeros((B, H), dtype=torch.int64)
+    blocks = []
+    for k in range(p.clusters):
+        rows = torch.tensor(list(p.row_range(k, B)))[:, None]
+        for s in range(p.cs):
+            units = torch.tensor(list(p.unit_range(s, H)))[None, :]
+            count[rows, units] += 1
+            blocks.append((rows, units,
+                           torch.cat([q * H + units for q in range(4)], 1)))
+    for t in (range(L - 1, -1, -1) if reverse else range(L)):
+        prod = matmul(h.to(cd), wh)
+        gates = torch.full((B, G), float("nan"))
+        for rows, _units, cols in blocks:
+            gates[rows, cols] = xp[t][rows, cols].float() + prod[rows, cols]
+        c_all, h_all, acts = lstm.gate_math_parts(gates, c)
+        acts = torch.cat(acts, dim=-1)
+        h = torch.full_like(h, float("nan"))
+        for rows, units, cols in blocks:
+            c[rows, units] = c_all[rows, units]
+            h[rows, units] = h_all[rows, units]
+            hs[t, rows, units] = h_all[rows, units].to(cd)
+            cs[t, rows, units] = c_all[rows, units].to(cd)
+            ifog[t, rows, cols] = acts[rows, cols].to(cd)
+    return (hs, (c, h), (ifog, cs)), count
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 6, 400, 512])
+@pytest.mark.parametrize("H", [64, 128, 256, 512, 1024])
+def test_lstm_fwd_plan_partition(dtype, B, H):
+    """The kernel's launch plan: every (row, unit) is computed by exactly
+    one block of one cluster, a block's shared memory fits the H100's
+    232,448 bytes, and the recurrence through the plan's tiles and slices
+    equals the plain version exactly and aocr's kernel (interpret mode)
+    within TOL."""
+    jd, td = DT[dtype]
+    p = lstm_fwd.plan(H, B, td, ACTIVE)
+    assert p is not None and p.smem <= 232448
+    assert p.units % 8 == 0 and p.kres % 16 == 0 and p.kres <= p.kp
+    assert p.clusters * p.bt >= B > (p.clusters - 1) * p.bt
+    L = 2
+    rs = np.random.RandomState(H + B)
+    b = H ** -0.5
+    wh = rs.uniform(-b, b, (H, 4 * H)).astype(np.float32)
+    xp = rs.uniform(-1, 1, (L, B, 4 * H)).astype(np.float32)
+    c0 = rs.uniform(-1, 1, (B, H)).astype(np.float32)
+    h0 = rs.uniform(-1, 1, (B, H)).astype(np.float32)
+    args = (_t(wh, td), _t(xp, td), _t(c0), _t(h0), True)
+    got, count = _plan_scan(*args, p)
+    assert bool((count == 1).all())
+    want = lstm_fwd.lstm_fwd_scan_plain(*args, collect=True)
+    flat = lambda o: (o[0], *o[1], *o[2])
+    for g, w in zip(flat(got), flat(want)):
+        assert torch.equal(g, w)
+    hs_j, fin_j, res_j = jlf.lstm_fwd_scan(
+        jnp.asarray(wh).astype(jd), jnp.asarray(xp).astype(jd),
+        jnp.asarray(c0), jnp.asarray(h0), True, collect=True, interpret=True)
+    tol = TOL[dtype]
+    for g, w in zip(flat(got), (hs_j, *fin_j, *res_j)):
+        np.testing.assert_allclose(g.float().numpy(), _np(w), rtol=tol,
+                                   atol=tol)
+
+
+def test_lstm_fwd_plan_limits():
+    """Shapes the plan serves and those it refuses (the wrapper raises
+    ValueError on a CUDA tensor for these): every even H up to 2048 in
+    bf16 and 2420 in float32 (the previous kernel's limit), none past
+    them in bf16 (more than 2 mma tiles a warp) or past 4096."""
+    for dt in (torch.float32, torch.bfloat16):
+        for H in (2, 130, 200, 520, 1030, 2048):
+            for B in (1, 33, 512):
+                p = lstm_fwd.plan(H, B, dt, ACTIVE)
+                assert p is not None and p.smem <= 232448
+                assert sum(len(p.unit_range(s, H))
+                           for s in range(p.cs)) == H
+        assert lstm_fwd.plan(4098, 1, dt, ACTIVE) is None
+    assert lstm_fwd.plan(2050, 512, torch.bfloat16, ACTIVE) is None
+    assert all(lstm_fwd.plan(H, 512, torch.float32, ACTIVE) is not None
+               for H in range(2, 2422, 2))
+    assert all(lstm_fwd.plan(H, 512, torch.bfloat16, ACTIVE) is not None
+               for H in range(2, 2050, 2))
