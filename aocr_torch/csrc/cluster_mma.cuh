@@ -1,7 +1,7 @@
 // Hopper device helpers for kernels that keep their weights on chip:
-// the thread-block-cluster barrier, cp.async copies with zero fill, and
-// bf16 tensor-core fragments (ldmatrix + mma.sync.m16n8k16, float32
-// accumulators).  lstm_fwd.cu uses them.
+// the thread-block-cluster barrier, cp.async copies with zero fill,
+// mbarriers and bulk (TMA) copies, and bf16 tensor-core fragments (ldmatrix + mma.sync.m16n8k16, float32
+// accumulators).  lstm_fwd.cu and decoder_cluster.cuh use them.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -22,6 +22,17 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // convergent.
 __device__ __forceinline__ void cluster_barrier() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The two halves of cluster_barrier, for work between them: arrive
+// releases this thread's earlier stores at cluster scope; wait blocks
+// until every thread of the cluster has arrived, and acquires.  Each
+// arrive is matched by one wait before the next arrive.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
@@ -51,6 +62,56 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// An mbarrier in shared memory (8-byte aligned): init with `count`
+// arrivals a phase; expect_tx arrives once and adds `bytes` of
+// transactions to the phase; wait spins until the phase of `parity`
+// completes.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A bulk copy (the Tensor Memory Accelerator) of `bytes` (a multiple of
+// 16; both addresses 16-byte aligned) from global src to shared dst,
+// completing as transactions on the mbarrier bar.  One thread issues it.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Orders this thread's generic-proxy memory accesses before its later
+// async-proxy ones (bulk copies), in every state space.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 // A fragment of m16n8k16 (16 x 16 bf16, row-major in shared memory, row

@@ -1,0 +1,765 @@
+// One input-feeding attention decoder step on a thread-block cluster: the
+// pieces greedy_loop.cu runs (and the beam and teacher-forced decoder
+// kernels can run on the same design).
+//
+// A cluster of cs blocks owns a tile of bt batch rows for a whole decode.
+// Block s owns the hidden units [s*U, (s+1)*U) of every LSTM layer, with
+// their four gate columns, and the same column range of W_a and W_c: a
+// step's weight products are split by columns, so each block multiplies
+// only its (K, 4U) or (K, U) slices.  The slices (~2.5 MB a step in bf16
+// at H=1024, 2 layers, input feed; far more than a block's shared memory)
+// stream from L2 through a ring of `stages` chunks of kc rows, with the
+// tile's matching kc columns of the product's left operand beside them,
+// each chunk bulk copies (the Tensor Memory Accelerator) onto the stage's
+// mbarrier: the caller packs each block's weight slices contiguously
+// (aocr_torch/ops/cuda/greedy_loop.py::pack_weights, DcSeg below), and
+// the left operands live chunk-major (DcBlock::aoff), so a chunk of
+// either is one run of bytes.  (cp.async by every thread, 16 bytes a
+// copy, took longer a step to issue than the products took, on an H100;
+// PERF.md.)
+// bf16 multiplies on the tensor cores (ldmatrix + mma.sync.m16n8k16,
+// float32 accumulators, cluster_mma.cuh), a warp holding up to DC_TILES
+// (16-row, 8-unit) tiles of one unit group; float32 on the CUDA cores
+// (FMA, no TF32), a thread holding rt rows x 2 units.
+//
+// What the blocks exchange goes through global memory (L2): a block
+// stores its slice of a result, one cluster barrier (arrive.release /
+// wait.acquire, with async-proxy fences for the bulk copies) makes every
+// slice visible, and the readers load it back with bulk copies or
+// ld.global.cg (never through L1).  The work that needs whole rows (the
+// attention over the context, the log-softmax and the argmax) is split by
+// rows instead: block s owns the tile rows [s*R, (s+1)*R), R = ceil(bt /
+// cs).  The exchange buffers hold bt rows a cluster and H columns padded
+// with zeros to hs = a multiple of kc.
+//
+// Numerics as decode_tail.cuh: every product operand rounded to the
+// compute dtype, float32 sums; the gate math of common.cuh; q, the
+// scores, alpha, the context vector before its rounding, h~ and the
+// logits in float32.
+#pragma once
+
+#include <type_traits>
+
+#include "cluster_mma.cuh"
+#include "common.cuh"
+
+namespace aocr {
+
+constexpr int DC_THREADS = 256;
+constexpr int DC_WARPS = DC_THREADS / 32;
+constexpr int DC_SMEM_MAX = 232448;  // the H100's shared memory a block
+constexpr int DC_MAX_CLUSTER = 16;   // non-portable cluster size
+constexpr int DC_TILES = 5;          // (16-row, 8-unit) mma tiles a warp
+constexpr int DC_MAX_UNITS = 512;    // units a block (float32: 2 a thread)
+constexpr int DC_ALIGN = 256;        // bytes, scratch regions
+constexpr int DC_MAX_STAGES = 4;     // chunks in the ring
+constexpr int DC_BARS = 64;          // bytes of mbarriers: stages + 1
+
+// The launch plan (dc_plan; mirrored by aocr_torch/ops/cuda/greedy_loop.py
+// ::plan, field for field).
+struct DcPlan {
+  int cs;        // blocks (SMs) in a cluster
+  int units;     // U: hidden units a block, a multiple of 8
+  int bt;        // batch rows a cluster
+  int rt;        // float32: rows a thread; bf16: m-tiles (bt / 16)
+  int kc;        // rows of a streamed chunk (a multiple of 16)
+  int stages;    // chunks in the ring (2..4)
+  int cres;      // 1: the cell states c live in shared memory (else L2)
+  int smem;      // dynamic shared memory bytes a block
+  int clusters;  // ceil(B / bt)
+};
+
+__host__ __device__ inline int dc_round_up(long a, long m) {
+  return (int)((a + m - 1) / m * m);
+}
+
+// The cluster for H: the smallest power of two that gives every block 8
+// units or more, up to 16; U units a block, a multiple of 8 (the last
+// blocks may own fewer, or none).
+static inline void dc_cluster(int H, int* cs, int* U) {
+  *cs = 1;
+  while (*cs < DC_MAX_CLUSTER && *cs * 8 < H) *cs *= 2;
+  *U = dc_round_up((H + *cs - 1) / *cs, 8);
+}
+
+// The mma tiles warp w holds with G8 unit groups of 8 and MT m-tiles: at
+// 8 groups or more a warp takes the groups w, w+8, ... with every m-tile;
+// with fewer, 8 / G8 warps share a group and deal out its m-tiles.
+__host__ __device__ inline int dc_warp_tiles(int w, int G8, int MT) {
+  if (G8 >= DC_WARPS)
+    return (G8 - w + DC_WARPS - 1) / DC_WARPS * MT;
+  const int wpg = DC_WARPS / G8, sl = w / G8;
+  if (w >= G8 * wpg || sl >= MT) return 0;
+  return (MT - sl + wpg - 1) / wpg;
+}
+
+// Geometry of the rings and buffers for a plan: element counts.
+struct DcGeom {
+  int lda;    // A chunk row stride (kc + 16 bytes), also in global memory
+  int ldw;    // the widest W chunk's row stride (4U + 16 bytes)
+  int ldh;    // row stride of the float tile of h~ (U + 8)
+  int stage;  // elements of a stage: bt x lda + kc x ldw
+  int R;      // tile rows a block owns in the row-split phases
+};
+
+__host__ __device__ inline DcGeom dc_geom(const DcPlan& p, int esz) {
+  DcGeom g;
+  g.lda = p.kc + 16 / esz;
+  g.ldw = 4 * p.units + 16 / esz;
+  g.ldh = p.units + 8;
+  g.stage = p.bt * g.lda + p.kc * g.ldw;
+  g.R = (p.bt + p.cs - 1) / p.cs;
+  return g;
+}
+
+// The shared memory of a plan: the ring, the float tile (bt x ldh), the
+// cell states (bt x nl x U floats, with cres), bt tokens, 2R per-row
+// words and the mbarriers; the row-split phases overlay their q rows,
+// scores and logits (R x (H + L + Vp) floats), and layer 0's epilogue its
+// emb_gates rows (bt x 4U floats), on the ring.  0 where an overlay does
+// not fit.
+__host__ __device__ inline long dc_cbytes(const DcPlan& p, int nl) {
+  return p.cres ? (long)p.bt * nl * p.units * 4 : 0;
+}
+static inline long dc_smem(const DcPlan& p, int esz, int H, int L, int Vp,
+                           int nl) {
+  const DcGeom g = dc_geom(p, esz);
+  const long ring = (long)p.stages * g.stage * esz;
+  if ((long)g.R * (H + L + Vp) * 4 > ring ||
+      (long)p.bt * 4 * p.units * 4 > ring)
+    return 0;
+  return ring + (long)p.bt * g.ldh * 4 + dc_cbytes(p, nl) +
+         dc_round_up((long)p.bt * 4 + 2L * g.R * 4, 8) + DC_BARS;
+}
+
+// (kc, stages) in the order the plan tries them, first with the cell
+// states in shared memory, then without: the first that fits.  Chunks of
+// 128 rows are skipped where H (rounded to 16) is less.
+constexpr int DC_NCHUNKS = 11;
+constexpr int DC_CHUNKS[DC_NCHUNKS][2] = {
+    {128, 3}, {64, 4}, {128, 2}, {64, 3}, {32, 4}, {32, 3},
+    {16, 4},  {16, 3}, {64, 2},  {32, 2}, {16, 2}};
+// float32 rows a thread: the kernel's instances
+constexpr int DC_FMA_RT[3] = {1, 4, 10};
+// a step's cost in batch rows of its per-row part: the weight stream
+// sets a floor (stream_rows) under the tile's product, and the barriers,
+// attention and tail add fixed_rows (from the phase timings on an H100,
+// tools/greedy_loop_phases_torch.py)
+constexpr int DC_STREAM_ROWS[2] = {40, 10};  // bf16, float32
+constexpr int DC_FIXED_ROWS[2] = {10, 2};
+
+// The launch plan for (H, B, esz, L, Vp, nl layers) and the clusters of
+// that size the card runs at once (active); false where none fits.  bf16
+// tiles are multiples of 16 rows (at most DC_TILES a warp), float32 tiles
+// rg x rt rows (rg = 256 / (U / 2) row groups, rt in DC_FMA_RT); the tile
+// that costs least, waves x (max(bt, stream rows) + fixed rows) with
+// waves = ceil(clusters / active), the smaller on a tie, with the first
+// (cres, kc, stages) of DC_CHUNKS that fits shared memory.
+static inline bool dc_plan(int H, int B, int esz, int L, int Vp, int nl,
+                           int active, DcPlan* out) {
+  int cs, U;
+  dc_cluster(H, &cs, &U);
+  if (U > DC_MAX_UNITS || active < 1) return false;
+  const int f32 = esz == 4;
+  long best = -1;
+  int prev_bt = 0;
+  for (int opt = 0; opt < (f32 ? 3 : DC_TILES); ++opt) {
+    int bt, rt;
+    if (f32) {
+      rt = DC_FMA_RT[opt];
+      bt = DC_THREADS / (U / 2) * rt;
+    } else {
+      rt = opt + 1;
+      bt = 16 * rt;
+      if (dc_warp_tiles(0, U / 8, rt) > DC_TILES) continue;
+    }
+    if (prev_bt >= B) break;  // a smaller tile already holds the batch
+    prev_bt = bt;
+    DcPlan p = {cs, U, bt, rt, 0, 0, 0, 0, (B + bt - 1) / bt};
+    long smem = 0;
+    for (int c = 0; c < 2 * DC_NCHUNKS && smem == 0; ++c) {
+      p.cres = c < DC_NCHUNKS;
+      p.kc = DC_CHUNKS[c % DC_NCHUNKS][0];
+      p.stages = DC_CHUNKS[c % DC_NCHUNKS][1];
+      if (p.kc > 64 && p.kc > dc_round_up(H, 16)) continue;
+      smem = dc_smem(p, esz, H, L, Vp, nl);
+      if (smem > DC_SMEM_MAX) smem = 0;
+    }
+    if (smem == 0) continue;
+    p.smem = (int)smem;
+    const long waves = (p.clusters + active - 1) / active;
+    const long cost =
+        waves * ((bt > DC_STREAM_ROWS[f32] ? bt : DC_STREAM_ROWS[f32]) +
+                 DC_FIXED_ROWS[f32]);
+    if (best >= 0 && cost >= best) continue;
+    best = cost;
+    *out = p;
+  }
+  return best >= 0;
+}
+
+// Byte offsets of the scratch regions (zeroed by the caller) of a launch:
+// the exchange buffers in the compute dtype (h~ x 2, h_l x 2 for each
+// layer, by step parity, and the context vector; each a plane of
+// dc_aoff's chunk-major layout), q (float32, rows bp = clusters x bt,
+// columns hs), the block-private cell states c (bp x nl x H, float32),
+// the partial logits (clusters x cs x bt x V, float32) and the tokens
+// (int32); off[5] is the total.
+__host__ __device__ inline long dc_plane(const DcPlan& p, int esz, int H) {
+  return (long)p.clusters * (dc_round_up(H, p.kc) / p.kc) * p.bt *
+         (p.kc + 16 / esz);
+}
+__host__ __device__ inline void dc_scratch(const DcPlan& p, int esz, int H,
+                                           int nl, int V, long (&off)[6]) {
+  const long bp = (long)p.clusters * p.bt;
+  const long hs = dc_round_up(H, p.kc);
+  const long sizes[5] = {(3L + 2 * nl) * dc_plane(p, esz, H) * esz,
+                         bp * hs * 4,
+                         bp * nl * H * 4,
+                         (long)p.clusters * p.cs * p.bt * V * 4, bp * 4};
+  long at = 0;
+  for (int i = 0; i < 5; ++i) {
+    off[i] = at;
+    at += dc_round_up(sizes[i], DC_ALIGN);
+  }
+  off[5] = at;
+}
+
+// Per-block view of the plan and the buffers.
+template <typename T>
+struct DcBlock {
+  int H, U, j0, nu;  // units: this block owns [j0, j0 + nu)
+  int b0, nrows;     // the tile's first batch row and its real rows
+  int bt, kc, stages, hs, rank;
+  int ra, nown;      // owned tile rows [ra, ra + nown) (row-split phases)
+  int nch, kshift;   // chunks over hs; log2(kc)
+  int cl;            // the cluster's index (its tile)
+  DcGeom g;
+
+  // Element (tile row r, column j) of an exchange plane in the chunk-major
+  // layout: the tile's chunk j / kc is bt rows of lda (kc + padding)
+  // columns, so a chunk of the left operand is one run of bytes, laid out
+  // as the ring's A chunk.
+  __device__ __forceinline__ size_t aoff(int r, int j) const {
+    return ((size_t)(cl * nch + (j >> kshift)) * bt + r) * g.lda +
+           (j & (kc - 1));
+  }
+  // the first element of the tile's chunk 0 in a plane
+  __device__ __forceinline__ size_t atile() const {
+    return (size_t)cl * nch * bt * g.lda;
+  }
+};
+
+// A product segment: the tile's left operand a (its chunk 0 in an
+// exchange plane, chunk-major: chunk c at a + c * bt * lda) against the
+// block's packed weight slice w (chunk c at w + c * kc * ldw: kc rows of
+// ldw elements, NQ column blocks of U and 16 bytes of zeros; rows past H
+// and units past nu zero).
+template <typename T>
+struct DcSeg {
+  const T* a;
+  const T* w;
+  int ldw;
+};
+
+// The ring: the stages' shared memory and mbarriers, and the chunks
+// issued so far (uniform across the block), which sets each stage's phase.
+template <typename T>
+struct DcRing {
+  T* base;
+  uint64_t* bar;  // DC_MAX_STAGES for the stages, one for the attention
+  int seq;        // chunks issued so far
+  int aseq;       // the single-copy mbarrier's uses so far
+};
+
+// Phase clock: tick(i) adds the cycles since the last tick to phase i,
+// thread 0 of each block into shared memory.  A no-op unless DC_PROBES is
+// defined (the phase tool builds with it).
+enum DcPhase {
+  DC_PRODUCT = 0,   // mma / FMA on landed chunks
+  DC_STREAM = 1,    // waiting for a chunk (cp.async + the block barrier)
+  DC_EPILOGUE = 2,  // gate math, q / h~ stores
+  DC_ATTEND = 3,    // the row-split attention
+  DC_TAIL = 4,      // the row-split log-softmax, argmax, tokens
+  DC_BARRIER = 5,   // cluster waits
+  DC_READBACK = 6,  // the tokens read back after the barrier
+  DC_ISSUE = 7,     // issuing a chunk's copies
+  DC_PROJ = 8,      // the partial projector
+  DC_NPHASES = 9
+};
+#ifdef DC_PROBES
+__shared__ unsigned long long dc_prof[DC_NPHASES];
+#endif
+struct DcClock {
+#ifdef DC_PROBES
+  long long t;
+  static __device__ __forceinline__ long long now() {
+    long long c;
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(c));
+    return c;
+  }
+  __device__ DcClock() : t(now()) {
+    if (threadIdx.x < DC_NPHASES) dc_prof[threadIdx.x] = 0;
+  }
+  __device__ __forceinline__ void tick(int i) {
+    const long long u = now();
+    if (threadIdx.x == 0) dc_prof[i] += u - t;
+    t = u;
+  }
+#else
+  __device__ __forceinline__ void tick(int) {}
+#endif
+};
+
+// Stream one segment through the ring: compute(sa, sw) on each chunk in
+// order while the next stages - 1 chunks load, each chunk bulk copies
+// onto its stage's mbarrier: lane 0 of each warp copies kc / warps of the
+// weight rows (the copies' issue is spread over the warps), warp 0 also
+// the left operand.  Starts with an async-proxy fence (the segment's
+// operand was written by generic stores published by a cluster barrier,
+// and the ring by generic stores of the row-split phases) and a
+// __syncthreads; ends with a __syncthreads (the ring is free on exit).
+template <typename T, typename Compute>
+__device__ __forceinline__ void dc_stream(const DcSeg<T>& s,
+                                          const DcBlock<T>& b,
+                                          DcRing<T>& ring, DcClock& clk,
+                                          Compute compute) {
+  const uint32_t abytes = (uint32_t)(b.bt * b.g.lda * sizeof(T));
+  const uint32_t wbytes = (uint32_t)(b.kc * s.ldw * sizeof(T));
+  const int seq0 = ring.seq;
+  fence_proxy_async();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, wrows = b.kc / DC_WARPS;
+  const uint32_t wpart = (uint32_t)(wrows * s.ldw * sizeof(T));
+  auto issue = [&](int c) {
+    if ((threadIdx.x & 31) == 0 && c < b.nch) {
+      const int st = (seq0 + c) % b.stages;
+      T* sa = ring.base + (size_t)st * b.g.stage;
+      if (warp == 0) {
+        mbar_expect_tx(ring.bar + st, abytes + wbytes);
+        bulk_copy(sa, s.a + (size_t)c * b.bt * b.g.lda, abytes,
+                  ring.bar + st);
+      }
+      bulk_copy(sa + b.bt * b.g.lda + warp * wrows * s.ldw,
+                s.w + ((size_t)c * b.kc + warp * wrows) * s.ldw, wpart,
+                ring.bar + st);
+    }
+  };
+  for (int c = 0; c < b.stages - 1; ++c) issue(c);
+  for (int c = 0; c < b.nch; ++c) {
+    const int q = seq0 + c, st = q % b.stages;
+    mbar_wait(ring.bar + st, (q / b.stages) & 1);
+    __syncthreads();  // every thread is done with chunk c - 1's stage
+    clk.tick(DC_STREAM);
+    issue(c + b.stages - 1);
+    clk.tick(DC_ISSUE);
+    const T* sa = ring.base + (size_t)st * b.g.stage;
+    compute(sa, sa + b.bt * b.g.lda);
+    clk.tick(DC_PRODUCT);
+  }
+  ring.seq = seq0 + b.nch;
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------- bf16
+
+// The mma tiles of this warp: tile i is unit group g[i] (units 8g..8g+7
+// of each column block) and m-tile m[i] (rows 16m..16m+15); n of them, in
+// ng unit groups (1 unless the block has more groups than warps).
+struct DcTiles {
+  int n, ng;
+  int g[DC_TILES], m[DC_TILES];
+  __device__ DcTiles(int U, int MT) {
+    const int w = threadIdx.x >> 5, G8 = U / 8;
+    n = dc_warp_tiles(w, G8, MT);
+    ng = G8 > DC_WARPS ? (n + MT - 1) / MT : 1;
+#pragma unroll
+    for (int i = 0; i < DC_TILES; ++i) {
+      if (G8 >= DC_WARPS) {
+        g[i] = w + DC_WARPS * (i / MT);
+        m[i] = i % MT;
+      } else {
+        g[i] = w % G8;
+        m[i] = w / G8 + i * (DC_WARPS / G8);
+      }
+    }
+  }
+};
+
+// acc[i][q*4 + e] += A @ W over one chunk (kc rows) for the warp's tiles:
+// A the tile's rows in sa (row stride lda), W's NQ column blocks in sw
+// (row stride ldw, block q at column q*U).  Each 16-deep step loads all
+// the warp's A fragments and its B fragments before the mma chain (the
+// asm statements keep their order).  With one unit group (the plans up
+// to 8 groups a block) B is loaded once a step into registers no mma of
+// the step overwrites: a B reload between two tiles' mmas waits for the
+// first tile's mmas to read their operands, which serialized the chain
+// (a third of the tensor-core rate on an H100).
+template <int NQ>
+__device__ __forceinline__ void dc_mma_chunk(
+    float (&acc)[DC_TILES][NQ * 4], const __nv_bfloat16* sa, int lda,
+    const __nv_bfloat16* sw, int ldw, int kc, int U, const DcTiles& tl) {
+  auto load_b = [&](uint32_t(&bf)[8], const __nv_bfloat16* wr, int g8) {
+    uint32_t b4[4];
+    ldmatrix_b2(b4, wr, ldw, g8, NQ > 1 ? U + g8 : g8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bf[e] = b4[e];
+    if (NQ == 4) {
+      ldmatrix_b2(b4, wr, ldw, 2 * U + g8, 3 * U + g8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bf[4 + e] = b4[e];
+    }
+  };
+  if (tl.ng == 1 && tl.n == 1) {
+    // one tile: four chains of accumulators (acc[0..3], 16-deep steps in
+    // turn; dc_mma_fold sums them), so consecutive mmas do not wait for
+    // each other
+    const int g8 = 8 * tl.g[0];
+    const __nv_bfloat16* at = sa + tl.m[0] * 16 * lda;
+#pragma unroll 1
+    for (int k0 = 0; k0 < kc; k0 += 64) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kk = k0 + 16 * c;
+        if (kk >= kc) break;
+        uint32_t a[4], bf[8];
+        ldmatrix_a(a, at + kk, lda);
+        load_b(bf, sw + kk * ldw, g8);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          mma_bf16(acc[c] + 4 * q, a, bf[2 * q], bf[2 * q + 1]);
+      }
+    }
+    return;
+  }
+  if (tl.ng == 1) {
+    const int g8 = 8 * tl.g[0];
+#pragma unroll 2
+    for (int kk = 0; kk < kc; kk += 16) {
+      uint32_t a[DC_TILES][4], bf[8];
+#pragma unroll
+      for (int i = 0; i < DC_TILES; ++i)
+        if (i < tl.n) ldmatrix_a(a[i], sa + tl.m[i] * 16 * lda + kk, lda);
+      load_b(bf, sw + kk * ldw, g8);
+#pragma unroll
+      for (int i = 0; i < DC_TILES; ++i) {
+        if (i >= tl.n) break;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          mma_bf16(acc[i] + 4 * q, a[i], bf[2 * q], bf[2 * q + 1]);
+      }
+    }
+    return;
+  }
+#pragma unroll 1
+  for (int kk = 0; kk < kc; kk += 16) {
+    uint32_t a[DC_TILES][4];
+#pragma unroll
+    for (int i = 0; i < DC_TILES; ++i)
+      if (i < tl.n) ldmatrix_a(a[i], sa + tl.m[i] * 16 * lda + kk, lda);
+    uint32_t bf[8];
+    int gl = -1;
+#pragma unroll
+    for (int i = 0; i < DC_TILES; ++i) {
+      if (i >= tl.n) break;
+      if (tl.g[i] != gl) {
+        gl = tl.g[i];
+        load_b(bf, sw + kk * ldw, 8 * gl);
+      }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        mma_bf16(acc[i] + 4 * q, a[i], bf[2 * q], bf[2 * q + 1]);
+    }
+  }
+}
+
+// A one-tile warp's four chains (dc_mma_chunk) summed into acc[0], in
+// chain order; a no-op for warps with more tiles.
+template <int NQ>
+__device__ __forceinline__ void dc_mma_fold(float (&acc)[DC_TILES][NQ * 4],
+                                            const DcTiles& tl) {
+  if (tl.ng != 1 || tl.n != 1) return;
+#pragma unroll
+  for (int e = 0; e < NQ * 4; ++e)
+    acc[0][e] = ((acc[0][e] + acc[1][e]) + acc[2][e]) + acc[3][e];
+}
+
+// Calls f(r, u, v) for each (tile row r, unit u, u + 1) pair this thread
+// holds in the warp's mma tiles, v[q][e] the accumulator of column block q
+// at unit u + e.
+template <int NQ, typename F>
+__device__ __forceinline__ void dc_mma_pairs(
+    const float (&acc)[DC_TILES][NQ * 4], const DcTiles& tl, F f) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < DC_TILES; ++i) {
+    if (i >= tl.n) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[NQ][2];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) v[q][e] = acc[i][q * 4 + h * 2 + e];
+      f(tl.m[i] * 16 + (lane >> 2) + 8 * h, 8 * tl.g[i] + 2 * (lane & 3), v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- float32
+
+// acc[i][q][e] += A @ W over one chunk for this thread's rows r0..r0+RT-1
+// and units u, u + 1 (CUDA cores, k in order).
+template <int RT, int NQ>
+__device__ __forceinline__ void dc_fma_chunk(float (&acc)[RT][NQ][2],
+                                             const float* sa, int lda,
+                                             const float* sw, int ldw, int kc,
+                                             int U, int r0, int u) {
+  const float* ar = sa + r0 * lda;
+  const float* wr = sw + u;
+#pragma unroll 4
+  for (int k = 0; k < kc; ++k) {
+    float2 w[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      w[q] = *reinterpret_cast<const float2*>(wr + k * ldw + q * U);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float x = ar[i * lda + k];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        acc[i][q][0] = fmaf(x, w[q].x, acc[i][q][0]);
+        acc[i][q][1] = fmaf(x, w[q].y, acc[i][q][1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- row split
+
+// V consecutive values at p as floats (V = 4; p aligned to 4 elements)
+__device__ __forceinline__ void load4_cg(const float* p, float (&o)[4]) {
+  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Luong attention of the block's own tile rows: q (float32, the q
+// exchange buffer, row stride hs) over the context ctx (L, B, H), alpha =
+// softmax in float32, and round_cd(context vector) into the exchange
+// plane cv (dc_aoff) at the rows' places, as decode_tail.cuh's
+// attention_htilde<false>.  qs (own rows x H) and sc (own rows x L) are
+// shared-memory scratch.  With nb >= 1 the rows' context (L x H each) is
+// staged in shared memory at cbuf, nb rows a pass, all of a pass in
+// flight at once (bulk copies onto the ring's last mbarrier, or cp.async
+// where a context row is not a multiple of 16 bytes), and read from L2
+// once a step.  With nb = 0 (a context too large for the ring) it is read
+// from global memory twice, the scores and the context vector.
+template <typename T>
+__device__ void dc_attend_rows(const T* __restrict__ ctx, int L, int B,
+                               const float* q, T* cv, float* qs, float* sc,
+                               T* cbuf, int nb, const DcBlock<T>& b,
+                               DcRing<T>& ring) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = b.H, H4 = H / 4, n = b.nown;
+  const size_t row0 = (size_t)b.b0 + b.ra;  // the first own batch row
+  for (int i = tid; i < n * H4; i += DC_THREADS) {
+    const int r = i / H4, h = (i % H4) * 4;
+    float v[4];
+    load4_cg(q + (row0 + r) * b.hs + h, v);
+    store4(qs + r * H + h, v);
+  }
+  const int pass = nb > 0 ? nb : max(n, 1);
+  for (int r0 = 0; r0 < n; r0 += pass) {
+    const int m = min(pass, n - r0);
+    auto crow = [&](int r, int l) -> const T* {
+      return nb > 0 ? cbuf + ((size_t)r * L + l) * H
+                    : ctx + ((size_t)l * B + row0 + r0 + r) * H;
+    };
+    if (nb > 0) {
+      const uint32_t rowb = (uint32_t)(H * sizeof(T));
+      auto src = [&](int rl) {
+        return ctx + ((size_t)(rl % L) * B + row0 + r0 + rl / L) * H;
+      };
+      if (rowb % 16 == 0) {
+        // one bulk copy a (row, l), issued by warp 0
+        uint64_t* bar = ring.bar + DC_MAX_STAGES;
+        fence_proxy_async();
+        __syncthreads();
+        if (warp == 0) {
+          if (lane == 0) mbar_expect_tx(bar, (uint32_t)(m * L) * rowb);
+          __syncwarp();
+          for (int rl = lane; rl < m * L; rl += 32)
+            bulk_copy(cbuf + (size_t)rl * H, src(rl), rowb, bar);
+        }
+        mbar_wait(bar, ring.aseq & 1);
+        ++ring.aseq;
+      } else {
+        // a warp a (row, l), 8-byte pieces
+        const int per = (int)rowb / 8;
+        for (int rl = warp; rl < m * L; rl += DC_WARPS) {
+          const char* from = reinterpret_cast<const char*>(src(rl));
+          char* to = reinterpret_cast<char*>(cbuf + (size_t)rl * H);
+          for (int k = lane; k < per; k += 32)
+            cp_async<8>(to + 8 * k, from + 8 * k, 8);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+    }
+    __syncthreads();
+    // scores[r][l] = ctx[l, b, :] . q[b, :]: a warp a (row, l)
+    for (int p = warp; p < m * L; p += DC_WARPS) {
+      const int r = p / L, l = p % L;
+      const T* cr = crow(r, l);
+      const float* qr = qs + (r0 + r) * H;
+      float s = 0.f;
+      for (int h = 4 * lane; h < H; h += 128) {
+        float c[4];
+        load_row(cr + h, c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s = fmaf(c[e], qr[h + e], s);
+      }
+      s = warp_sum(s);
+      if (lane == 0) sc[(r0 + r) * L + l] = s;
+    }
+    __syncthreads();
+    // alpha = softmax over L: a warp a row
+    for (int r = warp; r < m; r += DC_WARPS) {
+      float* a = sc + (r0 + r) * L;
+      float mx = -INFINITY;
+      for (int l = lane; l < L; l += 32) mx = fmaxf(mx, a[l]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int l = lane; l < L; l += 32) {
+        const float e = expf(a[l] - mx);
+        a[l] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int l = lane; l < L; l += 32) a[l] = a[l] / sum;
+    }
+    __syncthreads();
+    // context vector = sum_l alpha * ctx, float32, rounded
+    for (int i = tid; i < m * H4; i += DC_THREADS) {
+      const int r = i / H4, h = (i % H4) * 4;
+      const float* a = sc + (r0 + r) * L;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int l = 0; l < L; ++l) {
+        float c[4];
+        load_row(crow(r, l) + h, c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = fmaf(a[l], c[e], v[e]);
+      }
+      store4(cv + b.aoff(b.ra + r0 + r, h), v);
+    }
+    __syncthreads();
+  }
+}
+
+// The block's partial logits: out[r][v] = round_cd(h~)[r, own units] @
+// W_p[own units, v] for the tile's real rows and v < V, float32, units in
+// order, 4 columns a thread.  ht holds round_cd(h~) (row stride ldh).
+// The block's rows of W_p (nu x Vp, contiguous) come into shared memory at
+// ws (cap bytes) by one bulk copy onto the mbarrier bar (its phase from
+// *seq), or, where they do not fit, are read from global memory.
+template <typename T>
+__device__ void dc_partial_logits(const float* ht, int ldh,
+                                  const T* __restrict__ pw, int Vp, int V,
+                                  T* ws, long cap, uint64_t* bar, int* seq,
+                                  float* out, const DcBlock<T>& b) {
+  const int tid = threadIdx.x, nu = b.nu, vq = (V + 3) / 4;
+  const uint32_t bytes = (uint32_t)((size_t)nu * Vp * sizeof(T));
+  const T* src = pw + (size_t)b.j0 * Vp;
+  const bool staged = nu > 0 && bytes <= cap;
+  if (staged) {
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      mbar_expect_tx(bar, bytes);
+      bulk_copy(ws, src, bytes, bar);
+    }
+    mbar_wait(bar, *seq & 1);
+    ++*seq;
+    src = ws;
+  }
+  for (int i = tid; i < b.nrows * vq; i += DC_THREADS) {
+    const int r = i / vq, v = 4 * (i % vq);
+    const float* hr = ht + r * ldh;
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int u = 0; u < nu; ++u) {
+      const float h = hr[u];
+      float w[4];
+      load_row(src + (size_t)u * Vp + v, w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = fmaf(h, w[e], a[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (v + e < V) out[r * V + v + e] = a[e];
+  }
+  __syncthreads();
+}
+
+// The log-softmax of one row's logits x (Vp, float32, in place) and its
+// PAD/EOS freeze (x[PAD] = 0 for a frozen row), by one warp, as
+// decode_tail.cuh's projector_logp; ends with __syncwarp.
+__device__ __forceinline__ void dc_logp_row(float* x, int Vp, bool frozen) {
+  const int lane = threadIdx.x & 31;
+  float m = -INFINITY;
+  for (int v = lane; v < Vp; v += 32) m = fmaxf(m, x[v]);
+  m = warp_max(m);
+  float s = 0.f;
+  for (int v = lane; v < Vp; v += 32) s += expf(x[v] - m);
+  s = warp_sum(s);
+  const float lse = m + logf(s);
+  for (int v = lane; v < Vp; v += 32)
+    x[v] = (frozen && v == PAD) ? 0.f : x[v] - lse;
+  __syncwarp();
+}
+
+// The argmax of row r's log-probs x (Vp of them), ties to the lowest
+// index, invalid tokens (valid(v) false) counting -1e30 except PAD of a
+// frozen row, as decode_tail.cuh's projector_pick; every lane gets it.
+template <typename Valid>
+__device__ __forceinline__ void dc_pick_row(const float* x, int Vp,
+                                            bool frozen, Valid valid,
+                                            float* best_out, int* tok_out) {
+  const int lane = threadIdx.x & 31;
+  // bi starts at PAD, so a row whose log-probs are all NaN picks PAD
+  float best = -INFINITY;
+  int bi = PAD;
+  for (int v = lane; v < Vp; v += 32) {
+    const float y = (valid(v) || (frozen && v == PAD)) ? x[v] : -1e30f;
+    if (y > best) {
+      best = y;
+      bi = v;
+    }
+  }
+  warp_argmax(&best, &bi);
+  *best_out = best;
+  *tok_out = bi;
+}
+
+}  // namespace aocr

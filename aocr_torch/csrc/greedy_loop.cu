@@ -1,139 +1,566 @@
-// The whole T-step greedy decode in one launch.
+// The whole T-step greedy decode in one launch, on thread-block clusters.
 //
 // Replaces aocr/ops/pallas/greedy_loop.py::fused_greedy_loop (pl.pallas_call
 // at greedy_loop.py:362), in-kernel trie included.
 //
 // Each step of each row: the emb_gates row of the previous token (a
 // gather; the TPU's one-hot matmul was a Mosaic workaround), layer 0 on
-// [attn; h0] @ [Wi[E:]; Wh], the other layers on [x; h_l] @ [Wi; Wh] + b,
-// then the shared attention tail (decode_tail.cuh), the PAD/EOS freeze,
-// the argmax, the score sum and the token history.
+// [attn; h0] @ [Wi[E:]; Wh] (h0 @ Wh without input feed), the other
+// layers on [x; h_l] @ [Wi; Wh] + b, Luong attention, h~ = tanh(W_c [ctx;
+// h]), the projector and float32 log-softmax, the PAD/EOS freeze, the
+// argmax (ties to the lowest index), the score sum and the token history.
+//
+// Design (decoder_cluster.cuh): a cluster of cs blocks (16 at H=1024) owns
+// a tile of bt batch rows for all T steps; block s owns U = H/cs hidden
+// units of every layer with their four gate columns and the same columns
+// of W_a and W_c, and streams its slices of the weights (packed by block
+// by the wrapper, ~2.6 MB a step in bf16 at H=1024, 2 layers, input feed)
+// from L2 through a ring of bulk (TMA) copies, with the tile's left
+// operand beside each chunk, multiplying bf16 on the tensor cores
+// (mma.sync) and float32 on the CUDA cores.  The TPU kernel kept every
+// decoder weight in VMEM; here a step reads each weight element once a
+// cluster and uses it for bt rows (4 in the previous kernel, one block a
+// tile).  The cell states stay in the block (shared memory where the plan
+// fits them).  A step, with its cluster barriers (each an arrive after
+// the stores it publishes and a wait before the first read of them, work
+// between the two where there is some):
+//   1. layer 0's product over [attn; h0] (both published by the last
+//      step), then wait for the last step's tokens, read them back (the
+//      early exit: every block of the cluster reads the same tokens and
+//      leaves at the same step once every row of the tile is PAD or EOS;
+//      rows past B start as PAD), stage their emb_gates rows, the gate
+//      math, h0's slice published;
+//   2. layer l >= 1: the product over its own last h_l first, then the
+//      wait for h_{l-1}, then that half; h_l's slice published;
+//   3. q = h_top @ W_a and h_top @ W_c[H:] (kept in shared memory) over
+//      the block's columns; q's slice (float32) published;
+//   4. the attention of the block's own R = bt/cs tile rows: their context
+//      staged in shared memory, scores, softmax, the context vector
+//      (rounded), published;
+//   5. h~ = tanh(ctx_vec @ W_c[:H] + h_top @ W_c[H:]) over the block's
+//      columns, published (the next step's input feed), and the block's
+//      partial logits round_cd(h~)[:, cols] @ W_p[cols, :V];
+//   6. for its own rows: the logits (the cs partial sums in block order,
+//      + b_p; columns past V hold b_p alone, pad_projector's zero
+//      weights), log-softmax, the freeze, the trie, the argmax, the
+//      score, the history and the token, published.
+// Exchanges go through L2 (stores, an async-proxy fence, the barrier, then
+// bulk copies or ld.global.cg), double-buffered by step parity where a
+// block may still read the last step's values while another writes the
+// next.
 //
 // Dictionary decoding: the dense (N, V) int32 transition table stays in
-// device memory, unpadded (a 110k-node lexicon is 17 MB), and each row
-// keeps its node id in shared memory; a step's validity is an integer read
-// of the node's row (the TPU's one-hot f32 matmul lookup was a Mosaic
-// workaround).  At t = 0 only the root's children are valid, PAD not;
-// later PAD always is.  PAD keeps the node, any other token steps it
-// (clamped at 0), as greedy_loop.py:153-187.
+// device memory, unpadded; the owner of a row keeps its node id in shared
+// memory; a step's validity is an integer read of the node's row.  At
+// t = 0 only the root's children are valid, PAD not; later PAD always is.
+// PAD keeps the node, any other token steps it (clamped at 0), as
+// greedy_loop.py:153-187.
 //
-// Bound on the H100: one block's weight stream.  The TPU kernel kept
-// every decoder weight in VMEM for the whole decode; at H=1024 they are
-// ~39 MiB in bf16 and ~79 MiB in float32, far beyond the 227 KB a block
-// can hold.  So one block owns BT batch rows and runs the T-step loop
-// itself, streaming the weights from L2 / device memory every step: BT
-// multiply-adds per weight element read.  On an H100 a lone block takes
-// nearly as long as 128 of them (68 vs 77 ms in bf16 at T=50), and ~95%
-// of its step is the four weight matmuls: the block's CUDA-core FMA loop
-// and the loads it keeps in flight bound it, not the card's bandwidth.
-// The per-row decoder state (attn, and c, h of each layer, float32) lives
-// in a global scratch buffer that only this block touches; matmul
-// operands are staged in shared memory rounded to the compute dtype.
-// A block stops as soon as all its rows are frozen (per-tile early exit);
-// the history was PAD-filled first, as the reference's buffer.  Tensor
-// cores, and splitting the gate columns across a cluster or the grid, are
-// later work.
-#include "decode_tail.cuh"
+// Bound on the H100: a step's chain of dependent phases, none near a
+// roofline (tools/greedy_loop_phases_torch.py, H100 80GB HBM3 at 700 W,
+// the default decoder, T=50).  At B=512 in bf16 (7 clusters of 80 rows) a
+// step takes ~570K cycles: the mma products ~200K (a quarter of the
+// tensor cores' dense rate), the epilogues ~100K, waits for the stream
+// ~80K, the attention ~70K, the copies' issue ~50K, the partial projector
+// ~20K, barriers ~20K.  At B=1 (one cluster of 16 rows) ~210K: the stream
+// of each SM's 2.6 MB slice (~20 bytes a cycle an SM) and the latency of
+// one tile's mma chain set it.  float32 is bound by the FMA loop (~80% of
+// a step at B=512).  The plan (dc_plan, mirrored by
+// aocr_torch/ops/cuda/greedy_loop.py::plan) sizes the tile so that the
+// clusters fill the card; a ragged tile and units past H are masked; a
+// shape no plan fits is refused.
+#include "decoder_cluster.cuh"
 
 namespace aocr {
 
-template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS)
-greedy_loop_kernel(const T* __restrict__ ctx,     // (L, B, H)
-                   const float* __restrict__ c0,  // (B, H)
-                   const float* __restrict__ h0,  // (B, H)
-                   const T* __restrict__ eg,      // (V, 4H)
-                   const T* __restrict__ wfh0,    // (K0, 4H)
-                   const T* __restrict__ wx,      // (nl-1, 2H, 4H)
-                   const float* __restrict__ bx,  // (nl-1, 4H)
-                   const T* __restrict__ wa, const T* __restrict__ wc,
-                   const T* __restrict__ pw, const float* __restrict__ pb,
-                   const int* __restrict__ trie,  // (N, V) or null
-                   int* __restrict__ labels,      // (B, T)
-                   float* __restrict__ scores,    // (B,)
-                   float* __restrict__ state,     // (B, 2*nl+1, H)
-                   int L, int B, int H, int Vp, int V, int T_, int nl,
-                   int input_feed) {
-  constexpr int BT = DEC_BT;
-  extern __shared__ float smem[];
-  TailSmem sm(smem, H, L, Vp);
-  float* score = sm.delta + BT;
-  int* node = reinterpret_cast<int*>(score + BT);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int b0 = blockIdx.x * BT;
-  const int nrows = min(BT, B - b0);
-  const int G = 4 * H;
-  const int nslot = 2 * nl + 1;
-  auto st = [&](int r, int slot) {
-    return state + ((size_t)(b0 + r) * nslot + slot) * H;
-  };
-  // layer 0 adds the emb_gates row of the previous token, the other
-  // layers their summed biases
-  auto pre = [&](int l, int r, int q, int j, float acc) {
-    return l == 0 ? to_f(eg[(size_t)sm.prev[r] * G + q * H + j]) + acc
-                  : acc + bx[(size_t)(l - 1) * G + q * H + j];
-  };
-  auto seen = [](int, int, int, float, float, const float(&)[4]) {};
+struct GlArgs {
+  const void* ctx;  // (L, B, H) compute dtype
+  const float* c0;  // (B, H)
+  const float* h0;  // (B, H)
+  const void* eg;   // (V, 4H)
+  // the weights packed by block (ops/cuda/greedy_loop.py::pack_weights):
+  // layer 0 (cs, nseg0, hs, 4U + pad), layers 1..nl-1
+  // (nl-1, cs, 2, hs, 4U + pad), [W_a | W_c[H:]] (cs, hs, 2U + pad) and
+  // W_c[:H] (cs, hs, U + pad)
+  const void* w0;
+  const void* wl;
+  const float* bx;  // (nl-1, 4H)
+  const void *wq, *wcx, *pw;  // the last two packs; the projector (H, Vp)
+  const float* pb;           // (Vp,)
+  const int* trie;           // (N, V) or null
+  int* labels;               // (B, T)
+  float* scores;             // (B,)
+  unsigned char* scratch;    // dc_scratch's regions, zeroed
+  int L, B, H, Vp, V, T, nl, input_feed;
+};
 
-  decoder_state_init(st, c0, h0, b0, nrows, H, nl);
-  for (int i = tid; i < nrows * T_; i += nthr)
-    labels[(size_t)b0 * T_ + i] = PAD;
-  if (tid < BT) {
-    sm.prev[tid] = tid < nrows ? GO : PAD;  // rows past B start frozen
-    score[tid] = 0.f;
-    node[tid] = 0;  // the root
-  }
-  __syncthreads();
+#ifdef DC_PROBES
+// the phases' cycles summed over the blocks, then the block count
+__device__ unsigned long long gl_prof[DC_NPHASES + 1];
+#endif
 
-  for (int t = 0; t < T_; ++t) {
-    bool live = false;
+template <typename T, int RT, int NQ>
+using GlAcc = std::conditional_t<sizeof(T) == 2, float[DC_TILES][NQ * 4],
+                                 float[RT][NQ][2]>;
+
+template <int A, int N>
+__device__ __forceinline__ void gl_zero(float (&x)[A][N]) {
 #pragma unroll
-    for (int r = 0; r < BT; ++r)
-      live |= !(sm.prev[r] == PAD || sm.prev[r] == EOS);
-    if (!live) break;  // uniform: every thread read the same shared words
-
-    decoder_stack_step<T>(st, sm.X, wfh0, wx, H, nl, nrows, input_feed, pre,
-                          seen);
-    attention_tail<T>(
-        ctx, L, B, H, b0, nrows, wa, wc, pw, pb, Vp, sm,
-        [&](int r, int j, float v) { st(r, 0)[j] = v; },
-        [&](int r, int v) {
-          return trie == nullptr ||
-                 (v < V && trie[(size_t)node[r] * V + v] >= 0) ||
-                 (v == PAD && t > 0);
-        });
-    if (tid < nrows) {
-      const int tk = sm.tok[tid];
-      if (trie != nullptr && !(tk == PAD && t > 0))
-        node[tid] =
-            tk < V ? max(trie[(size_t)node[tid] * V + tk], 0) : 0;
-      score[tid] += sm.delta[tid];
-      sm.prev[tid] = tk;
-      labels[(size_t)(b0 + tid) * T_ + t] = tk;
-    }
-    __syncthreads();
-  }
-  if (tid < nrows) scores[b0 + tid] = score[tid];
+  for (int i = 0; i < A; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[i][j] = 0.f;
+}
+template <int A, int N, int M>
+__device__ __forceinline__ void gl_zero(float (&x)[A][N][M]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i) gl_zero(x[i]);
 }
 
-template <typename T>
-static int launch(const void* ctx, const void* c0, const void* h0,
-                  const void* eg, const void* wfh0, const void* wx,
-                  const void* bx, const void* wa, const void* wc,
-                  const void* pw, const void* pb, const void* trie,
-                  void* labels, void* scores, void* state, int L, int B,
-                  int H, int Vp, int V, int T_, int nl, int input_feed,
-                  cudaStream_t stream) {
-  size_t smem = TailSmem::bytes(H, L, Vp, 2 * DEC_BT);
-  cudaError_t e = set_smem((const void*)greedy_loop_kernel<T>, smem);
+// The FMA thread of (row group rg, unit pair): rows r0..r0+RT-1, units
+// u, u + 1; `on` false for the threads past the row groups.
+struct GlFma {
+  int r0, u;
+  bool on;
+};
+
+// acc += the segment's product over the tile (dc_stream with the dtype's
+// chunk product)
+template <typename T, int RT, int NQ>
+__device__ __forceinline__ void gl_product(GlAcc<T, RT, NQ>& acc,
+                                           const DcSeg<T>& s,
+                                           const DcBlock<T>& b,
+                                           DcRing<T>& ring, DcClock& clk,
+                                           const DcTiles& tl,
+                                           const GlFma& fm) {
+  dc_stream<T>(s, b, ring, clk, [&](const T* sa, const T* sw) {
+    if constexpr (sizeof(T) == 2) {
+      dc_mma_chunk<NQ>(acc, sa, b.g.lda, sw, s.ldw, b.kc, b.U, tl);
+    } else {
+      if (fm.on)
+        dc_fma_chunk<RT, NQ>(acc, sa, b.g.lda, sw, s.ldw, b.kc, b.U, fm.r0,
+                             fm.u);
+    }
+  });
+}
+
+// publish this block's generic stores (for bulk-copy readers too) and
+// arrive at the cluster barrier
+__device__ __forceinline__ void gl_publish() {
+  fence_proxy_async();
+  cluster_arrive();
+}
+
+// f(r, u, v) for each (tile row, unit pair) this thread's accumulators hold
+template <typename T, int RT, int NQ, typename F>
+__device__ __forceinline__ void gl_pairs(GlAcc<T, RT, NQ>& acc,
+                                         const DcTiles& tl, const GlFma& fm,
+                                         F f) {
+  if constexpr (sizeof(T) == 2) {
+    dc_mma_fold<NQ>(acc, tl);
+    dc_mma_pairs<NQ>(acc, tl, f);
+  } else {
+    if (!fm.on) return;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) f(fm.r0 + i, fm.u, acc[i]);
+  }
+}
+
+// RT: float32 rows a thread (DC_FMA_RT); bf16 instances take 1.
+template <typename T, int RT>
+__global__ void __launch_bounds__(DC_THREADS, 1)
+greedy_cluster_kernel(GlArgs a, DcPlan p) {
+  constexpr int ESZ = (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const T* __restrict__ ctx = static_cast<const T*>(a.ctx);
+  const T* __restrict__ eg = static_cast<const T*>(a.eg);
+  const T* w0 = static_cast<const T*>(a.w0);
+  const T* wl = static_cast<const T*>(a.wl);
+  const T* wq = static_cast<const T*>(a.wq);
+  const T* wcx = static_cast<const T*>(a.wcx);
+  const T* __restrict__ pw = static_cast<const T*>(a.pw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = a.H, G = 4 * H, nl = a.nl, T_ = a.T, V = a.V, Vp = a.Vp;
+
+  DcBlock<T> b;
+  b.H = H;
+  b.U = p.units;
+  b.rank = (int)cg::this_cluster().block_rank();
+  b.j0 = b.rank * p.units;
+  b.nu = max(0, min(p.units, H - b.j0));
+  const int cl = (int)blockIdx.x / p.cs;
+  b.b0 = cl * p.bt;
+  b.nrows = min(p.bt, a.B - b.b0);
+  b.bt = p.bt;
+  b.kc = p.kc;
+  b.stages = p.stages;
+  b.hs = dc_round_up(H, p.kc);
+  b.nch = b.hs / p.kc;
+  b.kshift = __ffs(p.kc) - 1;
+  b.cl = cl;
+  b.g = dc_geom(p, ESZ);
+  b.ra = b.rank * b.g.R;
+  b.nown = max(0, min(b.g.R, b.nrows - b.ra));
+  const int j0 = b.j0, b0 = b.b0, hs = b.hs, R = b.g.R, ldh = b.g.ldh;
+
+  // shared memory: the ring, the float tile (h_top @ W_c[H:], then
+  // round_cd(h~)), the cell states (with cres), the tile's tokens, the own
+  // rows' scores and nodes, the mbarriers; the row-split phases' q rows,
+  // scores, logits and staged context, and layer 0's emb_gates rows and
+  // the projector slice, overlay the ring
+  T* ring0 = reinterpret_cast<T*>(smem);
+  float* ht = reinterpret_cast<float*>(smem + (size_t)p.stages * b.g.stage *
+                                                  ESZ);
+  // the cell states with cres: (tile row, layer, unit of the block)
+  float* csm = ht + p.bt * ldh;
+  int* prev = reinterpret_cast<int*>(csm + dc_cbytes(p, nl) / 4);
+  float* oscore = reinterpret_cast<float*>(prev + p.bt);
+  int* onode = reinterpret_cast<int*>(oscore + R);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(prev) +
+      dc_round_up((long)p.bt * 4 + 2L * R * 4, 8));
+  DcRing<T> ring = {ring0, bars, 0, 0};
+  float* qs = reinterpret_cast<float*>(smem);
+  float* sc = qs + R * H;
+  float* lg = sc + R * a.L;
+  // the attention's staged context rows after them, as many as fit
+  const long ring_bytes = (long)p.stages * b.g.stage * ESZ;
+  const long cb_off = dc_round_up((long)R * (H + a.L + Vp) * 4, 16);
+  T* cbuf = reinterpret_cast<T*>(smem + cb_off);
+  const int nb = (int)min((long)R, (ring_bytes - cb_off) /
+                                       ((long)a.L * H * ESZ));
+
+  // global scratch (dc_scratch)
+  long off[6];
+  dc_scratch(p, ESZ, H, nl, V, off);
+  // the exchange planes (chunk-major, DcBlock::aoff): h~ and h_l by step
+  // parity, the context vector
+  T* xb = reinterpret_cast<T*>(a.scratch + off[0]);
+  const size_t plane = (size_t)dc_plane(p, ESZ, H);
+  auto attn = [&](int par) { return xb + par * plane; };
+  auto hbuf = [&](int l, int par) { return xb + (2 + 2 * l + par) * plane; };
+  T* cvb = xb + (2 + 2 * nl) * plane;
+  const size_t at = b.atile();  // this tile's chunk 0 in a plane
+  // the block's packed weight slices and their row strides
+  constexpr int WP = 16 / ESZ;
+  const int ld4 = 4 * p.units + WP, ld2 = 2 * p.units + WP,
+            ld1 = p.units + WP, nseg0 = a.input_feed ? 2 : 1;
+  const size_t seg4 = (size_t)hs * ld4;
+  auto wseg0 = [&](int k) {
+    return w0 + ((size_t)b.rank * nseg0 + k) * seg4;
+  };
+  auto wsegl = [&](int l, int k) {
+    return wl + (((size_t)(l - 1) * p.cs + b.rank) * 2 + k) * seg4;
+  };
+  float* qb = reinterpret_cast<float*>(a.scratch + off[1]);
+  float* cb = reinterpret_cast<float*>(a.scratch + off[2]);  // (bp, nl, H)
+  float* part = reinterpret_cast<float*>(a.scratch + off[3]);
+  int* tokb = reinterpret_cast<int*>(a.scratch + off[4]);
+
+  const DcTiles tl(p.units, p.rt);
+  GlFma fm;
+  {
+    const int up = p.units / 2, rg = tid / up;
+    fm.r0 = rg * RT;
+    fm.u = 2 * (tid % up);
+    fm.on = sizeof(T) == 4 && rg < DC_THREADS / up;
+  }
+  DcClock clk;
+
+  // the state: c_0 and h_0 (rounded) of the block's units; the own rows'
+  // histories (PAD), tokens (GO), scores and nodes.  h~, c and h of the
+  // other layers start as the scratch's zeros; rows past B stay PAD.
+  if (tid == 0) {
+    for (int i = 0; i <= DC_MAX_STAGES; ++i) mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // c of (tile row r, layer l, unit j0 + u)
+  auto cell = [&](int r, int l, int u) {
+    return p.cres ? csm + ((size_t)r * nl + l) * p.units + u
+                  : cb + ((size_t)(b0 + r) * nl + l) * H + j0 + u;
+  };
+  for (int i = tid; i < b.nrows * b.nu; i += DC_THREADS) {
+    const int r = i / b.nu, u = i % b.nu, j = j0 + u;
+    const size_t row = (size_t)(b0 + r);
+    *cell(r, 0, u) = a.c0[row * H + j];
+    for (int l = 1; p.cres && l < nl; ++l) *cell(r, l, u) = 0.f;
+    hbuf(0, 0)[b.aoff(r, j)] = from_f<T>(a.h0[row * H + j]);
+  }
+  for (int i = tid; i < b.nown * T_; i += DC_THREADS)
+    a.labels[(size_t)(b0 + b.ra) * T_ + i] = PAD;
+  for (int i = tid; i < b.nown; i += DC_THREADS) {
+    tokb[b0 + b.ra + i] = GO;
+    oscore[i] = 0.f;
+    onode[i] = 0;
+  }
+  fence_proxy_async();
+  cluster_barrier();
+  cluster_arrive();  // the tokens of "step -1"
+
+  bool ended = false;  // the early exit; uniform across the cluster
+  for (int t = 0; t < T_; ++t) {
+    const int par = t & 1, nxt = par ^ 1;
+    // ---- 1. layer 0
+    {
+      GlAcc<T, RT, 4> acc;
+      gl_zero(acc);
+      if (a.input_feed)
+        gl_product<T, RT, 4>(acc, {attn(par) + at, wseg0(0), ld4}, b, ring,
+                             clk, tl, fm);
+      gl_product<T, RT, 4>(acc, {hbuf(0, par) + at, wseg0(nseg0 - 1), ld4},
+                           b, ring, clk, tl, fm);
+      cluster_wait();
+      clk.tick(DC_BARRIER);
+      for (int i = tid; i < p.bt; i += DC_THREADS) prev[i] = __ldcg(tokb + b0 + i);
+      __syncthreads();
+      int live = 0;
+      for (int i = tid; i < p.bt; i += DC_THREADS)
+        live |= !(prev[i] == PAD || prev[i] == EOS);
+      clk.tick(DC_READBACK);
+      if (!__syncthreads_or(live)) {
+        ended = true;
+        break;
+      }
+      // the emb_gates rows of the tile's previous tokens over the block's
+      // gate columns, as floats in the (free) ring: egs[r][q*U + u]
+      float* egs = reinterpret_cast<float*>(ring0);
+      // 4 units of each gate a thread (nu and U are multiples of 4)
+      for (int i = tid; i < p.bt * (p.units / 4); i += DC_THREADS) {
+        const int r = i / (p.units / 4), u = 4 * (i % (p.units / 4));
+        const T* er = eg + (size_t)prev[r] * G + j0 + u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float x[4] = {0.f, 0.f, 0.f, 0.f};
+          if (u < b.nu) load_row(er + q * H, x);
+          store4(egs + r * 4 * p.units + q * p.units + u, x);
+        }
+      }
+      __syncthreads();
+      T* hn = hbuf(0, nxt);
+      gl_pairs<T, RT, 4>(acc, tl, fm, [&](int r, int u, const float(&v)[4][2]) {
+        if (r >= b.nrows || u >= b.nu) return;
+        const int j = j0 + u;
+        const float* er = egs + r * 4 * p.units + u;
+        float* cr = cell(r, 0, u);
+        float x[4][2], h[2], act[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) load_row(er + q * p.units, x[q]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          gate_math_parts(x[0][e] + v[0][e], x[1][e] + v[1][e],
+                          x[2][e] + v[2][e], x[3][e] + v[3][e], cr[e], &cr[e],
+                          &h[e], act);
+        store2<T>(hn + b.aoff(r, j), h[0], h[1]);
+      });
+      clk.tick(DC_EPILOGUE);
+      gl_publish();
+    }
+    // ---- 2. layers 1..nl-1
+    for (int l = 1; l < nl; ++l) {
+      GlAcc<T, RT, 4> acc;
+      gl_zero(acc);
+      gl_product<T, RT, 4>(acc, {hbuf(l, par) + at, wsegl(l, 0), ld4}, b,
+                           ring, clk, tl, fm);
+      cluster_wait();
+      clk.tick(DC_BARRIER);
+      gl_product<T, RT, 4>(acc, {hbuf(l - 1, nxt) + at, wsegl(l, 1), ld4}, b,
+                           ring, clk, tl, fm);
+      const float* bl = a.bx + (size_t)(l - 1) * G;
+      T* hn = hbuf(l, nxt);
+      gl_pairs<T, RT, 4>(acc, tl, fm, [&](int r, int u, const float(&v)[4][2]) {
+        if (r >= b.nrows || u >= b.nu) return;
+        const int j = j0 + u;
+        float* cr = cell(r, l, u);
+        float h[2], act[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          gate_math_parts(v[0][e] + bl[j + e], v[1][e] + bl[H + j + e],
+                          v[2][e] + bl[2 * H + j + e],
+                          v[3][e] + bl[3 * H + j + e], cr[e], &cr[e], &h[e],
+                          act);
+        store2<T>(hn + b.aoff(r, j), h[0], h[1]);
+      });
+      clk.tick(DC_EPILOGUE);
+      gl_publish();
+    }
+    cluster_wait();
+    clk.tick(DC_BARRIER);
+    // ---- 3. q = h_top @ W_a and h_top @ W_c[H:]
+    {
+      GlAcc<T, RT, 2> acc;
+      gl_zero(acc);
+      gl_product<T, RT, 2>(
+          acc, {hbuf(nl - 1, nxt) + at, wq + (size_t)b.rank * hs * ld2, ld2},
+          b, ring, clk, tl, fm);
+      gl_pairs<T, RT, 2>(acc, tl, fm, [&](int r, int u, const float(&v)[2][2]) {
+        ht[r * ldh + u] = v[1][0];
+        ht[r * ldh + u + 1] = v[1][1];
+        if (r < b.nrows && u < b.nu)
+          store2<float>(qb + (size_t)(b0 + r) * hs + j0 + u, v[0][0],
+                        v[0][1]);
+      });
+      clk.tick(DC_EPILOGUE);
+      gl_publish();
+      cluster_wait();
+      clk.tick(DC_BARRIER);
+    }
+    // ---- 4. the attention of the own rows
+    dc_attend_rows<T>(ctx, a.L, a.B, qb, cvb, qs, sc, cbuf, nb, b, ring);
+    clk.tick(DC_ATTEND);
+    gl_publish();
+    cluster_wait();
+    clk.tick(DC_BARRIER);
+    // ---- 5. h~ and the partial logits
+    {
+      GlAcc<T, RT, 1> acc;
+      gl_zero(acc);
+      gl_product<T, RT, 1>(
+          acc, {cvb + at, wcx + (size_t)b.rank * hs * ld1, ld1}, b, ring,
+          clk, tl, fm);
+      T* an = attn(nxt);
+      gl_pairs<T, RT, 1>(acc, tl, fm, [&](int r, int u, const float(&v)[1][2]) {
+        float h[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          h[e] = tanhf(v[0][e] + ht[r * ldh + u + e]);
+          ht[r * ldh + u + e] = round_cd<T>(h[e]);
+        }
+        if (r < b.nrows && u < b.nu)
+          store2<T>(an + b.aoff(r, j0 + u), h[0], h[1]);
+      });
+      clk.tick(DC_EPILOGUE);
+      dc_partial_logits<T>(ht, ldh, pw, Vp, V, ring0, ring_bytes,
+                           bars + DC_MAX_STAGES, &ring.aseq,
+                           part + ((size_t)cl * p.cs + b.rank) * p.bt * V, b);
+      clk.tick(DC_PROJ);
+      gl_publish();
+      cluster_wait();
+      clk.tick(DC_BARRIER);
+    }
+    // ---- 6. logits, log-softmax, freeze, trie, argmax of the own rows
+    for (int i = tid; i < b.nown * Vp; i += DC_THREADS) {
+      const int r = i / Vp, v = i % Vp;
+      float x = a.pb[v];
+      if (v < V) {
+        float s = 0.f;
+        for (int k = 0; k < p.cs; ++k)
+          s += __ldcg(part + (((size_t)cl * p.cs + k) * p.bt + b.ra + r) * V +
+                      v);
+        x = s + a.pb[v];
+      }
+      lg[r * Vp + v] = x;
+    }
+    __syncthreads();
+    for (int r = warp; r < b.nown; r += DC_WARPS) {
+      const int pv = prev[b.ra + r], node = onode[r];
+      const bool frozen = pv == PAD || pv == EOS;
+      dc_logp_row(lg + r * Vp, Vp, frozen);
+      float best;
+      int tk;
+      dc_pick_row(lg + r * Vp, Vp, frozen,
+                  [&](int v) {
+                    return a.trie == nullptr ||
+                           (v < V && a.trie[(size_t)node * V + v] >= 0) ||
+                           (v == PAD && t > 0);
+                  },
+                  &best, &tk);
+      if (lane == 0) {
+        const size_t row = (size_t)(b0 + b.ra + r);
+        if (a.trie != nullptr && !(tk == PAD && t > 0))
+          onode[r] = tk < V ? max(a.trie[(size_t)node * V + tk], 0) : 0;
+        oscore[r] += best;
+        a.labels[row * T_ + t] = tk;
+        tokb[row] = tk;
+      }
+    }
+    clk.tick(DC_TAIL);
+    gl_publish();
+  }
+  if (!ended) cluster_wait();  // every arrive has its wait
+  __syncthreads();
+  for (int i = tid; i < b.nown; i += DC_THREADS)
+    a.scores[b0 + b.ra + i] = oscore[i];
+#ifdef DC_PROBES
+  if (tid == 0) {
+    for (int i = 0; i < DC_NPHASES; ++i) atomicAdd(&gl_prof[i], dc_prof[i]);
+    atomicAdd(&gl_prof[DC_NPHASES], 1ull);
+  }
+#endif
+}
+
+using GlKernel = void (*)(GlArgs, DcPlan);
+
+// The instance for a plan: bf16 one, float32 one per rows a thread.
+static GlKernel gl_kernel(int esz, int rt) {
+  if (esz == 2) return greedy_cluster_kernel<__nv_bfloat16, 1>;
+  if (rt == DC_FMA_RT[0]) return greedy_cluster_kernel<float, DC_FMA_RT[0]>;
+  if (rt == DC_FMA_RT[1]) return greedy_cluster_kernel<float, DC_FMA_RT[1]>;
+  return greedy_cluster_kernel<float, DC_FMA_RT[2]>;
+}
+
+static cudaError_t gl_config(GlKernel fn, const DcPlan& p, cudaStream_t stream,
+                             cudaLaunchConfig_t* cfg,
+                             cudaLaunchAttribute* attr) {
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) e = set_smem((const void*)fn, p.smem);
+  *cfg = {};
+  cfg->gridDim = dim3(p.clusters * p.cs);
+  cfg->blockDim = dim3(DC_THREADS);
+  cfg->dynamicSmemBytes = p.smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return e;
+}
+
+// The clusters of cs blocks the card runs at once at nearly the largest
+// shared memory a plan takes (1 KB left for a build with static shared
+// memory; the count steers the tile size), once per dtype and cs.
+static int gl_active(int esz, int cs) {
+  static int cache[2][DC_MAX_CLUSTER + 1] = {};
+  int& n = cache[esz == 4][cs];
+  if (n == 0) {
+    const DcPlan p = {cs, 8, 16, 1, 16, 2, 0, DC_SMEM_MAX - 1024, 1};
+    const GlKernel fn = gl_kernel(esz, DC_FMA_RT[2]);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    int got = 0;
+    if (gl_config(fn, p, nullptr, &cfg, &attr) != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&got, fn, &cfg) != cudaSuccess)
+      return 0;
+    n = got;
+  }
+  return n;
+}
+
+// The plan of a launch; false where none fits or the card runs no cluster
+// of its size.
+static bool gl_launch_plan(int esz, int H, int B, int L, int Vp, int nl,
+                           DcPlan* p, int* active) {
+  int cs, U;
+  dc_cluster(H, &cs, &U);
+  *active = gl_active(esz, cs);
+  return *active > 0 && dc_plan(H, B, esz, L, Vp, nl, *active, p);
+}
+
+static int launch(int esz, const GlArgs& a, cudaStream_t stream) {
+  DcPlan p;
+  int active;
+  if (a.L < 1 || a.B < 1 || a.T < 1 || a.nl < 1 || a.H < 4 || a.H % 4 ||
+      a.V < 1 || a.Vp < a.V ||
+      !gl_launch_plan(esz, a.H, a.B, a.L, a.Vp, a.nl, &p, &active))
+    return (int)cudaErrorInvalidValue;
+  const GlKernel fn = gl_kernel(esz, p.rt);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = gl_config(fn, p, stream, &cfg, &attr);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((B + DEC_BT - 1) / DEC_BT);
-  greedy_loop_kernel<T><<<grid, DEC_THREADS, smem, stream>>>(
-      (const T*)ctx, (const float*)c0, (const float*)h0, (const T*)eg,
-      (const T*)wfh0, (const T*)wx, (const float*)bx, (const T*)wa,
-      (const T*)wc, (const T*)pw, (const float*)pb, (const int*)trie,
-      (int*)labels, (float*)scores, (float*)state, L, B, H, Vp, V, T_, nl,
-      input_feed);
+  e = cudaLaunchKernelEx(&cfg, fn, a, p);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -141,20 +568,46 @@ static int launch(const void* ctx, const void* c0, const void* h0,
 
 #define AOCR_LOOP_ARGS                                                       \
   const void *ctx, const void *c0, const void *h0, const void *eg,          \
-      const void *wfh0, const void *wx, const void *bx, const void *wa,     \
-      const void *wc, const void *pw, const void *pb, const void *trie,     \
-      void *labels, void *scores, void *state, int L, int B, int H, int Vp,  \
-      int V, int T_, int nl, int input_feed, void *stream
+      const void *w0, const void *wl, const void *bx, const void *wq,       \
+      const void *wcx, const void *pw, const void *pb, const void *trie,    \
+      void *labels, void *scores, void *scratch, int L, int B, int H,       \
+      int Vp, int V, int T_, int nl, int input_feed, void *stream
+
+static aocr::GlArgs gl_args(AOCR_LOOP_ARGS) {
+  return {ctx, (const float*)c0, (const float*)h0, eg, w0, wl,
+          (const float*)bx, wq, wcx, pw, (const float*)pb, (const int*)trie,
+          (int*)labels, (float*)scores, (unsigned char*)scratch, L, B, H, Vp,
+          V, T_, nl, input_feed};
+}
 
 extern "C" int aocr_greedy_loop_f32(AOCR_LOOP_ARGS) {
-  return aocr::launch<float>(ctx, c0, h0, eg, wfh0, wx, bx, wa, wc, pw, pb,
-                             trie, labels, scores, state, L, B, H, Vp, V, T_,
-                             nl, input_feed, (cudaStream_t)stream);
+  return aocr::launch(4,
+                      gl_args(ctx, c0, h0, eg, w0, wl, bx, wq, wcx, pw, pb,
+                              trie, labels, scores, scratch, L, B, H, Vp, V,
+                              T_, nl, input_feed, stream),
+                      (cudaStream_t)stream);
 }
 
 extern "C" int aocr_greedy_loop_bf16(AOCR_LOOP_ARGS) {
-  return aocr::launch<__nv_bfloat16>(ctx, c0, h0, eg, wfh0, wx, bx, wa, wc,
-                                     pw, pb, trie, labels, scores, state, L,
-                                     B, H, Vp, V, T_, nl, input_feed,
-                                     (cudaStream_t)stream);
+  return aocr::launch(2,
+                      gl_args(ctx, c0, h0, eg, w0, wl, bx, wq, wcx, pw, pb,
+                              trie, labels, scores, scratch, L, B, H, Vp, V,
+                              T_, nl, input_feed, stream),
+                      (cudaStream_t)stream);
+}
+
+// The plan of a launch: out[0..8] = cs, units, bt, rt, kc, stages, cres,
+// smem, clusters (as aocr_torch/ops/cuda/greedy_loop.py::plan gives them
+// for out[9]) and out[9] = the clusters of cs blocks the card runs at once
+// (cudaOccupancyMaxActiveClusters).  Returns a CUDA error code.
+extern "C" int aocr_greedy_loop_plan(int H, int B, int is_f32, int L, int Vp,
+                                     int nl, int* out) {
+  aocr::DcPlan p;
+  int active;
+  if (!aocr::gl_launch_plan(is_f32 ? 4 : 2, H, B, L, Vp, nl, &p, &active))
+    return (int)cudaErrorInvalidValue;
+  const int v[10] = {p.cs, p.units, p.bt, p.rt, p.kc, p.stages, p.cres,
+                     p.smem, p.clusters, active};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return 0;
 }

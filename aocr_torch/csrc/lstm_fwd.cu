@@ -47,8 +47,9 @@
 // loop and the streamed rows dominate.  The plan (lf_plan, mirrored by
 // aocr_torch/ops/cuda/lstm_fwd.py::plan) picks cs, bt and the resident
 // rows from H, B, the dtype and the resident clusters; a ragged batch
-// tile and units past H are masked in the kernel; a shape no plan fits
-// is refused.
+// tile and units past H are masked in the kernel; past 128 units a block
+// (H > 2048 in bf16) a warp holds 3 mma tiles instead of 2, in a second
+// instance of the kernel; a shape no plan fits is refused.
 //
 // Numerics as aocr/ops/lstm.py::_scan_from_proj: gates = x_proj[t]
 // (upcast) + round_cd(h) @ Wh in float32, gate math in float32, (c, h)
@@ -63,6 +64,7 @@ constexpr int LF_WARPS = LF_THREADS / 32;
 constexpr int LF_SMEM_MAX = 232448;  // the H100's shared memory a block
 constexpr int LF_MAX_CLUSTER = 16;   // non-portable cluster size
 constexpr int LF_MMA_TILES = 2;      // (16-row, 8-unit) tiles a warp, bf16
+constexpr int LF_MMA_TILES_WIDE = 3; // the same past 128 units a block
 constexpr int LF_FMA_ROWS = 4;       // batch rows a thread, float32
 constexpr int LF_BT_MAX = 64;        // largest batch tile
 // a step's cost that does not grow with the tile (the cluster barrier,
@@ -85,6 +87,13 @@ struct LfPlan {
 };
 
 static int round_up(int a, int m) { return (a + m - 1) / m * m; }
+
+// mma tiles a warp holds in bf16 for U units a block: LF_MMA_TILES, or
+// LF_MMA_TILES_WIDE past 128 units (H > 2048 at 16 blocks), where 16
+// rows of 8-unit tiles need more than 2 a warp
+static int lf_mma_tiles(int U) {
+  return U <= 128 ? LF_MMA_TILES : LF_MMA_TILES_WIDE;
+}
 
 // The cluster for H: the smallest power of two that gives every block 8
 // units or more, up to 16; U units a block, a multiple of 8 (the last
@@ -113,7 +122,8 @@ static bool lf_plan(int H, int B, int esz, int active, LfPlan* p) {
   for (int bt = rowq; bt <= LF_BT_MAX && bt < B + rowq; bt += rowq) {
     const int tiles =
         esz == 2 ? (bt / 16) * (U / 8) : (bt / LF_FMA_ROWS) * U;
-    if (tiles > (esz == 2 ? LF_WARPS * LF_MMA_TILES : LF_THREADS)) continue;
+    if (tiles > (esz == 2 ? LF_WARPS * lf_mma_tiles(U) : LF_THREADS))
+      continue;
     const long fixed = bt * hrow;
     int kres = kp, kc = 0;
     if (fixed + kp * wrow > LF_SMEM_MAX) {
@@ -159,14 +169,15 @@ __device__ __forceinline__ void load_w_rows(T* dst, int ld,
 }
 
 // acc[t][q*4 + e] += round_cd(h) @ Wh over k0..k0+nk-1 for the warp's
-// (16-row, 8-unit) tiles t; w holds those rows of the slice ([k][4U],
+// NT (16-row, 8-unit) tiles t; w holds those rows of the slice ([k][4U],
 // row stride ldw), h the tile's rows (row stride ldh).
+template <int NT>
 __device__ __forceinline__ void product_mma(
-    float (&acc)[LF_MMA_TILES][16], const __nv_bfloat16* h, int ldh,
+    float (&acc)[NT][16], const __nv_bfloat16* h, int ldh,
     const __nv_bfloat16* w, int ldw, int k0, int nk, int U, int ntiles) {
   const int warp = threadIdx.x >> 5, ug_n = U / 8;
 #pragma unroll
-  for (int ti = 0; ti < LF_MMA_TILES; ++ti) {
+  for (int ti = 0; ti < NT; ++ti) {
     const int it = warp + ti * LF_WARPS;
     if (it >= ntiles) continue;
     const int m0 = (it / ug_n) * 16, n0 = (it % ug_n) * 8;
@@ -274,7 +285,9 @@ __device__ __forceinline__ void pull_h(T* dst, int ld, const T* src, int H,
   }
 }
 
-template <typename T, typename XP>
+// NTM: the mma tiles a warp holds in bf16 (lf_mma_tiles); float32 holds
+// one FMA tile a thread whatever NTM is.
+template <typename T, typename XP, int NTM>
 __global__ void __launch_bounds__(LF_THREADS, 1)
 lstm_fwd_kernel(const T* __restrict__ wh,      // (H, 4H)
                 const XP* __restrict__ xp,     // (L, B, 4H)
@@ -287,7 +300,7 @@ lstm_fwd_kernel(const T* __restrict__ wh,      // (H, 4H)
                 int L, int B, int H, int reverse, int wmode, LfPlan p) {
   constexpr bool MMA = sizeof(T) == 2;
   constexpr int PAD = 16 / (int)sizeof(T);
-  constexpr int NT = MMA ? LF_MMA_TILES : 1;  // tiles a thread holds
+  constexpr int NT = MMA ? NTM : 1;  // tiles a thread holds
   constexpr int NR = MMA ? 2 : LF_FMA_ROWS;   // rows a tile gives a thread
   constexpr int RS = MMA ? 8 : 1;             // their step
   constexpr int XW = MMA ? 2 : 1;             // adjacent units a thread has
@@ -468,10 +481,23 @@ lstm_fwd_kernel(const T* __restrict__ wh,      // (H, 4H)
 }
 
 template <typename T, typename XP>
-static cudaError_t lf_config(const LfPlan& p, cudaStream_t stream,
-                             cudaLaunchConfig_t* cfg,
+using LfKernel = void (*)(const T*, const XP*, const float*, const float*,
+                          T*, float*, float*, T*, T*, int, int, int, int,
+                          int, LfPlan);
+
+// The kernel instance for U units a block: bf16 holds lf_mma_tiles(U)
+// mma tiles a warp; float32 has one instance.
+template <typename T, typename XP>
+static LfKernel<T, XP> lf_kernel(int U) {
+  if (sizeof(T) == 2 && lf_mma_tiles(U) == LF_MMA_TILES_WIDE)
+    return lstm_fwd_kernel<T, XP, LF_MMA_TILES_WIDE>;
+  return lstm_fwd_kernel<T, XP, LF_MMA_TILES>;
+}
+
+template <typename T, typename XP>
+static cudaError_t lf_config(LfKernel<T, XP> fn, const LfPlan& p,
+                             cudaStream_t stream, cudaLaunchConfig_t* cfg,
                              cudaLaunchAttribute* attr) {
-  auto* fn = lstm_fwd_kernel<T, XP>;
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e == cudaSuccess) e = set_smem((const void*)fn, p.smem);
@@ -491,22 +517,24 @@ static cudaError_t lf_config(const LfPlan& p, cudaStream_t stream,
 
 // The clusters of cs blocks the card runs at once with the largest shared
 // memory a plan takes (a smaller plan may fit more; the count only steers
-// the tile size), asked once per cs.
+// the tile size), asked once per cs and kernel instance.
 template <typename T, typename XP>
-static int lf_active(int cs) {
-  static int cache[LF_MAX_CLUSTER + 1] = {0};
-  if (cache[cs] == 0) {
+static int lf_active(int cs, int U) {
+  static int cache[LF_MAX_CLUSTER + 1][2] = {};
+  const int wide = lf_kernel<T, XP>(U) != lf_kernel<T, XP>(8);
+  if (cache[cs][wide] == 0) {
     LfPlan p = {cs, 0, 0, 0, 0, 0, LF_SMEM_MAX, 1};
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     int n = 0;
-    if (lf_config<T, XP>(p, nullptr, &cfg, &attr) != cudaSuccess ||
-        cudaOccupancyMaxActiveClusters(&n, lstm_fwd_kernel<T, XP>, &cfg) !=
+    if (lf_config<T, XP>(lf_kernel<T, XP>(U), p, nullptr, &cfg, &attr) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&n, lf_kernel<T, XP>(U), &cfg) !=
             cudaSuccess)
       return 0;
-    cache[cs] = n;
+    cache[cs][wide] = n;
   }
-  return cache[cs];
+  return cache[cs][wide];
 }
 
 // The plan of a launch at (H, B) in T, with x_proj in XP; false where none
@@ -515,7 +543,7 @@ template <typename T, typename XP>
 static bool lf_launch_plan(int H, int B, LfPlan* p, int* active) {
   int cs, U;
   lf_cluster(H, &cs, &U);
-  *active = lf_active<T, XP>(cs);
+  *active = lf_active<T, XP>(cs, U);
   return *active > 0 && lf_plan(H, B, sizeof(T), *active, p);
 }
 
@@ -537,9 +565,10 @@ static int launch(const void* wh, const void* xp, const void* c0,
       H % (16 / (int)sizeof(T)) == 0 && (uintptr_t)wh % 16 == 0;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = lf_config<T, XP>(p, stream, &cfg, &attr);
+  const LfKernel<T, XP> fn = lf_kernel<T, XP>(p.units);
+  cudaError_t e = lf_config<T, XP>(fn, p, stream, &cfg, &attr);
   if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchKernelEx(&cfg, lstm_fwd_kernel<T, XP>, (const T*)wh,
+  e = cudaLaunchKernelEx(&cfg, fn, (const T*)wh,
                          (const XP*)xp, (const float*)c0, (const float*)h0,
                          (T*)hs, (float*)cf, (float*)hf, (T*)ifog, (T*)cs, L,
                          B, H, reverse, wmode, p);

@@ -132,8 +132,9 @@ def _declare(lib) -> None:
         # h, ctx, prev, wa, wc, pw, pb, valid, htilde, tok, delta, L, B, H,
         # Vp, stream
         "decode_step": [_P] * 11 + [_I] * 4 + [_P],
-        # ctx, c0, h0, eg, wfh0, wx, bx, wa, wc, pw, pb, trie, labels,
-        # scores, state, L, B, H, Vp, V, T, num_layers, input_feed, stream
+        # ctx, c0, h0, eg, w0, wl, bx, wq, wc (the packed weights of
+        # greedy_loop.pack_weights), pw, pb, trie, labels, scores, scratch,
+        # L, B, H, Vp, V, T, num_layers, input_feed, stream
         "greedy_loop": [_P] * 15 + [_I] * 8 + [_P],
         # x, w9, b, dy, part, out, B, H, W, stream
         "conv1_pool_bwd": [_P] * 6 + [_I] * 3 + [_P],
@@ -167,6 +168,9 @@ def _declare(lib) -> None:
     # H, B, is_f32, xp_is_f32, out[9]
     lib.aocr_lstm_fwd_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
     lib.aocr_lstm_fwd_plan.restype = ctypes.c_int
+    # H, B, is_f32, L, Vp, num_layers, out[10]
+    lib.aocr_greedy_loop_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+    lib.aocr_greedy_loop_plan.restype = ctypes.c_int
 
 
 def launch(name: str, dtype: torch.dtype, device: torch.device,

@@ -4,8 +4,26 @@ Replaces `aocr/ops/pallas/greedy_loop.py::fused_greedy_loop` and ports its
 `build_tables`.  Every step of every row: the emb_gates row of the
 previous token, the LSTM layers with input feed, the attention tail of
 decode_step, the PAD/EOS freeze, the optional trie constraint, the
-argmax, the score sum and the token history; each block of rows stops
+argmax, the score sum and the token history; each tile of rows stops
 once all its rows are frozen.
+
+The kernel runs on thread-block clusters (`plan` below,
+csrc/decoder_cluster.cuh): a cluster of up to 16 SMs owns a tile of bt
+batch rows for all T steps; each SM owns H/cs hidden units of every layer
+(their four gate columns) and the same columns of W_a and W_c, streams
+its slices of the weights (packed by block at each call, `pack_weights`)
+from L2 every step by bulk (TMA) copies (~2.6 MB a step in bf16 at the
+default decoder, H=1024, 2 layers, input feed), and multiplies them with
+the tile's rows on the tensor cores in bf16 (mma.sync, float32 sums) or on
+the CUDA cores in float32.  The attention, the log-softmax and the argmax
+are split by rows instead.  The SMs exchange h, q, the context vector, h~,
+the partial logits and the tokens through L2, nl + 4 cluster barriers a
+step.  So each weight element read serves bt rows (4 in the previous
+design, which streamed every weight through one block a 4-row tile and
+took as long at B=4 as at B=512).  On an H100 a step is a chain of
+dependent phases, none near a roofline: at B=512 in bf16 the mma products
+are a third of it, the epilogues, the stream's waits and the attention
+most of the rest; float32 is bound by its FMA loop (PERF.md).
 
 The trie is the (N, V) int32 transition table (utils/trie.py), read by
 node id in device memory: at t=0 only the root's children are valid and
@@ -15,7 +33,9 @@ token steps it, clamped at 0 (greedy_loop.py:153-187).
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import logging
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,6 +45,232 @@ from aocr_torch.ops.cuda import decode_step
 from aocr_torch.ops.mm import matmul
 
 launches = 0
+
+# csrc/decoder_cluster.cuh's constants
+THREADS = 256
+WARPS = THREADS // 32
+SMEM_MAX = 232448  # the H100's shared memory a block, bytes
+MAX_CLUSTER = 16  # a non-portable cluster size on the H100
+TILES = 5  # (16-row, 8-unit) mma tiles a warp, bf16
+MAX_UNITS = 512  # units a block
+ALIGN = 256  # bytes, scratch regions
+BARS = 64  # bytes of mbarriers a block
+# (kc, stages) in the order the plan tries them, with the cell states in
+# shared memory, then without
+CHUNKS = ((128, 3), (64, 4), (128, 2), (64, 3), (32, 4), (32, 3), (16, 4),
+          (16, 3), (64, 2), (32, 2), (16, 2))
+FMA_RT = (1, 4, 10)  # float32 rows a thread: the kernel's instances
+# a step's cost in batch rows of its per-row part: (bf16, float32)
+STREAM_ROWS = (40, 10)
+FIXED_ROWS = (10, 2)
+
+# launch plans held against the kernel's, by shape key: (Plan, the line
+# logged for it)
+plans: dict = {}
+_log = logging.getLogger(__name__)
+
+
+class Plan(NamedTuple):
+    """How the kernel splits a decode (csrc/decoder_cluster.cuh `dc_plan`,
+    which this mirrors field for field)."""
+    cs: int  # blocks (SMs) in a cluster
+    units: int  # hidden units a block, a multiple of 8
+    bt: int  # batch rows a cluster
+    rt: int  # float32: rows a thread; bf16: 16-row m-tiles (bt / 16)
+    kc: int  # rows of a streamed chunk
+    stages: int  # chunks in the ring
+    cres: int  # 1: the cell states live in shared memory (else in L2)
+    smem: int  # dynamic shared memory bytes a block
+    clusters: int  # ceil(B / bt), one batch tile each
+
+    def unit_range(self, s: int, H: int) -> range:
+        """The hidden units block s of a cluster owns (maybe none)."""
+        return range(s * self.units, min((s + 1) * self.units, H))
+
+    def row_range(self, c: int, B: int) -> range:
+        """The batch rows cluster c owns."""
+        return range(c * self.bt, min((c + 1) * self.bt, B))
+
+    def owned_rows(self, c: int, s: int, B: int) -> range:
+        """The batch rows whose attention and argmax block s of cluster c
+        computes (the row-split phases)."""
+        R = -(-self.bt // self.cs)
+        first = c * self.bt + s * R
+        return range(first, min(first + R, c * self.bt + self.bt, B))
+
+
+def _round_up(a: int, m: int) -> int:
+    return (a + m - 1) // m * m
+
+
+def _cluster(H: int):
+    cs = 1
+    while cs < MAX_CLUSTER and cs * 8 < H:
+        cs *= 2
+    return cs, _round_up(-(-H // cs), 8)
+
+
+def warp_tiles(w: int, G8: int, MT: int) -> int:
+    """The mma tiles warp w holds with G8 unit groups of 8 and MT m-tiles
+    (csrc/decoder_cluster.cuh `dc_warp_tiles`)."""
+    if G8 >= WARPS:
+        return (G8 - w + WARPS - 1) // WARPS * MT
+    wpg, sl = WARPS // G8, w // G8
+    if w >= G8 * wpg or sl >= MT:
+        return 0
+    return (MT - sl + wpg - 1) // wpg
+
+
+def _smem(p: Plan, esz: int, H: int, L: int, Vp: int, nl: int) -> int:
+    lda, ldw, ldh = p.kc + 16 // esz, 4 * p.units + 16 // esz, p.units + 8
+    R = -(-p.bt // p.cs)
+    ring = p.stages * (p.bt * lda + p.kc * ldw) * esz
+    if R * (H + L + Vp) * 4 > ring or p.bt * 4 * p.units * 4 > ring:
+        return 0
+    cells = p.bt * nl * p.units * 4 if p.cres else 0
+    return (ring + p.bt * ldh * 4 + cells
+            + _round_up(p.bt * 4 + 2 * R * 4, 8) + BARS)
+
+
+def plan(H: int, B: int, dtype: torch.dtype, L: int, Vp: int,
+         num_layers: int, active: int) -> Optional[Plan]:
+    """The kernel's launch plan for hidden size H, batch B, the compute
+    dtype, the context length L, the padded vocabulary Vp, the decoder's
+    layers and the clusters of the plan's size the card runs at once
+    (`active`: 7 of 16 blocks on an H100 SXM); None where no plan fits.
+
+    The cluster is the smallest power of two that gives each block 8 of
+    the H units or more, up to 16 (U a block, a multiple of 8, at most
+    MAX_UNITS; the last blocks may own fewer, or none, and are masked).
+    bf16 tiles are 16 x rt rows with at most TILES (16-row, 8-unit) mma
+    tiles a warp; float32 tiles are (THREADS // (U/2)) x rt rows, rt in
+    FMA_RT.  The tile that costs least, waves x (max(bt, STREAM_ROWS) +
+    FIXED_ROWS) with waves = ceil(clusters / active), the smaller on a tie,
+    with the first (kc, stages) of CHUNKS, the cell states in shared memory
+    if any fits so, whose ring, float tile, cells and row-split scratch fit
+    the shared memory; chunks of 128 rows are skipped where H (rounded to
+    16) is less."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    f32 = int(esz == 4)
+    cs, U = _cluster(H)
+    if U > MAX_UNITS or active < 1:
+        return None
+    best, out, prev_bt = None, None, 0
+    for opt in range(3 if f32 else TILES):
+        if f32:
+            rt = FMA_RT[opt]
+            bt = THREADS // (U // 2) * rt
+        else:
+            rt, bt = opt + 1, 16 * (opt + 1)
+            if warp_tiles(0, U // 8, rt) > TILES:
+                continue
+        if prev_bt >= B:
+            break
+        prev_bt = bt
+        p = None
+        for cres, (kc, stages) in ((c, k) for c in (1, 0) for k in CHUNKS):
+            if kc > 64 and kc > _round_up(H, 16):
+                continue
+            q = Plan(cs, U, bt, rt, kc, stages, cres, 0, -(-B // bt))
+            smem = _smem(q, esz, H, L, Vp, num_layers)
+            if 0 < smem <= SMEM_MAX:
+                p = q._replace(smem=smem)
+                break
+        if p is None:
+            continue
+        waves = -(-p.clusters // active)
+        cost = waves * (max(bt, STREAM_ROWS[f32]) + FIXED_ROWS[f32])
+        if best is not None and cost >= best:
+            continue
+        best, out = cost, p
+    return out
+
+
+def scratch_bytes(p: Plan, dtype: torch.dtype, H: int, num_layers: int,
+                  V: int) -> int:
+    """Bytes of the kernel's zeroed scratch (csrc/decoder_cluster.cuh
+    `dc_scratch`): the exchange planes in the compute dtype (h~ and each
+    layer's h by step parity, the context vector; chunk-major, each
+    clusters x (hs / kc) chunks of bt x (kc + 16 bytes)), q, the cell
+    states, the partial logits and the tokens, each region aligned to
+    ALIGN bytes."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    bp, hs = p.clusters * p.bt, _round_up(H, p.kc)
+    plane = p.clusters * (hs // p.kc) * p.bt * (p.kc + 16 // esz)
+    sizes = ((3 + 2 * num_layers) * plane * esz, bp * hs * 4,
+             bp * num_layers * H * 4, p.clusters * p.cs * p.bt * V * 4,
+             bp * 4)
+    return sum(_round_up(n, ALIGN) for n in sizes)
+
+
+def _pack(blocks, H: int, p: Plan) -> torch.Tensor:
+    """The blocks' weight slices, contiguous (csrc/decoder_cluster.cuh's
+    DcSeg): (cs, hs, NQ*U + 16 bytes) in the weights' dtype, out[s, k,
+    i*U + u] = w_i[r0_i + k, c0_i + s*U + u] for each (w_i, r0_i, c0_i) of
+    `blocks`, zeros for rows past H, units past H and the padding."""
+    w = blocks[0][0]
+    pad = 16 // w.element_size()
+    U = p.units
+    out = torch.zeros((p.cs, _round_up(H, p.kc), len(blocks) * U + pad),
+                      dtype=w.dtype, device=w.device)
+    for i, (wi, r0, c0) in enumerate(blocks):
+        x = torch.nn.functional.pad(wi[r0:r0 + H, c0:c0 + H],
+                                    (0, p.cs * U - H))
+        out[:, :H, i * U:(i + 1) * U] = x.view(H, p.cs, U).transpose(0, 1)
+    return out
+
+
+def pack_weights(tables: dict, p: Plan, num_layers: int,
+                 input_feed: bool) -> dict:
+    """The kernel's weight operands, each block's slices contiguous, kc
+    rows a chunk: w0 (cs, nseg0, hs, 4U + pad) layer 0's rows for [attn;
+    h0] (input feed) or h0; wl (nl-1, cs, 2, hs, 4U + pad) layer l's rows
+    for its own last h_l, then for h_{l-1}; wq (cs, hs, 2U + pad) [W_a |
+    W_c[H:]]; wc (cs, hs, U + pad) W_c[:H].  Rebuilt at each call, from
+    the build_tables operands."""
+    H = tables["wa"].shape[0]
+    lstm4 = lambda w, r0: [(w, r0, q * H) for q in range(4)]
+    segs0 = [0, H] if input_feed else [0]
+    w0 = torch.stack([_pack(lstm4(tables["wfh0"], r0), H, p) for r0 in segs0],
+                     dim=1)
+    wl = [torch.stack([_pack(lstm4(w, r0), H, p) for r0 in (H, 0)], dim=1)
+          for w in tables["wx"]]
+    return {"w0": w0.contiguous(),
+            "wl": (torch.stack(wl) if wl else w0.new_zeros((0,))).contiguous(),
+            "wq": _pack([(tables["wa"], 0, 0), (tables["wc"], H, 0)], H, p),
+            "wc": _pack([(tables["wc"], 0, 0)], H, p)}
+
+
+def _checked_plan(H: int, B: int, cd: torch.dtype, L: int, Vp: int,
+                  nl: int) -> Plan:
+    """The launch's plan: ValueError where none fits; on a shape's first
+    launch the kernel's own plan, and the clusters the card runs at once,
+    are read from the library, the plan is held against it and logged."""
+    if plan(H, B, cd, L, Vp, nl, 1) is None:
+        raise ValueError(f"fused_greedy_loop: no kernel plan fits H={H}, "
+                         f"B={B}, L={L}, Vp={Vp}, {nl} layers in {cd}")
+    key = (H, B, cd, L, Vp, nl)
+    if key not in plans:
+        out = (ctypes.c_int * 10)()
+        err = cuda.library().aocr_greedy_loop_plan(
+            H, B, int(cd == torch.float32), L, Vp, nl, out)
+        if err != 0:
+            raise RuntimeError(f"aocr_greedy_loop_plan failed: CUDA error "
+                               f"{err}")
+        active = out[9]
+        p = plan(H, B, cd, L, Vp, nl, active)
+        if p is None or tuple(out[:9]) != tuple(p):
+            raise RuntimeError(f"greedy_loop plan mismatch: kernel "
+                               f"{tuple(out)}, wrapper {p}")
+        line = (f"greedy_loop plan H={H} B={B} L={L} {cd}: cluster {p.cs} x "
+                f"{p.units} units, bt={p.bt} (rt={p.rt}), {p.clusters} "
+                f"clusters, {active} at once ({-(-p.clusters // active)} "
+                f"waves); chunks of {p.kc} rows, {p.stages} stages; cell "
+                f"states in {'shared memory' if p.cres else 'L2'}; smem "
+                f"{p.smem} B")
+        plans[key] = (p, line)
+        _log.info(line)
+    return plans[key][0]
 
 
 def build_tables(dec_params: dict, proj: dict, embedding_size: int,
@@ -151,7 +397,9 @@ def fused_greedy_loop(context_lbh: torch.Tensor, c0: torch.Tensor,
     build_tables; trie_table an optional (N, V) int32 transition table.
     Returns (labels (B, T) int32, PAD after EOS, and scores (B,) float32,
     cumulative log-probs after the freeze).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel, or raise ValueError where no
+    plan fits the shape.  The projector's columns past V must be
+    pad_projector's zeros: the kernel gives them b_p alone.""" 
     global launches
     if context_lbh.device.type == "cpu":
         return fused_greedy_loop_plain(context_lbh, c0, h0, tables,
@@ -165,8 +413,10 @@ def fused_greedy_loop(context_lbh: torch.Tensor, c0: torch.Tensor,
     Vp = tables["pw"].shape[1]
     V = tables["eg"].shape[0]
     G = 4 * H
-    if H % 4 or Vp % 4 or T < 1:
-        raise ValueError(f"fused_greedy_loop: H={H}, Vp={Vp}, T={T}")
+    if H % 4 or Vp % 4 or T < 1 or num_layers < 1:
+        raise ValueError(f"fused_greedy_loop: H={H}, Vp={Vp}, T={T}, "
+                         f"num_layers={num_layers}")
+    p = _checked_plan(H, B, cd, L, Vp, num_layers)
     cuda.check(context_lbh, "context_lbh", (L, B, H), cd, dev)
     cuda.check(c0, "c0", (B, H), torch.float32, dev)
     cuda.check(h0, "h0", (B, H), torch.float32, dev)
@@ -183,15 +433,16 @@ def fused_greedy_loop(context_lbh: torch.Tensor, c0: torch.Tensor,
         cuda.check(trie_table, "trie_table", (None, V), torch.int32, dev)
     labels = torch.empty((B, T), dtype=torch.int32, device=dev)
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
-    state = torch.empty((B, 2 * num_layers + 1, H), dtype=torch.float32,
-                        device=dev)
+    scratch = torch.zeros((scratch_bytes(p, cd, H, num_layers, V),),
+                          dtype=torch.uint8, device=dev)
     t = tables
+    w = pack_weights(t, p, num_layers, input_feed)
     cuda.launch("greedy_loop", cd, dev, context_lbh.data_ptr(),
                 c0.data_ptr(), h0.data_ptr(), t["eg"].data_ptr(),
-                t["wfh0"].data_ptr(), t["wx"].data_ptr(), t["bx"].data_ptr(),
-                t["wa"].data_ptr(), t["wc"].data_ptr(), t["pw"].data_ptr(),
+                w["w0"].data_ptr(), w["wl"].data_ptr(), t["bx"].data_ptr(),
+                w["wq"].data_ptr(), w["wc"].data_ptr(), t["pw"].data_ptr(),
                 t["pb"].data_ptr(), cuda.ptr(trie_table), labels.data_ptr(),
-                scores.data_ptr(), state.data_ptr(), L, B, H, Vp, V, T,
+                scores.data_ptr(), scratch.data_ptr(), L, B, H, Vp, V, T,
                 num_layers, int(input_feed))
     launches += 1
     return labels, scores

@@ -11,12 +11,17 @@ dtype.
 The kernel is a persistent RNN on thread-block clusters (`plan` below):
 a cluster of up to 16 SMs owns a tile of batch rows for all L steps, each
 SM owns H/cs hidden units and keeps its slice of Wh in shared memory for
-the whole scan, multiplies on the tensor cores in bf16 (CUDA cores in
-float32), and hands its slice of h to the others through distributed
-shared memory, one cluster barrier a step.  What bounds it is no longer
-re-reading Wh from L2 (each block of the old design read all of it every
-step) but the per-step barrier and exchange, and in float32 the FMA loop
-and the part of the slice streamed from L2.
+the whole scan (the rows that do not fit stream from L2), multiplies on
+the tensor cores in bf16 (CUDA cores in float32), and stores its slice of
+h to hs; after one cluster barrier a step, each SM reads the tile's whole
+h back from L2 (distributed shared memory was measured slower on an
+H100).  What bounds it is no longer re-reading Wh from L2 (each block of
+the old design read all of it every step) but a step's chain of
+latencies: in bf16 on an H100 at 700 W, a step of B=512 (bt=48) takes
+6,704 product, 4,719 gate-math, 1,351 barrier and 3,087 read-back cycles,
+and one of B=1 (bt=16) 2,608 / 2,337 / 1,350 / 691
+(`tools/lstm_fwd_phases_torch.py`); in float32 the FMA loop and the part
+of the slice streamed from L2 dominate.
 
 Numerics as `aocr/ops/lstm.py::_scan_from_proj` / `_collect_from_proj`:
 gates = x_proj[t] (upcast) + h.astype(cd) @ Wh with float32 accumulation,
@@ -44,6 +49,7 @@ THREADS = 256
 SMEM_MAX = 232448  # the H100's shared memory a block, bytes
 MAX_CLUSTER = 16  # a non-portable cluster size on the H100
 MMA_TILES = 2  # (16-row, 8-unit) mma tiles a warp, bf16
+MMA_TILES_WIDE = 3  # the same past 128 units a block
 FMA_ROWS = 4  # batch rows a thread, float32
 BT_MAX = 64  # largest batch tile
 STEP_ROWS = 32  # a step's fixed cost in rows of the per-row cost
@@ -81,6 +87,13 @@ def _round_up(a: int, m: int) -> int:
     return (a + m - 1) // m * m
 
 
+def mma_tiles(units: int) -> int:
+    """The mma tiles a warp holds in bf16 with `units` a block:
+    MMA_TILES, or MMA_TILES_WIDE past 128 units (H > 2048 at 16 blocks),
+    which the kernel serves with a second instance."""
+    return MMA_TILES if units <= 128 else MMA_TILES_WIDE
+
+
 def plan(H: int, B: int, dtype: torch.dtype, active: int) -> Optional[Plan]:
     """The kernel's launch plan for hidden size H, batch B, the compute
     dtype and the clusters of the plan's size the card runs at once
@@ -92,7 +105,8 @@ def plan(H: int, B: int, dtype: torch.dtype, active: int) -> Optional[Plan]:
     blocks may own fewer, or none, and are masked in the kernel).  The
     batch tile bt is the multiple of 16 (bf16: mma rows) or 4 (float32)
     up to 64 that fits and costs least, waves x (bt + STEP_ROWS), waves =
-    ceil(clusters / active), the smaller on a tie.  Shared memory holds the
+    ceil(clusters / active), the smaller on a tie; in bf16 a warp holds
+    `mma_tiles(U)` (16-row, 8-unit) tiles.  Shared memory holds the
     tile's h (bt x (kp + 16 bytes)) and as many rows of the block's
     (kp, 4U) slice of Wh as fit; the rest stream from L2 through STAGES
     chunks of the most rows (CHUNK, halved down to 16) that fit."""
@@ -107,7 +121,7 @@ def plan(H: int, B: int, dtype: torch.dtype, active: int) -> Optional[Plan]:
     best, out = None, None
     for bt in range(rowq, min(BT_MAX, B + rowq - 1) + 1, rowq):
         tiles = (bt // 16) * (U // 8) if esz == 2 else (bt // FMA_ROWS) * U
-        if tiles > (THREADS // 32 * MMA_TILES if esz == 2 else THREADS):
+        if tiles > (THREADS // 32 * mma_tiles(U) if esz == 2 else THREADS):
             continue
         fixed, kres, kc = bt * hrow, kp, 0
         if fixed + kp * wrow > SMEM_MAX:

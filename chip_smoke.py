@@ -12,7 +12,11 @@ Phases, each raising on failure:
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (recognition B=512, T=50; training B=400, T=11,
      the three pools after conv2/4/6), in float32 and bfloat16, with
-     stated tolerances;
+     stated tolerances; lstm_fwd also at H=2400, B=8; a tiny model (H=128)
+     trained on the card to exact match, whose bf16 greedy and beam-5
+     transcripts on the kernel routes (greedy_loop, decode_step,
+     beam_loop, beam_step), with and without a trie, must equal the plain
+     route's;
   3. recognition end to end: numpy weights from --seed through
      aocr_torch.weights, AttentionOCR.recognize on requests of 1, 8, 32
      and 512 word images (W=100) and a mixed-width list, bf16 (the
@@ -44,6 +48,9 @@ Phases, each raising on failure:
      (cuDNN's LSTM; the unfused pool backward's two calls), that;
      lstm_fwd at B=1, 8, 32, 512 (collect=False) and 400 (collect=True)
      with cuDNN in the same turns, its launch plans and ptxas registers;
+     greedy_loop at B=1, 8, 32, 512 (all 50 steps run; check_loop with
+     and without the 88k trie at each), the 88k-trie and all-EOS decodes,
+     its launch plans and ptxas registers;
      the
      recognize images/s at B=512, W=100, bf16, T=50, greedy, beam-5 and
      dictionary beam-5; the bf16 train step (ms, images/s) and its
@@ -339,6 +346,20 @@ def kernel_checks(dev, results: dict, table) -> None:
             results.setdefault(("lstm_fwd", name), []).append(err)
             log(f"check lstm_fwd {name} B={B} L={L} H={He} "
                 f"reverse={reverse}: max_abs_err {err:.3g} (tol {tol:.3g})")
+        # past 128 units a block (H > 2048) bf16 warps hold 3 mma tiles
+        Hw, Bw = 2400, 8
+        wh = rand(Hw, 4 * Hw, lo=-Hw ** -0.5, hi=Hw ** -0.5).to(dev, dt)
+        xp = rand(L, Bw, 4 * Hw).to(dev, dt)
+        z = torch.zeros(Bw, Hw, device=dev)
+        got = lstm_fwd.lstm_fwd_scan(wh, xp, z, z, False)
+        want = lstm_fwd.lstm_fwd_scan_plain(wh, xp, z, z, False)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in ((got[0], want[0]), (got[1][0], want[1][0]),
+                               (got[1][1], want[1][1])))
+        check(err <= tol, f"lstm_fwd {name} H={Hw} B={Bw}: {err}")
+        log(f"check lstm_fwd {name} B={Bw} L={L} H={Hw} (plan "
+            f"{lstm_fwd.plan(Hw, Bw, dt, 1)}): max_abs_err {err:.3g} "
+            f"(tol {tol:.3g})")
         # decoder tables from the default model's weights (numpy_model)
         p, _ = numpy_model(cfg, 3)
         tp, _ = weights.from_numpy({"decoder": p["decoder"],
@@ -1116,7 +1137,6 @@ def timings(dev, models, requests, card: str, table):
     import numpy as np
     import torch
 
-    from aocr_torch import vocab
     from aocr_torch.ops.cuda import conv1_pool, decode_step, greedy_loop
 
     g = torch.Generator().manual_seed(11)
@@ -1146,13 +1166,6 @@ def timings(dev, models, requests, card: str, table):
         pairs["decode_step"] = (lambda: decode_step.fused_decode_tail(*args),
                                 lambda: decode_step.fused_decode_tail_plain(
                                     *args), 20)
-        c0, h0 = rand(B, Hd).to(dev), rand(B, Hd).to(dev)
-        loop_args = (ctx, c0, h0, tables, nl, True, T)
-        lab, lab_sc = greedy_loop.fused_greedy_loop(*loop_args)
-        steps = int((lab != 0).sum(1).max().item())
-        ended = (lab == vocab.EOS).cumsum(1) > 0
-        row_steps = int((~torch.cat([torch.zeros_like(ended[:, :1]),
-                                     ended[:, :-1]], 1)).sum().item())
         conv_flops = 2.0 * 9 * 64 * B * 32 * W_SERVE
         bounds[("conv1_pool", name)] = bound(
             conv_flops, tensor_bytes((x, w, b),
@@ -1161,21 +1174,13 @@ def timings(dev, models, requests, card: str, table):
         bounds[("decode_step", name)] = bound(
             B * step_flops(Hd, L, V, nl, True, gates=False),
             tensor_bytes(args, decode_step.fused_decode_tail(*args)), name)
-        bounds[("greedy_loop", name)] = bound(
-            row_steps * step_flops(Hd, L, V, nl, True),
-            tensor_bytes(loop_args[:4], lab, lab_sc), name)
-        pairs["greedy_loop"] = (
-            lambda: greedy_loop.fused_greedy_loop(*loop_args),
-            lambda: greedy_loop.fused_greedy_loop_plain(*loop_args), 3)
         for k, (fk, fp, n) in pairs.items():
             k1, k2, p1, p2 = time_pair(fk, fp, n)
             ms[(k, name)] = (min(k1, k2), min(p1, p2))
-            extra = f" ({steps} of {T} steps run)" if k == "greedy_loop" else ""
             log(f"time {k} {name}: kernel {k1:.4f} / {k2:.4f} ms, plain "
-                f"{p1:.4f} / {p2:.4f} ms{extra}; bound "
+                f"{p1:.4f} / {p2:.4f} ms; bound "
                 f"{bounds[(k, name)][0]:.4f} ms ({bounds[(k, name)][1]})")
-        # the trie operands, 88k lexicon: the plane at inner nodes, the
-        # table in the loop
+        # the trie plane at inner nodes of the 88k lexicon
         inner = (table >= 0).any(1).nonzero().flatten()
         nodes = inner[torch.randint(0, len(inner), (B,), generator=g)
                       .to(dev)].to(torch.int32)
@@ -1183,21 +1188,9 @@ def timings(dev, models, requests, card: str, table):
                                        pad_ok=True)
         kp = cuda_ms(lambda: decode_step.fused_decode_tail(
             *args, valid=plane), 20)
-        kt = cuda_ms(lambda: greedy_loop.fused_greedy_loop(
-            *loop_args, trie_table=table), 3)
-        lab_t, _ = greedy_loop.fused_greedy_loop(*loop_args,
-                                                 trie_table=table)
         log(f"time decode_step {name} with the 88k trie plane: kernel "
-            f"{kp:.4f} ms; greedy_loop {name} with the 88k trie: kernel "
-            f"{kt:.4f} ms ({int((lab_t != 0).sum(1).max().item())} of {T} "
-            f"steps run)")
+            f"{kp:.4f} ms")
         ms[("decode_step_trie", name)] = kp
-        ms[("greedy_loop_trie", name)] = kt
-        eos = eos_tables(tables, (ctx, c0, h0, nl, T), 1.0)
-        ke = cuda_ms(lambda: greedy_loop.fused_greedy_loop(
-            ctx, c0, h0, eos, nl, True, T), 10)
-        log(f"time greedy_loop {name}, every row EOS at step 1 (each block's "
-            f"early exit): kernel {ke:.4f} ms")
 
     m = models[("bfloat16", "loop")]
     batch = requests[3]
@@ -1223,6 +1216,206 @@ def timings(dev, models, requests, card: str, table):
         log(f"recognize {dt} {route} B={len(batch)}: "
             f"{len(batch) / el:.1f} images/s ({el * 1e3:.2f} ms, one run)")
     return ms, bounds, lib
+
+# greedy_loop's timed batches: the serving latencies and the serving batch
+GREEDY_TIMED = (1, 8, 32, B_SERVE)
+
+
+def greedy_loop_timings(dev, models, results: dict, table):
+    """greedy_loop (the thread-block-cluster design) at the recognition
+    shape (L=24, the default decoder, T=50, random weights so that every
+    row runs all 50 steps) at GREEDY_TIMED, both dtypes: check_loop
+    without and with the 88k trie, then the kernel against its plain
+    version in turns, the bound and the launch plan; at B=512 also the
+    88k-trie decode and the one whose rows all emit EOS at step 1.
+    Returns (ms, bounds) keyed by ("greedy_loop", dtype) (B=512) and
+    ("greedy_loop", dtype, B)."""
+    import torch
+
+    from aocr_torch import vocab
+    from aocr_torch.ops.cuda import greedy_loop
+
+    g = torch.Generator().manual_seed(13)
+    rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
+    cfg = base_config()
+    L, T, Hd, E = (W_SERVE // 4 - 1, T_MAX, cfg.decoder_num_hidden,
+                   cfg.target_embedding_size)
+    nl, V = cfg.decoder_num_layers, cfg.target_vocab_size
+    ms, bounds = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        tol = 1e-4 if dt == torch.float32 else 3e-2
+        m = models[("float32" if dt == torch.float32 else "bfloat16", "loop")]
+        tables = greedy_loop.build_tables(
+            m.params["decoder"], m.params["projector"], E, True, dt)
+        for B in GREEDY_TIMED:
+            ctx = rand(L, B, Hd).to(dev, dt)
+            c0, h0 = rand(B, Hd).to(dev), rand(B, Hd).to(dev)
+            args = (ctx, c0, h0, nl, T)
+            err = check_loop(name, tables, args, tol, f" (timed B={B})")
+            results.setdefault(("greedy_loop", name), []).append(err)
+            err = check_loop(name, tables, args, tol,
+                             f" (timed B={B}), 88k trie", trie_table=table)
+            results[("greedy_loop", name)].append(err)
+            loop_args = (ctx, c0, h0, tables, nl, True, T)
+            lab, lab_sc = greedy_loop.fused_greedy_loop(*loop_args)
+            steps = int((lab != vocab.PAD).sum(1).max().item())
+            ended = (lab == vocab.EOS).cumsum(1) > 0
+            row_steps = int((~torch.cat([torch.zeros_like(ended[:, :1]),
+                                         ended[:, :-1]], 1)).sum().item())
+            bnd = bound(row_steps * step_flops(Hd, L, V, nl, True),
+                        tensor_bytes(loop_args[:4], lab, lab_sc), name)
+            n = 3 if B == B_SERVE else 6
+            k1, k2, p1, p2 = time_pair(
+                lambda: greedy_loop.fused_greedy_loop(*loop_args),
+                lambda: greedy_loop.fused_greedy_loop_plain(*loop_args), n)
+            ms[("greedy_loop", name, B)] = (min(k1, k2), min(p1, p2))
+            bounds[("greedy_loop", name, B)] = bnd
+            log(f"time greedy_loop {name} B={B} L={L} H={Hd} T={T}: kernel "
+                f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms "
+                f"({steps} of {T} steps run); bound {bnd[0]:.4f} ms "
+                f"({bnd[1]})")
+        B = B_SERVE
+        ms[("greedy_loop", name)] = ms[("greedy_loop", name, B)]
+        bounds[("greedy_loop", name)] = bounds[("greedy_loop", name, B)]
+        kt = cuda_ms(lambda: greedy_loop.fused_greedy_loop(
+            *loop_args, trie_table=table), 5)
+        lab_t, _ = greedy_loop.fused_greedy_loop(*loop_args,
+                                                 trie_table=table)
+        ms[("greedy_loop_trie", name)] = kt
+        log(f"time greedy_loop {name} B={B} with the 88k trie: kernel "
+            f"{kt:.4f} ms ({int((lab_t != 0).sum(1).max().item())} of {T} "
+            f"steps run)")
+        eos = eos_tables(tables, (ctx, c0, h0, nl, T), 1.0)
+        ke = cuda_ms(lambda: greedy_loop.fused_greedy_loop(
+            ctx, c0, h0, eos, nl, True, T), 10)
+        ms[("greedy_loop_eos", name)] = ke
+        log(f"time greedy_loop {name} B={B}, every row EOS at step 1 (each "
+            f"tile's early exit): kernel {ke:.4f} ms")
+    for _plan, line in greedy_loop.plans.values():
+        log(line)
+    return ms, bounds
+
+
+# tests/test_transcript_parity.py's first fixture: its words and the
+# decoys of its lexicon
+FIXTURE_WORDS = ["ab", "cd", "e1", "fg"]
+FIXTURE_DECOYS = ["abc", "cde", "ef", "fgh", "hi", "klm", "mno", "pqr",
+                  "stu", "vwx", "yz", "a1", "b2", "c3", "qq", "zz", "xray",
+                  "yolk"]
+
+
+def render_word(label: str, height: int = 32, width: int = 100):
+    """tests/synth.py's striped word image: (height, width) float32 in
+    [0, 255], each character a band whose stripes its id sets."""
+    import numpy as np
+
+    from aocr_torch import vocab
+
+    img = np.full((height, width), 255.0, np.float32)
+    band_w = max(width // max(len(label), 1), 1)
+    ys = np.arange(height)[:, None]
+    for i, ch in enumerate(label):
+        cid = vocab.char_to_id(ch)
+        x0, x1 = i * band_w, min((i + 1) * band_w, width)
+        xs = np.arange(x0, x1)[None, :]
+        pattern = ((ys + xs * (1 + cid % 3)) // (2 + cid % 7)) % 2
+        img[:, x0:x1] = np.where(pattern, 255.0 - cid * 6.0, cid * 5.0)
+    return img
+
+
+def trained_fixture(dev, seed: int = 0, steps: int = 300):
+    """tests/test_transcript_parity.py's tiny fixture (H=128, 32x32
+    crops of FIXTURE_WORDS, SGD at 0.1), trained with the port's
+    make_train_step on `dev` (float32, plain route) until its greedy
+    decode reads back every word; returns (cfg, params, batch_stats,
+    images, targets_eval, steps run), or None if `steps` do not get
+    there."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import decode, eval as eval_lib, train_step, vocab
+    from aocr_torch.config import Config
+    from aocr_torch.models import model
+
+    cfg = Config(batch_size=4, input_feed=True, encoder_num_hidden=64,
+                 target_embedding_size=8, max_decoder_l=8, image_width=32,
+                 learning_rate=0.1, use_pallas=False, seed=seed).validate()
+    imgs = np.stack([render_word(w, 32, 32) for w in FIXTURE_WORDS])[..., None]
+    targets, targets_eval, _ = vocab.encode_batch(FIXTURE_WORDS)
+    params, stats = model.init(cfg, torch.Generator().manual_seed(seed), dev)
+    opt = train_step.init_opt_state(params, cfg)
+    step = train_step.make_train_step(cfg)
+    im = torch.from_numpy(imgs.astype(np.float32)).to(dev)
+    tg = torch.as_tensor(targets, device=dev)
+    te = torch.as_tensor(targets_eval, device=dev)
+    for i in range(steps):
+        out = step(params, stats, opt, im, tg, te, 0.1)
+        params, stats, opt = out.params, out.batch_stats, out.opt_state
+        if (i + 1) % 25 == 0:
+            pred, _ = decode.greedy_decode(params, stats, im, cfg,
+                                           cfg.max_decoder_l)
+            if bool(eval_lib.exact_match(pred, te).all()):
+                return cfg, params, stats, im, te, i + 1
+    return None
+
+
+def fixture_transcripts(dev, seed: int = 0):
+    """bf16 transcripts of the trained fixture on the card: greedy on the
+    loop and tail routes (greedy_loop, decode_step) and beam-5 on both
+    (beam_loop, beam_step), without and with a trie of its words and
+    decoys, each against the plain route (use_pallas=False) and the
+    words.  Returns [(what, ok)]."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import decode, vocab
+    from aocr_torch.ops import cuda
+    from aocr_torch.utils import trie
+
+    fx = trained_fixture(dev, seed)
+    if fx is None:
+        return [(f"trained fixture seed={seed}: no exact match in 300 "
+                 "steps", False)]
+    cfg, params, stats, im, te, steps = fx
+    log(f"trained fixture seed={seed}: exact match after {steps} steps")
+    table = torch.from_numpy(trie.build_transition_table(
+        FIXTURE_WORDS + FIXTURE_DECOYS)).to(dev)
+    kernels = {(1, "loop"): "greedy_loop", (1, "tail"): "decode_step",
+               (5, "loop"): "beam_loop", (5, "tail"): "beam_step"}
+    out = []
+    for tt in (None, table):
+        for K in (1, 5):
+            def run(**kw):
+                c = cfg.replace(compute_dtype="bfloat16", **kw)
+                if K == 1:
+                    return decode.greedy_decode(params, stats, im, c,
+                                                c.max_decoder_l,
+                                                trie_table=tt)
+                return decode.beam_decode(params, stats, im, c, K,
+                                          c.max_decoder_l, trie_table=tt)
+
+            want, want_sc = run(use_pallas=False)
+            words = [vocab.decode(r) for r in want.cpu().numpy()]
+            what = (f"trained fixture bf16 {'greedy' if K == 1 else 'beam-5'}"
+                    f"{', trie' if tt is not None else ''}")
+            out.append((f"{what}: plain route reads {words}",
+                        words == FIXTURE_WORDS))
+            for route in ("loop", "tail"):
+                k = kernels[(K, route)]
+                n = cuda.launch_counts()[k]
+                lab, sc = run(use_pallas=True, pallas_greedy=route,
+                              pallas_beam=route)
+                torch.cuda.synchronize()
+                same = torch.equal(lab.cpu(), want.cpu())
+                gap = float((sc - want_sc).abs().max().item())
+                out.append((f"{what}, {route} route ({k}, "
+                            f"{cuda.launch_counts()[k] - n} launches): "
+                            f"transcripts identical to the plain route's "
+                            f"{same}, score gap {gap:.3g}",
+                            same and cuda.launch_counts()[k] > n
+                            and gap <= 2e-2 and bool(np.isfinite(gap))))
+    return out
 
 
 def profile(label: str, fn) -> None:
@@ -2114,8 +2307,9 @@ def main() -> int:
     cuda.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(lib, ROOT)}")
-    for line in ptxas_summary(out.getvalue(), "lstm_fwd_kernel"):
-        log(f"ptxas {line}")
+    for kernel in ("lstm_fwd_kernel", "greedy_cluster_kernel"):
+        for line in ptxas_summary(out.getvalue(), kernel):
+            log(f"ptxas {line}")
 
     t0 = time.perf_counter()
     words, table_np = synthetic_lexicon()
@@ -2128,6 +2322,9 @@ def main() -> int:
     kernel_checks(dev, results, table)
     beam_kernel_checks(dev, results, table)
     train_kernel_checks(dev, results)
+    for what, ok in fixture_transcripts(dev):
+        log(f"check {what}")
+        check(ok, what)
     # the three paths, each driven with the counts set to 0 just before
     # it and read just after
     counts, models, requests = end_to_end(dev, args.seed)
@@ -2137,6 +2334,9 @@ def main() -> int:
     gcounts = image_gradient(dev, args.seed)
     ccounts, readings = trainer_phase(dev, args.seed, card)
     ms, bounds, lib = timings(dev, models, requests, card, table)
+    gms, gbounds = greedy_loop_timings(dev, models, results, table)
+    ms.update(gms)
+    bounds.update(gbounds)
     bms, bbounds, rates = beam_timings(dev, bmodels, brequests,
                                        (words, table_np), card)
     ms.update(bms)
@@ -2199,6 +2399,17 @@ def main() -> int:
                     "bound_ms": bounds[("lstm_fwd_collect", d)][0],
                     "bound_by": bounds[("lstm_fwd_collect", d)][1],
                     "library_ms": lib.get(("lstm_fwd_collect", d))}}
+        if k == "greedy_loop":
+            entry["redesigned"] = ("thread-block clusters, the weight "
+                                   "slices streamed, bf16 mma.sync")
+            entry["batches"] = {
+                str(B): {"ms": ms[(k, d, B)][0], "plain_ms": ms[(k, d, B)][1],
+                         "bound_ms": bounds[(k, d, B)][0],
+                         "f32_ms": ms[(k, "f32", B)][0],
+                         "f32_plain_ms": ms[(k, "f32", B)][1]}
+                for B in GREEDY_TIMED}
+            entry["trie_88k_ms"] = ms[("greedy_loop_trie", d)]
+            entry["all_eos_ms"] = ms[("greedy_loop_eos", d)]
         if k == "pool_bwd":
             entry["per"] = "one train step: the three pools, summed"
             entry["library"] = ("max_pool2d_with_indices_backward + "

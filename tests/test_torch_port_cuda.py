@@ -16,6 +16,10 @@ beam_loop) and the trie operands of decode_step and greedy_loop: float32
 tokens, parents, histories and refill counts identical to the plain
 version's (a row may part only at a step whose plain margin is a
 near-tie), scores within 1e-5 relative; bfloat16 as the decode checks.
+greedy_loop (thread-block clusters) also at its plan's edges: ragged
+tiles, masked units, one to three layers, no input feed, an early exit,
+more tiles than one wave; and a model trained on the card must give the
+plain route's bf16 transcripts through every decode kernel.
 The pool backward (pool_bwd, ReluPoolFn) is bit-identical to its plain
 version and to autograd of F.max_pool2d over torch.relu, ties included;
 conv1's image cotangent (conv1_pool_dx) within 1e-5 of its scale in
@@ -128,7 +132,8 @@ def test_lstm_fwd_plan_matches_kernel(dev):
     for dtype, xd in ((torch.float32, torch.float32),
                       (torch.bfloat16, torch.bfloat16),
                       (torch.bfloat16, torch.float32)):
-        for H in (2, 64, 128, 130, 200, 256, 512, 520, 1024, 1030, 2048):
+        for H in (2, 64, 128, 130, 200, 256, 512, 520, 1024, 1030, 2048,
+                  2400, 2420):
             for B in (1, 6, 33, 400, 512):
                 out = (ctypes.c_int * 9)()
                 err = lib.aocr_lstm_fwd_plan(H, B, int(dtype == torch.float32),
@@ -139,9 +144,27 @@ def test_lstm_fwd_plan_matches_kernel(dev):
                 assert tuple(out[:8]) == tuple(p), (H, B, dtype, out[:], p)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("collect", [False, True])
+@pytest.mark.parametrize("H,B", [(2400, 8), (2420, 1), (2050, 33)])
+def test_lstm_fwd_kernel_wide(dev, dtype, collect, H, B):
+    """Past 128 units a block (H > 2048) bf16 warps hold 3 mma tiles: the
+    kernel's second instance against the plain version."""
+    g = torch.Generator().manual_seed(H + B)
+    wh, xp, c0, h0 = _lstm_case(g, dev, dtype, L=3, B=B, H=H)
+    n = lstm_fwd.launches
+    got = lstm_fwd.lstm_fwd_scan(wh, xp, c0, h0, True, collect=collect)
+    assert lstm_fwd.launches == n + 1
+    torch.cuda.synchronize()
+    want = lstm_fwd.lstm_fwd_scan_plain(wh, xp, c0, h0, True,
+                                        collect=collect)
+    flat = lambda o: (o[0], *o[1], *(o[2] if collect else ()))
+    _close_all(flat(got), flat(want), TOL[dtype])
+
+
 def test_lstm_fwd_unserved_shape_raises(dev):
     """A shape no plan fits raises ValueError; nothing falls back."""
-    H = 2400
+    H = 4098
     assert lstm_fwd.plan(H, 4, torch.bfloat16, 1) is None
     wh = torch.zeros(H, 4 * H, device=dev, dtype=torch.bfloat16)
     xp = torch.zeros(2, 4, 4 * H, device=dev, dtype=torch.bfloat16)
@@ -152,20 +175,24 @@ def test_lstm_fwd_unserved_shape_raises(dev):
     assert lstm_fwd.launches == n
 
 
-def _decoder_tables(g, dev, dtype, H, V=39, E=8, nl=2):
-    layers = [{"wi": _rand(g, (E + H) if i == 0 else H, 4 * H, lo=-0.1,
-                           hi=0.1),
-               "wh": _rand(g, H, 4 * H, lo=-0.1, hi=0.1),
-               "bi": _rand(g, 4 * H, lo=-0.1, hi=0.1),
-               "bh": _rand(g, 4 * H, lo=-0.1, hi=0.1)} for i in range(nl)]
+def _decoder_tables(g, dev, dtype, H, V=39, E=8, nl=2, input_feed=True):
+    # +-0.1 up to H=256, the init law's 1/sqrt(H) above (as _lstm_case):
+    # wider layers at +-0.1 saturate every gate
+    w = 0.1 if H <= 256 else H ** -0.5
+    k0 = E + H if input_feed else E
+    layers = [{"wi": _rand(g, k0 if i == 0 else H, 4 * H, lo=-w, hi=w),
+               "wh": _rand(g, H, 4 * H, lo=-w, hi=w),
+               "bi": _rand(g, 4 * H, lo=-w, hi=w),
+               "bh": _rand(g, 4 * H, lo=-w, hi=w)} for i in range(nl)]
     dec = {"embedding": torch.randn(V, E, generator=g), "layers": layers,
-           "w_a": _rand(g, H, H, lo=-0.1, hi=0.1),
-           "w_c": _rand(g, 2 * H, H, lo=-0.1, hi=0.1)}
+           "w_a": _rand(g, H, H, lo=-w, hi=w),
+           "w_c": _rand(g, 2 * H, H, lo=-w, hi=w)}
     proj = {"w": _rand(g, H, V, lo=-0.3, hi=0.3), "b": _rand(g, V)}
     move = lambda d: {k: ([{kk: vv.to(dev) for kk, vv in x.items()}
                            for x in v] if k == "layers" else v.to(dev))
                       for k, v in d.items()}
-    return greedy_loop.build_tables(move(dec), move(proj), E, True, dtype)
+    return greedy_loop.build_tables(move(dec), move(proj), E, input_feed,
+                                    dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -209,6 +236,196 @@ def test_greedy_loop_kernel(dev, dtype, B):
             assert margin[r, first] < TOL[dtype], (r, first, lab[r], lab_p[r])
         else:
             _close(sc[r], sc_p[r], 1e-3 if dtype == torch.float32 else 0.1)
+
+
+def _greedy_agrees(lab, sc, lab_p, sc_p, margin, dtype):
+    """Rows identical up to the first step whose plain margin is a
+    near-tie (< TOL), PAD after EOS, and the scores of identical rows
+    close; returns the rows that parted."""
+    lab, lab_p, margin = lab.cpu(), lab_p.cpu(), margin.cpu()
+    parted = 0
+    for r in range(lab.shape[0]):
+        diff = (lab[r] != lab_p[r]).nonzero()
+        if len(diff):
+            first = int(diff[0])
+            assert margin[r, first] < TOL[dtype], (r, first, lab[r],
+                                                   lab_p[r])
+            parted += 1
+        else:
+            _close(sc[r], sc_p[r], 1e-3 if dtype == torch.float32 else 0.1)
+    ended = (lab == vocab.EOS).cumsum(1) > 0
+    after = torch.cat([torch.zeros_like(ended[:, :1]), ended[:, :-1]], 1)
+    assert bool((lab[after] == vocab.PAD).all())
+    return parted
+
+
+def _greedy_case(g, dev, dtype, B, H, L=9, nl=2, input_feed=True):
+    t = _decoder_tables(g, dev, dtype, H, nl=nl, input_feed=input_feed)
+    ctx = _rand(g, L, B, H).to(dev, dtype)
+    c0, h0 = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
+    return t, ctx, c0, h0
+
+
+def test_greedy_loop_plan_matches_kernel(dev):
+    """The wrapper's plan is the kernel's, field for field, the card runs
+    at least one cluster of each, and the plan's smem fits."""
+    import ctypes
+
+    from aocr_torch.ops import cuda
+
+    lib = cuda.library()
+    for dtype in DTYPES:
+        for H in (4, 132, 256, 1020, 1024, 2048):
+            for B, nl in ((1, 1), (5, 2), (17, 3), (512, 2), (1000, 3)):
+                out = (ctypes.c_int * 10)()
+                err = lib.aocr_greedy_loop_plan(
+                    H, B, int(dtype == torch.float32), 24, 128, nl, out)
+                assert err == 0, (H, B, dtype, err)
+                assert out[9] >= 1, (H, B, dtype, out[:])
+                p = greedy_loop.plan(H, B, dtype, 24, 128, nl, out[9])
+                assert tuple(out[:9]) == tuple(p), (H, B, dtype, out[:], p)
+
+
+# (B, H, nl, input_feed, T): a ragged last tile, H not a multiple of
+# 8 x cs (the last block's units masked), one and three layers, no input
+# feed, and the default decoder's width
+GREEDY_EDGES = [(37, 256, 2, True, 9), (5, 132, 2, True, 7),
+                (90, 1020, 2, True, 6), (6, 256, 1, True, 8),
+                (20, 256, 3, True, 8), (7, 256, 2, False, 8),
+                (3, 1024, 2, True, 5)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,nl,input_feed,T", GREEDY_EDGES)
+def test_greedy_loop_kernel_edges(dev, dtype, B, H, nl, input_feed, T):
+    g = torch.Generator().manual_seed(B + H + nl)
+    t, ctx, c0, h0 = _greedy_case(g, dev, dtype, B, H, nl=nl,
+                                  input_feed=input_feed)
+    n = greedy_loop.launches
+    lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, t, nl, input_feed,
+                                            T)
+    assert greedy_loop.launches == n + 1
+    torch.cuda.synchronize()
+    lab_p, sc_p, margin = greedy_loop.fused_greedy_loop_plain(
+        ctx, c0, h0, t, nl, input_feed, T, return_margins=True)
+    parted = _greedy_agrees(lab, sc, lab_p, sc_p, margin, dtype)
+    if dtype == torch.float32:
+        assert parted == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_greedy_loop_kernel_early_exit(dev, dtype):
+    """Every row emits EOS at step 1 (each tile leaves after it, the rest
+    of the history PAD), and half the rows do (frozen rows beside live
+    ones in one tile)."""
+    g = torch.Generator().manual_seed(31)
+    B, H, T = 40, 256, 9
+    t, ctx, c0, h0 = _greedy_case(g, dev, dtype, B, H)
+    for bias, every in ((60.0, True), (None, False)):
+        tt = dict(t, pb=t["pb"].clone())
+        if bias is None:  # the bias at which about half the rows stop
+            lo, hi = -60.0, 60.0
+            for _ in range(25):
+                mid = (lo + hi) / 2
+                tt["pb"][vocab.EOS] = t["pb"][vocab.EOS] + mid
+                first, _ = greedy_loop.fused_greedy_loop_plain(
+                    ctx, c0, h0, tt, 2, True, 1)
+                if (first[:, 0] == vocab.EOS).float().mean() < 0.5:
+                    lo = mid
+                else:
+                    hi = mid
+            bias = hi
+        tt["pb"][vocab.EOS] = t["pb"][vocab.EOS] + bias
+        lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, tt, 2, True, T)
+        torch.cuda.synchronize()
+        lab_p, sc_p, margin = greedy_loop.fused_greedy_loop_plain(
+            ctx, c0, h0, tt, 2, True, T, return_margins=True)
+        _greedy_agrees(lab, sc, lab_p, sc_p, margin, dtype)
+        stopped = (lab_p[:, 0] == vocab.EOS).cpu()
+        if every:
+            assert bool(stopped.all())
+            assert bool((lab[:, 1:] == vocab.PAD).all())
+        else:
+            assert 0 < int(stopped.sum()) < B
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_greedy_loop_kernel_waves(dev, dtype):
+    """More tiles than the card runs clusters at once: the later waves
+    start after the first leave, each with its own tile of rows."""
+    import ctypes
+
+    from aocr_torch.ops import cuda
+
+    H, L, T = 256, 9, 6
+    out = (ctypes.c_int * 10)()
+    assert cuda.library().aocr_greedy_loop_plan(
+        H, 1000, int(dtype == torch.float32), L, 128, 2, out) == 0
+    active = out[9]
+    # more rows than the clusters at once hold at the largest tile
+    U = greedy_loop.plan(H, 1000, dtype, L, 128, 2, active).units
+    most = (16 * greedy_loop.TILES if dtype == torch.bfloat16 else
+            greedy_loop.THREADS // (U // 2) * greedy_loop.FMA_RT[-1])
+    B = most * active + 3
+    g = torch.Generator().manual_seed(33)
+    t, ctx, c0, h0 = _greedy_case(g, dev, dtype, B, H, L=L)
+    p = greedy_loop.plan(H, B, dtype, L, 128, 2, active)
+    assert p.clusters > active
+    lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, t, 2, True, T)
+    torch.cuda.synchronize()
+    lab_p, sc_p, margin = greedy_loop.fused_greedy_loop_plain(
+        ctx, c0, h0, t, 2, True, T, return_margins=True)
+    parted = _greedy_agrees(lab, sc, lab_p, sc_p, margin, dtype)
+    if dtype == torch.float32:
+        assert parted == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,L,V", [(3, 150, 39), (100, 9, 2000)])
+def test_greedy_loop_kernel_wide_operands(dev, dtype, B, L, V):
+    """A context too long to stage in shared memory (the attention reads
+    it from global memory) and a vocabulary whose projector slice does
+    not fit the ring (the partial logits read it from global memory), at
+    the default decoder's width."""
+    g = torch.Generator().manual_seed(L + V)
+    H, T = 1024, 5
+    t = _decoder_tables(g, dev, dtype, H, V=V)
+    ctx = _rand(g, L, B, H).to(dev, dtype)
+    c0, h0 = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
+    lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, t, 2, True, T)
+    torch.cuda.synchronize()
+    lab_p, sc_p, margin = greedy_loop.fused_greedy_loop_plain(
+        ctx, c0, h0, t, 2, True, T, return_margins=True)
+    parted = _greedy_agrees(lab, sc, lab_p, sc_p, margin, dtype)
+    if dtype == torch.float32:
+        assert parted == 0
+
+
+def test_greedy_loop_unserved_shape_raises(dev):
+    """A shape no plan fits raises ValueError; nothing falls back."""
+    H = 8200  # more than 512 units a block
+    assert greedy_loop.plan(H, 1, torch.bfloat16, 2, 128, 1, 1) is None
+    # the plan is checked before the tables, so these stand in for them
+    t = {"eg": torch.zeros(39, 4, device=dev, dtype=torch.bfloat16),
+         "wa": torch.zeros(1, 1, device=dev, dtype=torch.bfloat16),
+         "pw": torch.zeros(1, 128, device=dev, dtype=torch.bfloat16)}
+    ctx = torch.zeros(2, 1, H, device=dev, dtype=torch.bfloat16)
+    z = torch.zeros(1, H, device=dev)
+    n = greedy_loop.launches
+    with pytest.raises(ValueError, match="no kernel plan"):
+        greedy_loop.fused_greedy_loop(ctx, z, z, t, 1, True, 3)
+    assert greedy_loop.launches == n
+
+
+def test_trained_fixture_bf16_transcripts(dev):
+    """A tiny model trained on the card to exact match (chip_smoke.py's
+    trained_fixture: the port's make_train_step, no jax): its bf16 greedy
+    and beam-5 transcripts through greedy_loop, decode_step, beam_loop and
+    beam_step, without and with a trie, equal the plain route's."""
+    import chip_smoke
+
+    for what, ok in chip_smoke.fixture_transcripts(dev):
+        assert ok, what
 
 
 @pytest.mark.parametrize("route", ["auto", "tail"])

@@ -1,0 +1,119 @@
+"""The launch plan and the packed weights of aocr_torch's greedy_loop
+kernel (csrc/greedy_loop.cu on thread-block clusters), on the CPU.
+
+The kernel runs only on the card; what its correctness rests on beside
+the arithmetic is checked here in pure Python: every shape the previous
+kernel took (H a multiple of 4, any B, one to three layers, input feed on
+or off) gets a plan whose shared memory fits the H100's 232,448 bytes a
+block, whose blocks own every hidden unit once and whose clusters and
+row-split owners hold every batch row once; a shape past the kernel's
+reach gets none (the wrapper raises); and the packed weight slices the
+kernel streams hold, at each (block, row, column), the weight of the
+build_tables operand it stands for, with zeros past H.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from aocr_torch.ops.cuda import greedy_loop
+
+ACTIVE = 7  # 16-SM clusters an H100 runs at once (cudaOccupancy...)
+SMEM = 232448
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [4, 132, 256, 1020, 1024, 2048])
+def test_greedy_loop_plan_covers(dtype, H):
+    for B, nl in ((1, 1), (5, 2), (17, 3), (512, 2), (1000, 3)):
+        p = greedy_loop.plan(H, B, dtype, 24, 128, nl, ACTIVE)
+        assert p is not None, (H, B, dtype)
+        assert p.smem <= SMEM
+        assert p.units % 8 == 0 and p.kc % 16 == 0 and 2 <= p.stages <= 4
+        units = [u for s in range(p.cs) for u in p.unit_range(s, H)]
+        assert units == list(range(H))
+        rows = [r for c in range(p.clusters) for r in p.row_range(c, B)]
+        assert rows == list(range(B))
+        owned = sorted(r for c in range(p.clusters) for s in range(p.cs)
+                       for r in p.owned_rows(c, s, B))
+        assert owned == list(range(B))
+        if dtype == torch.bfloat16:
+            assert p.bt == 16 * p.rt
+            assert greedy_loop.warp_tiles(0, p.units // 8, p.rt) <= \
+                greedy_loop.TILES
+        else:
+            assert p.bt == greedy_loop.THREADS // (p.units // 2) * p.rt
+        for nl in (1, 2, 3):
+            assert greedy_loop.scratch_bytes(p, dtype, H, nl, 39) % \
+                greedy_loop.ALIGN == 0
+
+
+def test_greedy_loop_plan_fills_the_card():
+    """At the serving batch the default decoder runs in one wave of the
+    clusters the card holds, with the widest tiles; a single row takes
+    one cluster of the narrowest."""
+    for dtype, bt in ((torch.bfloat16, 80), (torch.float32, 80)):
+        p = greedy_loop.plan(1024, 512, dtype, 24, 128, 2, ACTIVE)
+        assert (p.cs, p.units, p.bt, p.clusters) == (16, 64, bt, 7)
+        q = greedy_loop.plan(1024, 1, dtype, 24, 128, 2, ACTIVE)
+        assert q.clusters == 1 and q.bt < p.bt
+
+
+def test_greedy_loop_plan_refuses_past_the_kernel():
+    """The previous kernel's widest decoder (H=4,800 at L=24, Vp=128) gets
+    a plan; more than 512 units a block gets none (the wrapper raises
+    ValueError on a CUDA tensor, and never runs the plain version)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert greedy_loop.plan(4800, 512, dtype, 24, 128, 2, ACTIVE) is not None
+        assert greedy_loop.plan(8200, 1, dtype, 24, 128, 2, ACTIVE) is None
+
+
+def _tables(rs, H, nl, input_feed, E=8, V=39):
+    u = lambda *s: torch.from_numpy(rs.uniform(-1, 1, s).astype(np.float32))
+    layers = [{"wi": u((E + H) if (i == 0 and input_feed) else
+                       (E if i == 0 else H), 4 * H),
+               "wh": u(H, 4 * H), "bi": u(4 * H), "bh": u(4 * H)}
+              for i in range(nl)]
+    dec = {"embedding": u(V, E), "layers": layers, "w_a": u(H, H),
+           "w_c": u(2 * H, H)}
+    return greedy_loop.build_tables(dec, {"w": u(H, V), "b": u(V)}, E,
+                                    input_feed, torch.float32)
+
+
+@pytest.mark.parametrize("H,B,nl,input_feed", [
+    (132, 5, 2, True), (256, 40, 3, False), (36, 1, 1, True)])
+def test_greedy_loop_packed_weights(H, B, nl, input_feed):
+    """pack_weights' slices: block s, segment k, row k, column i*U + u
+    holds the operand's weight of that row and unit s*U + u, zeros past
+    H; a layer's segments are its own last h first, then the layer
+    below's."""
+    rs = np.random.RandomState(H + nl)
+    t = _tables(rs, H, nl, input_feed)
+    p = greedy_loop.plan(H, B, torch.float32, 9, 128, nl, ACTIVE)
+    w = greedy_loop.pack_weights(t, p, nl, input_feed)
+    U, hs = p.units, -(-H // p.kc) * p.kc
+
+    def unpack(x, nq):
+        """(cs, hs, nq*U + pad) -> (H, nq, H) of the blocks' units"""
+        assert x.shape == (p.cs, hs, nq * U + 4)
+        assert bool((x[:, H:] == 0).all()) and bool((x[..., nq * U:] == 0)
+                                                    .all())
+        y = x[:, :H, :nq * U].reshape(p.cs, H, nq, U).permute(1, 2, 0, 3)
+        y = y.reshape(H, nq, p.cs * U)
+        assert bool((y[..., H:] == 0).all())
+        return y[..., :H]
+
+    lstm = lambda m, r0: m[r0:r0 + H].reshape(H, 4, H)
+    segs0 = [0, H] if input_feed else [0]
+    assert w["w0"].shape[1] == len(segs0)
+    for k, r0 in enumerate(segs0):
+        assert torch.equal(unpack(w["w0"][:, k], 4), lstm(t["wfh0"], r0))
+    assert w["wl"].shape[0] == nl - 1
+    for l in range(nl - 1):
+        for k, r0 in enumerate((H, 0)):
+            assert torch.equal(unpack(w["wl"][l, :, k], 4),
+                               lstm(t["wx"][l], r0))
+    q = unpack(w["wq"], 2)
+    assert torch.equal(q[:, 0], t["wa"]) and torch.equal(q[:, 1],
+                                                         t["wc"][H:])
+    assert torch.equal(unpack(w["wc"], 1)[:, 0], t["wc"][:H])

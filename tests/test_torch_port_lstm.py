@@ -212,19 +212,20 @@ def test_lstm_fwd_plan_partition(dtype, B, H):
 
 def test_lstm_fwd_plan_limits():
     """Shapes the plan serves and those it refuses (the wrapper raises
-    ValueError on a CUDA tensor for these): every even H up to 2048 in
-    bf16 and 2420 in float32 (the previous kernel's limit), none past
-    them in bf16 (more than 2 mma tiles a warp) or past 4096."""
+    ValueError on a CUDA tensor for these): every even H up to 2420 in
+    both dtypes (the previous kernel's limit; past 2048 in bf16 a warp
+    holds 3 mma tiles), none past 4096."""
     for dt in (torch.float32, torch.bfloat16):
-        for H in (2, 130, 200, 520, 1030, 2048):
+        for H in (2, 130, 200, 520, 1030, 2048, 2050, 2400, 2420):
             for B in (1, 33, 512):
                 p = lstm_fwd.plan(H, B, dt, ACTIVE)
                 assert p is not None and p.smem <= 232448
                 assert sum(len(p.unit_range(s, H))
                            for s in range(p.cs)) == H
+                if dt == torch.bfloat16:
+                    tiles = (p.bt // 16) * (p.units // 8)
+                    assert tiles <= 8 * lstm_fwd.mma_tiles(p.units)
         assert lstm_fwd.plan(4098, 1, dt, ACTIVE) is None
-    assert lstm_fwd.plan(2050, 512, torch.bfloat16, ACTIVE) is None
-    assert all(lstm_fwd.plan(H, 512, torch.float32, ACTIVE) is not None
-               for H in range(2, 2422, 2))
-    assert all(lstm_fwd.plan(H, 512, torch.bfloat16, ACTIVE) is not None
-               for H in range(2, 2050, 2))
+    for dt in (torch.float32, torch.bfloat16):
+        assert all(lstm_fwd.plan(H, 512, dt, ACTIVE) is not None
+                   for H in range(2, 2422, 2))

@@ -4,11 +4,12 @@
     python3 tools/ab_greedy_loop_torch.py DIR_A DIR_B [--turns 4]
 
 Each DIR is a checkout that holds aocr_torch/.  The kernel is timed at the
-recognition shape (B=512, L=24, T=50, the default decoder: H=1024, 2
-layers, input feed, V=39) in float32 and bf16, in turns A, B, B, A, ...,
-each turn in a fresh process that builds that checkout's kernels
-(CUDA events over back-to-back launches).  Prints one line a turn and the
-card's name and power limit.  Needs one CUDA device.
+recognition shape (L=24, T=50, the default decoder: H=1024, 2 layers,
+input feed, V=39) at B=512 and B=1 in float32 and bf16, with decode_step
+(the per-step tail, csrc/decode_tail.cuh) at B=512 in bf16 beside it, in
+turns A, B, B, A, ..., each turn in a fresh process that builds that
+checkout's kernels (CUDA events over back-to-back launches).  Prints one
+line a turn and the card's name and power limit.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -25,11 +26,11 @@ sys.path.insert(0, {root!r})
 import numpy as np, torch
 from aocr_torch import weights
 from aocr_torch.ops import cuda
-from aocr_torch.ops.cuda import greedy_loop
+from aocr_torch.ops.cuda import decode_step, greedy_loop
 cuda.build()
 dev = torch.device("cuda")
 rs = np.random.RandomState(3)
-H, E, V, B, L, T = 1024, 20, 39, 512, 24, 50
+H, E, V, L, T = 1024, 20, 39, 24, 50
 u = lambda b, *s: rs.uniform(-b, b, s).astype(np.float32)
 layer = lambda i: {{"wi": u(i ** -0.5, i, 4 * H), "bi": u(i ** -0.5, 4 * H),
                     "wh": u(H ** -0.5, H, 4 * H), "bh": u(H ** -0.5, 4 * H)}}
@@ -40,21 +41,34 @@ proj = {{"w": u(2 * H ** -0.5, H, V), "b": u(H ** -0.5, V)}}
 tp, _ = weights.from_numpy({{"decoder": dec, "projector": proj}}, {{}}, dev)
 g = torch.Generator().manual_seed(11)
 out = {{}}
-for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-    t = greedy_loop.build_tables(tp["decoder"], tp["projector"], E, True, dt)
-    ctx = (torch.rand(L, B, H, generator=g) * 2 - 1).to(dev, dt)
-    c0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
-    h0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
-    run = lambda: greedy_loop.fused_greedy_loop(ctx, c0, h0, t, 2, True, T)
+
+def ms(run, n=3):
     run()
     torch.cuda.synchronize()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
-    for _ in range(3):
+    for _ in range(n):
         run()
     b.record()
     torch.cuda.synchronize()
-    out[name] = a.elapsed_time(b) / 3
+    return a.elapsed_time(b) / n
+
+for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+    t = greedy_loop.build_tables(tp["decoder"], tp["projector"], E, True, dt)
+    t["pb"][[0, 2]] = -1e4  # PAD and EOS biased off: all T steps run
+    for B in (512, 1):
+        ctx = (torch.rand(L, B, H, generator=g) * 2 - 1).to(dev, dt)
+        c0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
+        h0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
+        out[f"{{name}} B={{B}}"] = ms(lambda: greedy_loop.fused_greedy_loop(
+            ctx, c0, h0, t, 2, True, T))
+    if name == "bf16":
+        B = 512
+        ctx = (torch.rand(L, B, H, generator=g) * 2 - 1).to(dev, dt)
+        h = (torch.rand(B, H, generator=g) * 2 - 1).to(dev, dt)
+        prev = torch.full((B,), 5, dtype=torch.int32, device=dev)
+        out["decode_step bf16 B=512"] = ms(lambda: decode_step.fused_decode_tail(
+            h, ctx, prev, t["wa"], t["wc"], t["pw"], t["pb"]), 20)
 print(json.dumps(out))
 """
 
@@ -77,8 +91,8 @@ def main() -> int:
             print(proc.stderr[-3000:], file=sys.stderr)
             return 1
         ms = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(f"{root}: greedy_loop f32 {ms['f32']:.3f} ms, bf16 "
-              f"{ms['bf16']:.3f} ms (B=512, T=50)", flush=True)
+        print(f"{root}: " + ", ".join(f"{k} {v:.4f} ms"
+                                      for k, v in ms.items()), flush=True)
     return 0
 
 

@@ -1,0 +1,228 @@
+#!/usr/bin/env python3
+"""Where a step of aocr_torch's greedy_loop kernel spends its time, and A/B
+variants of its source, on one card.
+
+    python3 tools/greedy_loop_phases_torch.py [VARIANT ...]
+
+Each VARIANT (default: all) is csrc/greedy_loop.cu with
+csrc/decoder_cluster.cuh, a few lines of either replaced (VARIANTS
+below), compiled with -DDC_PROBES: thread 0 of every block sums
+`clock64()` cycles by phase over the decode (decoder_cluster.cuh's
+DcPhase: the products on landed chunks, the waits for the streamed
+chunks, the epilogues (gate math, stores), the row-split attention, the
+row-split tail (log-softmax, argmax, tokens), the cluster-barrier waits,
+the token read-back, issuing the chunks' copies and the partial
+projector).  Each build lands in
+build/greedy_loop_phases/ and is called through its own C entry points at
+the recognition shape (L=24, the default decoder: H=1024, 2 layers, input
+feed, V=39, T=50, random weights with PAD and EOS biased off so that
+every row runs all steps) at B=512, 32 and 1, in bf16 and float32: one line each with the tokens'
+agreement with the plain version, the CUDA-event ms of the probed
+kernel, that of the package's own (unprobed) build of the same shape,
+and the cycles a step of each phase, per block.  A variant that
+skips work (nomma, nostream) is wrong by design and times only what it
+keeps.  Prints the card's name, power limit and SM clock.  Needs one CUDA
+device and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from aocr_torch import vocab, weights  # noqa: E402
+from aocr_torch.ops import cuda  # noqa: E402
+from aocr_torch.ops.cuda import greedy_loop  # noqa: E402
+
+CSRC = os.path.join(ROOT, "aocr_torch", "csrc")
+OUT = os.path.join(ROOT, "build", "greedy_loop_phases")
+PHASES = ["product", "stream wait", "epilogue", "attention", "tail",
+          "barrier", "read-back", "issue", "projector"]
+# name: [(file in csrc, text, its replacement), ...]
+VARIANTS = {
+    "kernel": [],
+    # the stream alone: no product on the landed chunks
+    "nomma": [("decoder_cluster.cuh",
+               "    compute(sa, sa + b.bt * b.g.lda);\n", "")],
+    # every chunk's product twice (the second pass: compute alone)
+    "mma2x": [("decoder_cluster.cuh",
+               "    compute(sa, sa + b.bt * b.g.lda);\n",
+               "    compute(sa, sa + b.bt * b.g.lda);\n"
+               "    compute(sa, sa + b.bt * b.g.lda);\n")],
+    # chunks of at most 64 rows
+    "kc64": [("decoder_cluster.cuh",
+              "      if (p.kc > 64 && p.kc > dc_round_up(H, 16)) continue;\n",
+              "      if (p.kc > 64) continue;\n")],
+    # the cell states in L2 (a block-private buffer), not shared memory
+    "cl2": [("decoder_cluster.cuh", "      p.cres = c < DC_NCHUNKS;\n",
+             "      p.cres = 0;\n")],
+}
+ENTRY = """
+extern "C" int phases_read(unsigned long long* o) {
+  return (int)cudaMemcpyFromSymbol(o, aocr::gl_prof, sizeof(aocr::gl_prof));
+}
+extern "C" int phases_zero() {
+  unsigned long long z[aocr::DC_NPHASES + 1] = {0};
+  return (int)cudaMemcpyToSymbol(aocr::gl_prof, z, sizeof(z));
+}
+"""
+
+
+def build(names):
+    os.makedirs(OUT, exist_ok=True)
+    procs = {}
+    for name in names:
+        src = os.path.join(OUT, name)
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(CSRC, src)
+        for fname, old, new in VARIANTS[name]:
+            path = os.path.join(src, fname)
+            text = open(path).read()
+            assert old in text, (name, old)
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+        with open(os.path.join(src, "greedy_loop.cu"), "a") as f:
+            f.write(ENTRY)
+        procs[name] = subprocess.Popen(
+            [cuda._nvcc(), *cuda.NVCC_FLAGS, "-DDC_PROBES", "-Xptxas=-v",
+             "-I", src, "-shared", "-o", os.path.join(OUT, f"{name}.so"),
+             os.path.join(src, "greedy_loop.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        log = p.communicate()[0]
+        regs = [ln.split("Used")[1].split(",")[0].strip()
+                for ln in log.splitlines() if "registers" in ln]
+        spills = [ln.strip() for ln in log.splitlines()
+                  if "spill" in ln and " 0 bytes spill stores" not in ln]
+        print(f"{name}: nvcc rc {p.returncode}; registers {regs}"
+              + (f"; {spills}" if spills else ""), flush=True)
+        if p.returncode:
+            print(log)
+
+
+def cuda_ms(fn, n=5):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def decoder(dev):
+    """The default decoder's weights (H=1024, 2 layers, input feed, E=20,
+    V=39) at the init laws, the projector at gain 2, from a fixed seed."""
+    rs = np.random.RandomState(3)
+    H, E, V = 1024, 20, 39
+    u = lambda b, *s: rs.uniform(-b, b, s).astype(np.float32)
+    layer = lambda i: {"wi": u(i ** -0.5, i, 4 * H), "bi": u(i ** -0.5, 4 * H),
+                       "wh": u(H ** -0.5, H, 4 * H),
+                       "bh": u(H ** -0.5, 4 * H)}
+    dec = {"embedding": rs.standard_normal((V, E)).astype(np.float32),
+           "layers": [layer(E + H), layer(H)], "w_a": u(H ** -0.5, H, H),
+           "w_c": u((2 * H) ** -0.5, 2 * H, H)}
+    proj = {"w": u(2 * H ** -0.5, H, V), "b": u(H ** -0.5, V)}
+    tp, _ = weights.from_numpy({"decoder": dec, "projector": proj}, {}, dev)
+    return tp, E
+
+
+def run(name, tp, E):
+    lib = ctypes.CDLL(os.path.join(OUT, f"{name}.so"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for fn in ("aocr_greedy_loop_f32", "aocr_greedy_loop_bf16"):
+        getattr(lib, fn).argtypes = [P] * 15 + [I] * 8 + [P]
+    lib.aocr_greedy_loop_plan.argtypes = [I] * 6 + [ctypes.POINTER(I)]
+    dev, H, L, T, nl = torch.device("cuda"), 1024, 24, 50, 2
+    g = torch.Generator().manual_seed(11)
+    for dt, fn in ((torch.bfloat16, lib.aocr_greedy_loop_bf16),
+                   (torch.float32, lib.aocr_greedy_loop_f32)):
+        t = greedy_loop.build_tables(tp["decoder"], tp["projector"], E, True,
+                                     dt)
+        # PAD and EOS biased off: every row runs all T steps
+        t["pb"][[vocab.PAD, vocab.EOS]] = -1e4
+        V, Vp = t["eg"].shape[0], t["pw"].shape[1]
+        for B in (512, 32, 1):
+            ctx = (torch.rand(L, B, H, generator=g) * 2 - 1).to(dev, dt)
+            c0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
+            h0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
+            out = (ctypes.c_int * 10)()
+            lib.aocr_greedy_loop_plan(H, B, int(dt == torch.float32), L, Vp,
+                                      nl, out)
+            p = greedy_loop.Plan(*out[:9])  # the variant's own plan
+            scratch = torch.zeros(
+                (greedy_loop.scratch_bytes(p, dt, H, nl, V),),
+                dtype=torch.uint8, device=dev)
+            labels = torch.empty((B, T), dtype=torch.int32, device=dev)
+            scores = torch.empty((B,), device=dev)
+            st = torch.cuda.current_stream().cuda_stream
+            w = greedy_loop.pack_weights(t, p, nl, True)
+
+            def call():
+                scratch.zero_()
+                return fn(ctx.data_ptr(), c0.data_ptr(), h0.data_ptr(),
+                          t["eg"].data_ptr(), w["w0"].data_ptr(),
+                          w["wl"].data_ptr(), t["bx"].data_ptr(),
+                          w["wq"].data_ptr(), w["wc"].data_ptr(),
+                          t["pw"].data_ptr(), t["pb"].data_ptr(), None,
+                          labels.data_ptr(), scores.data_ptr(),
+                          scratch.data_ptr(), L, B, H, Vp, V, T, nl, 1, st)
+
+            rc = call()
+            if rc:
+                print(f"{name} {dt} B={B}: launch error {rc}", flush=True)
+                continue
+            torch.cuda.synchronize()
+            want, _ = greedy_loop.fused_greedy_loop_plain(
+                ctx, c0, h0, t, nl, True, T)
+            agree = (labels == want).float().mean().item()
+            steps = int((labels != 0).sum(1).max().item())
+            ms = cuda_ms(call)
+            pkg_ms = cuda_ms(lambda: greedy_loop.fused_greedy_loop(
+                ctx, c0, h0, t, nl, True, T))
+            lib.phases_zero()
+            call()
+            torch.cuda.synchronize()
+            n = len(PHASES)
+            prof = (ctypes.c_ulonglong * (n + 1))()
+            lib.phases_read(prof)
+            per = [prof[i] / prof[n] / max(steps, 1) for i in range(n)]
+            print(f"{name} {str(dt)[6:]} B={B} (bt={p.bt}, {p.clusters} "
+                  f"clusters, kc={p.kc} x {p.stages}, cres={p.cres}): tokens "
+                  f"agree "
+                  f"{agree:.4f}, {ms:.4f} ms probed, {pkg_ms:.4f} ms "
+                  f"unprobed ({steps} steps); cycles a step: "
+                  + ", ".join(f"{PHASES[i]} {per[i]:.0f}" for i in range(n))
+                  + f"; total {sum(per):.0f}", flush=True)
+
+
+def main() -> int:
+    names = sys.argv[1:] or list(VARIANTS)
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    build(names)
+    tp, E = decoder(torch.device("cuda"))
+    for name in names:
+        run(name, tp, E)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
+                          "clocks.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
