@@ -9,9 +9,9 @@
 // memory.
 //
 // The helpers here multiply on CUDA cores, one float FMA per
-// multiply-add; every kernel but lstm_fwd uses them.  lstm_fwd.cu
-// multiplies bf16 on the tensor cores (mma.sync, cluster_mma.cuh);
-// tensor-core tiles for the decoder kernels are later work.
+// multiply-add.  lstm_fwd.cu, and greedy_loop.cu and beam_loop.cu on
+// decoder_cluster.cuh, multiply bf16 on the tensor cores (mma.sync,
+// cluster_mma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,16 +1,17 @@
-// The decoder step shared by the decoder kernels, for one block of BT
-// rows: the LSTM stack over the per-row state (decoder_stack_step;
-// greedy_loop.cu, tf_fwd.cu and beam_loop.cu), Luong attention and
-// h~ = tanh(W_c [ctx; h]) (attention_htilde, also the teacher-forced
-// forward's), then the projector and float32 log-softmax with the PAD/EOS
-// freeze (projector_logp) and the argmax (projector_pick; decode_step.cu
-// and greedy_loop.cu) or the beams' top-K (beam_tail.cuh).
+// The decoder step shared by the one-block decoder kernels, for one block
+// of BT rows: the LSTM stack over the per-row state (decoder_stack_step;
+// tf_fwd.cu), Luong attention and h~ = tanh(W_c [ctx; h])
+// (attention_htilde, also the teacher-forced forward's), then the
+// projector and float32 log-softmax with the PAD/EOS freeze
+// (projector_logp) and the argmax (projector_pick; decode_step.cu) or the
+// beams' top-K (beam_tail.cuh; beam_step.cu).  greedy_loop.cu and
+// beam_loop.cu run the same step on clusters (decoder_cluster.cuh).
 // Counterpart of aocr/ops/pallas/decode_step.py::attention_logp_tail plus
 // the freeze/argmax of its _kernel_body, which all the TPU decode kernels
 // share.
 //
 // BT, the rows of a block, is a template parameter: DEC_BT (4 batch rows)
-// for the greedy and teacher-forced kernels; the beam kernels give a block
+// for the per-step and teacher-forced kernels; beam_step gives a block
 // whole batch rows with all their K beams (beam_tail.cuh).
 #pragma once
 
@@ -56,7 +57,7 @@ struct TailSmemT {
 };
 using TailSmem = TailSmemT<DEC_BT>;
 
-// The per-row decoder state of the step loops (greedy_loop.cu, tf_fwd.cu)
+// The per-row decoder state of the step loops (tf_fwd.cu)
 // lives in a global scratch buffer (B, 2*nl+1, H) float32 that only the
 // row's block touches; st(r, slot) points at row r's slot: 0 attn (h~ of
 // the last step), 1 + 2l c_l, 2 + 2l h_l.  This sets attn to 0, layer 0 to

@@ -1,6 +1,6 @@
 // One input-feeding attention decoder step on a thread-block cluster: the
-// pieces greedy_loop.cu runs (and the beam and teacher-forced decoder
-// kernels can run on the same design).
+// pieces greedy_loop.cu and beam_loop.cu run (the teacher-forced decoder
+// kernels could run on the same design).
 //
 // A cluster of cs blocks owns a tile of bt batch rows for a whole decode.
 // Block s owns the hidden units [s*U, (s+1)*U) of every LSTM layer, with
@@ -69,8 +69,8 @@ struct DcPlan {
   int clusters;  // ceil(B / bt)
 };
 
-__host__ __device__ inline int dc_round_up(long a, long m) {
-  return (int)((a + m - 1) / m * m);
+__host__ __device__ inline long dc_round_up(long a, long m) {
+  return (a + m - 1) / m * m;
 }
 
 // The cluster for H: the smallest power of two that gives every block 8
@@ -132,9 +132,7 @@ static inline long dc_smem(const DcPlan& p, int esz, int H, int L, int Vp,
          dc_round_up((long)p.bt * 4 + 2L * g.R * 4, 8) + DC_BARS;
 }
 
-// (kc, stages) in the order the plan tries them, first with the cell
-// states in shared memory, then without: the first that fits.  Chunks of
-// 128 rows are skipped where H (rounded to 16) is less.
+// (kc, stages) in the order the plan tries them (dc_fit)
 constexpr int DC_NCHUNKS = 11;
 constexpr int DC_CHUNKS[DC_NCHUNKS][2] = {
     {128, 3}, {64, 4}, {128, 2}, {64, 3}, {32, 4}, {32, 3},
@@ -148,13 +146,46 @@ constexpr int DC_FMA_RT[3] = {1, 4, 10};
 constexpr int DC_STREAM_ROWS[2] = {40, 10};  // bf16, float32
 constexpr int DC_FIXED_ROWS[2] = {10, 2};
 
+// Tile option opt of a dtype: bf16 16 x rt rows (rt = opt + 1, at most
+// DC_TILES mma tiles a warp), float32 rg x rt rows (rg = 256 / (U / 2) row
+// groups, rt = DC_FMA_RT[opt]); false where the option does not exist.
+static inline bool dc_tile(int opt, int U, int f32, int* bt, int* rt) {
+  if (f32) {
+    if (opt >= 3) return false;
+    *rt = DC_FMA_RT[opt];
+    *bt = DC_THREADS / (U / 2) * *rt;
+    return true;
+  }
+  *rt = opt + 1;
+  *bt = 16 * *rt;
+  return opt < DC_TILES && dc_warp_tiles(0, U / 8, *rt) <= DC_TILES;
+}
+
+// The first (cres, kc, stages) of DC_CHUNKS, the cell states in shared
+// memory first, whose shared memory smem(p) (0: an overlay does not fit)
+// fits a block, into p (smem too); false where none does.  Chunks of 128
+// rows are skipped where H (rounded to 16) is less.
+template <typename Smem>
+static inline bool dc_fit(DcPlan* p, int H, Smem smem) {
+  for (int c = 0; c < 2 * DC_NCHUNKS; ++c) {
+    p->cres = c < DC_NCHUNKS;
+    p->kc = DC_CHUNKS[c % DC_NCHUNKS][0];
+    p->stages = DC_CHUNKS[c % DC_NCHUNKS][1];
+    if (p->kc > 64 && p->kc > dc_round_up(H, 16)) continue;
+    const long n = smem(*p);
+    if (n > 0 && n <= DC_SMEM_MAX) {
+      p->smem = (int)n;
+      return true;
+    }
+  }
+  return false;
+}
+
 // The launch plan for (H, B, esz, L, Vp, nl layers) and the clusters of
-// that size the card runs at once (active); false where none fits.  bf16
-// tiles are multiples of 16 rows (at most DC_TILES a warp), float32 tiles
-// rg x rt rows (rg = 256 / (U / 2) row groups, rt in DC_FMA_RT); the tile
-// that costs least, waves x (max(bt, stream rows) + fixed rows) with
-// waves = ceil(clusters / active), the smaller on a tie, with the first
-// (cres, kc, stages) of DC_CHUNKS that fits shared memory.
+// that size the card runs at once (active); false where none fits.  Of the
+// tiles (dc_tile), the one that costs least, waves x (max(bt, stream rows)
+// + fixed rows) with waves = ceil(clusters / active), the smaller on a
+// tie, with dc_fit's chunks.
 static inline bool dc_plan(int H, int B, int esz, int L, int Vp, int nl,
                            int active, DcPlan* out) {
   int cs, U;
@@ -163,30 +194,16 @@ static inline bool dc_plan(int H, int B, int esz, int L, int Vp, int nl,
   const int f32 = esz == 4;
   long best = -1;
   int prev_bt = 0;
-  for (int opt = 0; opt < (f32 ? 3 : DC_TILES); ++opt) {
+  for (int opt = 0; opt < DC_TILES; ++opt) {
     int bt, rt;
-    if (f32) {
-      rt = DC_FMA_RT[opt];
-      bt = DC_THREADS / (U / 2) * rt;
-    } else {
-      rt = opt + 1;
-      bt = 16 * rt;
-      if (dc_warp_tiles(0, U / 8, rt) > DC_TILES) continue;
-    }
+    if (!dc_tile(opt, U, f32, &bt, &rt)) continue;
     if (prev_bt >= B) break;  // a smaller tile already holds the batch
     prev_bt = bt;
     DcPlan p = {cs, U, bt, rt, 0, 0, 0, 0, (B + bt - 1) / bt};
-    long smem = 0;
-    for (int c = 0; c < 2 * DC_NCHUNKS && smem == 0; ++c) {
-      p.cres = c < DC_NCHUNKS;
-      p.kc = DC_CHUNKS[c % DC_NCHUNKS][0];
-      p.stages = DC_CHUNKS[c % DC_NCHUNKS][1];
-      if (p.kc > 64 && p.kc > dc_round_up(H, 16)) continue;
-      smem = dc_smem(p, esz, H, L, Vp, nl);
-      if (smem > DC_SMEM_MAX) smem = 0;
-    }
-    if (smem == 0) continue;
-    p.smem = (int)smem;
+    if (!dc_fit(&p, H, [&](const DcPlan& q) {
+          return dc_smem(q, esz, H, L, Vp, nl);
+        }))
+      continue;
     const long waves = (p.clusters + active - 1) / active;
     const long cost =
         waves * ((bt > DC_STREAM_ROWS[f32] ? bt : DC_STREAM_ROWS[f32]) +
@@ -233,7 +250,7 @@ struct DcBlock {
   int bt, kc, stages, hs, rank;
   int ra, nown;      // owned tile rows [ra, ra + nown) (row-split phases)
   int nch, kshift;   // chunks over hs; log2(kc)
-  int cl;            // the cluster's index (its tile)
+  int cl, cs;        // the cluster's index (its tile); its blocks
   DcGeom g;
 
   // Element (tile row r, column j) of an exchange plane in the chunk-major
@@ -285,7 +302,9 @@ enum DcPhase {
   DC_READBACK = 6,  // the tokens read back after the barrier
   DC_ISSUE = 7,     // issuing a chunk's copies
   DC_PROJ = 8,      // the partial projector
-  DC_NPHASES = 9
+  DC_TOPK = 9,      // beams: the scored candidates and the top-K
+  DC_PERMUTE = 10,  // beams: accumulators and cell states to parent rows
+  DC_NPHASES = 11
 };
 #ifdef DC_PROBES
 __shared__ unsigned long long dc_prof[DC_NPHASES];
@@ -569,58 +588,68 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
 // exchange buffer, row stride hs) over the context ctx (L, B, H), alpha =
 // softmax in float32, and round_cd(context vector) into the exchange
 // plane cv (dc_aoff) at the rows' places, as decode_tail.cuh's
-// attention_htilde<false>.  qs (own rows x H) and sc (own rows x L) are
+// attention_htilde<false>.  Own row r attends over context batch row
+// crow0 + r / kg: kg = K groups a batch row's K beams on its one context
+// row (kg = 1: a row each).  qs (own rows x H) and sc (own rows x L) are
 // shared-memory scratch.  With nb >= 1 the rows' context (L x H each) is
-// staged in shared memory at cbuf, nb rows a pass, all of a pass in
-// flight at once (bulk copies onto the ring's last mbarrier, or cp.async
-// where a context row is not a multiple of 16 bytes), and read from L2
-// once a step.  With nb = 0 (a context too large for the ring) it is read
-// from global memory twice, the scores and the context vector.
+// staged in shared memory at cbuf, nb context rows a pass, all of a pass
+// in flight at once (bulk copies onto the ring's last mbarrier, or
+// cp.async where a context row is not a multiple of 16 bytes), and read
+// from L2 once a step.  With nb = 0 (a context too large for the ring) it
+// is read from global memory twice, the scores and the context vector.
+// Not inlined, nor is dc_partial_logits: inlined, they take registers
+// from the kernels' product loops (greedy_loop and beam_loop at B=512 in
+// bf16, and greedy_loop in float32, ran slower so on an H100; PERF.md).
 template <typename T>
-__device__ void dc_attend_rows(const T* __restrict__ ctx, int L, int B,
+__device__ __noinline__ void dc_attend_rows(const T* __restrict__ ctx, int L, int B,
                                const float* q, T* cv, float* qs, float* sc,
                                T* cbuf, int nb, const DcBlock<T>& b,
-                               DcRing<T>& ring) {
+                               DcRing<T>& ring, size_t crow0, int kg) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = b.H, H4 = H / 4, n = b.nown;
-  const size_t row0 = (size_t)b.b0 + b.ra;  // the first own batch row
+  const size_t row0 = (size_t)b.b0 + b.ra;  // the first own tile row
   for (int i = tid; i < n * H4; i += DC_THREADS) {
     const int r = i / H4, h = (i % H4) * 4;
     float v[4];
     load4_cg(q + (row0 + r) * b.hs + h, v);
     store4(qs + r * H + h, v);
   }
-  const int pass = nb > 0 ? nb : max(n, 1);
-  for (int r0 = 0; r0 < n; r0 += pass) {
-    const int m = min(pass, n - r0);
-    auto crow = [&](int r, int l) -> const T* {
-      return nb > 0 ? cbuf + ((size_t)r * L + l) * H
-                    : ctx + ((size_t)l * B + row0 + r0 + r) * H;
+  const int nc = (n + kg - 1) / kg;  // the own rows' context rows
+  const int pass = nb > 0 ? nb : max(nc, 1);
+  for (int c0 = 0; c0 < nc; c0 += pass) {
+    const int mc = min(pass, nc - c0), r0 = c0 * kg;
+    const int m = min(mc * kg, n - r0);  // own rows of the pass
+    // own row r0 + r's context at l = 0; position l is l * cst further
+    const size_t cst = nb > 0 ? (size_t)H : (size_t)B * H;
+    auto cbase = [&](int r) -> const T* {
+      const int c = (r0 + r) / kg - c0;
+      return nb > 0 ? cbuf + (size_t)c * L * H
+                    : ctx + (crow0 + c0 + c) * H;
     };
     if (nb > 0) {
       const uint32_t rowb = (uint32_t)(H * sizeof(T));
-      auto src = [&](int rl) {
-        return ctx + ((size_t)(rl % L) * B + row0 + r0 + rl / L) * H;
+      auto src = [&](int cl) {
+        return ctx + ((size_t)(cl % L) * B + crow0 + c0 + cl / L) * H;
       };
       if (rowb % 16 == 0) {
-        // one bulk copy a (row, l), issued by warp 0
+        // one bulk copy a (context row, l), issued by warp 0
         uint64_t* bar = ring.bar + DC_MAX_STAGES;
         fence_proxy_async();
         __syncthreads();
         if (warp == 0) {
-          if (lane == 0) mbar_expect_tx(bar, (uint32_t)(m * L) * rowb);
+          if (lane == 0) mbar_expect_tx(bar, (uint32_t)(mc * L) * rowb);
           __syncwarp();
-          for (int rl = lane; rl < m * L; rl += 32)
-            bulk_copy(cbuf + (size_t)rl * H, src(rl), rowb, bar);
+          for (int cl = lane; cl < mc * L; cl += 32)
+            bulk_copy(cbuf + (size_t)cl * H, src(cl), rowb, bar);
         }
         mbar_wait(bar, ring.aseq & 1);
         ++ring.aseq;
       } else {
-        // a warp a (row, l), 8-byte pieces
+        // a warp a (context row, l), 8-byte pieces
         const int per = (int)rowb / 8;
-        for (int rl = warp; rl < m * L; rl += DC_WARPS) {
-          const char* from = reinterpret_cast<const char*>(src(rl));
-          char* to = reinterpret_cast<char*>(cbuf + (size_t)rl * H);
+        for (int cl = warp; cl < mc * L; cl += DC_WARPS) {
+          const char* from = reinterpret_cast<const char*>(src(cl));
+          char* to = reinterpret_cast<char*>(cbuf + (size_t)cl * H);
           for (int k = lane; k < per; k += 32)
             cp_async<8>(to + 8 * k, from + 8 * k, 8);
         }
@@ -632,7 +661,7 @@ __device__ void dc_attend_rows(const T* __restrict__ ctx, int L, int B,
     // scores[r][l] = ctx[l, b, :] . q[b, :]: a warp a (row, l)
     for (int p = warp; p < m * L; p += DC_WARPS) {
       const int r = p / L, l = p % L;
-      const T* cr = crow(r, l);
+      const T* cr = cbase(r) + l * cst;
       const float* qr = qs + (r0 + r) * H;
       float s = 0.f;
       for (int h = 4 * lane; h < H; h += 128) {
@@ -665,10 +694,11 @@ __device__ void dc_attend_rows(const T* __restrict__ ctx, int L, int B,
     for (int i = tid; i < m * H4; i += DC_THREADS) {
       const int r = i / H4, h = (i % H4) * 4;
       const float* a = sc + (r0 + r) * L;
+      const T* cr = cbase(r) + h;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
       for (int l = 0; l < L; ++l) {
         float c[4];
-        load_row(crow(r, l) + h, c);
+        load_row(cr + l * cst, c);
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[e] = fmaf(a[l], c[e], v[e]);
       }
@@ -685,7 +715,7 @@ __device__ void dc_attend_rows(const T* __restrict__ ctx, int L, int B,
 // ws (cap bytes) by one bulk copy onto the mbarrier bar (its phase from
 // *seq), or, where they do not fit, are read from global memory.
 template <typename T>
-__device__ void dc_partial_logits(const float* ht, int ldh,
+__device__ __noinline__ void dc_partial_logits(const float* ht, int ldh,
                                   const T* __restrict__ pw, int Vp, int V,
                                   T* ws, long cap, uint64_t* bar, int* seq,
                                   float* out, const DcBlock<T>& b) {
@@ -760,6 +790,300 @@ __device__ __forceinline__ void dc_pick_row(const float* x, int Vp,
   warp_argmax(&best, &bi);
   *best_out = best;
   *tok_out = bi;
+}
+
+// ---------------------------------------------------------------- kernels
+
+// A product's accumulators: bf16 DC_TILES mma tiles of NQ column blocks;
+// float32 RT rows x NQ column blocks x 2 units a thread.
+template <typename T, int RT, int NQ>
+using DcAcc = std::conditional_t<sizeof(T) == 2, float[DC_TILES][NQ * 4],
+                                 float[RT][NQ][2]>;
+
+template <int A, int N>
+__device__ __forceinline__ void dc_zero(float (&x)[A][N]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[i][j] = 0.f;
+}
+template <int A, int N, int M>
+__device__ __forceinline__ void dc_zero(float (&x)[A][N][M]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i) dc_zero(x[i]);
+}
+
+// The FMA thread of (row group rg, unit pair): rows r0..r0+RT-1, units
+// u, u + 1; `on` false for the threads past the row groups.
+struct DcFma {
+  int r0, u;
+  bool on;
+  __device__ DcFma(int units, int RT) {
+    const int up = units / 2, rg = threadIdx.x / up;
+    r0 = rg * RT;
+    u = 2 * (threadIdx.x % up);
+    on = rg < DC_THREADS / up;
+  }
+};
+
+// acc += the segment's product over the tile (dc_stream with the dtype's
+// chunk product)
+template <typename T, int RT, int NQ>
+__device__ __forceinline__ void dc_product(DcAcc<T, RT, NQ>& acc,
+                                           const DcSeg<T>& s,
+                                           const DcBlock<T>& b,
+                                           DcRing<T>& ring, DcClock& clk,
+                                           const DcTiles& tl,
+                                           const DcFma& fm) {
+  dc_stream<T>(s, b, ring, clk, [&](const T* sa, const T* sw) {
+    if constexpr (sizeof(T) == 2) {
+      dc_mma_chunk<NQ>(acc, sa, b.g.lda, sw, s.ldw, b.kc, b.U, tl);
+    } else {
+      if (fm.on)
+        dc_fma_chunk<RT, NQ>(acc, sa, b.g.lda, sw, s.ldw, b.kc, b.U, fm.r0,
+                             fm.u);
+    }
+  });
+}
+
+// publish this block's generic stores (for bulk-copy readers too) and
+// arrive at the cluster barrier
+__device__ __forceinline__ void dc_publish() {
+  fence_proxy_async();
+  cluster_arrive();
+}
+
+// f(r, u, v) for each (tile row, unit pair) this thread's accumulators hold
+template <typename T, int RT, int NQ, typename F>
+__device__ __forceinline__ void dc_pairs(DcAcc<T, RT, NQ>& acc,
+                                         const DcTiles& tl, const DcFma& fm,
+                                         F f) {
+  if constexpr (sizeof(T) == 2) {
+    dc_mma_fold<NQ>(acc, tl);
+    dc_mma_pairs<NQ>(acc, tl, f);
+  } else {
+    if (!fm.on) return;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) f(fm.r0 + i, fm.u, acc[i]);
+  }
+}
+
+// f(r, q, u, x0, x1) with references to the accumulators of (tile row r,
+// column block q, units u and u + 1) for each that this thread holds,
+// after folding a one-tile warp's chains into its first (the others are
+// then zero): to store a product to shared memory, or to load one back
+// in another row order.
+template <typename T, int RT, int NQ, typename F>
+__device__ __forceinline__ void dc_elems(DcAcc<T, RT, NQ>& acc,
+                                         const DcTiles& tl, const DcFma& fm,
+                                         F f) {
+  if constexpr (sizeof(T) == 2) {
+    const int lane = threadIdx.x & 31;
+    dc_mma_fold<NQ>(acc, tl);
+    if (tl.ng == 1 && tl.n == 1) {
+#pragma unroll
+      for (int i = 1; i < DC_TILES; ++i)
+#pragma unroll
+        for (int e = 0; e < NQ * 4; ++e) acc[i][e] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < DC_TILES; ++i) {
+      if (i >= tl.n) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          f(tl.m[i] * 16 + (lane >> 2) + 8 * h, q,
+            8 * tl.g[i] + 2 * (lane & 3), acc[i][q * 4 + h * 2],
+            acc[i][q * 4 + h * 2 + 1]);
+    }
+  } else {
+    if (!fm.on) return;
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        f(fm.r0 + i, q, fm.u, acc[i][q][0], acc[i][q][1]);
+  }
+}
+
+// ---------------------------------------------------------------- phases
+
+// The block's view of plan p: its cluster's tile cl (rows [cl bt, (cl + 1)
+// bt) of the scratch buffers, nrows of them real), its rank and units, and
+// the row-split rows [rank R, rank R + R) of the tile.
+template <typename T>
+__device__ __forceinline__ DcBlock<T> dc_block(const DcPlan& p, int H, int cl,
+                                               int nrows, int R) {
+  DcBlock<T> b;
+  b.H = H;
+  b.U = p.units;
+  b.rank = (int)cg::this_cluster().block_rank();
+  b.j0 = b.rank * p.units;
+  b.nu = max(0, min(p.units, H - b.j0));
+  b.b0 = cl * p.bt;
+  b.nrows = nrows;
+  b.bt = p.bt;
+  b.kc = p.kc;
+  b.stages = p.stages;
+  b.hs = dc_round_up(H, p.kc);
+  b.nch = b.hs / p.kc;
+  b.kshift = __ffs(p.kc) - 1;
+  b.cl = cl;
+  b.cs = p.cs;
+  b.g = dc_geom(p, (int)sizeof(T));
+  b.g.R = R;
+  b.ra = b.rank * R;
+  b.nown = max(0, min(R, nrows - b.ra));
+  return b;
+}
+
+// q = h_top @ W_a over the block's columns into the q exchange buffer qb
+// (float32, row stride hs; the tile's real rows and units) and h_top @
+// W_c[H:] into the float tile ht (row stride ldh), from the h_top plane
+// (its tile's chunk 0) and the block's packed [W_a | W_c[H:]] slice wq;
+// then published, and the wait for every block's.
+template <typename T, int RT>
+__device__ __forceinline__ void dc_query(const T* htop, const T* wq, float* qb,
+                                         float* ht, const DcBlock<T>& b,
+                                         DcRing<T>& ring, DcClock& clk,
+                                         const DcTiles& tl, const DcFma& fm) {
+  const int ld2 = 2 * b.U + 16 / (int)sizeof(T), ldh = b.g.ldh;
+  DcAcc<T, RT, 2> acc;
+  dc_zero(acc);
+  dc_product<T, RT, 2>(acc, {htop, wq + (size_t)b.rank * b.hs * ld2, ld2},
+                       b, ring, clk, tl, fm);
+  dc_pairs<T, RT, 2>(acc, tl, fm, [&](int r, int u, const float(&v)[2][2]) {
+    ht[r * ldh + u] = v[1][0];
+    ht[r * ldh + u + 1] = v[1][1];
+    if (r < b.nrows && u < b.nu)
+      store2<float>(qb + (size_t)(b.b0 + r) * b.hs + b.j0 + u, v[0][0],
+                    v[0][1]);
+  });
+  clk.tick(DC_EPILOGUE);
+  dc_publish();
+  cluster_wait();
+  clk.tick(DC_BARRIER);
+}
+
+// h~ = tanh(ctx_vec @ W_c[:H] + h_top @ W_c[H:]) over the block's columns,
+// from the context-vector plane cv (its tile's chunk 0), the block's
+// packed W_c[:H] slice wcx and the float tile ht (h_top @ W_c[H:], then
+// round_cd(h~)); h~ into the exchange plane an (the real rows and units),
+// the block's partial logits (dc_partial_logits) into part (the tile's
+// cs x bt x V floats); then published, and the wait for every block's.
+template <typename T, int RT>
+__device__ __forceinline__ void dc_htilde(const T* cv, const T* wcx, T* an,
+                                          float* ht, const T* pw, int Vp,
+                                          int V, float* part,
+                                          const DcBlock<T>& b,
+                                          DcRing<T>& ring, long ring_bytes,
+                                          DcClock& clk, const DcTiles& tl,
+                                          const DcFma& fm) {
+  const int ld1 = b.U + 16 / (int)sizeof(T), ldh = b.g.ldh;
+  DcAcc<T, RT, 1> acc;
+  dc_zero(acc);
+  dc_product<T, RT, 1>(acc, {cv, wcx + (size_t)b.rank * b.hs * ld1, ld1}, b,
+                       ring, clk, tl, fm);
+  dc_pairs<T, RT, 1>(acc, tl, fm, [&](int r, int u, const float(&v)[1][2]) {
+    float h[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      h[e] = tanhf(v[0][e] + ht[r * ldh + u + e]);
+      ht[r * ldh + u + e] = round_cd<T>(h[e]);
+    }
+    if (r < b.nrows && u < b.nu) store2<T>(an + b.aoff(r, b.j0 + u), h[0], h[1]);
+  });
+  clk.tick(DC_EPILOGUE);
+  dc_partial_logits<T>(ht, ldh, pw, Vp, V, ring.base, ring_bytes,
+                       ring.bar + DC_MAX_STAGES, &ring.aseq,
+                       part + ((size_t)b.cl * b.cs + b.rank) * b.bt * V, b);
+  clk.tick(DC_PROJ);
+  dc_publish();
+  cluster_wait();
+  clk.tick(DC_BARRIER);
+}
+
+// The logits of the block's own rows into lg (own rows x Vp): the cs
+// partial sums (part: clusters x cs x bt x V) in block order, + b_p;
+// columns past V hold b_p alone (pad_projector's zero weights).  Ends with
+// a __syncthreads.
+template <typename T>
+__device__ __forceinline__ void dc_logits(const float* part, const float* pb,
+                                          int Vp, int V, float* lg,
+                                          const DcBlock<T>& b) {
+  const int cs = b.cs;
+  for (int i = threadIdx.x; i < b.nown * Vp; i += DC_THREADS) {
+    const int r = i / Vp, v = i % Vp;
+    float x = pb[v];
+    if (v < V) {
+      float s = 0.f;
+      for (int k = 0; k < cs; ++k)
+        s += __ldcg(part + (((size_t)b.cl * cs + k) * b.bt + b.ra + r) * V +
+                    v);
+      x = s + pb[v];
+    }
+    lg[r * Vp + v] = x;
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------- launch
+
+// The launch of a cluster kernel fn for plan p: p.clusters clusters of
+// p.cs blocks (a non-portable size), p.smem bytes of dynamic shared memory.
+template <typename Kernel>
+static cudaError_t dc_config(Kernel fn, const DcPlan& p, cudaStream_t stream,
+                             cudaLaunchConfig_t* cfg,
+                             cudaLaunchAttribute* attr) {
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) e = set_smem((const void*)fn, p.smem);
+  *cfg = {};
+  cfg->gridDim = dim3(p.clusters * p.cs);
+  cfg->blockDim = dim3(DC_THREADS);
+  cfg->dynamicSmemBytes = p.smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return e;
+}
+
+// The clusters of cs blocks of fn (the instance for dtype esz) the card
+// runs at once at nearly the largest shared memory a plan takes (1 KB left
+// for a build with static shared memory; the count steers the tile size),
+// queried once per kernel, dtype and cs; 0 where the query fails.
+template <typename Kernel>
+static int dc_active(Kernel fn, int esz, int cs) {
+  static int cache[2][DC_MAX_CLUSTER + 1] = {};
+  int& n = cache[esz == 4][cs];
+  if (n == 0) {
+    const DcPlan p = {cs, 8, 16, 1, 16, 2, 0, DC_SMEM_MAX - 1024, 1};
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    if (dc_config(fn, p, nullptr, &cfg, &attr) != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// Launch fn(a, p) on stream; returns a CUDA error code (the launch's, then
+// cudaGetLastError's).
+template <typename Args>
+static int dc_launch(void (*fn)(Args, DcPlan), const DcPlan& p,
+                     const Args& a, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = dc_config(fn, p, stream, &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, fn, a, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace aocr

@@ -99,72 +99,6 @@ struct GlArgs {
 __device__ unsigned long long gl_prof[DC_NPHASES + 1];
 #endif
 
-template <typename T, int RT, int NQ>
-using GlAcc = std::conditional_t<sizeof(T) == 2, float[DC_TILES][NQ * 4],
-                                 float[RT][NQ][2]>;
-
-template <int A, int N>
-__device__ __forceinline__ void gl_zero(float (&x)[A][N]) {
-#pragma unroll
-  for (int i = 0; i < A; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) x[i][j] = 0.f;
-}
-template <int A, int N, int M>
-__device__ __forceinline__ void gl_zero(float (&x)[A][N][M]) {
-#pragma unroll
-  for (int i = 0; i < A; ++i) gl_zero(x[i]);
-}
-
-// The FMA thread of (row group rg, unit pair): rows r0..r0+RT-1, units
-// u, u + 1; `on` false for the threads past the row groups.
-struct GlFma {
-  int r0, u;
-  bool on;
-};
-
-// acc += the segment's product over the tile (dc_stream with the dtype's
-// chunk product)
-template <typename T, int RT, int NQ>
-__device__ __forceinline__ void gl_product(GlAcc<T, RT, NQ>& acc,
-                                           const DcSeg<T>& s,
-                                           const DcBlock<T>& b,
-                                           DcRing<T>& ring, DcClock& clk,
-                                           const DcTiles& tl,
-                                           const GlFma& fm) {
-  dc_stream<T>(s, b, ring, clk, [&](const T* sa, const T* sw) {
-    if constexpr (sizeof(T) == 2) {
-      dc_mma_chunk<NQ>(acc, sa, b.g.lda, sw, s.ldw, b.kc, b.U, tl);
-    } else {
-      if (fm.on)
-        dc_fma_chunk<RT, NQ>(acc, sa, b.g.lda, sw, s.ldw, b.kc, b.U, fm.r0,
-                             fm.u);
-    }
-  });
-}
-
-// publish this block's generic stores (for bulk-copy readers too) and
-// arrive at the cluster barrier
-__device__ __forceinline__ void gl_publish() {
-  fence_proxy_async();
-  cluster_arrive();
-}
-
-// f(r, u, v) for each (tile row, unit pair) this thread's accumulators hold
-template <typename T, int RT, int NQ, typename F>
-__device__ __forceinline__ void gl_pairs(GlAcc<T, RT, NQ>& acc,
-                                         const DcTiles& tl, const GlFma& fm,
-                                         F f) {
-  if constexpr (sizeof(T) == 2) {
-    dc_mma_fold<NQ>(acc, tl);
-    dc_mma_pairs<NQ>(acc, tl, f);
-  } else {
-    if (!fm.on) return;
-#pragma unroll
-    for (int i = 0; i < RT; ++i) f(fm.r0 + i, fm.u, acc[i]);
-  }
-}
-
 // RT: float32 rows a thread (DC_FMA_RT); bf16 instances take 1.
 template <typename T, int RT>
 __global__ void __launch_bounds__(DC_THREADS, 1)
@@ -181,25 +115,9 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = a.H, G = 4 * H, nl = a.nl, T_ = a.T, V = a.V, Vp = a.Vp;
 
-  DcBlock<T> b;
-  b.H = H;
-  b.U = p.units;
-  b.rank = (int)cg::this_cluster().block_rank();
-  b.j0 = b.rank * p.units;
-  b.nu = max(0, min(p.units, H - b.j0));
   const int cl = (int)blockIdx.x / p.cs;
-  b.b0 = cl * p.bt;
-  b.nrows = min(p.bt, a.B - b.b0);
-  b.bt = p.bt;
-  b.kc = p.kc;
-  b.stages = p.stages;
-  b.hs = dc_round_up(H, p.kc);
-  b.nch = b.hs / p.kc;
-  b.kshift = __ffs(p.kc) - 1;
-  b.cl = cl;
-  b.g = dc_geom(p, ESZ);
-  b.ra = b.rank * b.g.R;
-  b.nown = max(0, min(b.g.R, b.nrows - b.ra));
+  const DcBlock<T> b = dc_block<T>(p, H, cl, min(p.bt, a.B - cl * p.bt),
+                                   (p.bt + p.cs - 1) / p.cs);
   const int j0 = b.j0, b0 = b.b0, hs = b.hs, R = b.g.R, ldh = b.g.ldh;
 
   // shared memory: the ring, the float tile (h_top @ W_c[H:], then
@@ -242,8 +160,7 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
   const size_t at = b.atile();  // this tile's chunk 0 in a plane
   // the block's packed weight slices and their row strides
   constexpr int WP = 16 / ESZ;
-  const int ld4 = 4 * p.units + WP, ld2 = 2 * p.units + WP,
-            ld1 = p.units + WP, nseg0 = a.input_feed ? 2 : 1;
+  const int ld4 = 4 * p.units + WP, nseg0 = a.input_feed ? 2 : 1;
   const size_t seg4 = (size_t)hs * ld4;
   auto wseg0 = [&](int k) {
     return w0 + ((size_t)b.rank * nseg0 + k) * seg4;
@@ -257,13 +174,7 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
   int* tokb = reinterpret_cast<int*>(a.scratch + off[4]);
 
   const DcTiles tl(p.units, p.rt);
-  GlFma fm;
-  {
-    const int up = p.units / 2, rg = tid / up;
-    fm.r0 = rg * RT;
-    fm.u = 2 * (tid % up);
-    fm.on = sizeof(T) == 4 && rg < DC_THREADS / up;
-  }
+  const DcFma fm(p.units, RT);
   DcClock clk;
 
   // the state: c_0 and h_0 (rounded) of the block's units; the own rows'
@@ -301,12 +212,12 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
     const int par = t & 1, nxt = par ^ 1;
     // ---- 1. layer 0
     {
-      GlAcc<T, RT, 4> acc;
-      gl_zero(acc);
+      DcAcc<T, RT, 4> acc;
+      dc_zero(acc);
       if (a.input_feed)
-        gl_product<T, RT, 4>(acc, {attn(par) + at, wseg0(0), ld4}, b, ring,
+        dc_product<T, RT, 4>(acc, {attn(par) + at, wseg0(0), ld4}, b, ring,
                              clk, tl, fm);
-      gl_product<T, RT, 4>(acc, {hbuf(0, par) + at, wseg0(nseg0 - 1), ld4},
+      dc_product<T, RT, 4>(acc, {hbuf(0, par) + at, wseg0(nseg0 - 1), ld4},
                            b, ring, clk, tl, fm);
       cluster_wait();
       clk.tick(DC_BARRIER);
@@ -336,7 +247,7 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
       }
       __syncthreads();
       T* hn = hbuf(0, nxt);
-      gl_pairs<T, RT, 4>(acc, tl, fm, [&](int r, int u, const float(&v)[4][2]) {
+      dc_pairs<T, RT, 4>(acc, tl, fm, [&](int r, int u, const float(&v)[4][2]) {
         if (r >= b.nrows || u >= b.nu) return;
         const int j = j0 + u;
         const float* er = egs + r * 4 * p.units + u;
@@ -352,21 +263,21 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
         store2<T>(hn + b.aoff(r, j), h[0], h[1]);
       });
       clk.tick(DC_EPILOGUE);
-      gl_publish();
+      dc_publish();
     }
     // ---- 2. layers 1..nl-1
     for (int l = 1; l < nl; ++l) {
-      GlAcc<T, RT, 4> acc;
-      gl_zero(acc);
-      gl_product<T, RT, 4>(acc, {hbuf(l, par) + at, wsegl(l, 0), ld4}, b,
+      DcAcc<T, RT, 4> acc;
+      dc_zero(acc);
+      dc_product<T, RT, 4>(acc, {hbuf(l, par) + at, wsegl(l, 0), ld4}, b,
                            ring, clk, tl, fm);
       cluster_wait();
       clk.tick(DC_BARRIER);
-      gl_product<T, RT, 4>(acc, {hbuf(l - 1, nxt) + at, wsegl(l, 1), ld4}, b,
+      dc_product<T, RT, 4>(acc, {hbuf(l - 1, nxt) + at, wsegl(l, 1), ld4}, b,
                            ring, clk, tl, fm);
       const float* bl = a.bx + (size_t)(l - 1) * G;
       T* hn = hbuf(l, nxt);
-      gl_pairs<T, RT, 4>(acc, tl, fm, [&](int r, int u, const float(&v)[4][2]) {
+      dc_pairs<T, RT, 4>(acc, tl, fm, [&](int r, int u, const float(&v)[4][2]) {
         if (r >= b.nrows || u >= b.nu) return;
         const int j = j0 + u;
         float* cr = cell(r, l, u);
@@ -380,76 +291,24 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
         store2<T>(hn + b.aoff(r, j), h[0], h[1]);
       });
       clk.tick(DC_EPILOGUE);
-      gl_publish();
+      dc_publish();
     }
     cluster_wait();
     clk.tick(DC_BARRIER);
     // ---- 3. q = h_top @ W_a and h_top @ W_c[H:]
-    {
-      GlAcc<T, RT, 2> acc;
-      gl_zero(acc);
-      gl_product<T, RT, 2>(
-          acc, {hbuf(nl - 1, nxt) + at, wq + (size_t)b.rank * hs * ld2, ld2},
-          b, ring, clk, tl, fm);
-      gl_pairs<T, RT, 2>(acc, tl, fm, [&](int r, int u, const float(&v)[2][2]) {
-        ht[r * ldh + u] = v[1][0];
-        ht[r * ldh + u + 1] = v[1][1];
-        if (r < b.nrows && u < b.nu)
-          store2<float>(qb + (size_t)(b0 + r) * hs + j0 + u, v[0][0],
-                        v[0][1]);
-      });
-      clk.tick(DC_EPILOGUE);
-      gl_publish();
-      cluster_wait();
-      clk.tick(DC_BARRIER);
-    }
+    dc_query<T, RT>(hbuf(nl - 1, nxt) + at, wq, qb, ht, b, ring, clk, tl, fm);
     // ---- 4. the attention of the own rows
-    dc_attend_rows<T>(ctx, a.L, a.B, qb, cvb, qs, sc, cbuf, nb, b, ring);
+    dc_attend_rows<T>(ctx, a.L, a.B, qb, cvb, qs, sc, cbuf, nb, b, ring,
+                      (size_t)b0 + b.ra, 1);
     clk.tick(DC_ATTEND);
-    gl_publish();
+    dc_publish();
     cluster_wait();
     clk.tick(DC_BARRIER);
     // ---- 5. h~ and the partial logits
-    {
-      GlAcc<T, RT, 1> acc;
-      gl_zero(acc);
-      gl_product<T, RT, 1>(
-          acc, {cvb + at, wcx + (size_t)b.rank * hs * ld1, ld1}, b, ring,
-          clk, tl, fm);
-      T* an = attn(nxt);
-      gl_pairs<T, RT, 1>(acc, tl, fm, [&](int r, int u, const float(&v)[1][2]) {
-        float h[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          h[e] = tanhf(v[0][e] + ht[r * ldh + u + e]);
-          ht[r * ldh + u + e] = round_cd<T>(h[e]);
-        }
-        if (r < b.nrows && u < b.nu)
-          store2<T>(an + b.aoff(r, j0 + u), h[0], h[1]);
-      });
-      clk.tick(DC_EPILOGUE);
-      dc_partial_logits<T>(ht, ldh, pw, Vp, V, ring0, ring_bytes,
-                           bars + DC_MAX_STAGES, &ring.aseq,
-                           part + ((size_t)cl * p.cs + b.rank) * p.bt * V, b);
-      clk.tick(DC_PROJ);
-      gl_publish();
-      cluster_wait();
-      clk.tick(DC_BARRIER);
-    }
+    dc_htilde<T, RT>(cvb + at, wcx, attn(nxt), ht, pw, Vp, V, part, b, ring,
+                     ring_bytes, clk, tl, fm);
     // ---- 6. logits, log-softmax, freeze, trie, argmax of the own rows
-    for (int i = tid; i < b.nown * Vp; i += DC_THREADS) {
-      const int r = i / Vp, v = i % Vp;
-      float x = a.pb[v];
-      if (v < V) {
-        float s = 0.f;
-        for (int k = 0; k < p.cs; ++k)
-          s += __ldcg(part + (((size_t)cl * p.cs + k) * p.bt + b.ra + r) * V +
-                      v);
-        x = s + a.pb[v];
-      }
-      lg[r * Vp + v] = x;
-    }
-    __syncthreads();
+    dc_logits<T>(part, a.pb, Vp, V, lg, b);
     for (int r = warp; r < b.nown; r += DC_WARPS) {
       const int pv = prev[b.ra + r], node = onode[r];
       const bool frozen = pv == PAD || pv == EOS;
@@ -473,7 +332,7 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
       }
     }
     clk.tick(DC_TAIL);
-    gl_publish();
+    dc_publish();
   }
   if (!ended) cluster_wait();  // every arrive has its wait
   __syncthreads();
@@ -497,53 +356,13 @@ static GlKernel gl_kernel(int esz, int rt) {
   return greedy_cluster_kernel<float, DC_FMA_RT[2]>;
 }
 
-static cudaError_t gl_config(GlKernel fn, const DcPlan& p, cudaStream_t stream,
-                             cudaLaunchConfig_t* cfg,
-                             cudaLaunchAttribute* attr) {
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess) e = set_smem((const void*)fn, p.smem);
-  *cfg = {};
-  cfg->gridDim = dim3(p.clusters * p.cs);
-  cfg->blockDim = dim3(DC_THREADS);
-  cfg->dynamicSmemBytes = p.smem;
-  cfg->stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = p.cs;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return e;
-}
-
-// The clusters of cs blocks the card runs at once at nearly the largest
-// shared memory a plan takes (1 KB left for a build with static shared
-// memory; the count steers the tile size), once per dtype and cs.
-static int gl_active(int esz, int cs) {
-  static int cache[2][DC_MAX_CLUSTER + 1] = {};
-  int& n = cache[esz == 4][cs];
-  if (n == 0) {
-    const DcPlan p = {cs, 8, 16, 1, 16, 2, 0, DC_SMEM_MAX - 1024, 1};
-    const GlKernel fn = gl_kernel(esz, DC_FMA_RT[2]);
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    int got = 0;
-    if (gl_config(fn, p, nullptr, &cfg, &attr) != cudaSuccess ||
-        cudaOccupancyMaxActiveClusters(&got, fn, &cfg) != cudaSuccess)
-      return 0;
-    n = got;
-  }
-  return n;
-}
-
 // The plan of a launch; false where none fits or the card runs no cluster
 // of its size.
 static bool gl_launch_plan(int esz, int H, int B, int L, int Vp, int nl,
                            DcPlan* p, int* active) {
   int cs, U;
   dc_cluster(H, &cs, &U);
-  *active = gl_active(esz, cs);
+  *active = dc_active(gl_kernel(esz, DC_FMA_RT[2]), esz, cs);
   return *active > 0 && dc_plan(H, B, esz, L, Vp, nl, *active, p);
 }
 
@@ -554,14 +373,7 @@ static int launch(int esz, const GlArgs& a, cudaStream_t stream) {
       a.V < 1 || a.Vp < a.V ||
       !gl_launch_plan(esz, a.H, a.B, a.L, a.Vp, a.nl, &p, &active))
     return (int)cudaErrorInvalidValue;
-  const GlKernel fn = gl_kernel(esz, p.rt);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t e = gl_config(fn, p, stream, &cfg, &attr);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchKernelEx(&cfg, fn, a, p);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return dc_launch(gl_kernel(esz, p.rt), p, a, stream);
 }
 
 }  // namespace aocr

@@ -151,9 +151,10 @@ def _declare(lib) -> None:
         # ctx, h, prev, scores, wa, wc, pw, pb, valid, htilde, nsc, par,
         # tok, nvalid, L, B, H, Vp, V, K, stream
         "beam_step": [_P] * 14 + [_I] * 6 + [_P],
-        # ctx, init, tok0, sc0, node0, eg, wfh0, wx, bx, wa, wc, pw, pb,
-        # trie, tok_hist, par_hist, fsc, flen, refills, minv, state, L, B,
-        # H, Vp, V, T, num_layers, input_feed, K, count_lengths, stream
+        # ctx, init, tok0, sc0, node0, eg, w0, wl, bx, wq, wc (the packed
+        # weights of greedy_loop.pack_weights), pw, pb, trie, tok_hist,
+        # par_hist, fsc, flen, refills, minv, scratch, L, B, H, Vp, V, T,
+        # num_layers, input_feed, K, count_lengths, stream
         "beam_loop": [_P] * 21 + [_I] * 10 + [_P],
         # x, w9, b, dy, out, B, H, W, stream
         "conv1_pool_dx": [_P] * 5 + [_I] * 3 + [_P],
@@ -171,6 +172,9 @@ def _declare(lib) -> None:
     # H, B, is_f32, L, Vp, num_layers, out[10]
     lib.aocr_greedy_loop_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
     lib.aocr_greedy_loop_plan.restype = ctypes.c_int
+    # H, B, K, is_f32, L, Vp, num_layers, out[11]
+    lib.aocr_beam_loop_plan.argtypes = [_I] * 7 + [ctypes.POINTER(_I)]
+    lib.aocr_beam_loop_plan.restype = ctypes.c_int
 
 
 def launch(name: str, dtype: torch.dtype, device: torch.device,

@@ -9,12 +9,27 @@ context, the projector with the PAD/EOS freeze, its score added, the trie
 `topk_refill` order), row finality, the parent reorder of the decoder
 state, the trie node step (PAD keeps the parent's node), the lengths (a
 PAD counts only when its parent was live) and the token and parent
-histories; each block of batch rows stops once all its beams are frozen.
+histories; each tile of batch rows stops once all its beams are frozen.
+
+The kernel runs on greedy_loop's thread-block-cluster design
+(csrc/decoder_cluster.cuh, `plan` below): a cluster of up to 16 SMs owns
+a tile of nb whole batch rows with all K beams (nb x K <= bt beam rows)
+for the whole search; each SM owns H/cs hidden units of every layer and
+the same columns of W_a and W_c and streams its slices of the weights
+(greedy_loop's `pack_weights`, at each call) through a ring of bulk
+copies, multiplying them with the tile's beam rows on the tensor cores in
+bf16 or the CUDA cores in float32.  The parent reorder moves no state:
+each SM reads its products and cell states back at the parent's row (the
+products are row-wise), so only a parent index a beam row crosses the
+cluster, beside its token.  The attention, the log-softmax, the top-K
+and the beams' bookkeeping are split by batch row.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import logging
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,6 +41,152 @@ from aocr_torch.ops.mm import matmul
 launches = 0
 
 MAX_K = 8  # beam widths of the kernel; wider beams take the beam_step route
+
+# launch plans held against the kernel's, by shape key: (Plan, the line
+# logged for it)
+plans: dict = {}
+_log = logging.getLogger(__name__)
+
+
+class Plan(NamedTuple):
+    """How the kernel splits a search (csrc/beam_loop.cu `bl_plan`, which
+    this mirrors field for field): greedy_loop.Plan's fields, and nb."""
+    cs: int  # blocks (SMs) in a cluster
+    units: int  # hidden units a block, a multiple of 8
+    bt: int  # beam rows a cluster (its tile; nb * K of them real)
+    rt: int  # float32: rows a thread; bf16: 16-row m-tiles (bt / 16)
+    kc: int  # rows of a streamed chunk
+    stages: int  # chunks in the ring
+    cres: int  # 1: the cell states live in shared memory (else in L2)
+    smem: int  # dynamic shared memory bytes a block
+    clusters: int  # ceil(B / nb), one tile each
+    nb: int  # batch rows a tile, with all K beams: bt // K
+
+    def unit_range(self, s: int, H: int) -> range:
+        """The hidden units block s of a cluster owns (maybe none)."""
+        return range(s * self.units, min((s + 1) * self.units, H))
+
+    def batch_rows(self, c: int, B: int) -> range:
+        """The batch rows cluster c owns."""
+        return range(c * self.nb, min((c + 1) * self.nb, B))
+
+    def owned_batch_rows(self, c: int, s: int, B: int) -> range:
+        """The batch rows whose K beams' attention, top-K and bookkeeping
+        block s of cluster c computes (the row-split phases)."""
+        Rb = -(-self.nb // self.cs)
+        first = c * self.nb + s * Rb
+        return range(first, min(first + Rb, (c + 1) * self.nb, B))
+
+
+def _ldf(U: int) -> int:
+    """The row stride (floats) of the permuted epilogue's float tile."""
+    return 4 * U + 4
+
+
+def _smem(p: Plan, esz: int, K: int, H: int, L: int, Vp: int,
+          nl: int) -> int:
+    """csrc/beam_loop.cu `bl_smem`: the ring, the float tile, the cells and
+    the per-row words (tokens and parents of the tile, 8 words an own beam
+    row, 3 an own batch row), with the row-split scratch (R = Rb x K rows
+    of H + L + Vp floats) and the permuted epilogue's tiles overlaid on the
+    ring; 0 where an overlay does not fit."""
+    lda, ldw, ldh = p.kc + 16 // esz, 4 * p.units + 16 // esz, p.units + 8
+    ring = p.stages * (p.bt * lda + p.kc * ldw) * esz
+    Rb = -(-p.nb // p.cs)
+    R = Rb * K
+    if (R * (H + L + Vp) * 4 > ring
+            or p.bt * (_ldf(p.units) + p.units) * 4 > ring):
+        return 0
+    cells = p.bt * nl * p.units * 4 if p.cres else 0
+    words = 2 * p.bt + 8 * R + 3 * Rb
+    return (ring + p.bt * ldh * 4 + cells
+            + greedy_loop._round_up(4 * words, 8) + greedy_loop.BARS)
+
+
+def plan(H: int, B: int, K: int, dtype: torch.dtype, L: int, Vp: int,
+         num_layers: int, active: int) -> Optional[Plan]:
+    """The kernel's launch plan for hidden size H, batch B, beam width K,
+    the compute dtype, the context length L, the padded vocabulary Vp, the
+    decoder's layers and the clusters of the plan's size the card runs at
+    once (`active`); None where no plan fits (K past MAX_K, more than
+    greedy_loop.MAX_UNITS units a block, or no shared-memory fit).
+
+    The cluster and units are greedy_loop's.  Of greedy_loop's tiles
+    (`greedy_loop.tile`) that hold a batch row's K beams, with nb = bt // K
+    batch rows a tile and clusters = ceil(B / nb), the one that costs
+    least, waves x (max(nb * K, STREAM_ROWS) + FIXED_ROWS), waves =
+    ceil(clusters / active), the smaller on a tie, with `greedy_loop.fit`'s
+    chunks."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    f32 = int(esz == 4)
+    cs, U = greedy_loop._cluster(H)
+    if U > greedy_loop.MAX_UNITS or active < 1 or not 1 <= K <= MAX_K:
+        return None
+    best, out, prev_nb = None, None, 0
+    for opt in range(greedy_loop.TILES):
+        t = greedy_loop.tile(opt, U, f32)
+        if t is None or t[0] < K:
+            continue
+        bt, rt = t
+        nb = bt // K
+        if prev_nb >= B:
+            break
+        prev_nb = nb
+        p = greedy_loop.fit(
+            Plan(cs, U, bt, rt, 0, 0, 0, 0, -(-B // nb), nb), H,
+            lambda q: _smem(q, esz, K, H, L, Vp, num_layers))
+        if p is None:
+            continue
+        waves = -(-p.clusters // active)
+        cost = waves * (max(nb * K, greedy_loop.STREAM_ROWS[f32])
+                        + greedy_loop.FIXED_ROWS[f32])
+        if best is not None and cost >= best:
+            continue
+        best, out = cost, p
+    return out
+
+
+def scratch_bytes(p: Plan, dtype: torch.dtype, H: int, num_layers: int,
+                  V: int) -> int:
+    """Bytes of the kernel's zeroed scratch (csrc/beam_loop.cu
+    `bl_scratch`): greedy_loop's regions, then the tile's parents."""
+    return (greedy_loop.scratch_bytes(p, dtype, H, num_layers, V)
+            + greedy_loop._round_up(p.clusters * p.bt * 4, greedy_loop.ALIGN))
+
+
+def checked_plan(H: int, B: int, K: int, cd: torch.dtype, L: int, Vp: int,
+                 nl: int) -> Plan:
+    """The launch's plan: ValueError where none fits; on a shape's first
+    launch the kernel's own plan, and the clusters the card runs at once,
+    are read from the library, the plan is held against it and logged."""
+    if plan(H, B, K, cd, L, Vp, nl, 1) is None:
+        raise ValueError(f"fused_beam_loop: no kernel plan fits H={H}, "
+                         f"B={B}, K={K}, L={L}, Vp={Vp}, {nl} layers in "
+                         f"{cd} (wider beams or decoders take "
+                         f"pallas_beam='tail')")
+    key = (H, B, K, cd, L, Vp, nl)
+    if key not in plans:
+        out = (ctypes.c_int * 11)()
+        err = cuda.library().aocr_beam_loop_plan(
+            H, B, K, int(cd == torch.float32), L, Vp, nl, out)
+        if err != 0:
+            raise RuntimeError(f"aocr_beam_loop_plan failed: CUDA error "
+                               f"{err}")
+        active = out[10]
+        p = plan(H, B, K, cd, L, Vp, nl, active)
+        if p is None or tuple(out[:10]) != tuple(p):
+            raise RuntimeError(f"beam_loop plan mismatch: kernel "
+                               f"{tuple(out)}, wrapper {p}")
+        line = (f"beam_loop plan H={H} B={B} K={K} L={L} {cd}: cluster "
+                f"{p.cs} x {p.units} units, bt={p.bt} beam rows (rt="
+                f"{p.rt}) = {p.nb} batch rows x {K} beams, {p.clusters} "
+                f"clusters, {active} at once ({-(-p.clusters // active)} "
+                f"waves); chunks of {p.kc} rows, {p.stages} stages; cell "
+                f"states in {'shared memory' if p.cres else 'L2'}; smem "
+                f"{p.smem} B")
+        plans[key] = (p, line)
+        _log.info(line)
+    return plans[key][0]
 
 
 def gather_beams(x: torch.Tensor, parents: torch.Tensor) -> torch.Tensor:
@@ -154,7 +315,9 @@ def fused_beam_loop(context_lbh: torch.Tensor, init_state, tokens0, scores0,
     lengths (B, K) int32), and with a trie (refills, min_valid), 0-d int32:
     the live rows' steps with fewer than K valid candidates and the fewest
     valid candidates seen.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel, or raise ValueError where no plan fits the
+    shape (K past MAX_K among them: pallas_beam="tail" takes those).  The
+    projector's columns past V must be pad_projector's zeros."""
     global launches
     if context_lbh.device.type == "cpu":
         return fused_beam_loop_plain(context_lbh, init_state, tokens0,
@@ -169,8 +332,10 @@ def fused_beam_loop(context_lbh: torch.Tensor, init_state, tokens0, scores0,
     Vp = tables["pw"].shape[1]
     V = tables["eg"].shape[0]
     G = 4 * H
-    if H % 4 or Vp % 4 or T < 1 or not 1 <= K <= min(MAX_K, V):
-        raise ValueError(f"fused_beam_loop: H={H}, Vp={Vp}, T={T}, K={K}")
+    if H % 4 or Vp % 4 or T < 1 or num_layers < 1 or not 1 <= K <= V:
+        raise ValueError(f"fused_beam_loop: H={H}, Vp={Vp}, T={T}, K={K}, "
+                         f"num_layers={num_layers}")
+    p = checked_plan(H, B, K, cd, L, Vp, num_layers)
     cuda.check(context_lbh, "context_lbh", (L, B, H), cd, dev)
     cuda.check(tokens0, "tokens0", (B, K), torch.int32, dev)
     cuda.check(scores0, "scores0", (B, K), torch.float32, dev)
@@ -201,18 +366,19 @@ def fused_beam_loop(context_lbh: torch.Tensor, init_state, tokens0, scores0,
     if trie_table is not None:
         refills = torch.empty((B,), dtype=torch.int32, device=dev)
         minv = torch.empty((B,), dtype=torch.int32, device=dev)
-    state = torch.empty((2, B * K, 2 * num_layers + 1, H),
-                        dtype=torch.float32, device=dev)
+    scratch = torch.zeros((scratch_bytes(p, cd, H, num_layers, V),),
+                          dtype=torch.uint8, device=dev)
     t = tables
+    w = greedy_loop.pack_weights(t, p, num_layers, input_feed)
     cuda.launch("beam_loop", cd, dev, context_lbh.data_ptr(),
                 init.data_ptr(), tokens0.data_ptr(), scores0.data_ptr(),
                 cuda.ptr(nodes0 if trie_table is not None else None),
-                t["eg"].data_ptr(), t["wfh0"].data_ptr(), t["wx"].data_ptr(),
-                t["bx"].data_ptr(), t["wa"].data_ptr(), t["wc"].data_ptr(),
+                t["eg"].data_ptr(), w["w0"].data_ptr(), w["wl"].data_ptr(),
+                t["bx"].data_ptr(), w["wq"].data_ptr(), w["wc"].data_ptr(),
                 t["pw"].data_ptr(), t["pb"].data_ptr(), cuda.ptr(trie_table),
                 tok_hist.data_ptr(), par_hist.data_ptr(), scores.data_ptr(),
                 lengths.data_ptr(), cuda.ptr(refills), cuda.ptr(minv),
-                state.data_ptr(), L, B, H, Vp, V, T, num_layers,
+                scratch.data_ptr(), L, B, H, Vp, V, T, num_layers,
                 int(input_feed), K, int(count_lengths))
     launches += 1
     out = (tok_hist, par_hist, scores, lengths)

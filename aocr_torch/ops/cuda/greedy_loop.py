@@ -132,6 +132,36 @@ def _smem(p: Plan, esz: int, H: int, L: int, Vp: int, nl: int) -> int:
             + _round_up(p.bt * 4 + 2 * R * 4, 8) + BARS)
 
 
+def tile(opt: int, U: int, f32: bool) -> Optional[tuple]:
+    """(bt, rt) of tile option opt (csrc/decoder_cluster.cuh `dc_tile`):
+    bf16 16 x rt rows (rt = opt + 1) with at most TILES mma tiles a warp,
+    float32 (THREADS // (U/2)) x rt rows, rt in FMA_RT; None where the
+    option does not exist."""
+    if f32:
+        if opt >= len(FMA_RT):
+            return None
+        return THREADS // (U // 2) * FMA_RT[opt], FMA_RT[opt]
+    if warp_tiles(0, U // 8, opt + 1) > TILES:
+        return None
+    return 16 * (opt + 1), opt + 1
+
+
+def fit(p, H: int, smem):
+    """p with the first (cres, kc, stages) of CHUNKS, the cell states in
+    shared memory first, whose shared memory smem(p) (0 where an overlay
+    does not fit) fits a block, and that smem; None where none does
+    (csrc/decoder_cluster.cuh `dc_fit`).  Chunks of 128 rows are skipped
+    where H (rounded to 16) is less."""
+    for cres, (kc, stages) in ((c, k) for c in (1, 0) for k in CHUNKS):
+        if kc > 64 and kc > _round_up(H, 16):
+            continue
+        q = p._replace(kc=kc, stages=stages, cres=cres)
+        n = smem(q)
+        if 0 < n <= SMEM_MAX:
+            return q._replace(smem=n)
+    return None
+
+
 def plan(H: int, B: int, dtype: torch.dtype, L: int, Vp: int,
          num_layers: int, active: int) -> Optional[Plan]:
     """The kernel's launch plan for hidden size H, batch B, the compute
@@ -142,40 +172,26 @@ def plan(H: int, B: int, dtype: torch.dtype, L: int, Vp: int,
     The cluster is the smallest power of two that gives each block 8 of
     the H units or more, up to 16 (U a block, a multiple of 8, at most
     MAX_UNITS; the last blocks may own fewer, or none, and are masked).
-    bf16 tiles are 16 x rt rows with at most TILES (16-row, 8-unit) mma
-    tiles a warp; float32 tiles are (THREADS // (U/2)) x rt rows, rt in
-    FMA_RT.  The tile that costs least, waves x (max(bt, STREAM_ROWS) +
-    FIXED_ROWS) with waves = ceil(clusters / active), the smaller on a tie,
-    with the first (kc, stages) of CHUNKS, the cell states in shared memory
-    if any fits so, whose ring, float tile, cells and row-split scratch fit
-    the shared memory; chunks of 128 rows are skipped where H (rounded to
-    16) is less."""
+    Of the tiles (`tile`), the one that costs least, waves x (max(bt,
+    STREAM_ROWS) + FIXED_ROWS) with waves = ceil(clusters / active), the
+    smaller on a tie, with `fit`'s chunks for the ring, float tile, cells
+    and row-split scratch."""
     esz = torch.empty((), dtype=dtype).element_size()
     f32 = int(esz == 4)
     cs, U = _cluster(H)
     if U > MAX_UNITS or active < 1:
         return None
     best, out, prev_bt = None, None, 0
-    for opt in range(3 if f32 else TILES):
-        if f32:
-            rt = FMA_RT[opt]
-            bt = THREADS // (U // 2) * rt
-        else:
-            rt, bt = opt + 1, 16 * (opt + 1)
-            if warp_tiles(0, U // 8, rt) > TILES:
-                continue
+    for opt in range(TILES):
+        t = tile(opt, U, f32)
+        if t is None:
+            continue
+        bt, rt = t
         if prev_bt >= B:
             break
         prev_bt = bt
-        p = None
-        for cres, (kc, stages) in ((c, k) for c in (1, 0) for k in CHUNKS):
-            if kc > 64 and kc > _round_up(H, 16):
-                continue
-            q = Plan(cs, U, bt, rt, kc, stages, cres, 0, -(-B // bt))
-            smem = _smem(q, esz, H, L, Vp, num_layers)
-            if 0 < smem <= SMEM_MAX:
-                p = q._replace(smem=smem)
-                break
+        p = fit(Plan(cs, U, bt, rt, 0, 0, 0, 0, -(-B // bt)), H,
+                lambda q: _smem(q, esz, H, L, Vp, num_layers))
         if p is None:
             continue
         waves = -(-p.clusters // active)

@@ -50,8 +50,9 @@ Phases, each raising on failure:
      with cuDNN in the same turns, its launch plans and ptxas registers;
      greedy_loop at B=1, 8, 32, 512 (all 50 steps run; check_loop with
      and without the 88k trie at each), the 88k-trie and all-EOS decodes,
-     its launch plans and ptxas registers;
-     the
+     its launch plans and ptxas registers; beam_loop likewise at K=5
+     (check_beam_loop at each B), the 88k-trie search and the one whose
+     beams all pick EOS at their first step; the
      recognize images/s at B=512, W=100, bf16, T=50, greedy, beam-5 and
      dictionary beam-5; the bf16 train step (ms, images/s) and its
      pool_bwd.ENABLE A/B; one profile of each path.
@@ -589,10 +590,13 @@ def end_to_end(dev, seed: int):
 # ------------------------------------------------------------ beam kernels
 
 def beam_parting(name, what, got, want, margin, tol) -> int:
-    """Rows of (T, B, K) histories where the kernel's and the plain
-    version's part must part at a step whose plain margin (T, B) is a
-    near-tie (< tol); returns how many rows parted."""
-    differ = (got != want).any(-1)  # (T, B)
+    """Rows where the kernel's and the plain version's (token, parent)
+    histories, each (T, B, K), part must part at a step whose plain margin
+    (T, B) is a near-tie (< tol): the first step where a token or a parent
+    differs (two candidates that swap slots at a tie can share a token, and
+    every later step of the row differs from then on); returns how many
+    rows parted."""
+    differ = ((got[0] != want[0]) | (got[1] != want[1])).any(-1)  # (T, B)
     rows = differ.any(0).nonzero().flatten().tolist()
     worst = 0.0
     for b in rows:
@@ -703,6 +707,29 @@ def beam_kernel_checks(dev, results: dict, table) -> None:
             results.setdefault(("beam_loop", name), []).append(err)
 
 
+def beam_loop_args(ctx, st, tables, table, lennorm, g):
+    """fused_beam_loop's arguments (before trie_table) for a search of
+    BEAM beams over T_MAX steps from the t=1 state st: t=1 picks drawn
+    from g (the trie's root children with a table), their scores sorted
+    as a top-K's."""
+    import torch
+
+    cfg = base_config()
+    B, dev = ctx.shape[1], ctx.device
+    K, V = BEAM, cfg.target_vocab_size
+    if table is None:
+        tok0 = torch.randint(3, V, (B, K), generator=g, dtype=torch.int32)
+        tok0, nodes0 = tok0.to(dev), None
+    else:
+        roots = (table[0] >= 0).nonzero().flatten()
+        tok0 = roots[torch.randint(0, len(roots), (B, K), generator=g)
+                     .to(dev)].to(torch.int32)
+        nodes0 = table[0][tok0.long()].clamp(min=0).to(torch.int32)
+    sc0 = (-3 * torch.rand(B, K, generator=g)).sort(1, descending=True)[0]
+    return (ctx, st, tok0, sc0.to(dev), nodes0, tables,
+            cfg.decoder_num_layers, True, T_MAX, K, lennorm)
+
+
 def check_beam_loop(name, what, ctx, st, tables, table, lennorm, tol, g):
     """beam_loop against its plain version from one t=1 state: histories
     part only at plain near-ties; scores (1e-5 relative in float32, 0.5
@@ -713,30 +740,15 @@ def check_beam_loop(name, what, ctx, st, tables, table, lennorm, tol, g):
     from aocr_torch import vocab
     from aocr_torch.ops.cuda import beam_loop
 
-    cfg = base_config()
     L, B, H = ctx.shape
-    K, T, V = BEAM, T_MAX, cfg.target_vocab_size
-    nl = cfg.decoder_num_layers
-    dev = ctx.device
-    if table is None:
-        tok0 = torch.randint(3, V, (B, K), generator=g, dtype=torch.int32)
-        tok0, nodes0 = tok0.to(dev), None
-    else:
-        roots = (table[0] >= 0).nonzero().flatten()
-        tok0 = roots[torch.randint(0, len(roots), (B, K), generator=g)
-                     .to(dev)].to(torch.int32)
-        nodes0 = table[0][tok0.long()].clamp(min=0).to(torch.int32)
-    sc0 = (-3 * torch.rand(B, K, generator=g)).sort(1, descending=True)[0]
-    args = (ctx, st, tok0, sc0.to(dev), nodes0, tables, nl, True, T, K,
-            lennorm)
+    K, T = BEAM, T_MAX
+    args = beam_loop_args(ctx, st, tables, table, lennorm, g)
     got = beam_loop.fused_beam_loop(*args, trie_table=table)
     want = beam_loop.fused_beam_loop_plain(*args, trie_table=table,
                                            return_margins=True)
     margin = want[-1]
-    parted = beam_parting(name, what, got[0], want[0], margin, tol)
-    differ = ((got[0] != want[0]) | (got[1] != want[1])).any(-1).any(0)
-    parted = max(parted, int(differ.sum()))
-    same = ~differ
+    parted = beam_parting(name, what, got[:2], want[:2], margin, tol)
+    same = ~((got[0] != want[0]) | (got[1] != want[1])).any(-1).any(0)
     f32 = tables["wa"].dtype == torch.float32
     rel = ((got[2] - want[2]).abs() / want[2].abs().clamp(min=1e-30))
     err = (got[2] - want[2]).abs()[same].max().item() if bool(
@@ -903,17 +915,15 @@ def live_steps(m, batch) -> float:
 
 
 def beam_timings(dev, models, requests, lexicon, card: str):
-    """beam_step and beam_loop against their plain versions (CUDA events)
-    and their bounds at B=512, K=5; beam-5 and dictionary beam-5 images/s
-    at B=512, W=100, T=50 (host clock, median of 5); a profile of beam-5.
-    Returns ({(kernel, dtype): (ms, plain_ms)}, {(kernel, dtype): bound},
+    """beam_step against its plain version (CUDA events) and its bound at
+    B=512, K=5; beam-5 and dictionary beam-5 images/s at B=512, W=100,
+    T=50 (host clock, median of 5); a profile of beam-5.  Returns
+    ({(kernel, dtype): (ms, plain_ms)}, {(kernel, dtype): bound},
     {label: images/s})."""
     import numpy as np
     import torch
 
-    from aocr_torch import vocab
-    from aocr_torch.models.decoder import DecoderState
-    from aocr_torch.ops.cuda import beam_loop, beam_step, greedy_loop
+    from aocr_torch.ops.cuda import beam_step, greedy_loop
 
     words, table_np = lexicon
     g = torch.Generator().manual_seed(29)
@@ -937,40 +947,18 @@ def beam_timings(dev, models, requests, lexicon, card: str):
                   ).expand(B, K).contiguous()
         sargs = (ctx, h, prev, scores, tables["wa"], tables["wc"],
                  tables["pw"], tables["pb"], K, V)
-        st = DecoderState(attn=rand(B, Hd).to(dev),
-                          cs=tuple(rand(B, Hd).to(dev) for _ in range(nl)),
-                          hs=tuple(rand(B, Hd).to(dev) for _ in range(nl)))
-        tok0 = torch.randint(3, V, (B, K), generator=g,
-                             dtype=torch.int32).to(dev)
-        largs = (ctx, st, tok0, scores, None, tables, nl, True, T, K, False)
-        hist = beam_loop.fused_beam_loop(*largs)[0]
-        live = ~((hist[:-1] == vocab.PAD) | (hist[:-1] == vocab.EOS)).all(-1)
-        row_steps = int(live.sum().item())
-        pairs = {"beam_step": (
+        k1, k2, p1, p2 = time_pair(
             lambda: beam_step.fused_beam_tail(*sargs),
-            lambda: beam_step.fused_beam_tail_plain(*sargs), 20),
-            "beam_loop": (lambda: beam_loop.fused_beam_loop(*largs),
-                          lambda: beam_loop.fused_beam_loop_plain(*largs),
-                          3)}
-        for k, (fk, fp, n) in pairs.items():
-            k1, k2, p1, p2 = time_pair(fk, fp, n)
-            ms[(k, name)] = (min(k1, k2), min(p1, p2))
-            log(f"time {k} {name} (B={B}, K={K}): kernel {k1:.4f} / "
-                f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms"
-                + (f" ({row_steps / B:.2f} of {T - 1} steps run)"
-                   if k == "beam_loop" else ""))
+            lambda: beam_step.fused_beam_tail_plain(*sargs), 20)
+        ms[("beam_step", name)] = (min(k1, k2), min(p1, p2))
+        log(f"time beam_step {name} (B={B}, K={K}): kernel {k1:.4f} / "
+            f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
         out = beam_step.fused_beam_tail(*sargs)
-        bounds[("beam_step", name)] = bound(
+        b = bounds[("beam_step", name)] = bound(
             B * K * step_flops(Hd, L, V, nl, True, gates=False),
             tensor_bytes(sargs, out), name)
-        out = beam_loop.fused_beam_loop(*largs)
-        bounds[("beam_loop", name)] = bound(
-            row_steps * K * step_flops(Hd, L, V, nl, True),
-            tensor_bytes(largs, out), name)
-        for k in ("beam_step", "beam_loop"):
-            b = bounds[(k, name)]
-            log(f"bound {k} {name}: {b[0]:.4f} ms ({b[1]}; kernel "
-                f"{ms[(k, name)][0] / b[0]:.1f}x it)")
+        log(f"bound beam_step {name}: {b[0]:.4f} ms ({b[1]}; kernel "
+            f"{ms[('beam_step', name)][0] / b[0]:.1f}x it)")
 
     # end to end, bf16, loop route, B=512
     m = models[("bfloat16", "loop")]
@@ -1293,6 +1281,89 @@ def greedy_loop_timings(dev, models, results: dict, table):
         log(f"time greedy_loop {name} B={B}, every row EOS at step 1 (each "
             f"tile's early exit): kernel {ke:.4f} ms")
     for _plan, line in greedy_loop.plans.values():
+        log(line)
+    return ms, bounds
+
+
+BEAM_TIMED = (1, 8, 32, B_SERVE)
+
+
+def beam_loop_timings(dev, models, results: dict, table):
+    """beam_loop (the thread-block-cluster design) at the beam path's
+    shape (K=5, L=24, the default decoder, T=50, random weights, so rows
+    stay live nearly all 49 steps) at BEAM_TIMED, both dtypes:
+    check_beam_loop, then the kernel against its plain version in turns,
+    the bound and the launch plan; at B=512 also the 88k-trie search and
+    the one whose beams all pick EOS at the first step.  Returns (ms,
+    bounds) keyed by ("beam_loop", dtype) (B=512) and ("beam_loop",
+    dtype, B)."""
+    import torch
+
+    from aocr_torch import vocab
+    from aocr_torch.models.decoder import DecoderState
+    from aocr_torch.ops.cuda import beam_loop, greedy_loop
+
+    g = torch.Generator().manual_seed(31)
+    rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
+    cfg = base_config()
+    L, T, Hd, E = (W_SERVE // 4 - 1, T_MAX, cfg.decoder_num_hidden,
+                   cfg.target_embedding_size)
+    nl, V, K = cfg.decoder_num_layers, cfg.target_vocab_size, BEAM
+    ms, bounds = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        tol = 1e-4 if dt == torch.float32 else 3e-2
+        m = models[("float32" if dt == torch.float32 else "bfloat16", "loop")]
+        tables = greedy_loop.build_tables(
+            m.params["decoder"], m.params["projector"], E, True, dt)
+        for B in BEAM_TIMED:
+            ctx = rand(L, B, Hd).to(dev, dt)
+            st = DecoderState(attn=rand(B, Hd).to(dev),
+                              cs=tuple(rand(B, Hd).to(dev) for _ in range(nl)),
+                              hs=tuple(rand(B, Hd).to(dev) for _ in range(nl)))
+            err = check_beam_loop(name, f" (timed B={B})", ctx, st, tables,
+                                  None, False, tol, g)
+            results.setdefault(("beam_loop", name), []).append(err)
+            args = beam_loop_args(ctx, st, tables, None, False, g)
+            out = beam_loop.fused_beam_loop(*args)
+            hist = out[0]
+            live = ~((hist[:-1] == vocab.PAD) |
+                     (hist[:-1] == vocab.EOS)).all(-1)
+            row_steps = int(live.sum().item())
+            bnd = bound(row_steps * K * step_flops(Hd, L, V, nl, True),
+                        tensor_bytes(args, out), name)
+            k1, k2, p1, p2 = time_pair(
+                lambda: beam_loop.fused_beam_loop(*args),
+                lambda: beam_loop.fused_beam_loop_plain(*args),
+                3 if B == B_SERVE else 6)
+            ms[("beam_loop", name, B)] = (min(k1, k2), min(p1, p2))
+            bounds[("beam_loop", name, B)] = bnd
+            log(f"time beam_loop {name} B={B} K={K} L={L} H={Hd} T={T}: "
+                f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+                f"{p2:.4f} ms (a row live {row_steps / B:.2f} of {T - 1} "
+                f"steps); bound {bnd[0]:.4f} ms ({bnd[1]}; kernel "
+                f"{min(k1, k2) / bnd[0]:.1f}x it)")
+        ms[("beam_loop", name)] = ms[("beam_loop", name, B)]
+        bounds[("beam_loop", name)] = bounds[("beam_loop", name, B)]
+        targs = beam_loop_args(ctx, st, tables, table, False, g)
+        kt = cuda_ms(lambda: beam_loop.fused_beam_loop(
+            *targs, trie_table=table), 3)
+        hist = beam_loop.fused_beam_loop(*targs, trie_table=table)[0]
+        steps = int((hist != vocab.PAD).any(-1).any(-1).sum().item())
+        ms[("beam_loop_trie", name)] = kt
+        log(f"time beam_loop {name} B={B} with the 88k trie: kernel "
+            f"{kt:.4f} ms ({steps} of {T} steps emit)")
+        eos = list(args)
+        eos[5] = dict(tables, pb=tables["pb"].clone())
+        eos[5]["pb"][vocab.EOS] += 1e4
+        ke = cuda_ms(lambda: beam_loop.fused_beam_loop(*eos), 10)
+        first = beam_loop.fused_beam_loop(*eos)[0][1]
+        check(bool((first == vocab.EOS).all()),
+              f"beam_loop {name}: the all-EOS case did not end at step 1")
+        ms[("beam_loop_eos", name)] = ke
+        log(f"time beam_loop {name} B={B}, every beam EOS at its first "
+            f"step (each tile's early exit): kernel {ke:.4f} ms")
+    for _plan, line in beam_loop.plans.values():
         log(line)
     return ms, bounds
 
@@ -2307,7 +2378,8 @@ def main() -> int:
     cuda.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(lib, ROOT)}")
-    for kernel in ("lstm_fwd_kernel", "greedy_cluster_kernel"):
+    for kernel in ("lstm_fwd_kernel", "greedy_cluster_kernel",
+                   "beam_cluster_kernel"):
         for line in ptxas_summary(out.getvalue(), kernel):
             log(f"ptxas {line}")
 
@@ -2337,6 +2409,9 @@ def main() -> int:
     gms, gbounds = greedy_loop_timings(dev, models, results, table)
     ms.update(gms)
     bounds.update(gbounds)
+    blms, blbounds = beam_loop_timings(dev, bmodels, results, table)
+    ms.update(blms)
+    bounds.update(blbounds)
     bms, bbounds, rates = beam_timings(dev, bmodels, brequests,
                                        (words, table_np), card)
     ms.update(bms)
@@ -2410,6 +2485,18 @@ def main() -> int:
                 for B in GREEDY_TIMED}
             entry["trie_88k_ms"] = ms[("greedy_loop_trie", d)]
             entry["all_eos_ms"] = ms[("greedy_loop_eos", d)]
+        if k == "beam_loop":
+            entry["redesigned"] = ("thread-block clusters on greedy_loop's "
+                                   "design, the parent reorder as a "
+                                   "permutation of each block's rows")
+            entry["batches"] = {
+                str(B): {"ms": ms[(k, d, B)][0], "plain_ms": ms[(k, d, B)][1],
+                         "bound_ms": bounds[(k, d, B)][0],
+                         "f32_ms": ms[(k, "f32", B)][0],
+                         "f32_plain_ms": ms[(k, "f32", B)][1]}
+                for B in BEAM_TIMED}
+            entry["trie_88k_ms"] = ms[("beam_loop_trie", d)]
+            entry["all_eos_ms"] = ms[("beam_loop_eos", d)]
         if k == "pool_bwd":
             entry["per"] = "one train step: the three pools, summed"
             entry["library"] = ("max_pool2d_with_indices_backward + "

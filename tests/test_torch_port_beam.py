@@ -263,6 +263,7 @@ def _loop_case(seed, B, K, nl, input_feed, table):
     (3, 2, True, False, None),
     (5, 2, True, True, ["ab", "abc", "cd", "e1", "zz"]),
     (2, 1, False, True, ["zq"]),
+    (7, 2, True, False, None),  # the kernel's ragged tile: 77 of 80 rows
 ])
 def test_fused_beam_loop_matches_kernel(K, nl, input_feed, lennorm, trie):
     """beam_loop's plain version against aocr's fused_beam_loop in

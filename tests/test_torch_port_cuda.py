@@ -16,6 +16,9 @@ beam_loop) and the trie operands of decode_step and greedy_loop: float32
 tokens, parents, histories and refill counts identical to the plain
 version's (a row may part only at a step whose plain margin is a
 near-tie), scores within 1e-5 relative; bfloat16 as the decode checks.
+beam_loop (thread-block clusters, as greedy_loop) also at its plan's
+edges: ragged tiles, K up to 8, one batch row, several waves, a search
+that ends at once, its plan against the kernel's, refused shapes.
 greedy_loop (thread-block clusters) also at its plan's edges: ragged
 tiles, masked units, one to three layers, no input feed, an early exit,
 more tiles than one wave; and a model trained on the card must give the
@@ -858,18 +861,21 @@ def test_beam_step_kernel(dev, dtype, K, use_trie):
         assert int(got[4].min()) < K
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,K,lennorm,use_trie", [
+# (B, K, length_normalize, trie): a ragged last tile, each K of the
+# kernel (K=7: 77 of a tile's 80 bf16 rows), one batch row, several tiles
+# of one wave, more tiles than the card runs at once (waves), the trie, a
+# tiny lexicon where most beams dead-end (PAD is always valid after t=1,
+# so the refills of a search come from its t=1 step)
+BEAM_LOOP_CASES = [
     (7, 2, False, False), (5, 3, True, True), (6, 5, True, False),
-    (4, 5, False, True), (3, 8, False, False), (5, 4, False, "refill")])
-def test_beam_loop_kernel(dev, dtype, B, K, lennorm, use_trie):
-    """The whole search against its plain version from the same t=1
-    state: a ragged last block (B not a multiple of the block's batch
-    rows), each block-row count, length normalization, the trie, and a
-    tiny lexicon where most beams dead-end (PAD is always valid after
-    t=1, so the refills of a search come from its t=1 step)."""
-    g = torch.Generator().manual_seed(23 + K)
-    T, nl, V = 9, 2, 39
+    (4, 5, False, True), (3, 8, False, False), (5, 4, False, "refill"),
+    (17, 5, False, False), (1, 5, True, True), (5, 7, False, False),
+    (4, 8, True, True), (300, 5, False, False)]
+
+
+def _beam_loop_args(g, dev, dtype, B, K, lennorm, use_trie, T=9, nl=2):
+    """A search from one random t=1 state: (args, trie table)."""
+    V = 39
     t, ctx = _beam_case(g, dev, dtype, B, K)
     H = ctx.shape[2]
     st = DecoderState(attn=_rand(g, B, H).to(dev),
@@ -885,25 +891,115 @@ def test_beam_loop_kernel(dev, dtype, B, K, lennorm, use_trie):
         tok0 = tok0.to(torch.int32)
         nodes0 = table[0].cpu()[tok0.long()].clamp(min=0).to(dev)
     sc0 = (-5 * torch.rand(B, K, generator=g)).sort(1, descending=True)[0]
-    args = (ctx, st, tok0.to(dev), sc0.to(dev), nodes0, t, nl, True, T, K,
-            lennorm)
-    n = beam_loop.launches
-    got = beam_loop.fused_beam_loop(*args, trie_table=table)
-    assert beam_loop.launches == n + 1
-    torch.cuda.synchronize()
-    want = beam_loop.fused_beam_loop_plain(*args, trie_table=table,
-                                           return_margins=True)
+    return (ctx, st, tok0.to(dev), sc0.to(dev), nodes0, t, nl, True, T, K,
+            lennorm), table
+
+
+def _beam_loop_agrees(got, want, dtype):
+    """Histories part only at plain near-ties (a row's first step where a
+    token or a parent differs: candidates that swap slots at a tie can
+    share a token); in float32 none part, and scores (1e-5), lengths and
+    refill counts agree."""
     margin = want[-1].cpu()
-    parted = _first_parting(got[0].cpu(), want[0].cpu(), margin, TOL[dtype])
-    parted += _first_parting(got[1].cpu(), want[1].cpu(), margin,
-                             TOL[dtype])
+    parted = _first_parting(torch.stack([got[0], got[1]], -1).cpu(),
+                            torch.stack([want[0], want[1]], -1).cpu(),
+                            margin, TOL[dtype])
     if dtype == torch.float32:
         assert parted == 0
         assert torch.equal(got[3].cpu(), want[3].cpu())
         _close(got[2], want[2], 1e-5)
         for a, b in zip(got[4:6], want[4:6]):
             assert int(a) == int(b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,K,lennorm,use_trie", BEAM_LOOP_CASES)
+def test_beam_loop_kernel(dev, dtype, B, K, lennorm, use_trie):
+    """The whole search against its plain version from the same t=1
+    state, at the plan's edges (BEAM_LOOP_CASES); one launch a call."""
+    g = torch.Generator().manual_seed(23 + K)
+    args, table = _beam_loop_args(g, dev, dtype, B, K, lennorm, use_trie)
+    L, _, H = args[0].shape
+    n = beam_loop.launches
+    got = beam_loop.fused_beam_loop(*args, trie_table=table)
+    assert beam_loop.launches == n + 1
+    torch.cuda.synchronize()
+    want = beam_loop.fused_beam_loop_plain(*args, trie_table=table,
+                                           return_margins=True)
+    _beam_loop_agrees(got, want, dtype)
     assert (got[0][1:] != vocab.PAD).any()  # the search ran past t=0
+    p = beam_loop.plans[(H, B, K, dtype, L, args[5]["pw"].shape[1], 2)][0]
+    assert p.nb * K <= p.bt and p.clusters == -(-B // p.nb)
+    if B == 17:
+        assert p.clusters > 1 and B % p.nb  # several tiles, the last ragged
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_beam_loop_kernel_all_eos(dev, dtype):
+    """Every beam's t=1 pick is EOS (the search leaves before its first
+    step: histories PAD and identity parents after t=0, the t=1 scores),
+    and every beam picks EOS at its first step (each tile leaves after
+    it)."""
+    g = torch.Generator().manual_seed(41)
+    args, _ = _beam_loop_args(g, dev, dtype, 20, 5, True, False)
+    eos = list(args)
+    eos[2] = torch.full_like(args[2], vocab.EOS)
+    got = beam_loop.fused_beam_loop(*eos)
+    torch.cuda.synchronize()
+    want = beam_loop.fused_beam_loop_plain(*eos, return_margins=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert bool((got[0][1:] == vocab.PAD).all())
+    stop = list(args)
+    stop[5] = dict(args[5], pb=args[5]["pb"].clone())
+    stop[5]["pb"][vocab.EOS] += 1e4
+    got = beam_loop.fused_beam_loop(*stop)
+    torch.cuda.synchronize()
+    want = beam_loop.fused_beam_loop_plain(*stop, return_margins=True)
+    _beam_loop_agrees(got, want, dtype)
+    assert bool((got[0][1] == vocab.EOS).all())
+    assert bool((got[0][2:] == vocab.PAD).all())
+
+
+def test_beam_loop_plan_matches_kernel(dev):
+    """The wrapper's plan is the kernel's, field for field, and the card
+    runs at least one cluster of each."""
+    import ctypes
+
+    from aocr_torch.ops import cuda
+
+    lib = cuda.library()
+    for dtype in DTYPES:
+        for H in (128, 256, 1024, 2048):
+            for B in (1, 5, 17, 512, 513):
+                for K in range(1, 9):
+                    out = (ctypes.c_int * 11)()
+                    err = lib.aocr_beam_loop_plan(
+                        H, B, K, int(dtype == torch.float32), 24, 128, 2,
+                        out)
+                    assert err == 0, (H, B, K, dtype, err)
+                    assert out[10] >= 1, (H, B, K, dtype, out[:])
+                    p = beam_loop.plan(H, B, K, dtype, 24, 128, 2, out[10])
+                    assert tuple(out[:10]) == tuple(p), (H, B, K, out[:], p)
+    out = (ctypes.c_int * 11)()
+    assert lib.aocr_beam_loop_plan(256, 4, 9, 0, 9, 128, 2, out) != 0
+
+
+def test_beam_loop_unserved_shape_raises(dev):
+    """A shape no plan fits (a beam past MAX_K, more than 512 units a
+    block) raises ValueError; nothing falls back or launches."""
+    g = torch.Generator().manual_seed(42)
+    args, _ = _beam_loop_args(g, dev, torch.bfloat16, 3, 5, False, False)
+    n = beam_loop.launches
+    wide = list(args)
+    wide[2] = torch.full((3, 9), 5, dtype=torch.int32, device=dev)
+    wide[3] = torch.zeros((3, 9), device=dev)
+    wide[9] = 9
+    with pytest.raises(ValueError, match="no kernel plan"):
+        beam_loop.fused_beam_loop(*wide)
+    with pytest.raises(ValueError, match="no kernel plan"):
+        beam_loop.checked_plan(8200, 1, 5, torch.bfloat16, 2, 128, 1)
+    assert beam_loop.launches == n
 
 
 @pytest.mark.parametrize("route", ["loop", "tail"])

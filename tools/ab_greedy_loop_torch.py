@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Time aocr_torch's greedy_loop kernel from several checkouts on one card.
+"""Time aocr_torch's greedy_loop or beam_loop kernel from several checkouts
+on one card.
 
     python3 tools/ab_greedy_loop_torch.py DIR_A DIR_B [--turns 4]
+        [--kernel greedy_loop|beam_loop]
 
 Each DIR is a checkout that holds aocr_torch/.  The kernel is timed at the
 recognition shape (L=24, T=50, the default decoder: H=1024, 2 layers,
-input feed, V=39) at B=512 and B=1 in float32 and bf16, with decode_step
-(the per-step tail, csrc/decode_tail.cuh) at B=512 in bf16 beside it, in
-turns A, B, B, A, ..., each turn in a fresh process that builds that
-checkout's kernels (CUDA events over back-to-back launches).  Prints one
-line a turn and the card's name and power limit.  Needs one CUDA device.
+input feed, V=39, PAD and EOS biased off so that every step runs) at
+B=512 and B=1 in float32 and bf16: greedy_loop with decode_step (the
+per-step tail, csrc/decode_tail.cuh) at B=512 in bf16 beside it, or
+beam_loop at K=5 from a random t=1 state; in turns A, B, B, A, ..., each
+turn in a fresh process that builds that checkout's kernels (CUDA events
+over back-to-back launches).  Prints one line a turn and the card's name
+and power limit.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -56,6 +60,23 @@ def ms(run, n=3):
 for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
     t = greedy_loop.build_tables(tp["decoder"], tp["projector"], E, True, dt)
     t["pb"][[0, 2]] = -1e4  # PAD and EOS biased off: all T steps run
+    if {kernel!r} == "beam_loop":
+        from aocr_torch.models.decoder import DecoderState
+        from aocr_torch.ops.cuda import beam_loop
+        K = 5
+        for B in (512, 1):
+            r = lambda *s: (torch.rand(*s, generator=g) * 2 - 1).to(dev)
+            ctx = r(L, B, H).to(dt)
+            st = DecoderState(attn=r(B, H), cs=(r(B, H), r(B, H)),
+                              hs=(r(B, H), r(B, H)))
+            tok0 = torch.randint(3, V, (B, K), generator=g,
+                                 dtype=torch.int32).to(dev)
+            sc0 = -torch.arange(K, dtype=torch.float32,
+                                device=dev).expand(B, K).contiguous()
+            out[f"beam_loop {{name}} B={{B}}"] = ms(
+                lambda: beam_loop.fused_beam_loop(
+                    ctx, st, tok0, sc0, None, t, 2, True, T, K, False), 2)
+        continue
     for B in (512, 1):
         ctx = (torch.rand(L, B, H, generator=g) * 2 - 1).to(dev, dt)
         c0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
@@ -77,6 +98,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("dirs", nargs=2)
     ap.add_argument("--turns", type=int, default=4)
+    ap.add_argument("--kernel", default="greedy_loop",
+                    choices=("greedy_loop", "beam_loop"))
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -85,7 +108,7 @@ def main() -> int:
     order = [args.dirs[(t + t // 2) % 2] for t in range(args.turns)]
     for root in order:
         root = os.path.abspath(root)
-        proc = subprocess.run([sys.executable, "-c", TURN.format(root=root)],
+        proc = subprocess.run([sys.executable, "-c", TURN.format(root=root, kernel=args.kernel)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-3000:], file=sys.stderr)

@@ -46,7 +46,7 @@ from aocr_torch.ops.cuda import greedy_loop  # noqa: E402
 CSRC = os.path.join(ROOT, "aocr_torch", "csrc")
 OUT = os.path.join(ROOT, "build", "greedy_loop_phases")
 PHASES = ["product", "stream wait", "epilogue", "attention", "tail",
-          "barrier", "read-back", "issue", "projector"]
+          "barrier", "read-back", "issue", "projector", "top-K", "permute"]
 # name: [(file in csrc, text, its replacement), ...]
 VARIANTS = {
     "kernel": [],
@@ -60,11 +60,11 @@ VARIANTS = {
                "    compute(sa, sa + b.bt * b.g.lda);\n")],
     # chunks of at most 64 rows
     "kc64": [("decoder_cluster.cuh",
-              "      if (p.kc > 64 && p.kc > dc_round_up(H, 16)) continue;\n",
-              "      if (p.kc > 64) continue;\n")],
+              "    if (p->kc > 64 && p->kc > dc_round_up(H, 16)) continue;\n",
+              "    if (p->kc > 64) continue;\n")],
     # the cell states in L2 (a block-private buffer), not shared memory
-    "cl2": [("decoder_cluster.cuh", "      p.cres = c < DC_NCHUNKS;\n",
-             "      p.cres = 0;\n")],
+    "cl2": [("decoder_cluster.cuh", "    p->cres = c < DC_NCHUNKS;\n",
+             "    p->cres = 0;\n")],
 }
 ENTRY = """
 extern "C" int phases_read(unsigned long long* o) {
@@ -77,11 +77,13 @@ extern "C" int phases_zero() {
 """
 
 
-def build(names):
-    os.makedirs(OUT, exist_ok=True)
+def build(names, source="greedy_loop.cu", entry=ENTRY, out=OUT):
+    """Each variant of csrc with `entry` appended to `source`, built
+    with -DDC_PROBES into out/<name>.so, all nvcc processes at once."""
+    os.makedirs(out, exist_ok=True)
     procs = {}
     for name in names:
-        src = os.path.join(OUT, name)
+        src = os.path.join(out, name)
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(CSRC, src)
         for fname, old, new in VARIANTS[name]:
@@ -90,12 +92,12 @@ def build(names):
             assert old in text, (name, old)
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-        with open(os.path.join(src, "greedy_loop.cu"), "a") as f:
-            f.write(ENTRY)
+        with open(os.path.join(src, source), "a") as f:
+            f.write(entry)
         procs[name] = subprocess.Popen(
             [cuda._nvcc(), *cuda.NVCC_FLAGS, "-DDC_PROBES", "-Xptxas=-v",
-             "-I", src, "-shared", "-o", os.path.join(OUT, f"{name}.so"),
-             os.path.join(src, "greedy_loop.cu")],
+             "-I", src, "-shared", "-o", os.path.join(out, f"{name}.so"),
+             os.path.join(src, source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, p in procs.items():
         log = p.communicate()[0]
