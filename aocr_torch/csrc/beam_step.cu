@@ -65,7 +65,7 @@ beam_step_kernel(const T* __restrict__ ctx,       // (L, B, H)
     if (tid < BT) sm.prev[tid] = tid < nrows ? prev[r0 + c0 + tid] : PAD;
     __syncthreads();
     // every row of the chunk attends over context row b (r / BT == 0)
-    attention_htilde<false>(
+    attention_htilde(
         ctx, L, B, H, b, nrows, wa, wc, sm,
         [&](int r, int j, float v) { htilde[(r0 + c0 + r) * H + j] = v; },
         BT);

@@ -9,9 +9,9 @@
 // memory.
 //
 // The helpers here multiply on CUDA cores, one float FMA per
-// multiply-add.  lstm_fwd.cu, and greedy_loop.cu and beam_loop.cu on
-// decoder_cluster.cuh, multiply bf16 on the tensor cores (mma.sync,
-// cluster_mma.cuh).
+// multiply-add.  lstm_fwd.cu, and greedy_loop.cu, beam_loop.cu, tf_fwd.cu
+// and tf_bwd.cu on decoder_cluster.cuh, multiply bf16 on the tensor cores
+// (mma.sync, cluster_mma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

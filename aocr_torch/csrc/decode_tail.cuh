@@ -1,29 +1,28 @@
-// The decoder step shared by the one-block decoder kernels, for one block
-// of BT rows: the LSTM stack over the per-row state (decoder_stack_step;
-// tf_fwd.cu), Luong attention and h~ = tanh(W_c [ctx; h])
-// (attention_htilde, also the teacher-forced forward's), then the
-// projector and float32 log-softmax with the PAD/EOS freeze
-// (projector_logp) and the argmax (projector_pick; decode_step.cu) or the
-// beams' top-K (beam_tail.cuh; beam_step.cu).  greedy_loop.cu and
-// beam_loop.cu run the same step on clusters (decoder_cluster.cuh).
+// The per-step decoder tail shared by the one-block decode kernels, for
+// one block of BT rows: Luong attention and h~ = tanh(W_c [ctx; h])
+// (attention_htilde), then the projector and float32 log-softmax with the
+// PAD/EOS freeze (projector_logp) and the argmax (projector_pick;
+// decode_step.cu) or the beams' top-K (beam_tail.cuh; beam_step.cu).
+// greedy_loop.cu, beam_loop.cu and the teacher-forced tf_fwd.cu and
+// tf_bwd.cu run the whole step on clusters (decoder_cluster.cuh).
 // Counterpart of aocr/ops/pallas/decode_step.py::attention_logp_tail plus
 // the freeze/argmax of its _kernel_body, which all the TPU decode kernels
 // share.
 //
 // BT, the rows of a block, is a template parameter: DEC_BT (4 batch rows)
-// for the per-step and teacher-forced kernels; beam_step gives a block
-// whole batch rows with all their K beams (beam_tail.cuh).
+// for the per-step greedy kernel; beam_step gives a block whole batch
+// rows with all their K beams (beam_tail.cuh).
 #pragma once
 
 #include "common.cuh"
 
 namespace aocr {
 
-constexpr int DEC_BT = 4;       // batch rows per block (greedy, training)
+constexpr int DEC_BT = 4;       // batch rows per block (decode_step)
 constexpr int DEC_THREADS = 256;
 
 // consecutive columns per thread in the matmuls: 4, or 2 above 5 rows
-// (the accumulators are 4 * U * BT registers in decoder_layer)
+// (the accumulators are U * BT registers a column group)
 template <int BT>
 struct DecU {
   static constexpr int value = BT > 5 ? 2 : 4;
@@ -57,128 +56,20 @@ struct TailSmemT {
 };
 using TailSmem = TailSmemT<DEC_BT>;
 
-// The per-row decoder state of the step loops (tf_fwd.cu)
-// lives in a global scratch buffer (B, 2*nl+1, H) float32 that only the
-// row's block touches; st(r, slot) points at row r's slot: 0 attn (h~ of
-// the last step), 1 + 2l c_l, 2 + 2l h_l.  This sets attn to 0, layer 0 to
-// (c0, h0) and the other layers to 0.
-template <typename St>
-__device__ void decoder_state_init(St st, const float* __restrict__ c0,
-                                   const float* __restrict__ h0, int b0,
-                                   int nrows, int H, int nl) {
-  for (int i = threadIdx.x; i < nrows * H; i += blockDim.x) {
-    const int r = i / H, j = i % H;
-    const size_t g = (size_t)(b0 + r) * H + j;
-    st(r, 0)[j] = 0.f;
-    st(r, 1)[j] = c0[g];
-    st(r, 2)[j] = h0[g];
-    for (int l = 1; l < nl; ++l) {
-      st(r, 1 + 2 * l)[j] = 0.f;
-      st(r, 2 + 2 * l)[j] = 0.f;
-    }
-  }
-}
-
-// Layer l of decoder_stack_step: K is the width of its matmul operand, w
-// its weights.
-template <typename T, int BT, typename St, typename Pre, typename Seen>
-__device__ __forceinline__ void decoder_layer(St st, float* X,
-                                              const T* __restrict__ w, int K,
-                                              int l, int H, int nrows,
-                                              int input_feed, Pre pre,
-                                              Seen seen) {
-  constexpr int U = DecU<BT>::value;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int G = 4 * H;
-  for (int i = tid; i < BT * K; i += nthr) {
-    const int r = i / K, k = i % K;
-    float v = 0.f;
-    if (r < nrows) {
-      if (l > 0)
-        v = k < H ? st(r, 2 * l)[k] : st(r, 2 + 2 * l)[k - H];
-      else
-        v = (input_feed && k < H) ? st(r, 0)[k]
-                                  : st(r, 2)[input_feed ? k - H : k];
-    }
-    X[i] = round_cd<T>(v);
-  }
-  __syncthreads();
-  for (int ch = tid; ch * U < H; ch += nthr) {
-    const int j0 = ch * U;
-    float acc[4][U][BT];
-    zero(acc);
-    mm_cols<T, BT, 4, U>(X, K, K, w, G, H, j0, acc);
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      if (r >= nrows) continue;
-      float* cr = st(r, 1 + 2 * l);
-      float* hr = st(r, 2 + 2 * l);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u;
-        float a[4];
-        gate_math_parts(pre(l, r, 0, j, acc[0][u][r]),
-                        pre(l, r, 1, j, acc[1][u][r]),
-                        pre(l, r, 2, j, acc[2][u][r]),
-                        pre(l, r, 3, j, acc[3][u][r]), cr[j], &cr[j], &hr[j],
-                        a);
-        seen(l, r, j, cr[j], hr[j], a);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// One step of the decoder's LSTM stack for BT rows, the state in st (as
-// decoder_state_init): layer 0 on round_cd([attn; h_0]) @ wfh0 (K0 = 2H
-// with input feed, else round_cd(h_0) with K0 = H), layers l >= 1 on
-// round_cd([h_{l-1}; h_l]) @ W_l, wx holding W_1.. as (nl-1, 2H, 4H).
-// pre(l, r, q, j, acc) turns the float32 matmul sum of gate q of unit j
-// into its pre-activation (adds the layer-0 input row, or the biases);
-// seen(l, r, j, c, h, a) sees each unit's new (c, h) and activations
-// a = (i, f, o, g).  On exit, after a __syncthreads, X[r][H + j] holds
-// round_cd(h_top) (0 for r >= nrows), as attention_htilde expects.
-//
-// Layer 0 and the layers above are separate inlined copies of
-// decoder_layer: one loop over all layers ran the float32 greedy loop 38%
-// slower on an H100 (PERF.md).
-template <typename T, int BT = DEC_BT, typename St, typename Pre,
-          typename Seen>
-__device__ void decoder_stack_step(St st, float* X, const T* __restrict__ wfh0,
-                                   const T* __restrict__ wx, int H, int nl,
-                                   int nrows, int input_feed, Pre pre,
-                                   Seen seen) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int G = 4 * H, H2 = 2 * H;
-  decoder_layer<T, BT>(st, X, wfh0, input_feed ? H2 : H, 0, H, nrows,
-                       input_feed, pre, seen);
-  for (int l = 1; l < nl; ++l)
-    decoder_layer<T, BT>(st, X, wx + (size_t)(l - 1) * H2 * G, H2, l, H,
-                         nrows, input_feed, pre, seen);
-  for (int i = tid; i < BT * H; i += nthr) {
-    const int r = i / H, j = i % H;
-    X[r * H2 + H + j] = r < nrows ? round_cd<T>(st(r, 2 * nl)[j]) : 0.f;
-  }
-  __syncthreads();
-}
-
 // Luong attention and h~ for BT rows: q = round_cd(h_top) @ W_a, scores
 // over the context, alpha = softmax, the context vector, then
-// h~ = tanh(W_c [ctx; h_top]).  On entry X[r][H + j] holds
-// round_cd(h_top) (0 for r >= nrows), after a __syncthreads.
-// hout(r, j, h~) receives the float32 h~ of each real row.  On exit,
-// after a __syncthreads, A holds alpha (float32), X[r][0:H] round_cd of
-// the context vector, and S round_cd(h~).
-//
-// kRoundQA: round q and alpha to the compute dtype before their
-// contractions, as the teacher-forced forward (aocr/ops/pallas/tf_fwd.py
-// and the XLA attention) does; the decode kernels keep both in float32.
+// h~ = tanh(W_c [ctx; h_top]), q and alpha in float32 (the teacher-forced
+// forward's rounding is decoder_cluster.cuh's dc_attend_rows<T, true>).
+// On entry X[r][H + j] holds round_cd(h_top) (0 for r >= nrows), after a
+// __syncthreads.  hout(r, j, h~) receives the float32 h~ of each real row.
+// On exit, after a __syncthreads, A holds alpha (float32), X[r][0:H]
+// round_cd of the context vector, and S round_cd(h~).
 //
 // ctx (L, B, H) compute dtype, scan-major; wa (H, H), wc (2H, H) compute
 // dtype.  Row r attends over context row b0 + r / kg: kg = K groups the K
 // beams of a batch row on their one context row (the reference's
 // beam_replicate without the copy), kg = 1 is one row each.
-template <bool kRoundQA, int BT = DEC_BT, typename T, typename HOut>
+template <int BT = DEC_BT, typename T, typename HOut>
 __device__ void attention_htilde(const T* __restrict__ ctx, int L, int B,
                                  int H, int b0, int nrows,
                                  const T* __restrict__ wa,
@@ -189,7 +80,7 @@ __device__ void attention_htilde(const T* __restrict__ ctx, int L, int B,
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
   const int H2 = 2 * H;
 
-  // q = round_cd(h) @ W_a, float32 (rounded with kRoundQA)
+  // q = round_cd(h) @ W_a, float32
   for (int ch = tid; ch * U < H; ch += nthr) {
     float acc[1][U][BT];
     zero(acc);
@@ -198,8 +89,7 @@ __device__ void attention_htilde(const T* __restrict__ ctx, int L, int B,
     for (int r = 0; r < BT; ++r)
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        sm.S[r * H + ch * U + u] =
-            kRoundQA ? round_cd<T>(acc[0][u][r]) : acc[0][u][r];
+        sm.S[r * H + ch * U + u] = acc[0][u][r];
   }
   __syncthreads();
 
@@ -238,9 +128,7 @@ __device__ void attention_htilde(const T* __restrict__ ctx, int L, int B,
     if (r < nrows) {
       const T* cp = ctx + (size_t)(b0 + r / kg) * H + h;
       for (int l = 0; l < L; ++l) {
-        const float a = sm.A[r * L + l];
-        v = fmaf(kRoundQA ? round_cd<T>(a) : a, to_f(cp[(size_t)l * B * H]),
-                 v);
+        v = fmaf(sm.A[r * L + l], to_f(cp[(size_t)l * B * H]), v);
       }
     }
     sm.X[r * H2 + h] = round_cd<T>(v);
@@ -359,7 +247,7 @@ __device__ void attention_tail(const T* __restrict__ ctx, int L, int B, int H,
                                const T* __restrict__ pw,
                                const float* __restrict__ pb, int Vp,
                                TailSmem sm, HOut hout, Valid valid) {
-  attention_htilde<false>(ctx, L, B, H, b0, nrows, wa, wc, sm, hout);
+  attention_htilde(ctx, L, B, H, b0, nrows, wa, wc, sm, hout);
   projector_logp<T>(H, nrows, pw, pb, Vp, sm);
   projector_pick(nrows, Vp, sm, valid);
 }

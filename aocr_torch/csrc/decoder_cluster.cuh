@@ -1,12 +1,13 @@
 // One input-feeding attention decoder step on a thread-block cluster: the
-// pieces greedy_loop.cu and beam_loop.cu run (the teacher-forced decoder
-// kernels could run on the same design).
+// pieces greedy_loop.cu and beam_loop.cu run, and the teacher-forced
+// forward and backward of training (tf_fwd.cu, tf_bwd.cu).
 //
 // A cluster of cs blocks owns a tile of bt batch rows for a whole decode.
 // Block s owns the hidden units [s*U, (s+1)*U) of every LSTM layer, with
 // their four gate columns, and the same column range of W_a and W_c: a
 // step's weight products are split by columns, so each block multiplies
-// only its (K, 4U) or (K, U) slices.  The slices (~2.5 MB a step in bf16
+// only its (K, 4U) or (K, U) slices (the backward: its (K, 2U) or (K, U)
+// slices of the transposed weights).  The slices (~2.5 MB a step in bf16
 // at H=1024, 2 layers, input feed; far more than a block's shared memory)
 // stream from L2 through a ring of `stages` chunks of kc rows, with the
 // tile's matching kc columns of the product's left operand beside them,
@@ -27,15 +28,16 @@
 // wait.acquire, with async-proxy fences for the bulk copies) makes every
 // slice visible, and the readers load it back with bulk copies or
 // ld.global.cg (never through L1).  The work that needs whole rows (the
-// attention over the context, the log-softmax and the argmax) is split by
-// rows instead: block s owns the tile rows [s*R, (s+1)*R), R = ceil(bt /
-// cs).  The exchange buffers hold bt rows a cluster and H columns padded
-// with zeros to hs = a multiple of kc.
+// attention over the context and its backward, the log-softmax and the
+// argmax) is split by rows instead: block s owns the tile rows [s*R,
+// (s+1)*R), R = ceil(bt / cs).  The exchange buffers hold bt rows a
+// cluster and H columns padded with zeros to hs = a multiple of kc.
 //
 // Numerics as decode_tail.cuh: every product operand rounded to the
 // compute dtype, float32 sums; the gate math of common.cuh; q, the
 // scores, alpha, the context vector before its rounding, h~ and the
-// logits in float32.
+// logits in float32 (the teacher-forced forward rounds q and alpha before
+// their contractions, dc_attend_rows' kRoundQA).
 #pragma once
 
 #include <type_traits>
@@ -96,16 +98,19 @@ __host__ __device__ inline int dc_warp_tiles(int w, int G8, int MT) {
 // Geometry of the rings and buffers for a plan: element counts.
 struct DcGeom {
   int lda;    // A chunk row stride (kc + 16 bytes), also in global memory
-  int ldw;    // the widest W chunk's row stride (4U + 16 bytes)
+  int ldw;    // the widest W chunk's row stride (nq U + 16 bytes)
   int ldh;    // row stride of the float tile of h~ (U + 8)
   int stage;  // elements of a stage: bt x lda + kc x ldw
   int R;      // tile rows a block owns in the row-split phases
 };
 
-__host__ __device__ inline DcGeom dc_geom(const DcPlan& p, int esz) {
+// nq: the widest product's column blocks of U (4: the gates; the
+// backward's widest is 2)
+__host__ __device__ inline DcGeom dc_geom(const DcPlan& p, int esz,
+                                          int nq = 4) {
   DcGeom g;
   g.lda = p.kc + 16 / esz;
-  g.ldw = 4 * p.units + 16 / esz;
+  g.ldw = nq * p.units + 16 / esz;
   g.ldh = p.units + 8;
   g.stage = p.bt * g.lda + p.kc * g.ldw;
   g.R = (p.bt + p.cs - 1) / p.cs;
@@ -181,13 +186,15 @@ static inline bool dc_fit(DcPlan* p, int H, Smem smem) {
   return false;
 }
 
-// The launch plan for (H, B, esz, L, Vp, nl layers) and the clusters of
-// that size the card runs at once (active); false where none fits.  Of the
-// tiles (dc_tile), the one that costs least, waves x (max(bt, stream rows)
-// + fixed rows) with waves = ceil(clusters / active), the smaller on a
-// tie, with dc_fit's chunks.
-static inline bool dc_plan(int H, int B, int esz, int L, int Vp, int nl,
-                           int active, DcPlan* out) {
+// The launch plan for (H, B, esz) whose shared memory smem(p) gives (0
+// where an overlay does not fit), and the clusters of that size the card
+// runs at once (active); false where none fits.  Of the tiles (dc_tile),
+// the one that costs least, waves x (max(bt, stream rows) + fixed rows)
+// with waves = ceil(clusters / active), the smaller on a tie, with
+// dc_fit's chunks.
+template <typename Smem>
+static inline bool dc_plan_fit(int H, int B, int esz, int active, Smem smem,
+                               DcPlan* out) {
   int cs, U;
   dc_cluster(H, &cs, &U);
   if (U > DC_MAX_UNITS || active < 1) return false;
@@ -200,10 +207,7 @@ static inline bool dc_plan(int H, int B, int esz, int L, int Vp, int nl,
     if (prev_bt >= B) break;  // a smaller tile already holds the batch
     prev_bt = bt;
     DcPlan p = {cs, U, bt, rt, 0, 0, 0, 0, (B + bt - 1) / bt};
-    if (!dc_fit(&p, H, [&](const DcPlan& q) {
-          return dc_smem(q, esz, H, L, Vp, nl);
-        }))
-      continue;
+    if (!dc_fit(&p, H, smem)) continue;
     const long waves = (p.clusters + active - 1) / active;
     const long cost =
         waves * ((bt > DC_STREAM_ROWS[f32] ? bt : DC_STREAM_ROWS[f32]) +
@@ -213,6 +217,15 @@ static inline bool dc_plan(int H, int B, int esz, int L, int Vp, int nl,
     *out = p;
   }
   return best >= 0;
+}
+
+// The decode kernels' plan for (H, B, esz, L, Vp, nl layers): dc_smem's
+// shared memory.
+static inline bool dc_plan(int H, int B, int esz, int L, int Vp, int nl,
+                           int active, DcPlan* out) {
+  return dc_plan_fit(H, B, esz, active, [&](const DcPlan& q) {
+    return dc_smem(q, esz, H, L, Vp, nl);
+  }, out);
 }
 
 // Byte offsets of the scratch regions (zeroed by the caller) of a launch:
@@ -584,23 +597,66 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// Stage the context rows crow .. crow + mc - 1 (L x H each; position l of
+// the c-th at cbuf + (c L + l) H) in shared memory: one bulk copy a (row,
+// l) onto the ring's last mbarrier, all in flight at once, issued by warp
+// 0, or cp.async in 8-byte pieces, a warp a (row, l), where a context row
+// is not a multiple of 16 bytes.  The caller __syncthreads after.
+template <typename T>
+__device__ __forceinline__ void dc_stage_context(const T* __restrict__ ctx,
+                                                 int L, int B, int H,
+                                                 size_t crow, int mc, T* cbuf,
+                                                 DcRing<T>& ring) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t rowb = (uint32_t)(H * sizeof(T));
+  auto src = [&](int cl) {
+    return ctx + ((size_t)(cl % L) * B + crow + cl / L) * H;
+  };
+  if (rowb % 16 == 0) {
+    uint64_t* bar = ring.bar + DC_MAX_STAGES;
+    fence_proxy_async();
+    __syncthreads();
+    if (warp == 0) {
+      if (lane == 0) mbar_expect_tx(bar, (uint32_t)(mc * L) * rowb);
+      __syncwarp();
+      for (int cl = lane; cl < mc * L; cl += 32)
+        bulk_copy(cbuf + (size_t)cl * H, src(cl), rowb, bar);
+    }
+    mbar_wait(bar, ring.aseq & 1);
+    ++ring.aseq;
+  } else {
+    const int per = (int)rowb / 8;
+    for (int cl = warp; cl < mc * L; cl += DC_WARPS) {
+      const char* from = reinterpret_cast<const char*>(src(cl));
+      char* to = reinterpret_cast<char*>(cbuf + (size_t)cl * H);
+      for (int k = lane; k < per; k += 32)
+        cp_async<8>(to + 8 * k, from + 8 * k, 8);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+}
+
 // Luong attention of the block's own tile rows: q (float32, the q
 // exchange buffer, row stride hs) over the context ctx (L, B, H), alpha =
 // softmax in float32, and round_cd(context vector) into the exchange
 // plane cv (dc_aoff) at the rows' places, as decode_tail.cuh's
-// attention_htilde<false>.  Own row r attends over context batch row
+// attention_htilde.  kRoundQA rounds q and alpha to the compute dtype
+// before their contractions, as the teacher-forced forward does
+// (aocr/ops/pallas/tf_fwd.py:125-132); the decode kernels keep both in
+// float32.  Own row r attends over context batch row
 // crow0 + r / kg: kg = K groups a batch row's K beams on its one context
 // row (kg = 1: a row each).  qs (own rows x H) and sc (own rows x L) are
-// shared-memory scratch.  With nb >= 1 the rows' context (L x H each) is
-// staged in shared memory at cbuf, nb context rows a pass, all of a pass
-// in flight at once (bulk copies onto the ring's last mbarrier, or
-// cp.async where a context row is not a multiple of 16 bytes), and read
+// shared-memory scratch; on exit sc holds the own rows' alpha (float32).
+// With nb >= 1 the rows' context (L x H each) is
+// staged in shared memory at cbuf, nb context rows a pass
+// (dc_stage_context), and read
 // from L2 once a step.  With nb = 0 (a context too large for the ring) it
 // is read from global memory twice, the scores and the context vector.
 // Not inlined, nor is dc_partial_logits: inlined, they take registers
 // from the kernels' product loops (greedy_loop and beam_loop at B=512 in
 // bf16, and greedy_loop in float32, ran slower so on an H100; PERF.md).
-template <typename T>
+template <typename T, bool kRoundQA = false>
 __device__ __noinline__ void dc_attend_rows(const T* __restrict__ ctx, int L, int B,
                                const float* q, T* cv, float* qs, float* sc,
                                T* cbuf, int nb, const DcBlock<T>& b,
@@ -612,6 +668,10 @@ __device__ __noinline__ void dc_attend_rows(const T* __restrict__ ctx, int L, in
     const int r = i / H4, h = (i % H4) * 4;
     float v[4];
     load4_cg(q + (row0 + r) * b.hs + h, v);
+    if (kRoundQA) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = round_cd<T>(v[e]);
+    }
     store4(qs + r * H + h, v);
   }
   const int nc = (n + kg - 1) / kg;  // the own rows' context rows
@@ -626,37 +686,7 @@ __device__ __noinline__ void dc_attend_rows(const T* __restrict__ ctx, int L, in
       return nb > 0 ? cbuf + (size_t)c * L * H
                     : ctx + (crow0 + c0 + c) * H;
     };
-    if (nb > 0) {
-      const uint32_t rowb = (uint32_t)(H * sizeof(T));
-      auto src = [&](int cl) {
-        return ctx + ((size_t)(cl % L) * B + crow0 + c0 + cl / L) * H;
-      };
-      if (rowb % 16 == 0) {
-        // one bulk copy a (context row, l), issued by warp 0
-        uint64_t* bar = ring.bar + DC_MAX_STAGES;
-        fence_proxy_async();
-        __syncthreads();
-        if (warp == 0) {
-          if (lane == 0) mbar_expect_tx(bar, (uint32_t)(mc * L) * rowb);
-          __syncwarp();
-          for (int cl = lane; cl < mc * L; cl += 32)
-            bulk_copy(cbuf + (size_t)cl * H, src(cl), rowb, bar);
-        }
-        mbar_wait(bar, ring.aseq & 1);
-        ++ring.aseq;
-      } else {
-        // a warp a (context row, l), 8-byte pieces
-        const int per = (int)rowb / 8;
-        for (int cl = warp; cl < mc * L; cl += DC_WARPS) {
-          const char* from = reinterpret_cast<const char*>(src(cl));
-          char* to = reinterpret_cast<char*>(cbuf + (size_t)cl * H);
-          for (int k = lane; k < per; k += 32)
-            cp_async<8>(to + 8 * k, from + 8 * k, 8);
-        }
-        cp_async_commit();
-        cp_async_wait<0>();
-      }
-    }
+    if (nb > 0) dc_stage_context<T>(ctx, L, B, H, crow0 + c0, mc, cbuf, ring);
     __syncthreads();
     // scores[r][l] = ctx[l, b, :] . q[b, :]: a warp a (row, l)
     for (int p = warp; p < m * L; p += DC_WARPS) {
@@ -699,10 +729,93 @@ __device__ __noinline__ void dc_attend_rows(const T* __restrict__ ctx, int L, in
       for (int l = 0; l < L; ++l) {
         float c[4];
         load_row(cr + l * cst, c);
+        const float al = kRoundQA ? round_cd<T>(a[l]) : a[l];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = fmaf(a[l], c[e], v[e]);
+        for (int e = 0; e < 4; ++e) v[e] = fmaf(al, c[e], v[e]);
       }
       store4(cv + b.aoff(b.ra + r0 + r, h), v);
+    }
+    __syncthreads();
+  }
+}
+
+// The attention backward of the block's own tile rows, one teacher-forced
+// step (aocr/ops/pallas/tf_bwd.py:101-121): from the float32 dcvec rows
+// (the exchange buffer dcv, row stride hs), the step's alpha (B, L) and
+// the context, dalpha = ctx . dcvec, dscore = alpha dalpha - alpha
+// sum(alpha dalpha) (float32, into dscore (B, L)), and dq = sum_l dscore
+// ctx (float32, rounded into dq (B, H) and the exchange plane dqp).  The
+// context is staged as in dc_attend_rows (nb rows a pass), ds (own rows x
+// H) and sc (own rows x L) are shared-memory scratch.
+template <typename T>
+__device__ __noinline__ void dc_attend_bwd_rows(
+    const T* __restrict__ ctx, int L, int B, const float* dcv,
+    const float* __restrict__ alpha, float* dscore, T* dq, T* dqp, float* ds,
+    float* sc, T* cbuf, int nb, const DcBlock<T>& b, DcRing<T>& ring) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = b.H, H4 = H / 4, n = b.nown;
+  const size_t row0 = (size_t)b.b0 + b.ra;  // the first own row
+  for (int i = tid; i < n * H4; i += DC_THREADS) {
+    const int r = i / H4, h = (i % H4) * 4;
+    float v[4];
+    load4_cg(dcv + (row0 + r) * b.hs + h, v);
+    store4(ds + r * H + h, v);
+  }
+  const int pass = nb > 0 ? nb : max(n, 1);
+  const size_t cst = nb > 0 ? (size_t)H : (size_t)B * H;
+  for (int r0 = 0; r0 < n; r0 += pass) {
+    const int m = min(pass, n - r0);
+    auto cbase = [&](int r) -> const T* {
+      return nb > 0 ? cbuf + (size_t)r * L * H : ctx + (row0 + r0 + r) * H;
+    };
+    if (nb > 0) dc_stage_context<T>(ctx, L, B, H, row0 + r0, m, cbuf, ring);
+    __syncthreads();
+    // dalpha[r][l] = ctx[l, b, :] . dcvec[b, :]: a warp a (row, l)
+    for (int p = warp; p < m * L; p += DC_WARPS) {
+      const int r = p / L, l = p % L;
+      const T* cr = cbase(r) + l * cst;
+      const float* dr = ds + (r0 + r) * H;
+      float s = 0.f;
+      for (int h = 4 * lane; h < H; h += 128) {
+        float c[4];
+        load_row(cr + h, c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s = fmaf(c[e], dr[h + e], s);
+      }
+      s = warp_sum(s);
+      if (lane == 0) sc[(r0 + r) * L + l] = s;
+    }
+    __syncthreads();
+    // the softmax backward: a warp a row
+    for (int r = warp; r < m; r += DC_WARPS) {
+      const size_t row = row0 + r0 + r;
+      const float* ar = alpha + row * L;
+      float* d = sc + (r0 + r) * L;
+      float sum = 0.f;
+      for (int l = lane; l < L; l += 32) sum += ar[l] * d[l];
+      sum = warp_sum(sum);
+      for (int l = lane; l < L; l += 32) {
+        const float a = ar[l];
+        const float v = a * d[l] - a * sum;
+        d[l] = v;
+        dscore[row * L + l] = v;
+      }
+    }
+    __syncthreads();
+    // dq = sum_l dscore * ctx, float32, rounded: 4 columns a thread
+    for (int i = tid; i < m * H4; i += DC_THREADS) {
+      const int r = i / H4, h = (i % H4) * 4;
+      const float* d = sc + (r0 + r) * L;
+      const T* cr = cbase(r) + h;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int l = 0; l < L; ++l) {
+        float c[4];
+        load_row(cr + l * cst, c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = fmaf(d[l], c[e], v[e]);
+      }
+      store4(dq + (row0 + r0 + r) * H + h, v);
+      store4(dqp + b.aoff(b.ra + r0 + r, h), v);
     }
     __syncthreads();
   }
@@ -911,10 +1024,11 @@ __device__ __forceinline__ void dc_elems(DcAcc<T, RT, NQ>& acc,
 
 // The block's view of plan p: its cluster's tile cl (rows [cl bt, (cl + 1)
 // bt) of the scratch buffers, nrows of them real), its rank and units, and
-// the row-split rows [rank R, rank R + R) of the tile.
+// the row-split rows [rank R, rank R + R) of the tile; the ring's stages
+// sized for products of up to nq column blocks (dc_geom).
 template <typename T>
 __device__ __forceinline__ DcBlock<T> dc_block(const DcPlan& p, int H, int cl,
-                                               int nrows, int R) {
+                                               int nrows, int R, int nq = 4) {
   DcBlock<T> b;
   b.H = H;
   b.U = p.units;
@@ -931,7 +1045,7 @@ __device__ __forceinline__ DcBlock<T> dc_block(const DcPlan& p, int H, int cl,
   b.kshift = __ffs(p.kc) - 1;
   b.cl = cl;
   b.cs = p.cs;
-  b.g = dc_geom(p, (int)sizeof(T));
+  b.g = dc_geom(p, (int)sizeof(T), nq);
   b.g.R = R;
   b.ra = b.rank * R;
   b.nown = max(0, min(R, nrows - b.ra));

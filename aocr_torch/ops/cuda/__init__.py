@@ -141,11 +141,13 @@ def _declare(lib) -> None:
         # wh, dhs, ifog, cs, c0, dcf, dhf, dg, dh0, dc0, L, B, H, reverse,
         # stream
         "lstm_bwd": [_P] * 10 + [_I] * 4 + [_P],
-        # ctx, c0, h0, xp, wfh0, wx, bi, bh, wa, wc, htl, hs, ifog, cs,
-        # alpha, cvec, state, L, B, H, T, num_layers, input_feed, stream
+        # ctx, c0, h0, xp, w0, wl, bi, bh, wq, wc (the packed weights of
+        # greedy_loop.pack_weights), htl, hs, ifog, cs, alpha, cvec,
+        # scratch, L, B, H, T, num_layers, input_feed, stream
         "tf_fwd": [_P] * 17 + [_I] * 6 + [_P],
-        # ctx, wfh0, wx, wc, wa, dys, htl, alpha, ifog, cs, c0, dg, dht, dq,
-        # dcvec, dscore, dc0, dh0, state, L, B, H, T, num_layers,
+        # ctx, w0, wl, wct, wat (the packed transposed weights of
+        # tf_bwd.pack_weights), dys, htl, alpha, ifog, cs, c0, dg, dht, dq,
+        # dcvec, dscore, dc0, dh0, scratch, L, B, H, T, num_layers,
         # input_feed, stream
         "tf_bwd": [_P] * 19 + [_I] * 6 + [_P],
         # ctx, h, prev, scores, wa, wc, pw, pb, valid, htilde, nsc, par,
@@ -175,6 +177,10 @@ def _declare(lib) -> None:
     # H, B, K, is_f32, L, Vp, num_layers, out[11]
     lib.aocr_beam_loop_plan.argtypes = [_I] * 7 + [ctypes.POINTER(_I)]
     lib.aocr_beam_loop_plan.restype = ctypes.c_int
+    # H, B, is_f32, L, num_layers, out[10]
+    for name in ("aocr_tf_fwd_plan", "aocr_tf_bwd_plan"):
+        getattr(lib, name).argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
+        getattr(lib, name).restype = ctypes.c_int
 
 
 def launch(name: str, dtype: torch.dtype, device: torch.device,
@@ -210,6 +216,15 @@ def check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(**tensors) -> None:
+    """Raise unless each tensor's first element lies on a 16-byte boundary,
+    as the kernels' vector loads and bulk copies need (a fresh allocation
+    always does; a view at an offset may not)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def launch_counts() -> dict:

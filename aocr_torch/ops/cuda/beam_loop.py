@@ -90,8 +90,7 @@ def _smem(p: Plan, esz: int, K: int, H: int, L: int, Vp: int,
     row, 3 an own batch row), with the row-split scratch (R = Rb x K rows
     of H + L + Vp floats) and the permuted epilogue's tiles overlaid on the
     ring; 0 where an overlay does not fit."""
-    lda, ldw, ldh = p.kc + 16 // esz, 4 * p.units + 16 // esz, p.units + 8
-    ring = p.stages * (p.bt * lda + p.kc * ldw) * esz
+    ldh, ring = p.units + 8, greedy_loop.ring_bytes(p, esz)
     Rb = -(-p.nb // p.cs)
     R = Rb * K
     if (R * (H + L + Vp) * 4 > ring

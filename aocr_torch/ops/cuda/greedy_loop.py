@@ -121,10 +121,16 @@ def warp_tiles(w: int, G8: int, MT: int) -> int:
     return (MT - sl + wpg - 1) // wpg
 
 
+def ring_bytes(p: Plan, esz: int, nq: int = 4) -> int:
+    """Bytes of a plan's ring (csrc/decoder_cluster.cuh `dc_geom`): stages
+    of a bt x (kc + 16 bytes) left-operand chunk and a kc x (nq U + 16
+    bytes) weight chunk, nq the widest product's column blocks."""
+    lda, ldw = p.kc + 16 // esz, nq * p.units + 16 // esz
+    return p.stages * (p.bt * lda + p.kc * ldw) * esz
+
+
 def _smem(p: Plan, esz: int, H: int, L: int, Vp: int, nl: int) -> int:
-    lda, ldw, ldh = p.kc + 16 // esz, 4 * p.units + 16 // esz, p.units + 8
-    R = -(-p.bt // p.cs)
-    ring = p.stages * (p.bt * lda + p.kc * ldw) * esz
+    ldh, R, ring = p.units + 8, -(-p.bt // p.cs), ring_bytes(p, esz)
     if R * (H + L + Vp) * 4 > ring or p.bt * 4 * p.units * 4 > ring:
         return 0
     cells = p.bt * nl * p.units * 4 if p.cres else 0
@@ -162,20 +168,20 @@ def fit(p, H: int, smem):
     return None
 
 
-def plan(H: int, B: int, dtype: torch.dtype, L: int, Vp: int,
-         num_layers: int, active: int) -> Optional[Plan]:
-    """The kernel's launch plan for hidden size H, batch B, the compute
-    dtype, the context length L, the padded vocabulary Vp, the decoder's
-    layers and the clusters of the plan's size the card runs at once
-    (`active`: 7 of 16 blocks on an H100 SXM); None where no plan fits.
+def plan_fit(H: int, B: int, dtype: torch.dtype, active: int,
+             smem) -> Optional[Plan]:
+    """The cluster kernels' launch plan for hidden size H, batch B and the
+    compute dtype, whose shared memory smem(p) gives (0 where an overlay
+    does not fit), and the clusters of the plan's size the card runs at
+    once (`active`: 7 of 16 blocks on an H100 SXM); None where no plan fits
+    (csrc/decoder_cluster.cuh `dc_plan_fit`).
 
     The cluster is the smallest power of two that gives each block 8 of
     the H units or more, up to 16 (U a block, a multiple of 8, at most
     MAX_UNITS; the last blocks may own fewer, or none, and are masked).
     Of the tiles (`tile`), the one that costs least, waves x (max(bt,
     STREAM_ROWS) + FIXED_ROWS) with waves = ceil(clusters / active), the
-    smaller on a tie, with `fit`'s chunks for the ring, float tile, cells
-    and row-split scratch."""
+    smaller on a tie, with `fit`'s chunks."""
     esz = torch.empty((), dtype=dtype).element_size()
     f32 = int(esz == 4)
     cs, U = _cluster(H)
@@ -190,8 +196,7 @@ def plan(H: int, B: int, dtype: torch.dtype, L: int, Vp: int,
         if prev_bt >= B:
             break
         prev_bt = bt
-        p = fit(Plan(cs, U, bt, rt, 0, 0, 0, 0, -(-B // bt)), H,
-                lambda q: _smem(q, esz, H, L, Vp, num_layers))
+        p = fit(Plan(cs, U, bt, rt, 0, 0, 0, 0, -(-B // bt)), H, smem)
         if p is None:
             continue
         waves = -(-p.clusters // active)
@@ -200,6 +205,17 @@ def plan(H: int, B: int, dtype: torch.dtype, L: int, Vp: int,
             continue
         best, out = cost, p
     return out
+
+
+def plan(H: int, B: int, dtype: torch.dtype, L: int, Vp: int,
+         num_layers: int, active: int) -> Optional[Plan]:
+    """The kernel's launch plan (csrc/decoder_cluster.cuh `dc_plan`) for
+    the context length L, the padded vocabulary Vp and the decoder's
+    layers: `plan_fit` with the ring, float tile, cells and row-split
+    scratch of `_smem`."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    return plan_fit(H, B, dtype, active,
+                    lambda q: _smem(q, esz, H, L, Vp, num_layers))
 
 
 def scratch_bytes(p: Plan, dtype: torch.dtype, H: int, num_layers: int,
@@ -219,74 +235,94 @@ def scratch_bytes(p: Plan, dtype: torch.dtype, H: int, num_layers: int,
     return sum(_round_up(n, ALIGN) for n in sizes)
 
 
-def _pack(blocks, H: int, p: Plan) -> torch.Tensor:
-    """The blocks' weight slices, contiguous (csrc/decoder_cluster.cuh's
-    DcSeg): (cs, hs, NQ*U + 16 bytes) in the weights' dtype, out[s, k,
-    i*U + u] = w_i[r0_i + k, c0_i + s*U + u] for each (w_i, r0_i, c0_i) of
-    `blocks`, zeros for rows past H, units past H and the padding."""
-    w = blocks[0][0]
-    pad = 16 // w.element_size()
-    U = p.units
-    out = torch.zeros((p.cs, _round_up(H, p.kc), len(blocks) * U + pad),
-                      dtype=w.dtype, device=w.device)
-    for i, (wi, r0, c0) in enumerate(blocks):
-        x = torch.nn.functional.pad(wi[r0:r0 + H, c0:c0 + H],
-                                    (0, p.cs * U - H))
-        out[:, :H, i * U:(i + 1) * U] = x.view(H, p.cs, U).transpose(0, 1)
-    return out
+def packed(p: Plan, H: int, like: torch.Tensor, lead, nq: int) -> torch.Tensor:
+    """A zeroed buffer of packed weight slices: (*lead, hs, nq*U + 16
+    bytes) in like's dtype and device, hs = H rounded up to kc."""
+    return like.new_zeros((*lead, _round_up(H, p.kc),
+                           nq * p.units + 16 // like.element_size()))
+
+
+def pack_into(dst: torch.Tensor, w: torch.Tensor, H: int, p: Plan) -> None:
+    """Copy the blocks' slices of w (nseg*H, nq*H; any strides, e.g. a
+    transpose) into dst (cs, nseg, >= H rows, >= nq*U columns; a view of a
+    `packed` buffer): dst[s, g, k, i*U + u] = w[g*H + k, i*H + s*U + u]
+    for the units s*U + u < H (csrc/decoder_cluster.cuh's DcSeg: a block's
+    slice of segment g is contiguous, kc rows a chunk).  One strided copy,
+    and a padded copy of w first where the cluster's units pass H."""
+    cs, U = p.cs, p.units
+    nseg, nq = w.shape[0] // H, w.shape[1] // H
+    x = w.view(nseg, H, nq, H)
+    if cs * U != H:
+        x = torch.nn.functional.pad(x, (0, cs * U - H))
+    dst[:, :, :H, :nq * U].view(cs, nseg, H, nq, U).copy_(
+        x.view(nseg, H, nq, cs, U).permute(3, 0, 1, 2, 4))
 
 
 def pack_weights(tables: dict, p: Plan, num_layers: int,
                  input_feed: bool) -> dict:
     """The kernel's weight operands, each block's slices contiguous, kc
-    rows a chunk: w0 (cs, nseg0, hs, 4U + pad) layer 0's rows for [attn;
-    h0] (input feed) or h0; wl (nl-1, cs, 2, hs, 4U + pad) layer l's rows
-    for its own last h_l, then for h_{l-1}; wq (cs, hs, 2U + pad) [W_a |
-    W_c[H:]]; wc (cs, hs, U + pad) W_c[:H].  Rebuilt at each call, from
-    the build_tables operands."""
-    H = tables["wa"].shape[0]
-    lstm4 = lambda w, r0: [(w, r0, q * H) for q in range(4)]
-    segs0 = [0, H] if input_feed else [0]
-    w0 = torch.stack([_pack(lstm4(tables["wfh0"], r0), H, p) for r0 in segs0],
-                     dim=1)
-    wl = [torch.stack([_pack(lstm4(w, r0), H, p) for r0 in (H, 0)], dim=1)
-          for w in tables["wx"]]
-    return {"w0": w0.contiguous(),
-            "wl": (torch.stack(wl) if wl else w0.new_zeros((0,))).contiguous(),
-            "wq": _pack([(tables["wa"], 0, 0), (tables["wc"], H, 0)], H, p),
-            "wc": _pack([(tables["wc"], 0, 0)], H, p)}
+    rows a chunk (`pack_into`): w0 (cs, nseg0, hs, 4U + pad) layer 0's
+    rows for [attn; h0] (input feed) or h0; wl (nl-1, cs, 2, hs, 4U + pad)
+    layer l's rows for its own last h_l, then for h_{l-1}; wq (cs, hs, 2U
+    + pad) [W_a | W_c[H:]]; wc (cs, hs, U + pad) W_c[:H].  Rebuilt at each
+    call from the build_tables operands, in ten copies."""
+    wa, wc = tables["wa"], tables["wc"]
+    H = wa.shape[0]
+    w0 = packed(p, H, wa, (p.cs, 2 if input_feed else 1), 4)
+    pack_into(w0, tables["wfh0"], H, p)
+    wl = packed(p, H, wa, (num_layers - 1, p.cs, 2), 4)
+    for l, w in enumerate(tables["wx"]):
+        pack_into(wl[l, :, :1], w[H:], H, p)
+        pack_into(wl[l, :, 1:], w[:H], H, p)
+    wq = packed(p, H, wa, (p.cs, 1), 2)
+    pack_into(wq[..., :p.units], wa, H, p)
+    pack_into(wq[..., p.units:], wc[H:], H, p)
+    wcx = packed(p, H, wa, (p.cs, 1), 1)
+    pack_into(wcx, wc[:H], H, p)
+    return {"w0": w0, "wl": wl, "wq": wq[:, 0], "wc": wcx[:, 0]}
+
+
+def held_plan(plans: dict, key: tuple, name: str, what: str, lib_plan,
+              args: tuple, mine) -> Plan:
+    """The launch's plan for shape `key`: on the key's first launch the
+    kernel's own plan and the clusters the card runs at once are read from
+    the library (lib_plan(*args, out): out[0..8] the Plan's fields, out[9]
+    the clusters), held against mine(active), the wrapper's mirror
+    (RuntimeError where they differ), logged ("<name> plan <what>: ...")
+    and kept in `plans` with the line."""
+    if key not in plans:
+        out = (ctypes.c_int * 10)()
+        err = lib_plan(*args, out)
+        if err != 0:
+            raise RuntimeError(f"{name}: the kernel's plan query failed: "
+                               f"CUDA error {err}")
+        active = out[9]
+        p = mine(active)
+        if p is None or tuple(out[:9]) != tuple(p):
+            raise RuntimeError(f"{name} plan mismatch: kernel "
+                               f"{tuple(out)}, wrapper {p}")
+        line = (f"{name} plan {what}: cluster {p.cs} x {p.units} units, "
+                f"bt={p.bt} (rt={p.rt}), {p.clusters} clusters, {active} "
+                f"at once ({-(-p.clusters // active)} waves); chunks of "
+                f"{p.kc} rows, {p.stages} stages; state in "
+                f"{'shared memory' if p.cres else 'L2'}; smem {p.smem} B")
+        plans[key] = (p, line)
+        _log.info(line)
+    return plans[key][0]
 
 
 def _checked_plan(H: int, B: int, cd: torch.dtype, L: int, Vp: int,
                   nl: int) -> Plan:
     """The launch's plan: ValueError where none fits; on a shape's first
-    launch the kernel's own plan, and the clusters the card runs at once,
-    are read from the library, the plan is held against it and logged."""
+    launch held against the kernel's own (`held_plan`)."""
     if plan(H, B, cd, L, Vp, nl, 1) is None:
         raise ValueError(f"fused_greedy_loop: no kernel plan fits H={H}, "
                          f"B={B}, L={L}, Vp={Vp}, {nl} layers in {cd}")
-    key = (H, B, cd, L, Vp, nl)
-    if key not in plans:
-        out = (ctypes.c_int * 10)()
-        err = cuda.library().aocr_greedy_loop_plan(
-            H, B, int(cd == torch.float32), L, Vp, nl, out)
-        if err != 0:
-            raise RuntimeError(f"aocr_greedy_loop_plan failed: CUDA error "
-                               f"{err}")
-        active = out[9]
-        p = plan(H, B, cd, L, Vp, nl, active)
-        if p is None or tuple(out[:9]) != tuple(p):
-            raise RuntimeError(f"greedy_loop plan mismatch: kernel "
-                               f"{tuple(out)}, wrapper {p}")
-        line = (f"greedy_loop plan H={H} B={B} L={L} {cd}: cluster {p.cs} x "
-                f"{p.units} units, bt={p.bt} (rt={p.rt}), {p.clusters} "
-                f"clusters, {active} at once ({-(-p.clusters // active)} "
-                f"waves); chunks of {p.kc} rows, {p.stages} stages; cell "
-                f"states in {'shared memory' if p.cres else 'L2'}; smem "
-                f"{p.smem} B")
-        plans[key] = (p, line)
-        _log.info(line)
-    return plans[key][0]
+    return held_plan(plans, (H, B, cd, L, Vp, nl), "greedy_loop",
+                     f"H={H} B={B} L={L} {cd}",
+                     cuda.library().aocr_greedy_loop_plan,
+                     (H, B, int(cd == torch.float32), L, Vp, nl),
+                     lambda active: plan(H, B, cd, L, Vp, nl, active))
 
 
 def build_tables(dec_params: dict, proj: dict, embedding_size: int,

@@ -12,7 +12,8 @@ Phases, each raising on failure:
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (recognition B=512, T=50; training B=400, T=11,
      the three pools after conv2/4/6), in float32 and bfloat16, with
-     stated tolerances; lstm_fwd also at H=2400, B=8; a tiny model (H=128)
+     stated tolerances; tf_fwd and tf_bwd also at a ragged B=37;
+     lstm_fwd also at H=2400, B=8; a tiny model (H=128)
      trained on the card to exact match, whose bf16 greedy and beam-5
      transcripts on the kernel routes (greedy_loop, decode_step,
      beam_loop, beam_step), with and without a trie, must equal the plain
@@ -54,8 +55,10 @@ Phases, each raising on failure:
      (check_beam_loop at each B), the 88k-trie search and the one whose
      beams all pick EOS at their first step; the
      recognize images/s at B=512, W=100, bf16, T=50, greedy, beam-5 and
-     dictionary beam-5; the bf16 train step (ms, images/s) and its
-     pool_bwd.ENABLE A/B; one profile of each path.
+     dictionary beam-5; tf_fwd without residuals (score's call) at B=1,
+     32 and 400 against its plain version, and the two teacher-forced
+     kernels' launch plans and ptxas registers; the bf16 train step (ms,
+     images/s) and its pool_bwd.ENABLE A/B; one profile of each path.
 Prints the card's name and power limit, one JSON line of kernel results,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device or outside a checkout of the repo.  Never imports jax.
@@ -83,6 +86,9 @@ B_TRAIN, WORD_LEN, TRAIN_STEPS = 400, 10, 5
 # (NCHW) and their windows: the pool_bwd kernel's three launches a step
 POOLS = [((B_TRAIN, 128, 16, 50), (2, 2)), ((B_TRAIN, 256, 8, 25), (2, 1)),
          ((B_TRAIN, 512, 4, 25), (2, 1))]
+# the teacher-forced forward without residuals (score) is timed at these
+# batches; both teacher-forced kernels are also checked at a ragged one
+TF_TIMED, TF_RAGGED = (1, 32, B_TRAIN), 37
 # the CLI trainer's data set: 1,000 train and 400 validation crops
 N_TRAIN, N_VAL = 1000, 400
 # The reference's beam width (-beam_size 5)
@@ -1708,6 +1714,21 @@ def train_kernel_checks(dev, results: dict) -> None:
         record("tf_bwd", name, tf_bwd.decoder_bwd_scan(*bargs),
                tf_bwd.decoder_bwd_scan_plain(*bargs), tol,
                f" B={B} T={T} L={L} H={Hd}")
+        # a ragged batch: three tiles, the last one part full
+        Br = TF_RAGGED
+        cut = lambda x: x[..., :Br, :].contiguous()
+        fargs = (cut(ctx), wfh0, rest, wa, wc, cut(xpd), cut(c0), cut(h0),
+                 True, True)
+        want = tf_fwd.decoder_fwd_scan_plain(*fargs)
+        record("tf_fwd", name, tf_fwd.decoder_fwd_scan(*fargs), want, tol,
+               f" B={Br} T={T} L={L} H={Hd}")
+        htl, _, ifog, cs, alpha, _ = want
+        bargs = (fargs[0], wfh0, [r[0] for r in rest], wc, wa,
+                 (rand(T, Br, Hd) * 0.1).to(dev), htl, alpha, ifog, cs,
+                 fargs[6], True)
+        record("tf_bwd", name, tf_bwd.decoder_bwd_scan(*bargs),
+               tf_bwd.decoder_bwd_scan_plain(*bargs), tol,
+               f" B={Br} T={T} L={L} H={Hd}")
     torch.cuda.synchronize()
 
 
@@ -1830,8 +1851,8 @@ def train_timings(dev, cfg, np_model, batch, card: str):
 
     from aocr_torch import train_step, weights
     from aocr_torch.ops.cuda import (conv1_pool_bwd, conv1_pool_dx,
-                                     lstm_bwd, lstm_fwd, pool_bwd, tf_bwd,
-                                     tf_fwd)
+                                     greedy_loop, lstm_bwd, lstm_fwd,
+                                     pool_bwd, tf_bwd, tf_fwd)
 
     g = torch.Generator().manual_seed(19)
     rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
@@ -1900,6 +1921,42 @@ def train_timings(dev, cfg, np_model, batch, card: str):
             log(f"time {k} {name} (training shapes): kernel {k1:.4f} / "
                 f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
                 f"{bounds[(k, name)][0]:.4f} ms ({bounds[(k, name)][1]})")
+        # tf_fwd without residuals (score's and eval_loss_step's call)
+        tol = 1e-4 if dt == torch.float32 else 3e-2
+        for Bq in TF_TIMED:
+            qargs = (rand(L, Bq, Hd).to(dev, dt), wfh0, rest, wa, wc,
+                     rand(T, Bq, 4 * Hd).to(dev, dt), rand(Bq, Hd).to(dev),
+                     rand(Bq, Hd).to(dev), True, False)
+            got = tf_fwd.decoder_fwd_scan(*qargs)
+            rel = rel_err(got, tf_fwd.decoder_fwd_scan_plain(*qargs))
+            check(rel <= tol, f"tf_fwd {name} collect=False B={Bq}: max "
+                              f"err {rel} of the scale")
+            k1, k2, p1, p2 = time_pair(
+                lambda: tf_fwd.decoder_fwd_scan(*qargs),
+                lambda: tf_fwd.decoder_fwd_scan_plain(*qargs),
+                3 if Bq == B else 10)
+            ms[("tf_fwd_score", name, Bq)] = (min(k1, k2), min(p1, p2))
+            bnd = bound(T * Bq * step_flops(Hd, L, cfg.target_vocab_size, 2,
+                                            True, proj=False),
+                        tensor_bytes(qargs, got), name)
+            bounds[("tf_fwd_score", name, Bq)] = bnd
+            log(f"time tf_fwd {name} collect=False (score) B={Bq} T={T}: "
+                f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
+                f"ms; bound {bnd[0]:.4f} ms ({bnd[1]}); max err {rel:.3g} "
+                f"of the plain scale (tol {tol:g})")
+        # the weight packing each call of the two kernels does first
+        pf = tf_fwd.checked_plan(Hd, B, dt, L, 2)
+        pb = tf_bwd.checked_plan(Hd, B, dt, L, 2)
+        tables = {"wfh0": wfh0, "wx": [rest[0][0]], "wa": wa, "wc": wc}
+        packs = (cuda_ms(lambda: greedy_loop.pack_weights(tables, pf, 2,
+                                                          True), 10),
+                 cuda_ms(lambda: tf_bwd.pack_weights(wfh0, [rest[0][0]], wc,
+                                                     wa, pb, True), 10))
+        ms[("tf_pack", name)] = packs
+        log(f"time the weight packing {name} (B={B}): tf_fwd's "
+            f"(greedy_loop.pack_weights) {packs[0]:.4f} ms, tf_bwd's "
+            f"(tf_bwd.pack_weights) {packs[1]:.4f} ms, each inside the "
+            f"kernel's time above")
         pool_timings(dev, dt, name, g, ms, bounds, lib)
         _fwd, bwd = cudnn_lstm(dev, dt, L, B, cfg.cnn_feature_size, He,
                                True)
@@ -1907,6 +1964,9 @@ def train_timings(dev, cfg, np_model, batch, card: str):
             f"lstm_bwd {name}: cuDNN nn.LSTM backward (dx and the weight "
             f"gradients too), B={B} L={L} H={He}", bwd, 10)
 
+    for mod in (tf_fwd, tf_bwd):
+        for _plan, line in mod.plans.values():
+            log(line)
     params, stats = weights.from_numpy(*np_model, dev)
     opt = train_step.init_opt_state(params, cfg)
     step = train_step.make_train_step(cfg)
@@ -2379,7 +2439,8 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(lib, ROOT)}")
     for kernel in ("lstm_fwd_kernel", "greedy_cluster_kernel",
-                   "beam_cluster_kernel"):
+                   "beam_cluster_kernel", "tf_fwd_cluster_kernel",
+                   "tf_bwd_cluster_kernel"):
         for line in ptxas_summary(out.getvalue(), kernel):
             log(f"ptxas {line}")
 
@@ -2497,6 +2558,21 @@ def main() -> int:
                 for B in BEAM_TIMED}
             entry["trie_88k_ms"] = ms[("beam_loop_trie", d)]
             entry["all_eos_ms"] = ms[("beam_loop_eos", d)]
+        if k in ("tf_fwd", "tf_bwd"):
+            entry["redesigned"] = ("thread-block clusters on greedy_loop's "
+                                   "design" + (", the products split by "
+                                   "output columns of the transposed "
+                                   "weights" if k == "tf_bwd" else ""))
+            entry["f32_ms"], entry["f32_plain_ms"] = ms[(k, "f32")]
+            entry["pack_ms"] = ms[("tf_pack", d)][k == "tf_bwd"]
+        if k == "tf_fwd":
+            entry["score_batches"] = {
+                str(B): {"ms": ms[("tf_fwd_score", d, B)][0],
+                         "plain_ms": ms[("tf_fwd_score", d, B)][1],
+                         "bound_ms": bounds[("tf_fwd_score", d, B)][0],
+                         "f32_ms": ms[("tf_fwd_score", "f32", B)][0],
+                         "f32_plain_ms": ms[("tf_fwd_score", "f32", B)][1]}
+                for B in TF_TIMED}
         if k == "pool_bwd":
             entry["per"] = "one train step: the three pools, summed"
             entry["library"] = ("max_pool2d_with_indices_backward + "

@@ -11,7 +11,9 @@ the kernels' 4-row tiles), odd widths, both directions, both dtypes.
 Tolerances: float32 1e-4 (the kernels sum in another order); bfloat16
 outputs within a few bf16 steps.  The training kernels (conv1 backward,
 lstm_fwd with residuals, lstm_bwd, tf_fwd, tf_bwd) are held the same way,
-on residuals their plain forward wrote.  The beam kernels (beam_step,
+on residuals their plain forward wrote; tf_fwd and tf_bwd (thread-block
+clusters) also at a ragged batch, one to three layers, without input
+feed, the default width, and their plans against the kernels'.  The beam kernels (beam_step,
 beam_loop) and the trie operands of decode_step and greedy_loop: float32
 tokens, parents, histories and refill counts identical to the plain
 version's (a row may part only at a step whose plain margin is a
@@ -666,7 +668,10 @@ def test_lstm_bwd_kernel(dev, dtype, reverse):
 
 
 def _tf_case(g, dev, dtype, input_feed, L=9, B=6, H=128, T=5, nl=2):
-    u = lambda *s: _rand(g, *s, lo=-0.1, hi=0.1)
+    # weights within +-0.1 at H=128, shrinking as the init law's H^-0.5
+    # at wider decoders
+    b = 0.1 * min(1.0, (128 / H) ** 0.5)
+    u = lambda *s: _rand(g, *s, lo=-b, hi=b)
     wfh0 = u(2 * H if input_feed else H, 4 * H).to(dev, dtype)
     rest = [(u(2 * H, 4 * H).to(dev, dtype), u(4 * H).to(dev),
              u(4 * H).to(dev)) for _ in range(nl - 1)]
@@ -677,13 +682,24 @@ def _tf_case(g, dev, dtype, input_feed, L=9, B=6, H=128, T=5, nl=2):
     return ctx, wfh0, rest, wa, wc, xp, c0, h0
 
 
+# (B, H, num_layers) of the teacher-forced kernels' cases: the parity
+# shape (16 blocks of 8 units, one 16-row tile), a ragged batch over three
+# tiles, one and three layers, the default decoder's width, and units
+# past H (H=132: 16 units a block, block 8 owns 4, the rest none)
+TF_SHAPES = [(6, 128, 2), (37, 128, 2), (6, 128, 1), (6, 128, 3),
+             (8, 1024, 2), (6, 132, 2)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("input_feed", [True, False])
-def test_tf_fwd_kernel(dev, dtype, input_feed):
+@pytest.mark.parametrize("B,H,nl", TF_SHAPES)
+def test_tf_fwd_kernel(dev, dtype, input_feed, B, H, nl):
     g = torch.Generator().manual_seed(11)
-    args = _tf_case(g, dev, dtype, input_feed)
+    args = _tf_case(g, dev, dtype, input_feed, B=B, H=H, nl=nl)
+    n = tf_fwd.launches
     got = tf_fwd.decoder_fwd_scan(*args, input_feed, True)
     torch.cuda.synchronize()
+    assert tf_fwd.launches == n + 1
     want = tf_fwd.decoder_fwd_scan_plain(*args, input_feed, True)
     _close_all(got, want, TOL[dtype])
     _close(tf_fwd.decoder_fwd_scan(*args, input_feed, False), want[0],
@@ -692,18 +708,51 @@ def test_tf_fwd_kernel(dev, dtype, input_feed):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("input_feed", [True, False])
-def test_tf_bwd_kernel(dev, dtype, input_feed):
+@pytest.mark.parametrize("B,H,nl", TF_SHAPES)
+def test_tf_bwd_kernel(dev, dtype, input_feed, B, H, nl):
     g = torch.Generator().manual_seed(12)
-    ctx, wfh0, rest, wa, wc, xp, c0, h0 = _tf_case(g, dev, dtype, input_feed)
+    ctx, wfh0, rest, wa, wc, xp, c0, h0 = _tf_case(g, dev, dtype, input_feed,
+                                                   B=B, H=H, nl=nl)
     htl, _hs, ifog, cs, alpha, _cv = tf_fwd.decoder_fwd_scan_plain(
         ctx, wfh0, rest, wa, wc, xp, c0, h0, input_feed, True)
     dys = _rand(g, *htl.shape).to(dev)
     args = (ctx, wfh0, [w for w, _, _ in rest], wc, wa, dys, htl, alpha,
             ifog, cs, c0, input_feed)
+    n = tf_bwd.launches
     got = tf_bwd.decoder_bwd_scan(*args)
     torch.cuda.synchronize()
+    assert tf_bwd.launches == n + 1
     want = tf_bwd.decoder_bwd_scan_plain(*args)
     _close_all(got, want, TOL[dtype])
+
+
+def test_tf_kernels_refuse_misaligned_inputs(dev):
+    """A contiguous view that starts off a 16-byte boundary raises
+    ValueError before a launch (the kernels load rows by vectors and bulk
+    copies)."""
+    g = torch.Generator().manual_seed(13)
+    ctx, wfh0, rest, wa, wc, xp, c0, h0 = _tf_case(g, dev, torch.float32,
+                                                   True)
+    c0_off = torch.cat([torch.zeros(1, device=dev), c0.flatten()])[1:]
+    n = tf_fwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tf_fwd.decoder_fwd_scan(ctx, wfh0, rest, wa, wc, xp,
+                                c0_off.view_as(c0), h0, True, True)
+    assert tf_fwd.launches == n
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tf_plans_match_the_kernel(dev, dtype):
+    """Each teacher-forced kernel's plan in Python equals the kernel's own
+    (aocr_tf_fwd_plan, aocr_tf_bwd_plan) at the train step's B=400 and at
+    ragged and narrow shapes; a shape past the kernels raises ValueError."""
+    for mod in (tf_fwd, tf_bwd):
+        for B, H, nl in ((400, 1024, 2), (37, 128, 2), (1, 132, 3),
+                         (513, 256, 1)):
+            p = mod.checked_plan(H, B, dtype, 24, nl)
+            assert p == mod.plans[(H, B, dtype, 24, nl)][0]
+        with pytest.raises(ValueError):
+            mod.checked_plan(8200, 1, dtype, 24, 2)
 
 
 def test_train_step_on_cuda_matches_cpu(dev):

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time aocr_torch's greedy_loop or beam_loop kernel from several checkouts
-on one card.
+"""Time one of aocr_torch's decoder kernels from several checkouts on one
+card.
 
     python3 tools/ab_greedy_loop_torch.py DIR_A DIR_B [--turns 4]
-        [--kernel greedy_loop|beam_loop]
+        [--kernel greedy_loop|beam_loop|tf_fwd|tf_bwd]
 
-Each DIR is a checkout that holds aocr_torch/.  The kernel is timed at the
-recognition shape (L=24, T=50, the default decoder: H=1024, 2 layers,
-input feed, V=39, PAD and EOS biased off so that every step runs) at
-B=512 and B=1 in float32 and bf16: greedy_loop with decode_step (the
-per-step tail, csrc/decode_tail.cuh) at B=512 in bf16 beside it, or
-beam_loop at K=5 from a random t=1 state; in turns A, B, B, A, ..., each
+Each DIR is a checkout that holds aocr_torch/.  greedy_loop and beam_loop
+are timed at the recognition shape (L=24, T=50, the default decoder:
+H=1024, 2 layers, input feed, V=39, PAD and EOS biased off so that every
+step runs) at B=512 and B=1 in float32 and bf16: greedy_loop with
+decode_step (the per-step tail, csrc/decode_tail.cuh) at B=512 in bf16
+beside it, or beam_loop at K=5 from a random t=1 state.  tf_fwd and
+tf_bwd are timed at the train step's shape (L=24, T=11, the same
+decoder, random weights at the init laws): tf_fwd with its residuals at
+B=400 and without (score's call) at B=400, 32 and 1; tf_bwd on the
+residuals of the plain forward at B=400.  In turns A, B, B, A, ..., each
 turn in a fresh process that builds that checkout's kernels (CUDA events
 over back-to-back launches).  Prints one line a turn and the card's name
 and power limit.  Needs one CUDA device.
@@ -58,6 +62,33 @@ def ms(run, n=3):
     return a.elapsed_time(b) / n
 
 for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+    if {kernel!r} in ("tf_fwd", "tf_bwd"):
+        from aocr_torch.ops.cuda import tf_bwd, tf_fwd
+        d = {{k: v.to(dt) if v.dim() == 2 else v
+             for k, v in tp["decoder"]["layers"][1].items()}}
+        l0 = tp["decoder"]["layers"][0]
+        wfh0 = torch.cat([l0["wi"][E:], l0["wh"]]).to(dt)
+        rest = [(torch.cat([d["wi"], d["wh"]]), d["bi"], d["bh"])]
+        wa = tp["decoder"]["w_a"].to(dt)
+        wc = tp["decoder"]["w_c"].to(dt)
+        for B in ((400,) if {kernel!r} == "tf_bwd" else (400, 32, 1)):
+            r = lambda *s: (torch.rand(*s, generator=g) * 2 - 1).to(dev)
+            fargs = (r(L, B, H).to(dt), wfh0, rest, wa, wc,
+                     r(11, B, 4 * H).to(dt), r(B, H), r(B, H), True)
+            if {kernel!r} == "tf_fwd":
+                if B == 400:
+                    out[f"tf_fwd {{name}} B=400 collect"] = ms(
+                        lambda: tf_fwd.decoder_fwd_scan(*fargs, True), 5)
+                out[f"tf_fwd {{name}} B={{B}}"] = ms(
+                    lambda: tf_fwd.decoder_fwd_scan(*fargs, False), 5)
+                continue
+            htl, _, ifog, cs, alpha, _ = tf_fwd.decoder_fwd_scan_plain(
+                *fargs, True)
+            bargs = (fargs[0], wfh0, [rest[0][0]], wc, wa,
+                     r(11, B, H) * 0.1, htl, alpha, ifog, cs, fargs[6], True)
+            out[f"tf_bwd {{name}} B={{B}}"] = ms(
+                lambda: tf_bwd.decoder_bwd_scan(*bargs), 5)
+        continue
     t = greedy_loop.build_tables(tp["decoder"], tp["projector"], E, True, dt)
     t["pb"][[0, 2]] = -1e4  # PAD and EOS biased off: all T steps run
     if {kernel!r} == "beam_loop":
@@ -99,7 +130,8 @@ def main() -> int:
     ap.add_argument("dirs", nargs=2)
     ap.add_argument("--turns", type=int, default=4)
     ap.add_argument("--kernel", default="greedy_loop",
-                    choices=("greedy_loop", "beam_loop"))
+                    choices=("greedy_loop", "beam_loop", "tf_fwd",
+                             "tf_bwd"))
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
