@@ -10,13 +10,29 @@
 // position attaining the window max, nothing unless that max is
 // positive), and accumulates dW (64 x 9) and db (64) in float32.
 //
-// Bound on the H100: the read of dy (B x 800 x 64 values at W=100) and the
-// recompute (36 FMAs per cell and channel).  One block handles one image:
-// it stages the zero-padded image in shared memory, 64 threads take the
-// 64 channels (coalesced dy reads) and 4 thread rows split the cells.
-// No atomics: each block writes its (64, 10) partial sums, and a second
-// kernel adds the B partials of each output in a fixed order, so the
-// result is deterministic.
+// Bound on the H100: the recompute, 36 separately rounded multiplies and
+// adds a cell and channel (with the roundings, the pick and the 9 FMAs of
+// dW ~125 instructions: ~75 us of issue at B=400, W=100 across 132 SMs),
+// far above the read of dy (B x 800 x 64 values, ~12 us in bf16).  So the
+// design keeps every instruction it can off that path, in one launch:
+//   - as many blocks as the card holds at once (cb_plan), each owning an
+//     equal run of the batch's pooled cells (to one cell), so no SM idles
+//     at the end; a block stages the zero-padded image rows of its pool
+//     rows in shared memory, and its 256 threads are 16 cell slots x 16
+//     groups of 4 channels: a thread loads a cell's 4x4 patch once (8
+//     two-float loads) for its 4 channels, and their dy as one vector (the
+//     4 lanes of a cell read 16 channels, one 32-byte sector in bf16);
+//   - the block's sums: a butterfly over the warp's 8 cell slots, then the
+//     channel group's two warps in order; its (64, 10) partial to global
+//     memory;
+//   - the partials' sum in the same launch, a fixed tree: the last block
+//     of each group of CB_FAN (an integer counter tells it) adds its
+//     group's partials in block order, level by level, and the last one
+//     writes the output.  No float atomics, so the result is
+//     deterministic (the summation order is fixed by the card's plan).
+// (The first port's kernel took one block per image and added the B
+// per-image partials in a second launch: 0.224 + 0.008 ms in bf16 at
+// B=400, W=100 on an H100, PERF.md.)
 #include <algorithm>
 
 #include "conv1_route.cuh"
@@ -24,107 +40,348 @@
 namespace aocr {
 
 constexpr int CB_C = CONV1_C;
-constexpr int CB_ROWS = 4;    // thread rows per block
-constexpr int CB_OUT = 10;    // 9 weight taps + the bias, per channel
+constexpr int CB_OUT = 10;        // 9 weight taps + the bias, per channel
+constexpr int CB_THREADS = 256;
+constexpr int CB_WARPS = CB_THREADS / 32;
+constexpr int CB_CPT = 4;         // channels a thread
+constexpr int CB_SLOTS = CB_THREADS * CB_CPT / CB_C;  // cells at a time: 16
+constexpr int CB_FAN = 16;        // partials a block of the tree adds
+constexpr int CB_STAGE_MAX = 96 * 1024;  // staged image rows, bytes
+constexpr int CB_STAGE_ROWS = 8;        // rows a warp stages at a time
 
+// The first staged row of pool row g (image g / Ho) in a block whose
+// first pool row is g0: consecutive pool rows of an image share 2 of
+// their 4 rows, and each image the block touches adds 2.
+__host__ __device__ inline int cb_base(int g, int g0, int Ho) {
+  return 2 * (g - g0) + 2 * (g / Ho - g0 / Ho);
+}
+
+// The most rows a run of m pooled cells stages: it touches at most r =
+// (m - 1) / Wo + 2 pool rows and (r - 1) / Ho + 2 images (of B, B Ho).
+static long cb_rows(long m, int B, int Ho, int Wo) {
+  const long r = std::min((m - 1) / Wo + 2, (long)B * Ho);
+  const long imgs = std::min((r - 1) / Ho + 2, (long)B);
+  return 2 * (r + imgs);
+}
+
+// The launch plan for B images of H x W and the blocks the card holds at
+// once (resident): blocks, each owning ceil or floor of the B (H/2) (W/2)
+// cells / blocks, at least `resident` (fewer where there are fewer cells)
+// and the fewest more whose staged rows (cb_rows) fit CB_STAGE_MAX; rows:
+// the most rows a block stages; smem: their bytes.  False where the rows
+// of one cell's run do not fit.
+static bool cb_plan(int B, int H, int W, int resident, int* blocks,
+                    int* rows, int* smem) {
+  const int Ho = H / 2, Wo = W / 2;
+  const long cells = (long)B * Ho * Wo, rb = 4L * ((W + 3) & ~1);
+  if (cells < 1 || resident < 1 || cb_rows(1, B, Ho, Wo) * rb > CB_STAGE_MAX)
+    return false;
+  auto fits = [&](long n) {
+    return cb_rows((cells + n - 1) / n, B, Ho, Wo) * rb <= CB_STAGE_MAX;
+  };
+  long lo = std::min((long)resident, cells), hi = cells;
+  if (!fits(lo)) {  // the fewest blocks that fit: fits(hi) holds
+    while (hi - lo > 1) {
+      const long mid = (lo + hi) / 2;
+      (fits(mid) ? hi : lo) = mid;
+    }
+    lo = hi;
+  }
+  *blocks = (int)lo;
+  *rows = (int)cb_rows((cells + lo - 1) / lo, B, Ho, Wo);
+  *smem = (int)(*rows * rb);
+  return true;
+}
+
+// x (B, H, W); w (64, 9) float32; bias (64,); dy (B, H/2, W/2, 64);
+// part: the tree's partials, level by level (ops/cuda/conv1_pool_bwd.py::
+// levels); count: a counter for each group of each level, zero at the
+// launch and left zero (the last arrival resets it); dw (64, 9), db (64,).  Block i owns the cells [i C / n, (i + 1) C / n) of the C =
+// B (H/2) (W/2) pooled cells in (image, row, column) order.
 template <typename T>
-__global__ void conv1_pool_bwd_kernel(
-    const T* __restrict__ x,         // (B, H, W)
-    const T* __restrict__ w9,        // (9, 64)
-    const float* __restrict__ bias,  // (64,)
-    const T* __restrict__ dy,        // (B, H/2, W/2, 64)
-    float* __restrict__ part,        // (B, 64, 10)
-    int H, int W) {
-  extern __shared__ float img[];  // (H + 2) x (W + 2), zero-padded
-  const int b = blockIdx.x;
-  const int Wp = W + 2, Ho = H / 2, Wo = W / 2;
-  const T* xb = x + (size_t)b * H * W;
-  const int c = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * CB_C + c, nthr = CB_C * CB_ROWS;
-  for (int i = tid; i < (H + 2) * Wp; i += nthr) {
-    const int y = i / Wp - 1, xc = i % Wp - 1;
-    img[i] = (y >= 0 && y < H && xc >= 0 && xc < W)
-                 ? to_f(xb[(size_t)y * W + xc]) : 0.f;
-  }
-  float wt[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) wt[k] = to_f(w9[k * CB_C + c]);
-  const float bc = round_cd<T>(bias[c]);
-  __syncthreads();
+__global__ void __launch_bounds__(CB_THREADS, 2)
+conv1_pool_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ bias,
+                      const T* __restrict__ dy, float* part, int* count,
+                      float* dw_out, float* db_out, int B, int H, int W) {
+  extern __shared__ __align__(16) float img[];  // rows x 4 x Wp
+  __shared__ float red[CB_C * CB_OUT];
+  __shared__ int s_last;
+  const int Ho = H / 2, Wo = W / 2, Wp = (W + 3) & ~1;
+  const long cells = (long)B * Ho * Wo, nb = gridDim.x;
+  const long c_lo = blockIdx.x * cells / nb;
+  const long c_hi = (blockIdx.x + 1) * cells / nb;
+  const int u = blockIdx.x, tid = threadIdx.x, warp = tid >> 5,
+            lane = tid & 31;
+  const int slot = (warp >> 2) * 8 + (lane >> 2);
+  const int c0 = ((warp & 3) * 4 + (lane & 3)) * CB_CPT;
 
-  float dw[9], db = 0.f;
+  // the zero-padded image rows the block's pool rows g0..g1 read: for
+  // each image b they touch, rows 2 ho - 1 .. 2 ho + 2 of its first to
+  // last pool row ho, one after another; pool row g's 4 rows start at
+  // cb_base(g).  A warp stages rows, its lanes columns, CB_STAGE_ROWS rows
+  // x 4 columns of loads a lane in flight before their stores, so that
+  // the latencies overlap (one load at a time took a sixth of the
+  // kernel's time)
+  const int g0 = (int)(c_lo / Wo), g1 = (int)((c_hi - 1) / Wo);
+  const int b0 = g0 / Ho;
+  const int nsr = cb_base(g1, g0, Ho) + 4;  // staged rows
+  bool tiny = false;
+  for (int r0 = warp; r0 < nsr; r0 += CB_WARPS * CB_STAGE_ROWS) {
+    int src[CB_STAGE_ROWS];  // the rows' first pixels in x; -1: zeros
 #pragma unroll
-  for (int k = 0; k < 9; ++k) dw[k] = 0.f;
-  const T* dyb = dy + (size_t)b * Ho * Wo * CB_C;
-  for (int cell = ty; cell < Ho * Wo; cell += CB_ROWS) {
-    const int ho = cell / Wo, wo = cell % Wo;
-    const int p = conv1_route<T>(img + 2 * ho * Wp + 2 * wo, Wp, wt, bc);
-    if (p < 0) continue;  // the ReLU drops the cotangent
-    const float g = to_f(dyb[(size_t)cell * CB_C + c]);
-    const float* pt = img + (2 * ho + p / 2) * Wp + 2 * wo + p % 2;
-    db += g;
+    for (int q = 0; q < CB_STAGE_ROWS; ++q) {
+      const int sr = r0 + q * CB_WARPS;
+      // image b0 + k's rows start at row `start`, from pool row gf
+      int k = 0, start = 0, gf = g0;
+      for (;;) {
+        const int gl = min(g1, (b0 + k + 1) * Ho - 1);
+        const int cnt = 2 * (gl - gf + 1) + 2;
+        if (sr < start + cnt || gl == g1) break;
+        start += cnt;
+        gf = gl + 1;
+        ++k;
+      }
+      const int b = b0 + k, y = 2 * (gf - b * Ho) - 1 + (sr - start);
+      src[q] = sr < nsr && y >= 0 && y < H ? (b * H + y) * W : -1;
+    }
+    for (int c0 = lane - 1; c0 < Wp - 1; c0 += 128) {
+      float v[CB_STAGE_ROWS][4];
 #pragma unroll
-    for (int k = 0; k < 9; ++k)
-      dw[k] = fmaf(g, pt[(k / 3) * Wp + k % 3], dw[k]);
+      for (int q = 0; q < CB_STAGE_ROWS; ++q)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int xc = c0 + 32 * m;
+          v[q][m] = src[q] >= 0 && xc >= 0 && xc < W ? to_f(x[src[q] + xc])
+                                                   : 0.f;
+        }
+#pragma unroll
+      for (int q = 0; q < CB_STAGE_ROWS; ++q)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int sr = r0 + q * CB_WARPS, xc = c0 + 32 * m;
+          if (sr < nsr && xc + 1 < Wp) img[sr * Wp + xc + 1] = v[q][m];
+          tiny |= conv1_tiny(v[q][m]);
+        }
+    }
+  }
+  float wt[CB_CPT][9], bc[CB_CPT];
+#pragma unroll
+  for (int j = 0; j < CB_CPT; ++j) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      wt[j][k] = round_cd<T>(w[(c0 + j) * 9 + k]);
+      tiny |= conv1_tiny(wt[j][k]);
+    }
+    bc[j] = round_cd<T>(bias[c0 + j]);
+  }
+  // (a barrier: the staged rows are complete) bf16 sums by fused
+  // multiply-adds unless a pixel or tap is tiny (conv1_route_n): the same
+  // bits, a third fewer instructions
+  const bool any_tiny = __syncthreads_or(tiny);
+  const bool fused = sizeof(T) == 2 && !any_tiny;
+
+  float dw[CB_CPT][9], db[CB_CPT];
+#pragma unroll
+  for (int j = 0; j < CB_CPT; ++j) {
+    db[j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) dw[j][k] = 0.f;
+  }
+  // the thread's cells c_lo + slot, + CB_SLOTS, ...: column wo of pool
+  // row g, whose staged rows start at `base`, kept by increments (no
+  // division a cell)
+  const int gs = (int)((c_lo + slot) / Wo);
+  int wo = (int)((c_lo + slot) % Wo), ho = gs % Ho, base = cb_base(gs, g0, Ho);
+  const T* dyc = dy + (size_t)(c_lo + slot) * CB_C + c0;
+  for (int n = (int)(c_hi - c_lo), i = slot; i < n; i += CB_SLOTS) {
+    float gv[CB_CPT];
+    load_row(dyc, gv);
+    const float* pt = img + base * Wp + 2 * wo;
+    float P[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 a = *reinterpret_cast<const float2*>(pt + r * Wp);
+      const float2 c = *reinterpret_cast<const float2*>(pt + r * Wp + 2);
+      P[r][0] = a.x;
+      P[r][1] = a.y;
+      P[r][2] = c.x;
+      P[r][3] = c.y;
+    }
+    int win[CB_CPT];
+    if (fused)
+      conv1_route_n<T, CB_CPT, true>(P, wt, bc, win);
+    else
+      conv1_route_n<T, CB_CPT>(P, wt, bc, win);
+    // every channel's window updates dW, the ReLU's dropped cotangents as
+    // zeros (no divergent branch): adding 0 x a finite pixel changes no
+    // sum
+#pragma unroll
+    for (int j = 0; j < CB_CPT; ++j) {
+      const bool on = win[j] >= 0;
+      const float g = on ? gv[j] : 0.f;
+      const int p = on ? win[j] : 0;
+      const float* q = pt + (p >> 1) * Wp + (p & 1);
+      db[j] += g;
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+        dw[j][k] = fmaf(g, q[(k / 3) * Wp + k % 3], dw[j][k]);
+    }
+    dyc += CB_SLOTS * CB_C;
+    for (wo += CB_SLOTS; wo >= Wo; wo -= Wo) {
+      base += 2;
+      if (++ho == Ho) {  // the next image's rows: 2 more of padding
+        ho = 0;
+        base += 2;
+      }
+    }
   }
 
-  // the 4 thread rows of each channel, summed in row order
-  __syncthreads();
-  float* red = img;  // CB_ROWS x 64 x 10, reusing the image buffer
-  float* mine = red + (ty * CB_C + c) * CB_OUT;
+  // output q = channel * CB_OUT + tap (tap 9: the bias) of the sum
+  auto put = [&](int q, float v) {
+    const int c = q / CB_OUT, k = q % CB_OUT;
+    if (k < 9)
+      dw_out[c * 9 + k] = v;
+    else
+      db_out[c] = v;
+  };
+  // the block's sums: the warp's 8 cell slots (a butterfly, every lane
+  // ends with the same sum), then the channel group's two warps in order
+  float* mine = part + (size_t)u * CB_C * CB_OUT;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) mine[k] = dw[k];
-  mine[9] = db;
+  for (int j = 0; j < CB_CPT; ++j)
+#pragma unroll
+    for (int k = 0; k < CB_OUT; ++k) {
+      float v = k < 9 ? dw[j][k] : db[j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (k < 9) dw[j][k] = v;
+      else db[j] = v;
+      if (warp >= 4 && lane < 4) red[(c0 + j) * CB_OUT + k] = v;
+    }
   __syncthreads();
-  for (int q = tid; q < CB_C * CB_OUT; q += nthr) {
-    float v = 0.f;
-    for (int r = 0; r < CB_ROWS; ++r) v += red[r * CB_C * CB_OUT + q];
-    part[(size_t)b * CB_C * CB_OUT + q] = v;
+  if (warp < 4 && lane < 4) {
+#pragma unroll
+    for (int j = 0; j < CB_CPT; ++j)
+#pragma unroll
+      for (int k = 0; k < CB_OUT; ++k) {
+        const int q = (c0 + j) * CB_OUT + k;
+        const float v = (k < 9 ? dw[j][k] : db[j]) + red[q];
+        if (gridDim.x == 1)
+          put(q, v);
+        else
+          mine[q] = v;
+      }
+  }
+
+  // the tree: at each level the last block of a group of CB_FAN partials
+  // adds them in order into the next level (the output at the top)
+  float* lvl = part;
+  int n = gridDim.x, idx = u;
+  while (n > 1) {
+    const int ng = (n + CB_FAN - 1) / CB_FAN, g = idx / CB_FAN;
+    const int gs = min(CB_FAN, n - g * CB_FAN);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(count + g, 1) == gs - 1;
+    __syncthreads();
+    if (!s_last) return;
+    if (tid == 0) count[g] = 0;  // every block of the group has arrived
+    __threadfence();
+    const float* src = lvl + (size_t)g * CB_FAN * CB_C * CB_OUT;
+    float* next = lvl + (size_t)n * CB_C * CB_OUT;
+    float* dst = next + (size_t)g * CB_C * CB_OUT;
+    for (int qi = tid; qi < CB_C * CB_OUT; qi += CB_THREADS) {
+      float v[CB_FAN];
+#pragma unroll
+      for (int i = 0; i < CB_FAN; ++i)
+        if (i < gs) v[i] = __ldcg(src + (size_t)i * CB_C * CB_OUT + qi);
+      float acc = v[0];
+#pragma unroll
+      for (int i = 1; i < CB_FAN; ++i)
+        if (i < gs) acc += v[i];
+      if (ng == 1)
+        put(qi, acc);
+      else
+        dst[qi] = acc;
+    }
+    lvl = next;
+    count += ng;
+    n = ng;
+    idx = g;
   }
 }
 
-// out[q] = sum over the B images of part[b][q], in image order
-__global__ void conv1_pool_bwd_sum_kernel(const float* __restrict__ part,
-                                          float* __restrict__ out, int B) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= CB_C * CB_OUT) return;
-  float v = 0.f;
-  for (int b = 0; b < B; ++b) v += part[(size_t)b * CB_C * CB_OUT + q];
-  out[q] = v;
+// The blocks of the kernel the card holds at once.
+template <typename T>
+static int cb_resident() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0, sms = 0, per = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        set_smem((const void*)conv1_pool_bwd_kernel<T>, CB_STAGE_MAX) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per, conv1_pool_bwd_kernel<T>, CB_THREADS, CB_STAGE_MAX) !=
+            cudaSuccess)
+      return 0;
+    n = sms * per;
+  }
+  return n;
 }
 
 template <typename T>
-static int launch(const void* x, const void* w9, const void* b,
-                  const void* dy, void* part, void* out, int B, int H, int W,
+static int launch(const void* x, const void* w, const void* b,
+                  const void* dy, void* part, void* count, void* dw,
+                  void* db, int B, int H, int W, int blocks,
                   cudaStream_t stream) {
-  // the padded image, and the reduction buffer that reuses it
-  size_t smem =
-      sizeof(float) * std::max((H + 2) * (W + 2), CB_ROWS * CB_C * CB_OUT);
+  int n, rows, smem;
+  if (B < 1 || H < 2 || W < 2 ||
+      !cb_plan(B, H, W, cb_resident<T>(), &n, &rows, &smem) || n != blocks)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = set_smem((const void*)conv1_pool_bwd_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 block(CB_C, CB_ROWS);
-  conv1_pool_bwd_kernel<T><<<B, block, smem, stream>>>(
-      (const T*)x, (const T*)w9, (const float*)b, (const T*)dy, (float*)part,
-      H, W);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  conv1_pool_bwd_sum_kernel<<<(CB_C * CB_OUT + 127) / 128, 128, 0, stream>>>(
-      (const float*)part, (float*)out, B);
+  conv1_pool_bwd_kernel<T><<<n, CB_THREADS, smem, stream>>>(
+      (const T*)x, (const float*)w, (const float*)b, (const T*)dy,
+      (float*)part, (int*)count, (float*)dw, (float*)db, B, H, W);
   return (int)cudaGetLastError();
 }
 
 }  // namespace aocr
 
 #define AOCR_CONV1_BWD_ARGS                                            \
-  const void *x, const void *w9, const void *b, const void *dy,       \
-      void *part, void *out, int B, int H, int W, void *stream
+  const void *x, const void *w, const void *b, const void *dy,        \
+      void *part, void *count, void *dw, void *db, int B, int H, int W, \
+      int blocks, void *stream
 
+// blocks: the plan's (aocr_conv1_pool_bwd_plan), by which the caller
+// sized part and count; a launch of another plan is refused.
 extern "C" int aocr_conv1_pool_bwd_f32(AOCR_CONV1_BWD_ARGS) {
-  return aocr::launch<float>(x, w9, b, dy, part, out, B, H, W,
+  return aocr::launch<float>(x, w, b, dy, part, count, dw, db, B, H, W,
+                             blocks,
                              (cudaStream_t)stream);
 }
 
 extern "C" int aocr_conv1_pool_bwd_bf16(AOCR_CONV1_BWD_ARGS) {
-  return aocr::launch<__nv_bfloat16>(x, w9, b, dy, part, out, B, H, W,
-                                     (cudaStream_t)stream);
+  return aocr::launch<__nv_bfloat16>(x, w, b, dy, part, count, dw, db, B, H,
+                                     W,
+                                     blocks, (cudaStream_t)stream);
+}
+
+// The plan of a launch: out[0..2] = blocks, rows, smem (as
+// aocr_torch/ops/cuda/conv1_pool_bwd.py::plan gives them for out[3]) and
+// out[3] = the blocks the card holds at once.  Returns a CUDA error code.
+extern "C" int aocr_conv1_pool_bwd_plan(int B, int H, int W, int is_f32,
+                                        int* out) {
+  const int resident = is_f32 ? aocr::cb_resident<float>()
+                              : aocr::cb_resident<__nv_bfloat16>();
+  int n, rows, smem;
+  if (!aocr::cb_plan(B, H, W, resident, &n, &rows, &smem))
+    return (int)cudaErrorInvalidValue;
+  const int v[4] = {n, rows, smem, resident};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return 0;
 }

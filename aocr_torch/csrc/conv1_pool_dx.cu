@@ -69,17 +69,21 @@ __global__ void conv1_pool_dx_kernel(const T* __restrict__ x,   // (B, H, W)
 
   T* orow = out + ((size_t)b * Ho + ho) * Wo * 16;
   for (int wo = threadIdx.x; wo < Wo; wo += blockDim.x) {
-    float pt[16];  // the cell's 4x4 patch, row stride 4
+    float pt[4][4];  // the cell's 4x4 patch
 #pragma unroll
-    for (int t = 0; t < 16; ++t) pt[t] = patch[(t / 4) * Wp + 2 * wo + t % 4];
+    for (int t = 0; t < 16; ++t)
+      pt[t / 4][t % 4] = patch[(t / 4) * Wp + 2 * wo + t % 4];
     float acc[16];
 #pragma unroll
     for (int t = 0; t < 16; ++t) acc[t] = 0.f;
     for (int c = 0; c < CONV1_C; ++c) {
-      float wt[9];
+      float wt[1][9];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) wt[k] = wts[c * 9 + k];
-      const int p = conv1_route<T>(pt, 4, wt, bcs[c]);
+      for (int k = 0; k < 9; ++k) wt[0][k] = wts[c * 9 + k];
+      const float bc[1] = {bcs[c]};
+      int win[1];
+      conv1_route_n<T, 1>(pt, wt, bc, win);
+      const int p = win[0];
       if (p < 0) continue;  // the ReLU drops the cotangent
       const float g = dys[wo * DX_LD + c];
       // pre-pool pixel (pi, pj) reads patch taps (pi + ky, pj + kx)
@@ -89,7 +93,7 @@ __global__ void conv1_pool_dx_kernel(const T* __restrict__ x,   // (B, H, W)
 #pragma unroll
         for (int k = 0; k < 9; ++k) {
           const int t = (q / 2 + k / 3) * 4 + q % 2 + k % 3;
-          acc[t] = __fadd_rn(acc[t], __fmul_rn(wt[k], g));
+          acc[t] = __fadd_rn(acc[t], __fmul_rn(wt[0][k], g));
         }
       }
     }

@@ -9,7 +9,8 @@
 // attaining the window max in row-major window order (select_and_scatter's
 // tie rule), or none where that max is not positive (the ReLU drops the
 // cotangent).  The 9-tap sum runs in tap order with separately rounded
-// products and sums (__fmul_rn / __fadd_rn): the operations the plain
+// products and sums (__fmul_rn / __fadd_rn), or fused multiply-adds where
+// those give the same bits (conv1_route_n): the operations the plain
 // versions run (ops/cuda/conv1_pool_bwd.py::_scores), so the routing, ties
 // included, is bit-identical to theirs.
 #pragma once
@@ -20,27 +21,68 @@ namespace aocr {
 
 constexpr int CONV1_C = 64;  // conv1 output channels
 
-// cell: the top-left of the cell's 4x4 patch of the zero-padded image
-// (float, row stride Wp); wt: the channel's 9 taps (compute-dtype values);
-// bc: its bias rounded to the compute dtype.  Returns the winning window
-// position p (row-major: 0 = (0,0), 1 = (0,1), 2 = (1,0), 3 = (1,1)), or -1
-// where the max is not positive.
+// The window position from the four positions' 9-tap sums s (float32,
+// in tap order) and the channel's bias rounded to the compute dtype: the
+// scores rounded as the forward rounds them, then the first position
+// attaining the max (row-major: 0 = (0,0), 1 = (0,1), 2 = (1,0), 3 =
+// (1,1)), or -1 where the max is not positive.  (No branch: the bf16
+// roundings two at a time, the pick by selects.)
 template <typename T>
-__device__ __forceinline__ int conv1_route(const float* cell, int Wp,
-                                           const float (&wt)[9], float bc) {
+__device__ __forceinline__ int conv1_pick(const float (&s)[4], float bc) {
   float z[4];
+  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const float* pt = cell + (p / 2) * Wp + p % 2;
-    float s = 0.f;
+    for (int p = 0; p < 4; p += 2) {
+      float2 v = __bfloat1622float2(__floats2bfloat162_rn(s[p], s[p + 1]));
+      v = __bfloat1622float2(__floats2bfloat162_rn(v.x + bc, v.y + bc));
+      z[p] = v.x;
+      z[p + 1] = v.y;
+    }
+  } else {
 #pragma unroll
-    for (int k = 0; k < 9; ++k)
-      s = __fadd_rn(s, __fmul_rn(pt[(k / 3) * Wp + k % 3], wt[k]));
-    z[p] = round_cd<T>(round_cd<T>(s) + bc);
+    for (int p = 0; p < 4; ++p) z[p] = round_cd<T>(round_cd<T>(s[p]) + bc);
   }
   const float m = fmaxf(fmaxf(z[0], z[1]), fmaxf(z[2], z[3]));
-  if (!(m > 0.f)) return -1;
-  return z[0] == m ? 0 : z[1] == m ? 1 : z[2] == m ? 2 : 3;
+  const int first = z[0] == m ? 0 : z[1] == m ? 1 : z[2] == m ? 2 : 3;
+  return m > 0.f ? first : -1;
+}
+
+// The routing of NC channels of one cell from its 4x4 patch of the
+// zero-padded image (P[row][col], float): wt[j] is channel j's 9 taps
+// (compute-dtype values), bc[j] its bias rounded to the compute dtype, and
+// win[j] its winning position (conv1_pick).  Each sum runs in tap order
+// from the first tap's product (0 + it would differ only in the sign of
+// a zero sum, which no pick can see).  FMA: each tap as one fused multiply-add, which
+// equals the separately rounded product and sum wherever the product is
+// exact in float32: for bf16 operands (8 significant bits each, 16 in the
+// product) wherever |pixel| |tap| >= 2^-133 or either is 0 (the caller
+// checks that every nonzero pixel and tap is at least 2^-60).
+template <typename T, int NC, bool FMA = false>
+__device__ __forceinline__ void conv1_route_n(const float (&P)[4][4],
+                                              const float (&wt)[NC][9],
+                                              const float (&bc)[NC],
+                                              int (&win)[NC]) {
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    float s[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      s[p] = __fmul_rn(P[p / 2][p % 2], wt[j][0]);
+#pragma unroll
+      for (int k = 1; k < 9; ++k) {
+        const float x = P[p / 2 + k / 3][p % 2 + k % 3];
+        s[p] = FMA ? fmaf(x, wt[j][k], s[p])
+                   : __fadd_rn(s[p], __fmul_rn(x, wt[j][k]));
+      }
+    }
+    win[j] = conv1_pick<T>(s, bc[j]);
+  }
+}
+
+// True where a value is nonzero and below 2^-60 in magnitude: one such
+// pixel or tap keeps conv1_route_n's bf16 sums from fused multiply-adds.
+__device__ __forceinline__ bool conv1_tiny(float v) {
+  return v != 0.f && fabsf(v) < 0x1p-60f;
 }
 
 }  // namespace aocr

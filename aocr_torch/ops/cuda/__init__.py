@@ -136,11 +136,11 @@ def _declare(lib) -> None:
         # greedy_loop.pack_weights), pw, pb, trie, labels, scores, scratch,
         # L, B, H, Vp, V, T, num_layers, input_feed, stream
         "greedy_loop": [_P] * 15 + [_I] * 8 + [_P],
-        # x, w9, b, dy, part, out, B, H, W, stream
-        "conv1_pool_bwd": [_P] * 6 + [_I] * 3 + [_P],
-        # wh, dhs, ifog, cs, c0, dcf, dhf, dg, dh0, dc0, L, B, H, reverse,
-        # stream
-        "lstm_bwd": [_P] * 10 + [_I] * 4 + [_P],
+        # x, w, b, dy, part, count, dw, db, B, H, W, blocks, stream
+        "conv1_pool_bwd": [_P] * 8 + [_I] * 4 + [_P],
+        # wh, dhs, ifog, cs, c0, dcf, dhf, dg, dh0, dc0, scratch, L, B, H,
+        # reverse, stream
+        "lstm_bwd": [_P] * 11 + [_I] * 4 + [_P],
         # ctx, c0, h0, xp, w0, wl, bi, bh, wq, wc (the packed weights of
         # greedy_loop.pack_weights), htl, hs, ifog, cs, alpha, cvec,
         # scratch, L, B, H, T, num_layers, input_feed, stream
@@ -171,6 +171,12 @@ def _declare(lib) -> None:
     # H, B, is_f32, xp_is_f32, out[9]
     lib.aocr_lstm_fwd_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
     lib.aocr_lstm_fwd_plan.restype = ctypes.c_int
+    # B, H, W, is_f32, out[4]
+    lib.aocr_conv1_pool_bwd_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+    lib.aocr_conv1_pool_bwd_plan.restype = ctypes.c_int
+    # H, B, is_f32, out[7]
+    lib.aocr_lstm_bwd_plan.argtypes = [_I] * 3 + [ctypes.POINTER(_I)]
+    lib.aocr_lstm_bwd_plan.restype = ctypes.c_int
     # H, B, is_f32, L, Vp, num_layers, out[10]
     lib.aocr_greedy_loop_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
     lib.aocr_greedy_loop_plan.restype = ctypes.c_int

@@ -13,9 +13,18 @@ through `routed` here.
 The 9-tap score sum runs in tap order with separately rounded products
 and sums on both sides, so the kernel and the plain version route every
 cotangent, ties included, identically.
+
+The kernel runs as many blocks as the card holds at once, each owning an
+equal run of the batch's pooled cells (`plan`), and adds the blocks' (64,
+10) partial sums in the same launch, in a fixed tree of FAN partials a
+node (`levels`), so two calls on one card give the same bits.
 """
 
 from __future__ import annotations
+
+import ctypes
+import logging
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +34,132 @@ from aocr_torch.ops import cuda
 launches = 0
 
 C1 = 64
+# csrc/conv1_pool_bwd.cu's constants
+FAN = 16  # partials a node of the tree adds
+STAGE_MAX = 96 * 1024  # a block's staged image rows, bytes
+
+# launch plans held against the kernel's, by (B, H, W, dtype): (Plan, the
+# line logged for it)
+plans: dict = {}
+# the tree's buffers by (device, stream): (partials, counters); the
+# counters are zero between launches (each launch's last arrivals reset
+# them), and launches on one stream never overlap
+_tree: dict = {}
+_log = logging.getLogger(__name__)
+
+
+class Plan(NamedTuple):
+    """How the kernel splits a batch (csrc/conv1_pool_bwd.cu `cb_plan`,
+    which this mirrors field for field)."""
+    blocks: int  # one run of cells each
+    rows: int  # the most image rows a block stages
+    smem: int  # their bytes
+
+    def cells(self, i: int, B: int, H: int, W: int) -> range:
+        """The pooled cells (image, row, column order) block i owns."""
+        n = B * (H // 2) * (W // 2)
+        return range(i * n // self.blocks, (i + 1) * n // self.blocks)
+
+
+def base(g: int, g0: int, Ho: int) -> int:
+    """The first staged row of pool row g (image g // Ho) in a block whose
+    first pool row is g0 (csrc `cb_base`): consecutive pool rows of an
+    image share 2 of their 4 rows, and each image the block touches adds
+    2."""
+    return 2 * (g - g0) + 2 * (g // Ho - g0 // Ho)
+
+
+def run_rows(m: int, B: int, Ho: int, Wo: int) -> int:
+    """The most rows a run of m pooled cells stages (csrc `cb_rows`): it
+    touches at most r = (m - 1) // Wo + 2 pool rows and (r - 1) // Ho + 2
+    images."""
+    r = min((m - 1) // Wo + 2, B * Ho)
+    return 2 * (r + min((r - 1) // Ho + 2, B))
+
+
+def plan(B: int, H: int, W: int, resident: int) -> Optional[Plan]:
+    """The kernel's launch plan for B images of H x W and the blocks the
+    card holds at once (`resident`: 264 on an H100 SXM, 2 a SM): at least
+    `resident` blocks (fewer where there are fewer cells), and the fewest
+    more whose staged rows (`run_rows` of (W + 3) & ~1 floats) fit
+    STAGE_MAX bytes; None where one cell's run does not fit."""
+    Ho, Wo = H // 2, W // 2
+    cells = B * Ho * Wo
+    rb = 4 * ((W + 3) & ~1)
+    if cells < 1 or resident < 1 or run_rows(1, B, Ho, Wo) * rb > STAGE_MAX:
+        return None
+
+    def fits(n):
+        return run_rows(-(-cells // n), B, Ho, Wo) * rb <= STAGE_MAX
+
+    lo, hi = min(resident, cells), cells
+    if not fits(lo):  # the fewest blocks that fit: fits(hi) holds
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if fits(mid):
+                hi = mid
+            else:
+                lo = mid
+        lo = hi
+    rows = run_rows(-(-cells // lo), B, Ho, Wo)
+    return Plan(lo, rows, rows * rb)
+
+
+def checked_plan(B: int, H: int, W: int, cd: torch.dtype) -> Plan:
+    """The launch's plan: ValueError where none fits; on a shape's first
+    launch the kernel's own plan, and the blocks the card holds at once,
+    are read from the library, the plan is held against it and logged."""
+    if plan(B, H, W, 1) is None:
+        raise ValueError(f"conv1_relu_pool_bwd: no kernel plan fits B={B}, "
+                         f"H={H}, W={W}")
+    key = (B, H, W, cd)
+    if key not in plans:
+        out = (ctypes.c_int * 4)()
+        err = cuda.library().aocr_conv1_pool_bwd_plan(
+            B, H, W, int(cd == torch.float32), out)
+        if err != 0:
+            raise RuntimeError(f"aocr_conv1_pool_bwd_plan failed: CUDA error "
+                               f"{err}")
+        p = plan(B, H, W, out[3])
+        if p is None or tuple(out[:3]) != tuple(p):
+            raise RuntimeError(f"conv1_pool_bwd plan mismatch: kernel "
+                               f"{tuple(out)}, wrapper {p}")
+        line = (f"conv1_pool_bwd plan B={B} H={H} W={W} {cd}: {p.blocks} "
+                f"blocks ({out[3]} at once) of "
+                f"{-(-B * (H // 2) * (W // 2) // p.blocks)} cells or one "
+                f"fewer, at most {p.rows} image rows staged ({p.smem} B); "
+                f"the tree {levels(p.blocks)}")
+        plans[key] = (p, line)
+        _log.info(line)
+    return plans[key][0]
+
+
+def _tree_buffers(dev: torch.device, blocks: int):
+    """The tree's partials (every level but the output, 640 floats an
+    entry) and its counters (one a group) for `blocks` blocks on the
+    current stream of `dev`, grown where too small."""
+    lv = levels(blocks)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    part, count = _tree.get(key, (None, None))
+    if part is None or part.numel() < max(sum(lv[:-1]), 1) * C1 * 10 \
+            or count.numel() < max(sum(lv[1:]), 1):
+        part = torch.empty((max(sum(lv[:-1]), 1) * C1 * 10,),
+                           dtype=torch.float32, device=dev)
+        count = torch.zeros((max(sum(lv[1:]), 1),), dtype=torch.int32,
+                            device=dev)
+        _tree[key] = (part, count)
+    return part, count
+
+
+def levels(n: int) -> list:
+    """The partials at each level of the kernel's sum over n blocks: n,
+    then ceil(n / FAN) group sums, ... down to 1, the output.  Block i's
+    partial is level 0's entry i; group g of a level adds its entries g
+    FAN .. g FAN + FAN - 1 in order into the next level's entry g."""
+    out = [n]
+    while out[-1] > 1:
+        out.append(-(-out[-1] // FAN))
+    return out
 
 
 def _scores(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -103,11 +238,14 @@ def conv1_relu_pool_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if w.device != dev or w.dtype != torch.float32:
         raise ValueError("conv1_relu_pool_bwd: w must be float32 on x's "
                          "device")
-    w9 = w.reshape(C1, 9).t().contiguous().to(cd)
-    part = torch.empty((B, C1, 10), dtype=torch.float32, device=dev)
-    out = torch.empty((C1, 10), dtype=torch.float32, device=dev)
-    cuda.launch("conv1_pool_bwd", cd, dev, x.data_ptr(), w9.data_ptr(),
-                b.data_ptr(), dy.data_ptr(), part.data_ptr(), out.data_ptr(),
-                B, H, W)
+    cuda.check_aligned(dy=dy)
+    p = checked_plan(B, H, W, cd)
+    part, count = _tree_buffers(dev, p.blocks)
+    dw = torch.empty((C1, 1, 3, 3), dtype=torch.float32, device=dev)
+    db = torch.empty((C1,), dtype=torch.float32, device=dev)
+    cuda.launch("conv1_pool_bwd", cd, dev, x.data_ptr(),
+                w.reshape(C1, 9).contiguous().data_ptr(), b.data_ptr(),
+                dy.data_ptr(), part.data_ptr(), count.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), B, H, W, p.blocks)
     launches += 1
-    return out[:, :9].reshape(C1, 1, 3, 3), out[:, 9].contiguous()
+    return dw, db

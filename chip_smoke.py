@@ -12,7 +12,8 @@ Phases, each raising on failure:
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (recognition B=512, T=50; training B=400, T=11,
      the three pools after conv2/4/6), in float32 and bfloat16, with
-     stated tolerances; tf_fwd and tf_bwd also at a ragged B=37;
+     stated tolerances; tf_fwd, tf_bwd and lstm_bwd also at a ragged
+     B=37; conv1_pool_bwd's two calls bit-identical;
      lstm_fwd also at H=2400, B=8; a tiny model (H=128)
      trained on the card to exact match, whose bf16 greedy and beam-5
      transcripts on the kernel routes (greedy_loop, decode_step,
@@ -57,8 +58,10 @@ Phases, each raising on failure:
      recognize images/s at B=512, W=100, bf16, T=50, greedy, beam-5 and
      dictionary beam-5; tf_fwd without residuals (score's call) at B=1,
      32 and 400 against its plain version, and the two teacher-forced
-     kernels' launch plans and ptxas registers; the bf16 train step (ms,
-     images/s) and its pool_bwd.ENABLE A/B; one profile of each path.
+     kernels' launch plans and ptxas registers; lstm_bwd's plan (its
+     route by dtype), conv1_pool_bwd's plan, both kernels' ptxas
+     registers; the bf16 train step (ms, images/s) and its
+     pool_bwd.ENABLE A/B; one profile of each path.
 Prints the card's name and power limit, one JSON line of kernel results,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device or outside a checkout of the repo.  Never imports jax.
@@ -1628,9 +1631,12 @@ def train_kernel_checks(dev, results: dict) -> None:
             x = x.to(dev, dt)
             dy = rand(B, 64, 16, W_SERVE // 2).to(dev, dt).permute(0, 2, 3, 1)
             got = conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy)
+            again = conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy)
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"conv1_pool_bwd {name} ({kind}): two calls differ")
             want = conv1_pool_bwd.conv1_relu_pool_bwd_plain(x, w, b, dy)
             record("conv1_pool_bwd", name, got, want, 1e-4,
-                   f" B={B} ({kind})")
+                   f" B={B} ({kind}; two calls bit-identical)")
             # the image cotangent's 16 taps a cell: float32 within 1e-5 of
             # the scale (summation order only), bf16 within one step
             got = conv1_pool_dx.conv1_relu_pool_dx16(x, w, b, dy)
@@ -1692,6 +1698,14 @@ def train_kernel_checks(dev, results: dict) -> None:
             record("lstm_bwd", name, lstm_bwd.lstm_bwd_scan(*args),
                    lstm_bwd.lstm_bwd_scan_plain(*args), tol,
                    f" B={B} L={L} H={He} reverse={reverse}")
+            # a ragged batch: three clusters' tiles, the last part full
+            Br = TF_RAGGED
+            cut = lambda t: t[..., :Br, :].contiguous()
+            args = (wh, cut(dhs), cut(ifog), cut(cs), z[:Br], dcf[:Br],
+                    dhf[:Br], reverse)
+            record("lstm_bwd", name, lstm_bwd.lstm_bwd_scan(*args),
+                   lstm_bwd.lstm_bwd_scan_plain(*args), tol,
+                   f" B={Br} L={L} H={He} reverse={reverse}")
         # decoder: the default model's layers at the init law
         u = lambda bound, *s: rand(*s, lo=-bound, hi=bound)
         wfh0 = u(Hd ** -0.5, 2 * Hd, 4 * Hd).to(dev, dt)
@@ -1964,7 +1978,7 @@ def train_timings(dev, cfg, np_model, batch, card: str):
             f"lstm_bwd {name}: cuDNN nn.LSTM backward (dx and the weight "
             f"gradients too), B={B} L={L} H={He}", bwd, 10)
 
-    for mod in (tf_fwd, tf_bwd):
+    for mod in (tf_fwd, tf_bwd, lstm_bwd, conv1_pool_bwd):
         for _plan, line in mod.plans.values():
             log(line)
     params, stats = weights.from_numpy(*np_model, dev)
@@ -2440,7 +2454,8 @@ def main() -> int:
         f"{os.path.relpath(lib, ROOT)}")
     for kernel in ("lstm_fwd_kernel", "greedy_cluster_kernel",
                    "beam_cluster_kernel", "tf_fwd_cluster_kernel",
-                   "tf_bwd_cluster_kernel"):
+                   "tf_bwd_cluster_kernel", "lstm_bwd_cluster_kernel",
+                   "conv1_pool_bwd_kernel"):
         for line in ptxas_summary(out.getvalue(), kernel):
             log(f"ptxas {line}")
 
@@ -2485,6 +2500,8 @@ def main() -> int:
     ms.update(lms)
     bounds.update(lbounds)
     lib.update(llib)
+
+    from aocr_torch.ops.cuda import lstm_bwd
 
     check("jax" not in sys.modules, "jax was imported")
     check(not any(k == "aocr" or k.startswith("aocr.") for k in sys.modules),
@@ -2573,6 +2590,25 @@ def main() -> int:
                          "f32_ms": ms[("tf_fwd_score", "f32", B)][0],
                          "f32_plain_ms": ms[("tf_fwd_score", "f32", B)][1]}
                 for B in TF_TIMED}
+        if k == "lstm_bwd":
+            entry["redesigned"] = ("bf16: thread-block clusters, the Wh "
+                                   "slice in shared memory, bf16 mma.sync, "
+                                   "the product split by the contraction "
+                                   "and its partials summed through L2; "
+                                   "float32: the first port's rows route")
+            # the plan's route at the train step's encoder, by dtype
+            entry["routes"] = {
+                dt_: lstm_bwd.ROUTE_NAMES[lstm_bwd.plans[
+                    (tcfg.encoder_num_hidden, B_TRAIN, t_)][0].route]
+                for dt_, t_ in (("bf16", torch.bfloat16),
+                                ("f32", torch.float32))}
+            entry["f32_ms"], entry["f32_plain_ms"] = ms[(k, "f32")]
+        if k == "conv1_pool_bwd":
+            entry["redesigned"] = ("the card's blocks on equal runs of "
+                                   "cells, 4 channels a thread, the "
+                                   "partials summed in a fixed tree in the "
+                                   "same launch")
+            entry["f32_ms"], entry["f32_plain_ms"] = ms[(k, "f32")]
         if k == "pool_bwd":
             entry["per"] = "one train step: the three pools, summed"
             entry["library"] = ("max_pool2d_with_indices_backward + "

@@ -25,6 +25,10 @@ greedy_loop (thread-block clusters) also at its plan's edges: ragged
 tiles, masked units, one to three layers, no input feed, an early exit,
 more tiles than one wave; and a model trained on the card must give the
 plain route's bf16 transcripts through every decode kernel.
+lstm_bwd also at its plan's edges (B=1, ragged tiles, the train step's
+B=400, H=2400 by rows, distributed shared memory) and its refusals;
+conv1_pool_bwd also at B=400 and ragged widths, two calls bit-identical;
+a float32 train step through the kernels against the plain route.
 The pool backward (pool_bwd, ReluPoolFn) is bit-identical to its plain
 version and to autograd of F.max_pool2d over torch.relu, ties included;
 conv1's image cotangent (conv1_pool_dx) within 1e-5 of its scale in
@@ -479,6 +483,57 @@ def test_conv1_pool_bwd_kernel(dev, dtype, W, ties):
         _close(got, want, 1e-4 * float(want.abs().max()) + 1e-5)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,W,ties", [(400, 100, True), (400, 100, False),
+                                      (37, 81, True), (3, 17, False)])
+def test_conv1_pool_bwd_kernel_batch(dev, dtype, B, W, ties):
+    """At the train step's batch and at ragged widths: the card's blocks
+    split the cells and sum their partials in a fixed tree, so two calls
+    give the same bits, within 1e-4 of the plain version's scale; the plan
+    held against the kernel's own."""
+    g = torch.Generator().manual_seed(B + W)
+    x = _rand(g, B, 32, W, 1)
+    if ties:
+        x = (x * 2).round() / 2
+    x = x.to(dev, dtype)
+    w = _rand(g, 64, 1, 3, 3, lo=-1 / 3, hi=1 / 3).to(dev)
+    b = _rand(g, 64, lo=-1 / 3, hi=1 / 3).to(dev)
+    dy = _rand(g, B, 16, W // 2, 64).to(dev, dtype)
+    first = conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy)
+    second = conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    assert (B, 32, W, dtype) in conv1_pool_bwd.plans
+    want = conv1_pool_bwd.conv1_relu_pool_bwd_plain(x, w, b, dy)
+    for got, ref in zip(first, want):
+        _close(got, ref, 1e-4 * float(ref.abs().max()))
+
+
+def test_train_step_kernels_match_plain_route_float32(dev):
+    """One float32 SGD step of the default model (the encoder at H=512,
+    so lstm_bwd at its real width) at B=20 through every training kernel
+    equals the same step through the plain versions on the card
+    (use_pallas=False): grad norms and params within 1e-4 relative."""
+    kw = dict(input_feed=True)
+    rs = np.random.RandomState(15)
+    images = rs.uniform(0, 255, (20, 32, 100, 1)).astype(np.float32)
+    t, te, _ = vocab.encode_batch(["abc", "x", "hello", "42", "word"] * 4)
+    outs = []
+    base = AttentionOCR.create(Config(**kw), seed=16, device="cpu")
+    for use_pallas in (False, True):
+        cfg = Config(use_pallas=use_pallas, **kw)
+        m = AttentionOCR(cfg, base.params, base.batch_stats, device=dev)
+        step = train_step.make_train_step(cfg)
+        outs.append(step(m.params, m.batch_stats,
+                         train_step.init_opt_state(m.params, cfg), images,
+                         t, te, 0.1))
+    want, got = outs
+    _close(got.loss_sum, want.loss_sum, 1e-5)
+    for k in want.grad_norms:
+        _close(got.grad_norms[k], want.grad_norms[k], 1e-4)
+    _close_all(_leaves(got.params), _leaves(want.params), 1e-4)
+
+
 def bf16_steps(got, want):
     """|got - want| in units of one bfloat16 step (ulp) of the larger
     magnitude of the two (exact zeros on both sides count 0)."""
@@ -665,6 +720,64 @@ def test_lstm_bwd_kernel(dev, dtype, reverse):
     want = lstm_bwd.lstm_bwd_scan_plain(wh, dhs, ifog, cs, c0, dcf, dhf,
                                         reverse)
     _close_all(got, want, TOL[dtype])
+
+
+def _lstm_bwd_case(g, dev, dtype, B, H, L, reverse):
+    """lstm_bwd's inputs on the plain forward's residuals, the init law's
+    weights (H^-0.5)."""
+    b = H ** -0.5
+    wh = _rand(g, H, 4 * H, lo=-b, hi=b).to(dev, dtype)
+    xp = _rand(g, L, B, 4 * H).to(dev, dtype)
+    c0 = _rand(g, B, H).to(dev)
+    _, _, (ifog, cs) = lstm_fwd.lstm_fwd_scan_plain(wh, xp, c0, c0 * 0.5,
+                                                    reverse, collect=True)
+    dhs = (_rand(g, L, B, H) * 0.1).to(dev)
+    dcf, dhf = (_rand(g, B, H) * 0.1).to(dev), (_rand(g, B, H) * 0.1).to(dev)
+    return wh, dhs, ifog, cs, c0, dcf, dhf, reverse
+
+
+# (B, H, L) of lstm_bwd's plan edges: one row, a ragged batch over three
+# 16-row tiles, the train step's 7 clusters of 64 rows (and with H=64, 8
+# blocks of 8 units), and H=2400 (bf16 past the cluster slice's 640: the
+# rows route, as float32 everywhere)
+LSTM_BWD_SHAPES = [(1, 64, 5), (33, 64, 7), (400, 64, 4), (1, 512, 5),
+                   (33, 512, 7), (400, 512, 24), (8, 2400, 3)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,H,L", LSTM_BWD_SHAPES)
+def test_lstm_bwd_kernel_plan_edges(dev, dtype, reverse, B, H, L):
+    """The plan's route (bf16 up to H=640: 16-SM clusters summing the
+    partials through L2; else the rows route) against the plain version,
+    the plan held against the kernel's own on the first launch."""
+    g = torch.Generator().manual_seed(B + H + L)
+    args = _lstm_bwd_case(g, dev, dtype, B, H, L, reverse)
+    want = lstm_bwd.lstm_bwd_scan_plain(*args)
+    n = lstm_bwd.launches
+    got = lstm_bwd.lstm_bwd_scan(*args)
+    torch.cuda.synchronize()
+    assert lstm_bwd.launches == n + 1
+    p = lstm_bwd.plans[(H, B, dtype)][0]
+    assert p.route == (lstm_bwd.ROUTE_CLUSTERS
+                       if dtype == torch.bfloat16 and H <= 640
+                       else lstm_bwd.ROUTE_ROWS)
+    for a, w in zip(got, want):
+        _close(a, w, TOL[dtype] * float(w.float().abs().max()))
+
+
+def test_lstm_bwd_unserved_shape_raises(dev):
+    """Shapes no plan serves raise ValueError and launch nothing: H not a
+    multiple of 16, H past 2416."""
+    g = torch.Generator().manual_seed(3)
+    n = lstm_bwd.launches
+    for H, dtype in ((24, torch.bfloat16), (2432, torch.float32),
+                     (2432, torch.bfloat16)):
+        args = _lstm_bwd_case(g, torch.device("cpu"), dtype, 1, H, 1, False)
+        args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+        with pytest.raises(ValueError):
+            lstm_bwd.lstm_bwd_scan(*args)
+    assert lstm_bwd.launches == n
 
 
 def _tf_case(g, dev, dtype, input_feed, L=9, B=6, H=128, T=5, nl=2):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time one of aocr_torch's decoder kernels from several checkouts on one
-card.
+"""Time one of aocr_torch's kernels from several checkouts on one card.
 
     python3 tools/ab_greedy_loop_torch.py DIR_A DIR_B [--turns 4]
-        [--kernel greedy_loop|beam_loop|tf_fwd|tf_bwd]
+        [--kernel greedy_loop|beam_loop|tf_fwd|tf_bwd|lstm_bwd|
+                  conv1_pool_bwd]
 
 Each DIR is a checkout that holds aocr_torch/.  greedy_loop and beam_loop
 are timed at the recognition shape (L=24, T=50, the default decoder:
@@ -14,7 +14,11 @@ beside it, or beam_loop at K=5 from a random t=1 state.  tf_fwd and
 tf_bwd are timed at the train step's shape (L=24, T=11, the same
 decoder, random weights at the init laws): tf_fwd with its residuals at
 B=400 and without (score's call) at B=400, 32 and 1; tf_bwd on the
-residuals of the plain forward at B=400.  In turns A, B, B, A, ..., each
+residuals of the plain forward at B=400.  lstm_bwd is timed at the
+train step's encoder (L=24, H=512) on the plain forward's residuals at
+B=400 and 33, conv1_pool_bwd at the train step's B=400 crops of 32 x 100
+(the whole call, then each of its kernels by the profiler).
+In turns A, B, B, A, ..., each
 turn in a fresh process that builds that checkout's kernels (CUDA events
 over back-to-back launches).  Prints one line a turn and the card's name
 and power limit.  Needs one CUDA device.
@@ -62,6 +66,41 @@ def ms(run, n=3):
     return a.elapsed_time(b) / n
 
 for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+    r = lambda *s: (torch.rand(*s, generator=g) * 2 - 1).to(dev)
+    if {kernel!r} == "lstm_bwd":
+        from aocr_torch.ops.cuda import lstm_bwd, lstm_fwd
+        He = 512
+        wh = (r(He, 4 * He) * He ** -0.5).to(dt)
+        for B in (400, 33):
+            z = torch.zeros(B, He, device=dev)
+            _, _, (ifog, cs) = lstm_fwd.lstm_fwd_scan_plain(
+                wh, r(L, B, 4 * He).to(dt), z, z, False, collect=True)
+            largs = (wh, r(L, B, He) * 0.1, ifog, cs, z, r(B, He) * 0.1,
+                     r(B, He) * 0.1, False)
+            out[f"lstm_bwd {{name}} B={{B}}"] = ms(
+                lambda: lstm_bwd.lstm_bwd_scan(*largs), 20)
+        continue
+    if {kernel!r} == "conv1_pool_bwd":
+        from aocr_torch.ops.cuda import conv1_pool_bwd
+        B = 400
+        x = r(B, 32, 100, 1).to(dt)
+        w, b = r(64, 1, 3, 3) / 3, r(64) / 3
+        dy = r(B, 16, 50, 64).to(dt)
+        run = lambda: conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy)
+        out[f"conv1_pool_bwd {{name}} B={{B}}"] = ms(run, 50)
+        # the call's kernels apart (the first port's makes two launches)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                run()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0) or getattr(
+                e, "cuda_time_total", 0)
+            if "conv1_pool_bwd" in e.key and t > 0:
+                out[f"  {{e.key.split('(')[0][-40:]}} {{name}}"] = (
+                    t / e.count / 1000)
+        continue
     if {kernel!r} in ("tf_fwd", "tf_bwd"):
         from aocr_torch.ops.cuda import tf_bwd, tf_fwd
         d = {{k: v.to(dt) if v.dim() == 2 else v
@@ -131,7 +170,7 @@ def main() -> int:
     ap.add_argument("--turns", type=int, default=4)
     ap.add_argument("--kernel", default="greedy_loop",
                     choices=("greedy_loop", "beam_loop", "tf_fwd",
-                             "tf_bwd"))
+                             "tf_bwd", "lstm_bwd", "conv1_pool_bwd"))
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
