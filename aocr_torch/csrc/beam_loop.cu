@@ -116,41 +116,16 @@ static inline long bl_smem(const DcPlan& p, int nb, int K, int esz, int H,
 }
 
 // The launch plan for (H, B, K beams, esz, L, Vp, nl layers) and the
-// clusters of that size the card runs at once (active): of dc_tile's tiles
-// that hold a batch row's K beams, nb = bt / K batch rows a tile, the one
-// that costs least, waves x (max(nb K, stream rows) + fixed rows) with
-// waves = ceil(clusters / active), clusters = ceil(B / nb), the smaller on
-// a tie, with dc_fit's chunks; false where none fits.
+// clusters of that size the card runs at once (active): dc_beam_plan with
+// bl_smem, for K up to BL_MAX_K; false where none fits.
 static inline bool bl_plan(int H, int B, int K, int esz, int L, int Vp,
                            int nl, int active, DcPlan* out, int* nb_out) {
-  int cs, U;
-  dc_cluster(H, &cs, &U);
-  if (U > DC_MAX_UNITS || active < 1 || K < 1 || K > BL_MAX_K) return false;
-  const int f32 = esz == 4;
-  long best = -1;
-  int prev_nb = 0;
-  for (int opt = 0; opt < DC_TILES; ++opt) {
-    int bt, rt;
-    if (!dc_tile(opt, U, f32, &bt, &rt) || bt < K) continue;
-    const int nb = bt / K;
-    if (prev_nb >= B) break;  // a smaller tile already holds the batch
-    prev_nb = nb;
-    DcPlan p = {cs, U, bt, rt, 0, 0, 0, 0, (B + nb - 1) / nb};
-    if (!dc_fit(&p, H, [&](const DcPlan& q) {
-          return bl_smem(q, nb, K, esz, H, L, Vp, nl);
-        }))
-      continue;
-    const long waves = (p.clusters + active - 1) / active;
-    const int rows = nb * K;
-    const long cost =
-        waves * ((rows > DC_STREAM_ROWS[f32] ? rows : DC_STREAM_ROWS[f32]) +
-                 DC_FIXED_ROWS[f32]);
-    if (best >= 0 && cost >= best) continue;
-    best = cost;
-    *out = p;
-    *nb_out = nb;
-  }
-  return best >= 0;
+  return K <= BL_MAX_K &&
+         dc_beam_plan(H, B, K, esz, active, DC_FIXED_ROWS,
+                      [&](const DcPlan& q, int nb) {
+                        return bl_smem(q, nb, K, esz, H, L, Vp, nl);
+                      },
+                      out, nb_out);
 }
 
 // Byte offsets of the scratch regions (zeroed by the caller): dc_scratch's

@@ -21,7 +21,9 @@ constexpr float BAD_BELOW = -5e29f;  // a pick at or below it is invalid
 // number of valid picks, on every lane.  Parents and tokens are in V
 // space: idx / V and idx % V over the unpadded candidates, which orders
 // them as the TPU kernels' padded K x Vp buffer does (its padding columns
-// hold -1e30 and never outrank a real candidate).
+// hold -1e30 and never outrank a real candidate).  kDense: ld is V, so
+// candidate i is tot[i] (no division a candidate).
+template <bool kDense = false>
 __device__ __forceinline__ int beam_topk_warp(float* tot, int ld, int K,
                                               int V, bool refill, float* nsc,
                                               int* par, int* tk) {
@@ -33,7 +35,7 @@ __device__ __forceinline__ int beam_topk_warp(float* tot, int ld, int K,
     float best = -INFINITY;
     int bi = n;
     for (int i = lane; i < n; i += 32) {
-      const float x = tot[(i / V) * ld + i % V];
+      const float x = kDense ? tot[i] : tot[(i / V) * ld + i % V];
       if (x > best || (x == best && i < bi)) {
         best = x;
         bi = i;
@@ -55,7 +57,7 @@ __device__ __forceinline__ int beam_topk_warp(float* tot, int ld, int K,
       nsc[j] = best;
       par[j] = idx / V;
       tk[j] = idx % V;
-      tot[(raw / V) * ld + raw % V] = -INFINITY;
+      tot[kDense ? raw : (raw / V) * ld + raw % V] = -INFINITY;
     }
     __syncwarp();
   }

@@ -33,8 +33,6 @@
 // (The first port's kernel took one block per image and added the B
 // per-image partials in a second launch: 0.224 + 0.008 ms in bf16 at
 // B=400, W=100 on an H100, PERF.md.)
-#include <algorithm>
-
 #include "conv1_route.cuh"
 
 namespace aocr {
@@ -47,22 +45,6 @@ constexpr int CB_CPT = 4;         // channels a thread
 constexpr int CB_SLOTS = CB_THREADS * CB_CPT / CB_C;  // cells at a time: 16
 constexpr int CB_FAN = 16;        // partials a block of the tree adds
 constexpr int CB_STAGE_MAX = 96 * 1024;  // staged image rows, bytes
-constexpr int CB_STAGE_ROWS = 8;        // rows a warp stages at a time
-
-// The first staged row of pool row g (image g / Ho) in a block whose
-// first pool row is g0: consecutive pool rows of an image share 2 of
-// their 4 rows, and each image the block touches adds 2.
-__host__ __device__ inline int cb_base(int g, int g0, int Ho) {
-  return 2 * (g - g0) + 2 * (g / Ho - g0 / Ho);
-}
-
-// The most rows a run of m pooled cells stages: it touches at most r =
-// (m - 1) / Wo + 2 pool rows and (r - 1) / Ho + 2 images (of B, B Ho).
-static long cb_rows(long m, int B, int Ho, int Wo) {
-  const long r = std::min((m - 1) / Wo + 2, (long)B * Ho);
-  const long imgs = std::min((r - 1) / Ho + 2, (long)B);
-  return 2 * (r + imgs);
-}
 
 // The launch plan for B images of H x W and the blocks the card holds at
 // once (resident): blocks, each owning ceil or floor of the B (H/2) (W/2)
@@ -116,55 +98,11 @@ conv1_pool_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const int slot = (warp >> 2) * 8 + (lane >> 2);
   const int c0 = ((warp & 3) * 4 + (lane & 3)) * CB_CPT;
 
-  // the zero-padded image rows the block's pool rows g0..g1 read: for
-  // each image b they touch, rows 2 ho - 1 .. 2 ho + 2 of its first to
-  // last pool row ho, one after another; pool row g's 4 rows start at
-  // cb_base(g).  A warp stages rows, its lanes columns, CB_STAGE_ROWS rows
-  // x 4 columns of loads a lane in flight before their stores, so that
-  // the latencies overlap (one load at a time took a sixth of the
-  // kernel's time)
+  // the zero-padded image rows of the block's pool rows g0..g1
   const int g0 = (int)(c_lo / Wo), g1 = (int)((c_hi - 1) / Wo);
-  const int b0 = g0 / Ho;
-  const int nsr = cb_base(g1, g0, Ho) + 4;  // staged rows
   bool tiny = false;
-  for (int r0 = warp; r0 < nsr; r0 += CB_WARPS * CB_STAGE_ROWS) {
-    int src[CB_STAGE_ROWS];  // the rows' first pixels in x; -1: zeros
-#pragma unroll
-    for (int q = 0; q < CB_STAGE_ROWS; ++q) {
-      const int sr = r0 + q * CB_WARPS;
-      // image b0 + k's rows start at row `start`, from pool row gf
-      int k = 0, start = 0, gf = g0;
-      for (;;) {
-        const int gl = min(g1, (b0 + k + 1) * Ho - 1);
-        const int cnt = 2 * (gl - gf + 1) + 2;
-        if (sr < start + cnt || gl == g1) break;
-        start += cnt;
-        gf = gl + 1;
-        ++k;
-      }
-      const int b = b0 + k, y = 2 * (gf - b * Ho) - 1 + (sr - start);
-      src[q] = sr < nsr && y >= 0 && y < H ? (b * H + y) * W : -1;
-    }
-    for (int c0 = lane - 1; c0 < Wp - 1; c0 += 128) {
-      float v[CB_STAGE_ROWS][4];
-#pragma unroll
-      for (int q = 0; q < CB_STAGE_ROWS; ++q)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int xc = c0 + 32 * m;
-          v[q][m] = src[q] >= 0 && xc >= 0 && xc < W ? to_f(x[src[q] + xc])
-                                                   : 0.f;
-        }
-#pragma unroll
-      for (int q = 0; q < CB_STAGE_ROWS; ++q)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int sr = r0 + q * CB_WARPS, xc = c0 + 32 * m;
-          if (sr < nsr && xc + 1 < Wp) img[sr * Wp + xc + 1] = v[q][m];
-          tiny |= conv1_tiny(v[q][m]);
-        }
-    }
-  }
+  cb_stage<CB_WARPS>(x, img, H, W, g0, g1,
+                     [&](float v) { tiny |= conv1_tiny(v); });
   float wt[CB_CPT][9], bc[CB_CPT];
 #pragma unroll
   for (int j = 0; j < CB_CPT; ++j) {

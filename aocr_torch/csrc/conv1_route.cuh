@@ -15,11 +15,94 @@
 // included, is bit-identical to theirs.
 #pragma once
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace aocr {
 
 constexpr int CONV1_C = 64;  // conv1 output channels
+
+// The runs of cells of conv1_pool.cu and conv1_pool_bwd.cu: a block owns
+// a run of consecutive pooled cells (image, row, column order) and stages
+// the zero-padded image rows its pool rows read, one after another.
+// The first staged row of pool row g (image g / Ho) in a block whose
+// first pool row is g0: consecutive pool rows of an image share 2 of
+// their 4 rows, and each image the block touches adds 2.
+__host__ __device__ inline int cb_base(int g, int g0, int Ho) {
+  return 2 * (g - g0) + 2 * (g / Ho - g0 / Ho);
+}
+
+// The most rows a run of m pooled cells stages: it touches at most r =
+// (m - 1) / Wo + 2 pool rows and (r - 1) / Ho + 2 images (of B, B Ho).
+static inline long cb_rows(long m, int B, int Ho, int Wo) {
+  const long r = std::min((m - 1) / Wo + 2, (long)B * Ho);
+  const long imgs = std::min((r - 1) / Ho + 2, (long)B);
+  return 2 * (r + imgs);
+}
+
+constexpr int CB_STAGE_ROWS = 8;  // rows a warp stages at a time
+
+// Stage the zero-padded image rows that pool rows g0..g1 read into img,
+// (W + 3) & ~1 elements a row: for each image b they touch, rows 2 ho - 1
+// .. 2 ho + 2 of its first to last pool row ho, one after another (pool
+// row g's 4 rows start at cb_base(g, g0)); staged column c holds image
+// column c - 1, zeros at column 0, past W and off the image.  A warp
+// stages rows, its lanes columns, CB_STAGE_ROWS rows x 4 columns of loads
+// a lane in flight before their stores, so that the latencies overlap
+// (one load at a time took a sixth of conv1_pool_bwd's time).  seen(v)
+// gets every staged value as a float.  The caller __syncthreads after.
+template <int WARPS, typename T, typename S, typename Seen>
+__device__ __forceinline__ void cb_stage(const T* __restrict__ x, S* img,
+                                         int H, int W, int g0, int g1,
+                                         Seen seen) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int Ho = H / 2, Wp = (W + 3) & ~1, b0 = g0 / Ho;
+  const int nsr = cb_base(g1, g0, Ho) + 4;  // staged rows
+  for (int r0 = warp; r0 < nsr; r0 += WARPS * CB_STAGE_ROWS) {
+    int src[CB_STAGE_ROWS];  // the rows' first pixels in x; -1: zeros
+#pragma unroll
+    for (int q = 0; q < CB_STAGE_ROWS; ++q) {
+      const int sr = r0 + q * WARPS;
+      // image b0 + k's rows start at row `start`, from pool row gf
+      int k = 0, start = 0, gf = g0;
+      for (;;) {
+        const int gl = min(g1, (b0 + k + 1) * Ho - 1);
+        const int cnt = 2 * (gl - gf + 1) + 2;
+        if (sr < start + cnt || gl == g1) break;
+        start += cnt;
+        gf = gl + 1;
+        ++k;
+      }
+      const int b = b0 + k, y = 2 * (gf - b * Ho) - 1 + (sr - start);
+      src[q] = sr < nsr && y >= 0 && y < H ? (b * H + y) * W : -1;
+    }
+    for (int c0 = lane - 1; c0 < Wp - 1; c0 += 128) {
+      T v[CB_STAGE_ROWS][4];
+#pragma unroll
+      for (int q = 0; q < CB_STAGE_ROWS; ++q)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int xc = c0 + 32 * m;
+          v[q][m] = src[q] >= 0 && xc >= 0 && xc < W ? x[src[q] + xc]
+                                                   : from_f<T>(0.f);
+        }
+#pragma unroll
+      for (int q = 0; q < CB_STAGE_ROWS; ++q)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int sr = r0 + q * WARPS, xc = c0 + 32 * m;
+          if (sr < nsr && xc + 1 < Wp) {
+            if constexpr (sizeof(S) == sizeof(T))
+              img[sr * Wp + xc + 1] = v[q][m];
+            else
+              img[sr * Wp + xc + 1] = to_f(v[q][m]);
+          }
+          seen(to_f(v[q][m]));
+        }
+    }
+  }
+}
 
 // The window position from the four positions' 9-tap sums s (float32,
 // in tap order) and the channel's bias rounded to the compute dtype: the

@@ -219,6 +219,47 @@ static inline bool dc_plan_fit(int H, int B, int esz, int active, Smem smem,
   return best >= 0;
 }
 
+// The plan of the beam kernels (beam_loop.cu, beam_step.cu) for (H, B, K
+// beams, esz) whose shared memory smem(p, nb) gives (0 where an overlay
+// does not fit) with nb = bt / K batch rows a tile, and the clusters of
+// that size the card runs at once (active): of dc_tile's tiles that hold
+// a batch row's K beams, the one that costs least, waves x (max(nb K,
+// stream rows) + fixed[f32]) with waves = ceil(clusters / active),
+// clusters = ceil(B / nb), the smaller on a tie, with dc_fit's chunks;
+// false where none fits.  fixed: a wave's cost past its rows' products,
+// in rows (bf16, float32).
+template <typename Smem>
+static inline bool dc_beam_plan(int H, int B, int K, int esz, int active,
+                                const int (&fixed)[2], Smem smem,
+                                DcPlan* out, int* nb_out) {
+  int cs, U;
+  dc_cluster(H, &cs, &U);
+  if (U > DC_MAX_UNITS || active < 1 || K < 1) return false;
+  const int f32 = esz == 4;
+  long best = -1;
+  int prev_nb = 0;
+  for (int opt = 0; opt < DC_TILES; ++opt) {
+    int bt, rt;
+    if (!dc_tile(opt, U, f32, &bt, &rt) || bt < K) continue;
+    const int nb = bt / K;
+    if (prev_nb >= B) break;  // a smaller tile already holds the batch
+    prev_nb = nb;
+    DcPlan p = {cs, U, bt, rt, 0, 0, 0, 0, (B + nb - 1) / nb};
+    if (!dc_fit(&p, H, [&](const DcPlan& q) { return smem(q, nb); }))
+      continue;
+    const long waves = (p.clusters + active - 1) / active;
+    const int rows = nb * K;
+    const long cost =
+        waves * ((rows > DC_STREAM_ROWS[f32] ? rows : DC_STREAM_ROWS[f32]) +
+                 fixed[f32]);
+    if (best >= 0 && cost >= best) continue;
+    best = cost;
+    *out = p;
+    *nb_out = nb;
+  }
+  return best >= 0;
+}
+
 // The decode kernels' plan for (H, B, esz, L, Vp, nl layers): dc_smem's
 // shared memory.
 static inline bool dc_plan(int H, int B, int esz, int L, int Vp, int nl,
@@ -637,6 +678,104 @@ __device__ __forceinline__ void dc_stage_context(const T* __restrict__ ctx,
   }
 }
 
+// dc_attend_rows' scores, softmax and context vectors for one pass of
+// its own rows [r0, r0 + m), kg rows a context row (mc of them, the c-th
+// that of the pass's rows [off + c kg, off + (c + 1) kg); row r's at
+// cbase(r - r0), position l a further l cst), up to G rows of a context
+// row at a time: a warp takes a (context row, l) and the rows'
+// dot products together, a thread 4 columns of a context row and the
+// rows' sums over l together.  The same operations in the same order as
+// dc_attend_rows' own loops.  Ends with a __syncthreads.
+template <typename T, bool kRoundQA, int G, typename Base>
+__device__ __forceinline__ void dc_attend_grouped(int L, int H,
+                                                  const float* qs, float* sc,
+                                                  T* cv, const DcBlock<T>& b,
+                                                  int r0, int m, int kg,
+                                                  int off, int mc, Base cbase,
+                                                  size_t cst) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H4 = H / 4;
+  for (int p = warp; p < mc * L; p += DC_WARPS) {
+    const int c = p / L, l = p % L;
+    const int ra = max(off + c * kg, 0), rb = min(off + (c + 1) * kg, m);
+    const T* cr = cbase(ra) + l * cst;
+    for (int g0 = ra; g0 < rb; g0 += G) {
+      float s[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) s[g] = 0.f;
+      for (int h = 4 * lane; h < H; h += 128) {
+        float x[4];
+        load_row(cr + h, x);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g0 + g >= rb) break;
+          // one 16-byte load a lane (4-byte loads at a 16-byte stride
+          // share banks four ways)
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qs + (r0 + g0 + g) * H + h);
+          const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[g] = fmaf(x[e], qr[e], s[g]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g0 + g >= rb) break;
+        const float v = warp_sum(s[g]);
+        if (lane == 0) sc[(r0 + g0 + g) * L + l] = v;
+      }
+    }
+  }
+  __syncthreads();
+  // alpha = softmax over L: a warp a row
+  for (int r = warp; r < m; r += DC_WARPS) {
+    float* a = sc + (r0 + r) * L;
+    float mx = -INFINITY;
+    for (int l = lane; l < L; l += 32) mx = fmaxf(mx, a[l]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int l = lane; l < L; l += 32) {
+      const float e = expf(a[l] - mx);
+      a[l] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int l = lane; l < L; l += 32) a[l] = a[l] / sum;
+  }
+  __syncthreads();
+  // context vectors = sum_l alpha * ctx, float32, rounded
+  for (int i = tid; i < mc * H4; i += DC_THREADS) {
+    const int c = i / H4, h = (i % H4) * 4;
+    const int ra = max(off + c * kg, 0), rb = min(off + (c + 1) * kg, m);
+    const T* cr = cbase(ra) + h;
+    for (int g0 = ra; g0 < rb; g0 += G) {
+      float v[G][4];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[g][e] = 0.f;
+      for (int l = 0; l < L; ++l) {
+        float x[4];
+        load_row(cr + l * cst, x);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g0 + g >= rb) break;
+          const float a = sc[(r0 + g0 + g) * L + l];
+          const float al = kRoundQA ? round_cd<T>(a) : a;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[g][e] = fmaf(al, x[e], v[g][e]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g0 + g >= rb) break;
+        store4(cv + b.aoff(b.ra + r0 + g0 + g, h), v[g]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // Luong attention of the block's own tile rows: q (float32, the q
 // exchange buffer, row stride hs) over the context ctx (L, B, H), alpha =
 // softmax in float32, and round_cd(context vector) into the exchange
@@ -645,8 +784,9 @@ __device__ __forceinline__ void dc_stage_context(const T* __restrict__ ctx,
 // before their contractions, as the teacher-forced forward does
 // (aocr/ops/pallas/tf_fwd.py:125-132); the decode kernels keep both in
 // float32.  Own row r attends over context batch row
-// crow0 + r / kg: kg = K groups a batch row's K beams on its one context
-// row (kg = 1: a row each).  qs (own rows x H) and sc (own rows x L) are
+// crow0 + (roff + r) / kg: kg = K groups a batch row's K beams on its one
+// context row (kg = 1: a row each), and the own rows start roff rows into
+// their first batch row's.  qs (own rows x H) and sc (own rows x L) are
 // shared-memory scratch; on exit sc holds the own rows' alpha (float32).
 // With nb >= 1 the rows' context (L x H each) is
 // staged in shared memory at cbuf, nb context rows a pass
@@ -656,11 +796,17 @@ __device__ __forceinline__ void dc_stage_context(const T* __restrict__ ctx,
 // Not inlined, nor is dc_partial_logits: inlined, they take registers
 // from the kernels' product loops (greedy_loop and beam_loop at B=512 in
 // bf16, and greedy_loop in float32, ran slower so on an H100; PERF.md).
-template <typename T, bool kRoundQA = false>
+// G > 1 computes the scores and the context vectors of up to G rows of
+// one context row together, each load of the context serving them all
+// (beam_step.cu's beams): a warp's dot products, one after another, are
+// latency-bound (tools/beam_step_phases_torch.py).  Every sum runs in the
+// same order either way, so the results are the same bits.
+template <typename T, bool kRoundQA = false, int G = 1>
 __device__ __noinline__ void dc_attend_rows(const T* __restrict__ ctx, int L, int B,
                                const float* q, T* cv, float* qs, float* sc,
                                T* cbuf, int nb, const DcBlock<T>& b,
-                               DcRing<T>& ring, size_t crow0, int kg) {
+                               DcRing<T>& ring, size_t crow0, int kg,
+                               int roff = 0) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = b.H, H4 = H / 4, n = b.nown;
   const size_t row0 = (size_t)b.b0 + b.ra;  // the first own tile row
@@ -674,20 +820,26 @@ __device__ __noinline__ void dc_attend_rows(const T* __restrict__ ctx, int L, in
     }
     store4(qs + r * H + h, v);
   }
-  const int nc = (n + kg - 1) / kg;  // the own rows' context rows
+  // the own rows' context rows
+  const int nc = n > 0 ? (roff + n + kg - 1) / kg : 0;
   const int pass = nb > 0 ? nb : max(nc, 1);
   for (int c0 = 0; c0 < nc; c0 += pass) {
-    const int mc = min(pass, nc - c0), r0 = c0 * kg;
-    const int m = min(mc * kg, n - r0);  // own rows of the pass
+    const int mc = min(pass, nc - c0), r0 = max(c0 * kg - roff, 0);
+    const int m = min((c0 + mc) * kg - roff, n) - r0;  // own rows of the pass
     // own row r0 + r's context at l = 0; position l is l * cst further
     const size_t cst = nb > 0 ? (size_t)H : (size_t)B * H;
     auto cbase = [&](int r) -> const T* {
-      const int c = (r0 + r) / kg - c0;
+      const int c = (roff + r0 + r) / kg - c0;
       return nb > 0 ? cbuf + (size_t)c * L * H
                     : ctx + (crow0 + c0 + c) * H;
     };
     if (nb > 0) dc_stage_context<T>(ctx, L, B, H, crow0 + c0, mc, cbuf, ring);
     __syncthreads();
+    if constexpr (G > 1) {
+      dc_attend_grouped<T, kRoundQA, G>(L, H, qs, sc, cv, b, r0, m, kg,
+                                        c0 * kg - roff - r0, mc, cbase, cst);
+      continue;
+    }
     // scores[r][l] = ctx[l, b, :] . q[b, :]: a warp a (row, l)
     for (int p = warp; p < m * L; p += DC_WARPS) {
       const int r = p / L, l = p % L;
@@ -1083,17 +1235,18 @@ __device__ __forceinline__ void dc_query(const T* htop, const T* wq, float* qb,
 // h~ = tanh(ctx_vec @ W_c[:H] + h_top @ W_c[H:]) over the block's columns,
 // from the context-vector plane cv (its tile's chunk 0), the block's
 // packed W_c[:H] slice wcx and the float tile ht (h_top @ W_c[H:], then
-// round_cd(h~)); h~ into the exchange plane an (the real rows and units),
-// the block's partial logits (dc_partial_logits) into part (the tile's
-// cs x bt x V floats); then published, and the wait for every block's.
-template <typename T, int RT>
-__device__ __forceinline__ void dc_htilde(const T* cv, const T* wcx, T* an,
-                                          float* ht, const T* pw, int Vp,
-                                          int V, float* part,
-                                          const DcBlock<T>& b,
-                                          DcRing<T>& ring, long ring_bytes,
-                                          DcClock& clk, const DcTiles& tl,
-                                          const DcFma& fm) {
+// round_cd(h~)); out(r, j, h0, h1) gets the float32 h~ of tile row r at
+// units j, j + 1 (the real rows and units), the block's partial logits
+// (dc_partial_logits) go into part (the tile's cs x bt x V floats); then
+// published, and the wait for every block's.
+template <typename T, int RT, typename Out>
+__device__ __forceinline__ void dc_htilde_to(const T* cv, const T* wcx,
+                                             float* ht, const T* pw, int Vp,
+                                             int V, float* part,
+                                             const DcBlock<T>& b,
+                                             DcRing<T>& ring, long ring_bytes,
+                                             DcClock& clk, const DcTiles& tl,
+                                             const DcFma& fm, Out out) {
   const int ld1 = b.U + 16 / (int)sizeof(T), ldh = b.g.ldh;
   DcAcc<T, RT, 1> acc;
   dc_zero(acc);
@@ -1106,7 +1259,7 @@ __device__ __forceinline__ void dc_htilde(const T* cv, const T* wcx, T* an,
       h[e] = tanhf(v[0][e] + ht[r * ldh + u + e]);
       ht[r * ldh + u + e] = round_cd<T>(h[e]);
     }
-    if (r < b.nrows && u < b.nu) store2<T>(an + b.aoff(r, b.j0 + u), h[0], h[1]);
+    if (r < b.nrows && u < b.nu) out(r, b.j0 + u, h[0], h[1]);
   });
   clk.tick(DC_EPILOGUE);
   dc_partial_logits<T>(ht, ldh, pw, Vp, V, ring.base, ring_bytes,
@@ -1116,6 +1269,22 @@ __device__ __forceinline__ void dc_htilde(const T* cv, const T* wcx, T* an,
   dc_publish();
   cluster_wait();
   clk.tick(DC_BARRIER);
+}
+
+// dc_htilde_to with h~ rounded into the exchange plane an (the next
+// step's input feed)
+template <typename T, int RT>
+__device__ __forceinline__ void dc_htilde(const T* cv, const T* wcx, T* an,
+                                          float* ht, const T* pw, int Vp,
+                                          int V, float* part,
+                                          const DcBlock<T>& b,
+                                          DcRing<T>& ring, long ring_bytes,
+                                          DcClock& clk, const DcTiles& tl,
+                                          const DcFma& fm) {
+  dc_htilde_to<T, RT>(cv, wcx, ht, pw, Vp, V, part, b, ring, ring_bytes, clk,
+                      tl, fm, [&](int r, int j, float h0, float h1) {
+                        store2<T>(an + b.aoff(r, j), h0, h1);
+                      });
 }
 
 // The logits of the block's own rows into lg (own rows x Vp): the cs

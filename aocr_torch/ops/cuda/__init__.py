@@ -124,8 +124,8 @@ _I = ctypes.c_int
 
 def _declare(lib) -> None:
     sigs = {
-        # x, w9, b, out, B, H, W, stream
-        "conv1_pool": [_P, _P, _P, _P, _I, _I, _I, _P],
+        # x, w, b, out, B, H, W, blocks, stream
+        "conv1_pool": [_P] * 4 + [_I] * 4 + [_P],
         # wh, xp, xp_is_f32, c0, h0, hs, cf, hf, ifog, cs, L, B, H,
         # reverse, stream
         "lstm_fwd": [_P, _P, _I] + [_P] * 7 + [_I] * 4 + [_P],
@@ -150,9 +150,10 @@ def _declare(lib) -> None:
         # dcvec, dscore, dc0, dh0, scratch, L, B, H, T, num_layers,
         # input_feed, stream
         "tf_bwd": [_P] * 19 + [_I] * 6 + [_P],
-        # ctx, h, prev, scores, wa, wc, pw, pb, valid, htilde, nsc, par,
-        # tok, nvalid, L, B, H, Vp, V, K, stream
-        "beam_step": [_P] * 14 + [_I] * 6 + [_P],
+        # ctx, h, prev, scores, wa, wc, wq, wc (the cluster route's packed
+        # weights, beam_step.packed_weights), pw, pb, valid, htilde, nsc,
+        # par, tok, nvalid, scratch, L, B, H, Vp, V, K, nb, stream
+        "beam_step": [_P] * 17 + [_I] * 7 + [_P],
         # ctx, init, tok0, sc0, node0, eg, w0, wl, bx, wq, wc (the packed
         # weights of greedy_loop.pack_weights), pw, pb, trie, tok_hist,
         # par_hist, fsc, flen, refills, minv, scratch, L, B, H, Vp, V, T,
@@ -171,6 +172,9 @@ def _declare(lib) -> None:
     # H, B, is_f32, xp_is_f32, out[9]
     lib.aocr_lstm_fwd_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
     lib.aocr_lstm_fwd_plan.restype = ctypes.c_int
+    # B, H, W, is_f32, out[5]
+    lib.aocr_conv1_pool_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+    lib.aocr_conv1_pool_plan.restype = ctypes.c_int
     # B, H, W, is_f32, out[4]
     lib.aocr_conv1_pool_bwd_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
     lib.aocr_conv1_pool_bwd_plan.restype = ctypes.c_int
@@ -183,25 +187,40 @@ def _declare(lib) -> None:
     # H, B, K, is_f32, L, Vp, num_layers, out[11]
     lib.aocr_beam_loop_plan.argtypes = [_I] * 7 + [ctypes.POINTER(_I)]
     lib.aocr_beam_loop_plan.restype = ctypes.c_int
+    # H, B, K, is_f32, L, Vp, out[11]
+    lib.aocr_beam_step_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+    lib.aocr_beam_step_plan.restype = ctypes.c_int
     # H, B, is_f32, L, num_layers, out[10]
     for name in ("aocr_tf_fwd_plan", "aocr_tf_bwd_plan"):
         getattr(lib, name).argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
         getattr(lib, name).restype = ctypes.c_int
 
 
+# the C entry points by (kernel, dtype)
+_fns: dict = {}
+
+
 def launch(name: str, dtype: torch.dtype, device: torch.device,
            *args) -> None:
-    """Call `aocr_<name>_<f32|bf16>` on `device`'s current stream; raise
-    on a launch error (a refused launch never runs, and no later
-    synchronize reports it)."""
-    suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
-    fn = getattr(library(), f"aocr_{name}_{suffix}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    """Call `aocr_<name>_<f32|bf16>` on `device`'s current stream, made the
+    current device for the call where it is not; raise on a launch error
+    (a refused launch never runs, and no later synchronize reports it).
+    The entry point is looked up once, and the device switched only where
+    needed: both cost ~20 us of host time a call, as much as a small
+    kernel takes on the card."""
+    fn = _fns.get((name, dtype))
+    if fn is None:
+        suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+        fn = _fns[(name, dtype)] = getattr(library(),
+                                           f"aocr_{name}_{suffix}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"aocr_{name}_{suffix} launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
 def ptr(t) -> int:

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import logging
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -48,34 +48,8 @@ plans: dict = {}
 _log = logging.getLogger(__name__)
 
 
-class Plan(NamedTuple):
-    """How the kernel splits a search (csrc/beam_loop.cu `bl_plan`, which
-    this mirrors field for field): greedy_loop.Plan's fields, and nb."""
-    cs: int  # blocks (SMs) in a cluster
-    units: int  # hidden units a block, a multiple of 8
-    bt: int  # beam rows a cluster (its tile; nb * K of them real)
-    rt: int  # float32: rows a thread; bf16: 16-row m-tiles (bt / 16)
-    kc: int  # rows of a streamed chunk
-    stages: int  # chunks in the ring
-    cres: int  # 1: the cell states live in shared memory (else in L2)
-    smem: int  # dynamic shared memory bytes a block
-    clusters: int  # ceil(B / nb), one tile each
-    nb: int  # batch rows a tile, with all K beams: bt // K
-
-    def unit_range(self, s: int, H: int) -> range:
-        """The hidden units block s of a cluster owns (maybe none)."""
-        return range(s * self.units, min((s + 1) * self.units, H))
-
-    def batch_rows(self, c: int, B: int) -> range:
-        """The batch rows cluster c owns."""
-        return range(c * self.nb, min((c + 1) * self.nb, B))
-
-    def owned_batch_rows(self, c: int, s: int, B: int) -> range:
-        """The batch rows whose K beams' attention, top-K and bookkeeping
-        block s of cluster c computes (the row-split phases)."""
-        Rb = -(-self.nb // self.cs)
-        first = c * self.nb + s * Rb
-        return range(first, min(first + Rb, (c + 1) * self.nb, B))
+# the launch plan's fields (csrc/beam_loop.cu `bl_plan`)
+Plan = beam_step.Plan
 
 
 def _ldf(U: int) -> int:
@@ -108,41 +82,14 @@ def plan(H: int, B: int, K: int, dtype: torch.dtype, L: int, Vp: int,
     the compute dtype, the context length L, the padded vocabulary Vp, the
     decoder's layers and the clusters of the plan's size the card runs at
     once (`active`); None where no plan fits (K past MAX_K, more than
-    greedy_loop.MAX_UNITS units a block, or no shared-memory fit).
-
-    The cluster and units are greedy_loop's.  Of greedy_loop's tiles
-    (`greedy_loop.tile`) that hold a batch row's K beams, with nb = bt // K
-    batch rows a tile and clusters = ceil(B / nb), the one that costs
-    least, waves x (max(nb * K, STREAM_ROWS) + FIXED_ROWS), waves =
-    ceil(clusters / active), the smaller on a tie, with `greedy_loop.fit`'s
-    chunks."""
-    esz = torch.empty((), dtype=dtype).element_size()
-    f32 = int(esz == 4)
-    cs, U = greedy_loop._cluster(H)
-    if U > greedy_loop.MAX_UNITS or active < 1 or not 1 <= K <= MAX_K:
+    greedy_loop.MAX_UNITS units a block, or no shared-memory fit):
+    `beam_step.beam_plan_fit` with `_smem`."""
+    if K > MAX_K:
         return None
-    best, out, prev_nb = None, None, 0
-    for opt in range(greedy_loop.TILES):
-        t = greedy_loop.tile(opt, U, f32)
-        if t is None or t[0] < K:
-            continue
-        bt, rt = t
-        nb = bt // K
-        if prev_nb >= B:
-            break
-        prev_nb = nb
-        p = greedy_loop.fit(
-            Plan(cs, U, bt, rt, 0, 0, 0, 0, -(-B // nb), nb), H,
-            lambda q: _smem(q, esz, K, H, L, Vp, num_layers))
-        if p is None:
-            continue
-        waves = -(-p.clusters // active)
-        cost = waves * (max(nb * K, greedy_loop.STREAM_ROWS[f32])
-                        + greedy_loop.FIXED_ROWS[f32])
-        if best is not None and cost >= best:
-            continue
-        best, out = cost, p
-    return out
+    esz = torch.empty((), dtype=dtype).element_size()
+    return beam_step.beam_plan_fit(
+        H, B, K, dtype, active, greedy_loop.FIXED_ROWS,
+        lambda q: _smem(q, esz, K, H, L, Vp, num_layers))
 
 
 def scratch_bytes(p: Plan, dtype: torch.dtype, H: int, num_layers: int,

@@ -11,22 +11,216 @@ valid candidates duplicate the best one (model.lua:421-436).
 
 The (B*K, H) top hidden state is row-major identical to (B, K*H), so the
 kernel takes K*H-wide rows and returns h~ in the same packed layout.
+
+The kernel runs beam_loop's step after its LSTM stack on thread-block
+clusters (csrc/decoder_cluster.cuh, `plan` below): a cluster of up to 16
+SMs owns a tile of nb whole batch rows with all K beams; each SM streams
+its column slices of W_a and W_c (greedy_loop's packing, at each call)
+and multiplies them with the tile's beam rows on the tensor cores in
+bf16 or the CUDA cores in float32; the attention and log-softmax are
+split by beam rows, the top-K by batch rows (the candidates through L2
+where a SM's beam rows are not whole batch rows).  A shape that no plan
+takes (K past the largest tile, the row-split scratch past a block's
+shared memory, H past 16 blocks of greedy_loop.MAX_UNITS) takes the
+first port's kernel, one block a batch row (the rows route), logged once
+per shape.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import logging
+from typing import NamedTuple, Optional
 
 import torch
 
 from aocr_torch.ops import cuda
-from aocr_torch.ops.cuda import decode_step
+from aocr_torch.ops.cuda import decode_step, greedy_loop
 
 launches = 0
 
 # A candidate the trie forbids scores NEG; a top-K pick at or below half
 # of it is no valid candidate (aocr/decode.py::_apply_trie_and_topk).
 NEG = -1e30
+
+# launch plans held against the kernel's, by shape key: (Plan or None for
+# the rows route, the line logged for it)
+plans: dict = {}
+_log = logging.getLogger(__name__)
+
+
+class Plan(NamedTuple):
+    """How a beam kernel splits its batch rows (csrc/beam_step.cu
+    `bs_plan` and csrc/beam_loop.cu `bl_plan`, which this mirrors field
+    for field): greedy_loop.Plan's fields, and nb."""
+    cs: int  # blocks (SMs) in a cluster
+    units: int  # hidden units a block, a multiple of 8
+    bt: int  # beam rows a cluster (its tile; nb * K of them real)
+    rt: int  # float32: rows a thread; bf16: 16-row m-tiles (bt / 16)
+    kc: int  # rows of a streamed chunk
+    stages: int  # chunks in the ring
+    cres: int  # beam_loop: 1 where the cell states live in shared memory
+    smem: int  # dynamic shared memory bytes a block
+    clusters: int  # ceil(B / nb), one tile each
+    nb: int  # batch rows a tile, with all K beams: bt // K
+
+    def unit_range(self, s: int, H: int) -> range:
+        """The hidden units block s of a cluster owns (maybe none)."""
+        return range(s * self.units, min((s + 1) * self.units, H))
+
+    def batch_rows(self, c: int, B: int) -> range:
+        """The batch rows cluster c owns."""
+        return range(c * self.nb, min((c + 1) * self.nb, B))
+
+    def owned_batch_rows(self, c: int, s: int, B: int) -> range:
+        """The batch rows whose K beams' attention, top-K and bookkeeping
+        block s of cluster c computes (the row-split phases)."""
+        Rb = -(-self.nb // self.cs)
+        first = c * self.nb + s * Rb
+        return range(first, min(first + Rb, (c + 1) * self.nb, B))
+
+
+# a wave's cost past its rows' products, in rows (bf16, float32):
+# csrc/beam_step.cu's BS_FIXED_ROWS
+FIXED_ROWS = (40, 20)
+
+
+def beam_plan_fit(H: int, B: int, K: int, dtype: torch.dtype, active: int,
+                  fixed: tuple, smem) -> Optional[Plan]:
+    """The beam kernels' plan (csrc/decoder_cluster.cuh `dc_beam_plan`) for
+    hidden size H, batch B, beam width K and the compute dtype, whose
+    shared memory smem(p) gives (0 where an overlay does not fit), and the
+    clusters the card runs at once (`active`); None where none fits.
+
+    The cluster and units are greedy_loop's.  Of greedy_loop's tiles
+    (`greedy_loop.tile`) that hold a batch row's K beams, with nb = bt // K
+    batch rows a tile and clusters = ceil(B / nb), the one that costs
+    least, waves x (max(nb * K, STREAM_ROWS) + fixed[dtype is float32]),
+    waves = ceil(clusters / active), the smaller on a tie, with
+    `greedy_loop.fit`'s chunks."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    f32 = int(esz == 4)
+    cs, U = greedy_loop._cluster(H)
+    if U > greedy_loop.MAX_UNITS or active < 1 or K < 1:
+        return None
+    best, out, prev_nb = None, None, 0
+    for opt in range(greedy_loop.TILES):
+        t = greedy_loop.tile(opt, U, f32)
+        if t is None or t[0] < K:
+            continue
+        bt, rt = t
+        nb = bt // K
+        if prev_nb >= B:
+            break
+        prev_nb = nb
+        p = greedy_loop.fit(Plan(cs, U, bt, rt, 0, 0, 0, 0, -(-B // nb), nb),
+                            H, smem)
+        if p is None:
+            continue
+        waves = -(-p.clusters // active)
+        cost = waves * (max(nb * K, greedy_loop.STREAM_ROWS[f32])
+                        + fixed[f32])
+        if best is not None and cost >= best:
+            continue
+        best, out = cost, p
+    return out
+
+
+def _rowsplit(p: Plan, K: int, H: int, L: int, Vp: int) -> int:
+    """Bytes of a tile's row-split scratch (csrc/beam_step.cu
+    `bs_rowsplit`): R = ceil(bt / cs) own beam rows of q, scores and
+    logits (H + L + Vp floats), then, over them, the scored candidates of
+    Rb = ceil(nb / cs) own batch rows (K x Vp floats each)."""
+    R, Rb = -(-p.bt // p.cs), -(-p.nb // p.cs)
+    return greedy_loop._round_up(max(R * (H + L + Vp), Rb * K * Vp) * 4, 16)
+
+
+def _smem(p: Plan, esz: int, K: int, H: int, L: int, Vp: int) -> int:
+    """csrc/beam_step.cu `bs_smem`: a region that holds the ring (stages
+    for products of two column blocks) or the row-split scratch, whichever
+    is larger, the float tile and the mbarriers."""
+    ring = greedy_loop.ring_bytes(p, esz, nq=2)
+    return (max(ring, _rowsplit(p, K, H, L, Vp)) + p.bt * (p.units + 8) * 4
+            + greedy_loop.BARS)
+
+
+def plan(H: int, B: int, K: int, dtype: torch.dtype, L: int, Vp: int,
+         active: int) -> Optional[Plan]:
+    """The kernel's cluster plan for hidden size H, batch B, beam width K,
+    the compute dtype, the context length L, the padded vocabulary Vp and
+    the clusters of the plan's size the card runs at once (`active`):
+    `beam_plan_fit` with `_smem`; None (the rows route) where no plan
+    fits: K past the largest tile, the row-split scratch of a tile's own
+    beam rows past a block's shared memory, or more than
+    greedy_loop.MAX_UNITS units a block.  A wave's fixed cost is
+    FIXED_ROWS, not greedy_loop's: beam_step's attention, projector and
+    top-K weigh more against its two products than a whole decoder step's
+    do."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    return beam_plan_fit(H, B, K, dtype, active, FIXED_ROWS,
+                         lambda q: _smem(q, esz, K, H, L, Vp))
+
+
+def scratch_bytes(p: Plan, dtype: torch.dtype, H: int, V: int) -> int:
+    """Bytes of the cluster route's scratch (csrc/beam_step.cu
+    `bs_scratch`): two exchange planes in the compute dtype (the tile's h
+    rows and the context vector), q, the partial logits and the scored
+    candidates, each region aligned to greedy_loop.ALIGN bytes.  The
+    kernel writes every byte it reads."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    hs = greedy_loop._round_up(H, p.kc)
+    plane = p.clusters * (hs // p.kc) * p.bt * (p.kc + 16 // esz)
+    sizes = (2 * plane * esz, p.clusters * p.bt * hs * 4,
+             p.clusters * p.cs * p.bt * V * 4, p.clusters * p.bt * V * 4)
+    return sum(greedy_loop._round_up(n, greedy_loop.ALIGN) for n in sizes)
+
+
+def checked_plan(H: int, B: int, K: int, cd: torch.dtype, L: int,
+                 Vp: int) -> Optional[Plan]:
+    """The launch's route: its cluster plan, or None for the rows route.
+    On a shape's first launch the kernel's own plan, and the clusters the
+    card runs at once, are read from the library, the plan is held against
+    it (RuntimeError where they differ) and the route is logged."""
+    key = (H, B, K, cd, L, Vp)
+    if key not in plans:
+        out = (ctypes.c_int * 11)()
+        err = cuda.library().aocr_beam_step_plan(
+            H, B, K, int(cd == torch.float32), L, Vp, out)
+        if err != 0:
+            raise RuntimeError(f"aocr_beam_step_plan failed: CUDA error "
+                               f"{err}")
+        active = out[10]
+        p = plan(H, B, K, cd, L, Vp, active)
+        kernel = tuple(out[:10]) if out[9] else None
+        if (None if p is None else tuple(p)) != kernel:
+            raise RuntimeError(f"beam_step plan mismatch: kernel "
+                               f"{tuple(out)}, wrapper {p}")
+        what = f"beam_step plan H={H} B={B} K={K} L={L} {cd}"
+        if p is None:
+            line = (f"{what}: the rows route (no cluster plan takes K={K} "
+                    f"at H={H}), one block a batch row")
+        else:
+            line = (f"{what}: cluster {p.cs} x {p.units} units, bt={p.bt} "
+                    f"beam rows (rt={p.rt}) = {p.nb} batch rows x {K} "
+                    f"beams, {p.clusters} clusters, {active} at once "
+                    f"({-(-p.clusters // active)} waves); chunks of {p.kc} "
+                    f"rows, {p.stages} stages; smem {p.smem} B")
+        plans[key] = (p, line)
+        _log.info(line)
+    return plans[key][0]
+
+
+def packed_weights(w_a: torch.Tensor, w_c: torch.Tensor, p: Plan) -> dict:
+    """The cluster route's weight operands for the plan's geometry,
+    greedy_loop.pack_weights' wq ([W_a | W_c[H:]]) and wc (W_c[:H]), in
+    three strided copies."""
+    H = w_a.shape[0]
+    wq = greedy_loop.packed(p, H, w_a, (p.cs, 1), 2)
+    greedy_loop.pack_into(wq[..., :p.units], w_a, H, p)
+    greedy_loop.pack_into(wq[..., p.units:], w_c[H:], H, p)
+    wcx = greedy_loop.packed(p, H, w_a, (p.cs, 1), 1)
+    greedy_loop.pack_into(wcx, w_c[:H], H, p)
+    return {"wq": wq[:, 0], "wc": wcx[:, 0]}
 
 
 def topk_refill(total: torch.Tensor, K: int, refill: bool):
@@ -132,18 +326,27 @@ def fused_beam_tail(context_lbh: torch.Tensor, h_top_packed: torch.Tensor,
     cuda.check(pb_padded, "pb_padded", (Vp,), torch.float32, dev)
     if valid is not None:
         cuda.check(valid, "valid", (B, K * Vp), torch.float32, dev)
+    p = checked_plan(H, B, K, cd, L, Vp)
     h_tilde = torch.empty((B, K * H), dtype=torch.float32, device=dev)
     new_scores = torch.empty((B, K), dtype=torch.float32, device=dev)
     parents = torch.empty((B, K), dtype=torch.int32, device=dev)
     tokens = torch.empty((B, K), dtype=torch.int32, device=dev)
     nvalid = (torch.empty((B,), dtype=torch.int32, device=dev)
               if valid is not None else None)
+    w = scratch = None
+    if p is not None:
+        cuda.check_aligned(context_lbh=context_lbh)
+        w = packed_weights(w_a, w_c, p)
+        scratch = torch.empty((scratch_bytes(p, cd, H, V),),
+                              dtype=torch.uint8, device=dev)
     cuda.launch("beam_step", cd, dev, context_lbh.data_ptr(), h.data_ptr(),
                 prev_tokens.data_ptr(), scores.data_ptr(), w_a.data_ptr(),
-                w_c.data_ptr(), pw_padded.data_ptr(), pb_padded.data_ptr(),
-                cuda.ptr(valid), h_tilde.data_ptr(), new_scores.data_ptr(),
-                parents.data_ptr(), tokens.data_ptr(), cuda.ptr(nvalid), L,
-                B, H, Vp, V, K)
+                w_c.data_ptr(), cuda.ptr(w and w["wq"]),
+                cuda.ptr(w and w["wc"]), pw_padded.data_ptr(),
+                pb_padded.data_ptr(), cuda.ptr(valid), h_tilde.data_ptr(),
+                new_scores.data_ptr(), parents.data_ptr(), tokens.data_ptr(),
+                cuda.ptr(nvalid), cuda.ptr(scratch), L, B, H, Vp, V, K,
+                p.nb if p is not None else 0)
     launches += 1
     out = (h_tilde, new_scores, parents, tokens)
     return out + (nvalid,) if valid is not None else out

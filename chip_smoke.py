@@ -2,7 +2,7 @@
 """Smoke run of aocr_torch on one NVIDIA GPU (H100): greedy recognition,
 the training step, beam and dictionary recognition, the image gradient
 and the CLI trainer at the full width of the default model, through
-their twelve CUDA kernels.
+their twelve CUDA kernels (thirteen rows: lstm_fwd's two modes).
 
     python3 chip_smoke.py [--seed N]
 
@@ -18,7 +18,7 @@ Phases, each raising on failure:
      trained on the card to exact match, whose bf16 greedy and beam-5
      transcripts on the kernel routes (greedy_loop, decode_step,
      beam_loop, beam_step), with and without a trie, must equal the plain
-     route's;
+     route's; beam_step at K=5 and K=10 (no trie, the 88k trie, refill);
   3. recognition end to end: numpy weights from --seed through
      aocr_torch.weights, AttentionOCR.recognize on requests of 1, 8, 32
      and 512 word images (W=100) and a mixed-width list, bf16 (the
@@ -31,6 +31,10 @@ Phases, each raising on failure:
      lexicon of bench.py; beam_step and beam_loop (and the trie operands
      of decode_step and greedy_loop) must launch; float32 transcripts
      equal the plain route's and the CPU's;
+  3c. recognize(beam_size=10) at B=512, bf16 and float32: wider than
+     beam_loop.MAX_K, so the default route launches beam_step once a
+     step (its own launch counts); float32 transcripts equal the plain
+     route's;
   4. training end to end: 5 make_train_step steps (SGD) at B=400 on
      32x100 crops of 10-letter words (T=11), bf16 and float32, from the
      same numpy weights; every training kernel's launch count must move;
@@ -55,8 +59,8 @@ Phases, each raising on failure:
      its launch plans and ptxas registers; beam_loop likewise at K=5
      (check_beam_loop at each B), the 88k-trie search and the one whose
      beams all pick EOS at their first step; the
-     recognize images/s at B=512, W=100, bf16, T=50, greedy, beam-5 and
-     dictionary beam-5; tf_fwd without residuals (score's call) at B=1,
+     recognize images/s at B=512, W=100, bf16, T=50, greedy, beam-5,
+     dictionary beam-5 and beam-10; beam_step at K=5 and K=10; tf_fwd without residuals (score's call) at B=1,
      32 and 400 against its plain version, and the two teacher-forced
      kernels' launch plans and ptxas registers; lstm_bwd's plan (its
      route by dtype), conv1_pool_bwd's plan, both kernels' ptxas
@@ -96,6 +100,9 @@ TF_TIMED, TF_RAGGED = (1, 32, B_TRAIN), 37
 N_TRAIN, N_VAL = 1000, 400
 # The reference's beam width (-beam_size 5)
 BEAM = 5
+# beam_step is checked and timed at K=5 and at K=10, the width of the
+# beam-10 recognize (wider than beam_loop.MAX_K, so beam_step's route)
+BEAM_STEP_K = (BEAM, 10)
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W)
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -620,6 +627,73 @@ def beam_parting(name, what, got, want, margin, tol) -> int:
     return len(rows)
 
 
+def beam_step_checks(name, dt, K, ctx, tables, table, tiny, results, g,
+                     tol) -> None:
+    """beam_step against its plain version for one step of B x K beams
+    (some frozen): without a trie, with the 88k lexicon's plane, and with a
+    tiny lexicon's plane without PAD (rows run short of K valid candidates
+    and refill).  h~ within tol, picks that differ only at plain near-ties
+    (< tol), scores of the other rows within 1e-5 relative in float32."""
+    import torch
+
+    from aocr_torch import vocab
+    from aocr_torch.ops.cuda import beam_step, greedy_loop
+
+    L, B, Hd = ctx.shape
+    dev = ctx.device
+    V = base_config().target_vocab_size
+    f32 = dt == torch.float32
+    rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
+    vp = tables["pw"].shape[1]
+    h = rand(B, K * Hd).to(dev, dt)
+    prev = torch.randint(3, V, (B, K), generator=g, dtype=torch.int32)
+    prev[::7, 1], prev[::11] = vocab.EOS, vocab.PAD
+    scores = (-20 * torch.rand(B, K, generator=g)).sort(
+        1, descending=True)[0]
+    prev, scores = prev.to(dev), scores.to(dev)
+    inner = (table >= 0).any(1).nonzero().flatten()
+    nodes = inner[torch.randint(0, len(inner), (B, K), generator=g)
+                  .to(dev)].to(torch.int32)
+    tnodes = torch.randint(0, tiny.shape[0], (B, K), generator=g,
+                           dtype=torch.int32).to(dev)
+    planes = {
+        "": None,
+        ", 88k trie": greedy_loop.trie_valid(
+            table, nodes, vp, pad_ok=True).reshape(B, -1),
+        ", refill (tiny lexicon, no PAD)": greedy_loop.trie_valid(
+            tiny, tnodes, vp, pad_ok=False).reshape(B, -1)}
+    for what, plane in planes.items():
+        args = (ctx, h, prev, scores, tables["wa"], tables["wc"],
+                tables["pw"], tables["pb"], K, V)
+        got = beam_step.fused_beam_tail(*args, valid=plane)
+        want = beam_step.fused_beam_tail_plain(*args, valid=plane)
+        _, total = beam_step.beam_totals(*args, valid=plane)
+        margin = beam_step.topk_margin(total, K)
+        differ = ((got[2] != want[2]) | (got[3] != want[3])).any(1)
+        if plane is not None:
+            differ |= got[4] != want[4]
+        same = ~differ
+        herr = (got[0] - want[0]).abs().max().item()
+        serr = ((got[1] - want[1]).abs() / want[1].abs().clamp(
+            min=1e-30))[same].max().item()
+        check(herr <= tol, f"beam_step {name} K={K}{what}: h~ err {herr}")
+        check(bool((margin[differ] < tol).all()),
+              f"beam_step {name} K={K}{what}: picks differ beyond "
+              "near-ties")
+        check(serr <= (1e-5 if f32 else 1e-2),
+              f"beam_step {name} K={K}{what}: score rel err {serr}")
+        results.setdefault(("beam_step", name), []).append(herr)
+        nv = (f", rows short of K valid {(got[4] < K).sum().item()}"
+              if plane is not None else "")
+        log(f"check beam_step {name} B={B} K={K} L={L} H={Hd}{what}: "
+            f"h~ max_abs_err {herr:.3g} (tol {tol:.3g}); rows with "
+            f"identical picks {same.float().mean().item():.4f} (the rest"
+            f" at near-ties < {tol:.3g}); score rel err {serr:.3g}{nv}")
+    check(bool((got[4] < K).any()),
+          f"beam_step {name} K={K}: the refill case never refilled")
+    log(f"  {beam_step.plans[(Hd, B, K, dt, L, vp)][1]}")
+
+
 def beam_kernel_checks(dev, results: dict, table) -> None:
     """beam_step and beam_loop against their plain versions at the beam
     path's shapes (B=512, K=5, T=50, L=24, the default decoder), float32
@@ -655,53 +729,11 @@ def beam_kernel_checks(dev, results: dict, table) -> None:
                                           True, dt)
         vp = tables["pw"].shape[1]
         ctx = rand(L, B, Hd).to(dev, dt)
-        # beam_step: one step of B x K beams, some frozen
-        h = rand(B, K * Hd).to(dev, dt)
-        prev = torch.randint(3, V, (B, K), generator=g, dtype=torch.int32)
-        prev[::7, 1], prev[::11] = vocab.EOS, vocab.PAD
-        scores = (-20 * torch.rand(B, K, generator=g)).sort(
-            1, descending=True)[0]
-        prev, scores = prev.to(dev), scores.to(dev)
-        inner = (table >= 0).any(1).nonzero().flatten()
-        nodes = inner[torch.randint(0, len(inner), (B, K), generator=g)
-                      .to(dev)].to(torch.int32)
-        tnodes = torch.randint(0, tiny.shape[0], (B, K), generator=g,
-                               dtype=torch.int32).to(dev)
-        planes = {
-            "": None,
-            ", 88k trie": greedy_loop.trie_valid(
-                table, nodes, vp, pad_ok=True).reshape(B, -1),
-            ", refill (tiny lexicon, no PAD)": greedy_loop.trie_valid(
-                tiny, tnodes, vp, pad_ok=False).reshape(B, -1)}
-        for what, plane in planes.items():
-            args = (ctx, h, prev, scores, tables["wa"], tables["wc"],
-                    tables["pw"], tables["pb"], K, V)
-            got = beam_step.fused_beam_tail(*args, valid=plane)
-            want = beam_step.fused_beam_tail_plain(*args, valid=plane)
-            _, total = beam_step.beam_totals(*args, valid=plane)
-            margin = beam_step.topk_margin(total, K)
-            differ = ((got[2] != want[2]) | (got[3] != want[3])).any(1)
-            if plane is not None:
-                differ |= got[4] != want[4]
-            same = ~differ
-            herr = (got[0] - want[0]).abs().max().item()
-            serr = ((got[1] - want[1]).abs() / want[1].abs().clamp(
-                min=1e-30))[same].max().item()
-            check(herr <= tol, f"beam_step {name}{what}: h~ err {herr}")
-            check(bool((margin[differ] < tol).all()),
-                  f"beam_step {name}{what}: picks differ beyond near-ties")
-            check(serr <= (1e-5 if f32 else 1e-2),
-                  f"beam_step {name}{what}: score rel err {serr}")
-            results.setdefault(("beam_step", name), []).append(herr)
-            nv = (f", rows short of K valid {(got[4] < K).sum().item()}"
-                  if plane is not None else "")
-            log(f"check beam_step {name} B={B} K={K} L={L} H={Hd}{what}: "
-                f"h~ max_abs_err {herr:.3g} (tol {tol:.3g}); rows with "
-                f"identical picks {same.float().mean().item():.4f} (the rest"
-                f" at near-ties < {tol:.3g}); score rel err {serr:.3g}{nv}")
-        if plane is not None:
-            check(bool((got[4] < K).any()),
-                  f"beam_step {name}: the refill case never refilled")
+        # beam_step: one step of B x K beams, some frozen, at K=5 and at
+        # K=10 (recognize's route for beams wider than beam_loop.MAX_K)
+        for K in BEAM_STEP_K:
+            beam_step_checks(name, dt, K, ctx, tables, table, tiny, results,
+                             g, tol)
         # beam_loop: the whole search from one t=1 state
         st = DecoderState(attn=rand(B, Hd).to(dev),
                           cs=tuple(rand(B, Hd).to(dev) for _ in range(nl)),
@@ -899,6 +931,46 @@ def beam_end_to_end(dev, seed: int, lexicon):
     return counts, models, requests
 
 
+def beam10_end_to_end(dev, models, requests):
+    """Drive recognize(beam_size=10) on the B=512 request, bf16 and
+    float32: wider than beam_loop.MAX_K, so the default route runs the
+    plain LSTM stack and one beam_step launch a step.  float32 transcripts
+    must equal the plain route's; returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import beam_loop
+
+    K = BEAM_STEP_K[1]
+    batch = requests[0]
+    mods = {dt: models[(dt, "loop")] for dt in ("bfloat16", "float32")}
+    check(K > beam_loop.MAX_K, "beam-10 would not take beam_step's route")
+    cuda.reset_launch_counts()
+    outs = {dt: m.recognize(batch, beam_size=K) for dt, m in mods.items()}
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    log(f"beam-{K} path launch counts: {counts}")
+    check(counts["beam_step"] > 0 and counts["beam_loop"] == 0,
+          f"beam-{K} recognize did not run through beam_step alone")
+    with plain_route():
+        plain = {dt: m.recognize(batch, beam_size=K)
+                 for dt, m in mods.items()}
+    for dt, (ws, sc) in outs.items():
+        check(len(ws) == len(batch) and bool(np.isfinite(sc).all())
+              and bool((sc <= 0).all()), f"{dt} beam-{K}: bad results")
+        agree = float(np.mean([a == b for a, b in zip(ws, plain[dt][0])]))
+        log(f"e2e {dt} beam-{K} B={len(batch)}: {len(set(ws))} distinct "
+            f"transcripts, mean length {np.mean([len(w) for w in ws]):.2f}; "
+            f"agreement with the plain route on the card {agree:.4f}")
+        if dt == "float32":
+            check(ws == plain[dt][0], f"float32 beam-{K}: kernel and plain "
+                                      "routes disagree")
+            gap = float(np.abs(sc - plain[dt][1]).max())
+            check(gap <= 1e-3, f"float32 beam-{K}: score gap {gap}")
+    return counts
+
+
 def live_steps(m, batch) -> float:
     """Mean beam steps a row of `batch` stays live in m's beam-5 search
     (the whole-loop kernel's histories, read through its module), which
@@ -925,8 +997,9 @@ def live_steps(m, batch) -> float:
 
 def beam_timings(dev, models, requests, lexicon, card: str):
     """beam_step against its plain version (CUDA events) and its bound at
-    B=512, K=5; beam-5 and dictionary beam-5 images/s at B=512, W=100,
-    T=50 (host clock, median of 5); a profile of beam-5.  Returns
+    B=512, K=5 and K=10; beam-5, dictionary beam-5 and beam-10 images/s at
+    B=512, W=100, T=50 (host clock, median of 5); a profile of beam-5 and
+    of beam-10.  Returns
     ({(kernel, dtype): (ms, plain_ms)}, {(kernel, dtype): bound},
     {label: images/s})."""
     import numpy as np
@@ -950,24 +1023,27 @@ def beam_timings(dev, models, requests, lexicon, card: str):
         tables = greedy_loop.build_tables(
             m.params["decoder"], m.params["projector"], E, True, dt)
         ctx = rand(L, B, Hd).to(dev, dt)
-        h = rand(B, K * Hd).to(dev, dt)
-        prev = torch.full((B, K), 5, dtype=torch.int32, device=dev)
-        scores = (-torch.arange(K, dtype=torch.float32, device=dev)
-                  ).expand(B, K).contiguous()
-        sargs = (ctx, h, prev, scores, tables["wa"], tables["wc"],
-                 tables["pw"], tables["pb"], K, V)
-        k1, k2, p1, p2 = time_pair(
-            lambda: beam_step.fused_beam_tail(*sargs),
-            lambda: beam_step.fused_beam_tail_plain(*sargs), 20)
-        ms[("beam_step", name)] = (min(k1, k2), min(p1, p2))
-        log(f"time beam_step {name} (B={B}, K={K}): kernel {k1:.4f} / "
-            f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
-        out = beam_step.fused_beam_tail(*sargs)
-        b = bounds[("beam_step", name)] = bound(
-            B * K * step_flops(Hd, L, V, nl, True, gates=False),
-            tensor_bytes(sargs, out), name)
-        log(f"bound beam_step {name}: {b[0]:.4f} ms ({b[1]}; kernel "
-            f"{ms[('beam_step', name)][0] / b[0]:.1f}x it)")
+        for Ks in BEAM_STEP_K:
+            h = rand(B, Ks * Hd).to(dev, dt)
+            prev = torch.full((B, Ks), 5, dtype=torch.int32, device=dev)
+            scores = (-torch.arange(Ks, dtype=torch.float32, device=dev)
+                      ).expand(B, Ks).contiguous()
+            sargs = (ctx, h, prev, scores, tables["wa"], tables["wc"],
+                     tables["pw"], tables["pb"], Ks, V)
+            k1, k2, p1, p2 = time_pair(
+                lambda: beam_step.fused_beam_tail(*sargs),
+                lambda: beam_step.fused_beam_tail_plain(*sargs), 20)
+            key = ("beam_step", name) if Ks == BEAM else (
+                "beam_step", name, Ks)
+            ms[key] = (min(k1, k2), min(p1, p2))
+            log(f"time beam_step {name} (B={B}, K={Ks}): kernel {k1:.4f} / "
+                f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+            out = beam_step.fused_beam_tail(*sargs)
+            b = bounds[key] = bound(
+                B * Ks * step_flops(Hd, L, V, nl, True, gates=False),
+                tensor_bytes(sargs, out), name)
+            log(f"bound beam_step {name} K={Ks}: {b[0]:.4f} ms ({b[1]}; "
+                f"kernel {ms[key][0] / b[0]:.1f}x it)")
 
     # end to end, bf16, loop route, B=512
     m = models[("bfloat16", "loop")]
@@ -999,6 +1075,23 @@ def beam_timings(dev, models, requests, lexicon, card: str):
             profile(f"recognize beam-5 bf16 loop B={len(batch)}",
                     lambda: m.recognize(batch, beam_size=K))
         m.clear_dictionary()
+    # beam-10: beam_step's route (wider than beam_loop.MAX_K)
+    K10 = BEAM_STEP_K[1]
+    m.recognize(batch, beam_size=K10)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ws, _ = m.recognize(batch, beam_size=K10)
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    rates[f"beam-{K10}"] = len(batch) / med
+    log(f"recognize beam-{K10} bf16 B={len(batch)} W={W_SERVE} T={T_MAX}: "
+        f"{rates[f'beam-{K10}']:.1f} images/s (median of 5: "
+        f"{med * 1e3:.2f} ms; {[round(t * 1e3, 2) for t in times]}; mean "
+        f"transcript length {np.mean([len(w) for w in ws]):.2f}) on {card}")
+    profile(f"recognize beam-{K10} bf16 B={len(batch)}",
+            lambda: m.recognize(batch, beam_size=K10))
     mt = models[("bfloat16", "tail")]
     mt.recognize(batch, beam_size=K)
     t0 = time.perf_counter()
@@ -2455,7 +2548,8 @@ def main() -> int:
     for kernel in ("lstm_fwd_kernel", "greedy_cluster_kernel",
                    "beam_cluster_kernel", "tf_fwd_cluster_kernel",
                    "tf_bwd_cluster_kernel", "lstm_bwd_cluster_kernel",
-                   "conv1_pool_bwd_kernel"):
+                   "conv1_pool_bwd_kernel", "conv1_pool_bf16_kernel",
+                   "conv1_pool_f32_kernel", "beam_step_cluster_kernel"):
         for line in ptxas_summary(out.getvalue(), kernel):
             log(f"ptxas {line}")
 
@@ -2478,6 +2572,7 @@ def main() -> int:
     counts, models, requests = end_to_end(dev, args.seed)
     bcounts, bmodels, brequests = beam_end_to_end(dev, args.seed,
                                                   (words, table_np))
+    b10counts = beam10_end_to_end(dev, bmodels, brequests)
     tcounts, tcfg, np_model, batch = train_end_to_end(dev, args.seed)
     gcounts = image_gradient(dev, args.seed)
     ccounts, readings = trainer_phase(dev, args.seed, card)
@@ -2531,10 +2626,10 @@ def main() -> int:
         entry = {
             "name": k, "route": "cuda", "source": f"aocr_torch/csrc/{k}.cu",
             "replaces": replaces[k],
-            # the recognize, beam, train step, image-gradient and CLI
-            # trainer paths' runs, each read right after it
-            "launches": (counts[k] + bcounts[k] + tcounts[k] + gcounts[k]
-                         + ccounts[k]),
+            # the recognize, beam, beam-10, train step, image-gradient
+            # and CLI trainer paths' runs, each read right after it
+            "launches": (counts[k] + bcounts[k] + b10counts[k]
+                         + tcounts[k] + gcounts[k] + ccounts[k]),
             "max_abs_err": max(results[(k, d)]), "dtype": d,
             "ms": ms[(k, d)][0], "plain_ms": ms[(k, d)][1],
             "bound_ms": bounds[(k, d)][0], "bound_by": bounds[(k, d)][1],
@@ -2609,6 +2704,30 @@ def main() -> int:
                                    "partials summed in a fixed tree in the "
                                    "same launch")
             entry["f32_ms"], entry["f32_plain_ms"] = ms[(k, "f32")]
+        if k == "conv1_pool":
+            entry["redesigned"] = ("bf16: each cell's 16-tap patch times "
+                                   "W16 on the tensor cores (mma.sync "
+                                   "m16n8k16); float32: the first port's "
+                                   "arithmetic, 4 channels a thread; the "
+                                   "card's blocks on runs of cells")
+            entry["f32_ms"], entry["f32_plain_ms"] = ms[(k, "f32")]
+        if k == "beam_step":
+            entry["redesigned"] = ("thread-block clusters on beam_loop's "
+                                   "design, tiles of whole batch rows with "
+                                   "all K beams; the rows route where no "
+                                   "plan fits")
+            def bkey(K, d_):
+                return ("beam_step", d_) if K == BEAM else (
+                    "beam_step", d_, K)
+
+            entry["beams"] = {
+                str(K): {"ms": ms[bkey(K, d)][0],
+                         "plain_ms": ms[bkey(K, d)][1],
+                         "bound_ms": bounds[bkey(K, d)][0],
+                         "f32_ms": ms[bkey(K, "f32")][0],
+                         "f32_plain_ms": ms[bkey(K, "f32")][1]}
+                for K in BEAM_STEP_K}
+            entry["beam10_launches"] = b10counts[k]
         if k == "pool_bwd":
             entry["per"] = "one train step: the three pools, summed"
             entry["library"] = ("max_pool2d_with_indices_backward + "
@@ -2616,7 +2735,8 @@ def main() -> int:
         kernels.append(entry)
     log(f"end to end, bf16, B={B_SERVE}, W={W_SERVE}, T={T_MAX}: beam-5 "
         f"{rates['beam-5']:.1f} images/s, dictionary beam-5 "
-        f"{rates['dict-beam-5']:.1f} images/s on {card}")
+        f"{rates['dict-beam-5']:.1f} images/s, beam-{BEAM_STEP_K[1]} "
+        f"{rates[f'beam-{BEAM_STEP_K[1]}']:.1f} images/s on {card}")
     on, off = ms[("enable_ab", "bf16")]
     log(f"bf16 train step B={B_TRAIN}: make_train_step "
         f"{ms[('train_step', 'bf16')]:.2f} ms; pool_bwd.ENABLE on {on:.2f} "

@@ -13,11 +13,15 @@ outputs within a few bf16 steps.  The training kernels (conv1 backward,
 lstm_fwd with residuals, lstm_bwd, tf_fwd, tf_bwd) are held the same way,
 on residuals their plain forward wrote; tf_fwd and tf_bwd (thread-block
 clusters) also at a ragged batch, one to three layers, without input
-feed, the default width, and their plans against the kernels'.  The beam kernels (beam_step,
+feed, the default width, and their plans against the kernels'.  conv1_pool
+at one image, ragged runs and the serving batch, widths 2 to 200, two calls
+bit-identical.  The beam kernels (beam_step,
 beam_loop) and the trie operands of decode_step and greedy_loop: float32
 tokens, parents, histories and refill counts identical to the plain
 version's (a row may part only at a step whose plain margin is a
 near-tie), scores within 1e-5 relative; bfloat16 as the decode checks.
+beam_step (thread-block clusters since its redesign) also at K 1 to 39,
+ragged tiles over several clusters, and one shape on its rows route.
 beam_loop (thread-block clusters, as greedy_loop) also at its plan's
 edges: ragged tiles, K up to 8, one batch row, several waves, a search
 that ends at once, its plan against the kernel's, refused shapes.
@@ -75,18 +79,25 @@ def _close(got, want, tol):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("W", [100, 81])
-def test_conv1_pool_kernel(dev, dtype, W):
+@pytest.mark.parametrize("W", [100, 81, 2, 3, 200])
+@pytest.mark.parametrize("B", [6, 1, 7, 512])
+def test_conv1_pool_kernel(dev, dtype, W, B):
+    """Against the plain version at odd and even widths, one image (runs
+    of MIN_RUN cells), ragged runs, the serving batch (the card's blocks);
+    the kernel's plan equals conv1_pool.plan (held at the launch), and
+    two calls give the same bits."""
     g = torch.Generator().manual_seed(1)
-    x = _rand(g, 6, 32, W, 1).to(dev, dtype)
+    x = _rand(g, B, 32, W, 1).to(dev, dtype)
     w = _rand(g, 64, 1, 3, 3, lo=-0.3, hi=0.3).to(dev)
     b = _rand(g, 64, lo=-0.3, hi=0.3).to(dev)
     n = conv1_pool.launches
     got = conv1_pool.conv1_relu_pool(x, w, b)
     assert conv1_pool.launches == n + 1
+    assert (B, 32, W, dtype) in conv1_pool.plans
     torch.cuda.synchronize()
     _close(got, conv1_pool.conv1_relu_pool_plain(x, w, b),
            TOL[dtype] if dtype == torch.float32 else 2 ** -7)
+    assert torch.equal(got, conv1_pool.conv1_relu_pool(x, w, b))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -983,17 +994,25 @@ def _beam_case(g, dev, dtype, B, K, H=256, L=9):
     return t, ctx
 
 
+# (B, K, trie): one tile (B=6 batch rows), the narrowest beam, beam_loop's
+# widest (K=8) and the first past it (K=9), ragged tiles over several
+# clusters (B=37, 20), every beam the vocabulary holds (K=39), refills
+BEAM_STEP_CASES = [(6, 3, False), (6, 5, True), (6, 12, False),
+                   (6, 5, "refill"), (1, 1, False), (37, 8, True),
+                   (37, 9, "refill"), (20, 12, True), (9, 39, False),
+                   (23, 39, "refill"), (300, 5, False)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("K,use_trie", [(3, False), (5, True), (12, False),
-                                        (5, "refill")])
-def test_beam_step_kernel(dev, dtype, K, use_trie):
+@pytest.mark.parametrize("B,K,use_trie", BEAM_STEP_CASES)
+def test_beam_step_kernel(dev, dtype, B, K, use_trie):
     g = torch.Generator().manual_seed(22)
-    B, V = 6, 39
+    V = 39
     t, ctx = _beam_case(g, dev, dtype, B, K)
     H = ctx.shape[2]
     h = _rand(g, B, K * H).to(dev, dtype)
     prev = torch.randint(3, V, (B, K), generator=g, dtype=torch.int32)
-    prev[1, 1], prev[2, :] = vocab.EOS, vocab.PAD  # a frozen beam and row
+    prev[1::3, -1], prev[2::3, :] = vocab.EOS, vocab.PAD  # frozen beams, rows
     scores = -torch.rand(B, K, generator=g).sort(dim=1, descending=True)[0]
     prev, scores = prev.to(dev), (scores * 5).to(dev)
     valid = None
@@ -1021,6 +1040,38 @@ def test_beam_step_kernel(dev, dtype, K, use_trie):
             assert torch.equal(a.cpu(), b.cpu())
     if use_trie == "refill":
         assert int(got[4].min()) < K
+    p = beam_step.plans[(ctx.shape[2], B, K, dtype, ctx.shape[0],
+                         t["pw"].shape[1])][0]
+    assert p is not None and p.nb * K <= p.bt  # the cluster route
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_beam_step_kernel_rows_route(dev, dtype):
+    """K=90 beams over V=100 tokens: wider than the largest tile (80 beam
+    rows at H=1024), so beam_step's plan takes the rows route, and the
+    first port's kernel runs."""
+    g = torch.Generator().manual_seed(23)
+    B, K, V, H, L = 3, 90, 100, 1024, 9
+    t = _decoder_tables(g, dev, dtype, H, V=V)
+    ctx = _rand(g, L, B, H).to(dev, dtype)
+    h = _rand(g, B, K * H).to(dev, dtype)
+    prev = torch.randint(3, V, (B, K), generator=g, dtype=torch.int32)
+    prev[1, :4] = vocab.EOS
+    scores = -torch.rand(B, K, generator=g).sort(dim=1, descending=True)[0]
+    args = (ctx, h, prev.to(dev), (scores * 5).to(dev), t["wa"], t["wc"],
+            t["pw"], t["pb"], K, V)
+    assert beam_step.plan(H, B, K, dtype, L, t["pw"].shape[1], 7) is None
+    n = beam_step.launches
+    got = beam_step.fused_beam_tail(*args)
+    assert beam_step.launches == n + 1
+    assert beam_step.plans[(H, B, K, dtype, L, t["pw"].shape[1])][0] is None
+    torch.cuda.synchronize()
+    want = beam_step.fused_beam_tail_plain(*args)
+    _close(got[0], want[0], TOL[dtype])
+    if dtype == torch.float32:
+        _close(got[1], want[1], 1e-5)
+        for a, b in zip(got[2:], want[2:]):
+            assert torch.equal(a.cpu(), b.cpu())
 
 
 # (B, K, length_normalize, trie): a ragged last tile, each K of the

@@ -3,7 +3,7 @@
 
     python3 tools/ab_greedy_loop_torch.py DIR_A DIR_B [--turns 4]
         [--kernel greedy_loop|beam_loop|tf_fwd|tf_bwd|lstm_bwd|
-                  conv1_pool_bwd]
+                  conv1_pool_bwd|conv1_pool|beam_step] [--K 5]
 
 Each DIR is a checkout that holds aocr_torch/.  greedy_loop and beam_loop
 are timed at the recognition shape (L=24, T=50, the default decoder:
@@ -17,7 +17,11 @@ B=400 and without (score's call) at B=400, 32 and 1; tf_bwd on the
 residuals of the plain forward at B=400.  lstm_bwd is timed at the
 train step's encoder (L=24, H=512) on the plain forward's residuals at
 B=400 and 33, conv1_pool_bwd at the train step's B=400 crops of 32 x 100
-(the whole call, then each of its kernels by the profiler).
+(the whole call, then each of its kernels by the profiler, as for
+conv1_pool and beam_step).  conv1_pool is timed at the recognition shape (B=512 crops of 32 x 100), with a
+digest of its output (bit-identical outputs give the same digest in every
+checkout); beam_step at B=512 with K beams (--K, 5 or 10), every beam
+live, at the recognition decoder's shape.
 In turns A, B, B, A, ..., each
 turn in a fresh process that builds that checkout's kernels (CUDA events
 over back-to-back launches).  Prints one line a turn and the card's name
@@ -54,6 +58,21 @@ tp, _ = weights.from_numpy({{"decoder": dec, "projector": proj}}, {{}}, dev)
 g = torch.Generator().manual_seed(11)
 out = {{}}
 
+# each kernel's device time a call whose name holds key (the profiler),
+# into out under label
+def kernel_ms(run, key, label, n=20):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if key in e.key and t > 0:
+            out[f"  {{e.key.split('(')[0][-40:]}} {{label}}"] = (
+                t / e.count / 1000)
+
 def ms(run, n=3):
     run()
     torch.cuda.synchronize()
@@ -80,6 +99,34 @@ for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             out[f"lstm_bwd {{name}} B={{B}}"] = ms(
                 lambda: lstm_bwd.lstm_bwd_scan(*largs), 20)
         continue
+    if {kernel!r} == "conv1_pool":
+        import hashlib
+        from aocr_torch.ops.cuda import conv1_pool
+        B = 512
+        x = r(B, 32, 100, 1).to(dt)
+        w, b = r(64, 1, 3, 3) / 3, r(64) / 3
+        run = lambda: conv1_pool.conv1_relu_pool(x, w, b)
+        out[f"conv1_pool {{name}} B={{B}}"] = ms(run, 50)
+        kernel_ms(run, "conv1_pool", name)
+        y = run().float().cpu().numpy()
+        out[f"conv1_pool {{name}} digest"] = hashlib.sha256(
+            y.tobytes()).hexdigest()[:16]
+        continue
+    if {kernel!r} == "beam_step":
+        from aocr_torch.ops.cuda import beam_step
+        t = greedy_loop.build_tables(tp["decoder"], tp["projector"], E, True,
+                                     dt)
+        B, K = 512, {K}
+        ctx = r(L, B, H).to(dt)
+        h = r(B, K * H).to(dt)
+        prev = torch.full((B, K), 5, dtype=torch.int32, device=dev)
+        sc = (-torch.arange(K, dtype=torch.float32,
+                            device=dev)).expand(B, K).contiguous()
+        run = lambda: beam_step.fused_beam_tail(
+            ctx, h, prev, sc, t["wa"], t["wc"], t["pw"], t["pb"], K, V)
+        out[f"beam_step {{name}} B={{B}} K={{K}}"] = ms(run, 20)
+        kernel_ms(run, "beam", name)
+        continue
     if {kernel!r} == "conv1_pool_bwd":
         from aocr_torch.ops.cuda import conv1_pool_bwd
         B = 400
@@ -89,17 +136,7 @@ for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         run = lambda: conv1_pool_bwd.conv1_relu_pool_bwd(x, w, b, dy)
         out[f"conv1_pool_bwd {{name}} B={{B}}"] = ms(run, 50)
         # the call's kernels apart (the first port's makes two launches)
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                run()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            t = getattr(e, "device_time_total", 0) or getattr(
-                e, "cuda_time_total", 0)
-            if "conv1_pool_bwd" in e.key and t > 0:
-                out[f"  {{e.key.split('(')[0][-40:]}} {{name}}"] = (
-                    t / e.count / 1000)
+        kernel_ms(run, "conv1_pool_bwd", name)
         continue
     if {kernel!r} in ("tf_fwd", "tf_bwd"):
         from aocr_torch.ops.cuda import tf_bwd, tf_fwd
@@ -170,7 +207,10 @@ def main() -> int:
     ap.add_argument("--turns", type=int, default=4)
     ap.add_argument("--kernel", default="greedy_loop",
                     choices=("greedy_loop", "beam_loop", "tf_fwd",
-                             "tf_bwd", "lstm_bwd", "conv1_pool_bwd"))
+                             "tf_bwd", "lstm_bwd", "conv1_pool_bwd",
+                             "conv1_pool", "beam_step"))
+    ap.add_argument("--K", type=int, default=5,
+                    help="beam_step's beams (5 or 10)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -179,14 +219,17 @@ def main() -> int:
     order = [args.dirs[(t + t // 2) % 2] for t in range(args.turns)]
     for root in order:
         root = os.path.abspath(root)
-        proc = subprocess.run([sys.executable, "-c", TURN.format(root=root, kernel=args.kernel)],
-                              capture_output=True, text=True)
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             TURN.format(root=root, kernel=args.kernel, K=args.K)],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-3000:], file=sys.stderr)
             return 1
         ms = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(f"{root}: " + ", ".join(f"{k} {v:.4f} ms"
-                                      for k, v in ms.items()), flush=True)
+        print(f"{root}: " + ", ".join(
+            f"{k} {v:.4f} ms" if isinstance(v, float) else f"{k} {v}"
+            for k, v in ms.items()), flush=True)
     return 0
 
 
