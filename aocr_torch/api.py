@@ -138,7 +138,8 @@ class AttentionOCR:
                 isinstance(it, str) for it in (
                     [images] if isinstance(images, str) else images)):
             raise NotImplementedError(
-                "device_preprocess is not ported: ROADMAP queue 1 item 10")
+                "device_preprocess is not ported: ROADMAP queue 1: "
+                "Augment and device preprocess")
         arrs = data.images_to_arrays(images, self.cfg)
         by_width: dict = {}
         for i, a in enumerate(arrs):

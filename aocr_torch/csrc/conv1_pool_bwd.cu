@@ -46,35 +46,6 @@ constexpr int CB_SLOTS = CB_THREADS * CB_CPT / CB_C;  // cells at a time: 16
 constexpr int CB_FAN = 16;        // partials a block of the tree adds
 constexpr int CB_STAGE_MAX = 96 * 1024;  // staged image rows, bytes
 
-// The launch plan for B images of H x W and the blocks the card holds at
-// once (resident): blocks, each owning ceil or floor of the B (H/2) (W/2)
-// cells / blocks, at least `resident` (fewer where there are fewer cells)
-// and the fewest more whose staged rows (cb_rows) fit CB_STAGE_MAX; rows:
-// the most rows a block stages; smem: their bytes.  False where the rows
-// of one cell's run do not fit.
-static bool cb_plan(int B, int H, int W, int resident, int* blocks,
-                    int* rows, int* smem) {
-  const int Ho = H / 2, Wo = W / 2;
-  const long cells = (long)B * Ho * Wo, rb = 4L * ((W + 3) & ~1);
-  if (cells < 1 || resident < 1 || cb_rows(1, B, Ho, Wo) * rb > CB_STAGE_MAX)
-    return false;
-  auto fits = [&](long n) {
-    return cb_rows((cells + n - 1) / n, B, Ho, Wo) * rb <= CB_STAGE_MAX;
-  };
-  long lo = std::min((long)resident, cells), hi = cells;
-  if (!fits(lo)) {  // the fewest blocks that fit: fits(hi) holds
-    while (hi - lo > 1) {
-      const long mid = (lo + hi) / 2;
-      (fits(mid) ? hi : lo) = mid;
-    }
-    lo = hi;
-  }
-  *blocks = (int)lo;
-  *rows = (int)cb_rows((cells + lo - 1) / lo, B, Ho, Wo);
-  *smem = (int)(*rows * rb);
-  return true;
-}
-
 // x (B, H, W); w (64, 9) float32; bias (64,); dy (B, H/2, W/2, 64);
 // part: the tree's partials, level by level (ops/cuda/conv1_pool_bwd.py::
 // levels); count: a counter for each group of each level, zero at the
@@ -278,7 +249,9 @@ static int launch(const void* x, const void* w, const void* b,
                   cudaStream_t stream) {
   int n, rows, smem;
   if (B < 1 || H < 2 || W < 2 ||
-      !cb_plan(B, H, W, cb_resident<T>(), &n, &rows, &smem) || n != blocks)
+      !cb_plan(B, H, W, cb_resident<T>(), CB_STAGE_MAX, &n, &rows,
+               &smem) ||
+      n != blocks)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = set_smem((const void*)conv1_pool_bwd_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -317,7 +290,8 @@ extern "C" int aocr_conv1_pool_bwd_plan(int B, int H, int W, int is_f32,
   const int resident = is_f32 ? aocr::cb_resident<float>()
                               : aocr::cb_resident<__nv_bfloat16>();
   int n, rows, smem;
-  if (!aocr::cb_plan(B, H, W, resident, &n, &rows, &smem))
+  if (!aocr::cb_plan(B, H, W, resident, aocr::CB_STAGE_MAX, &n, &rows,
+                     &smem))
     return (int)cudaErrorInvalidValue;
   const int v[4] = {n, rows, smem, resident};
   for (int i = 0; i < 4; ++i) out[i] = v[i];

@@ -41,6 +41,36 @@ static inline long cb_rows(long m, int B, int Ho, int Wo) {
   return 2 * (r + imgs);
 }
 
+// The launch plan of the two backward kernels for B images of H x W, the
+// blocks the card holds at once (resident) and the bytes a block may stage
+// (stage_max): blocks, each owning ceil or floor of the B (H/2) (W/2)
+// cells / blocks, at least `resident` (fewer where there are fewer cells)
+// and the fewest more whose staged rows (cb_rows, floats) fit stage_max;
+// rows: the most rows a block stages; smem: their bytes.  False where the
+// rows of one cell's run do not fit.
+static inline bool cb_plan(int B, int H, int W, int resident, int stage_max,
+                           int* blocks, int* rows, int* smem) {
+  const int Ho = H / 2, Wo = W / 2;
+  const long cells = (long)B * Ho * Wo, rb = 4L * ((W + 3) & ~1);
+  if (cells < 1 || resident < 1 || cb_rows(1, B, Ho, Wo) * rb > stage_max)
+    return false;
+  auto fits = [&](long n) {
+    return cb_rows((cells + n - 1) / n, B, Ho, Wo) * rb <= stage_max;
+  };
+  long lo = std::min((long)resident, cells), hi = cells;
+  if (!fits(lo)) {  // the fewest blocks that fit: fits(hi) holds
+    while (hi - lo > 1) {
+      const long mid = (lo + hi) / 2;
+      (fits(mid) ? hi : lo) = mid;
+    }
+    lo = hi;
+  }
+  *blocks = (int)lo;
+  *rows = (int)cb_rows((cells + lo - 1) / lo, B, Ho, Wo);
+  *smem = (int)(*rows * rb);
+  return true;
+}
+
 constexpr int CB_STAGE_ROWS = 8;  // rows a warp stages at a time
 
 // Stage the zero-padded image rows that pool rows g0..g1 read into img,
@@ -109,15 +139,19 @@ __device__ __forceinline__ void cb_stage(const T* __restrict__ x, S* img,
 // scores rounded as the forward rounds them, then the first position
 // attaining the max (row-major: 0 = (0,0), 1 = (0,1), 2 = (1,0), 3 =
 // (1,1)), or -1 where the max is not positive.  (No branch: the bf16
-// roundings two at a time, the pick by selects.)
+// roundings two at a time, the pick by selects.  In bf16 the rounded sum
+// plus the bias is one bf16 add: the float32 sum rounded to bf16 is the
+// exact sum rounded once, float32 carrying more than 2 x 8 + 2 bits, and
+// it saved 4% of conv1_pool_bwd's bf16 time on an H100, PERF.md.)
 template <typename T>
 __device__ __forceinline__ int conv1_pick(const float (&s)[4], float bc) {
   float z[4];
   if constexpr (sizeof(T) == 2) {
+    const __nv_bfloat162 b2 = __float2bfloat162_rn(bc);
 #pragma unroll
     for (int p = 0; p < 4; p += 2) {
-      float2 v = __bfloat1622float2(__floats2bfloat162_rn(s[p], s[p + 1]));
-      v = __bfloat1622float2(__floats2bfloat162_rn(v.x + bc, v.y + bc));
+      const float2 v = __bfloat1622float2(
+          __hadd2(__floats2bfloat162_rn(s[p], s[p + 1]), b2));
       z[p] = v.x;
       z[p + 1] = v.y;
     }

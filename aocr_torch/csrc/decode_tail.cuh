@@ -1,24 +1,26 @@
-// The per-step decoder tail shared by the one-block decode kernels, for
-// one block of BT rows: Luong attention and h~ = tanh(W_c [ctx; h])
-// (attention_htilde), then the projector and float32 log-softmax with the
-// PAD/EOS freeze (projector_logp) and the argmax (projector_pick;
-// decode_step.cu) or the beams' top-K (beam_tail.cuh; beam_step.cu).
-// greedy_loop.cu, beam_loop.cu and the teacher-forced tf_fwd.cu and
-// tf_bwd.cu run the whole step on clusters (decoder_cluster.cuh).
+// The per-step decoder tail of the one-block decode kernels (the rows
+// routes of decode_step.cu and beam_step.cu), for one block of BT rows:
+// Luong attention and h~ = tanh(W_c [ctx; h]) (attention_htilde), then
+// the projector and float32 log-softmax with the PAD/EOS freeze
+// (projector_logp) and the argmax (projector_pick) or the beams' top-K
+// (beam_tail.cuh).  Their cluster routes (step_cluster.cuh), greedy_loop.cu,
+// beam_loop.cu and the teacher-forced tf_fwd.cu and tf_bwd.cu run the step
+// on clusters (decoder_cluster.cuh), with projector_pick's argmax as
+// dc_pick_row.
 // Counterpart of aocr/ops/pallas/decode_step.py::attention_logp_tail plus
 // the freeze/argmax of its _kernel_body, which all the TPU decode kernels
 // share.
 //
 // BT, the rows of a block, is a template parameter: DEC_BT (4 batch rows)
-// for the per-step greedy kernel; beam_step gives a block whole batch
-// rows with all their K beams (beam_tail.cuh).
+// for the greedy rows route; beam_step's gives a block whole batch rows
+// with all their K beams (beam_tail.cuh).
 #pragma once
 
 #include "common.cuh"
 
 namespace aocr {
 
-constexpr int DEC_BT = 4;       // batch rows per block (decode_step)
+constexpr int DEC_BT = 4;       // batch rows per block (decode_step rows)
 constexpr int DEC_THREADS = 256;
 
 // consecutive columns per thread in the matmuls: 4, or 2 above 5 rows

@@ -29,7 +29,7 @@ default) or the native library.
 The port's own copy of aocr/data.py: the same batch stream from the same
 manifest and seed (tests/test_torch_port_eval.py).  Device-side
 preprocessing (`-device_preprocess`, aocr.preprocess) is not ported:
-ROADMAP queue 1 item 10.
+ROADMAP queue 1: Augment and device preprocess.
 """
 
 from __future__ import annotations
@@ -223,7 +223,8 @@ class DataGen:
                  rng: Optional[random.Random] = None, log=None):
         if cfg.device_preprocess:
             raise NotImplementedError(
-                "-device_preprocess is not ported: ROADMAP queue 1 item 10")
+                "-device_preprocess is not ported: ROADMAP queue 1: "
+                "Augment and device preprocess")
         self.cfg = cfg
         self.data_base_dir = data_base_dir
         self.rng = rng or random.Random(cfg.seed)

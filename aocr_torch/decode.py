@@ -9,8 +9,8 @@ Greedy routes, chosen as the reference chooses them:
   to the per-step tail when its VMEM estimate does not fit; that gate has
   no meaning on the card, so "auto" always takes the loop here.
 - cfg.use_pallas, pallas_greedy "tail": a host loop of steps, each the
-  plain LSTM stack followed by the `decode_step` kernel, the trie plane
-  gathered per step.
+  plain LSTM stack followed by the `decode_step` kernel (its weight
+  slices packed once a decode), the trie plane gathered per step.
 - use_pallas=False (or simple_attention): the XLA-equivalent route,
   `decoder.step` + `head.apply` in plain PyTorch.
 
@@ -86,6 +86,9 @@ def greedy_from_context(params: dict, context: torch.Tensor, dec_init,
         pw, pb = decode_step.pad_projector(proj["w"].to(cd), proj["b"])
         ctx_lbh = context.transpose(0, 1).contiguous()
         width = pw.shape[1]
+        # the kernel's packed weight slices, once for every step
+        packed = decode_step.pack_weights(prep["w_a"], prep["w_c"], ctx_lbh,
+                                          pw, cfg.target_vocab_size)
     prev = torch.full((B,), vocab.GO, dtype=torch.int32, device=dev)
     nodes = torch.zeros((B,), dtype=torch.int32, device=dev)
     labels = torch.full((B, max_len), vocab.PAD, dtype=torch.int32,
@@ -102,7 +105,7 @@ def greedy_from_context(params: dict, context: torch.Tensor, dec_init,
                                                input_feed=cfg.input_feed)
             h_tilde, tok, delta = decode_step.fused_decode_tail(
                 h_top, ctx_lbh, prev, prep["w_a"], prep["w_c"], pw, pb,
-                valid=valid)
+                valid=valid, packed=packed)
             state = decoder.DecoderState(attn=h_tilde.to(cd), cs=cs, hs=hs)
         else:
             state, h_tilde = decoder.step(prep, state, prev, context,

@@ -238,7 +238,7 @@ def apply(params: dict, batch_stats: dict, images: torch.Tensor,
     if axis_name is not None:
         raise NotImplementedError(
             "synchronized BatchNorm belongs to data-parallel training: "
-            "ROADMAP queue 1 item 11")
+            "ROADMAP queue 1: Parallel")
     cd = compute_dtype
     fused = train and use_kernel and pool_bwd.ENABLE
     x = ((images - 128.0) / 128.0).to(cd)

@@ -193,6 +193,10 @@ class TFCoreFn(torch.autograd.Function):
                 dg[0].to(xp_dtype), dctx.to(ctx_dtype), dc0, dh0, *drest)
 
 
+# the ROADMAP item of the training options not ported yet
+_OPTIONS = "ROADMAP queue 1: Training options"
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} in training is not ported: {item}")
 
@@ -215,11 +219,11 @@ def teacher_forced(params: dict, dec_init, targets: torch.Tensor,
     run the per-step `step` under plain autograd."""
     if train and dropout > 0.0:
         _not_ported("dropout", "JAX's threefry dropout stream cannot be "
-                    "reproduced (ROADMAP queue 1 item 7)")
+                    f"reproduced ({_OPTIONS})")
     if train and remat:
-        _not_ported("remat", "ROADMAP queue 1 item 7")
+        _not_ported("remat", _OPTIONS)
     if train and simple:
-        _not_ported("simple attention", "ROADMAP queue 1 item 7")
+        _not_ported("simple attention", _OPTIONS)
     cd = compute_dtype
     c0, h0 = dec_init
     if simple or not custom_grad:

@@ -129,9 +129,10 @@ def _declare(lib) -> None:
         # wh, xp, xp_is_f32, c0, h0, hs, cf, hf, ifog, cs, L, B, H,
         # reverse, stream
         "lstm_fwd": [_P, _P, _I] + [_P] * 7 + [_I] * 4 + [_P],
-        # h, ctx, prev, wa, wc, pw, pb, valid, htilde, tok, delta, L, B, H,
-        # Vp, stream
-        "decode_step": [_P] * 11 + [_I] * 4 + [_P],
+        # h, ctx, prev, wa, wc, wq, wc (the cluster route's packed weights,
+        # beam_step.packed_weights), pw, pb, valid, htilde, tok, delta,
+        # scratch, L, B, H, Vp, V, nb, stream
+        "decode_step": [_P] * 14 + [_I] * 6 + [_P],
         # ctx, c0, h0, eg, w0, wl, bx, wq, wc (the packed weights of
         # greedy_loop.pack_weights), pw, pb, trie, labels, scores, scratch,
         # L, B, H, Vp, V, T, num_layers, input_feed, stream
@@ -159,8 +160,8 @@ def _declare(lib) -> None:
         # par_hist, fsc, flen, refills, minv, scratch, L, B, H, Vp, V, T,
         # num_layers, input_feed, K, count_lengths, stream
         "beam_loop": [_P] * 21 + [_I] * 10 + [_P],
-        # x, w9, b, dy, out, B, H, W, stream
-        "conv1_pool_dx": [_P] * 5 + [_I] * 3 + [_P],
+        # x, w, b, dy, out, B, H, W, blocks, stream
+        "conv1_pool_dx": [_P] * 5 + [_I] * 4 + [_P],
         # y, dy, dz, B, H, W, C, wh, ww, stream
         "pool_bwd": [_P] * 3 + [_I] * 6 + [_P],
     }
@@ -176,8 +177,9 @@ def _declare(lib) -> None:
     lib.aocr_conv1_pool_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
     lib.aocr_conv1_pool_plan.restype = ctypes.c_int
     # B, H, W, is_f32, out[4]
-    lib.aocr_conv1_pool_bwd_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
-    lib.aocr_conv1_pool_bwd_plan.restype = ctypes.c_int
+    for name in ("aocr_conv1_pool_bwd_plan", "aocr_conv1_pool_dx_plan"):
+        getattr(lib, name).argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+        getattr(lib, name).restype = ctypes.c_int
     # H, B, is_f32, out[7]
     lib.aocr_lstm_bwd_plan.argtypes = [_I] * 3 + [ctypes.POINTER(_I)]
     lib.aocr_lstm_bwd_plan.restype = ctypes.c_int
@@ -190,6 +192,9 @@ def _declare(lib) -> None:
     # H, B, K, is_f32, L, Vp, out[11]
     lib.aocr_beam_step_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
     lib.aocr_beam_step_plan.restype = ctypes.c_int
+    # H, B, is_f32, L, Vp, out[11]
+    lib.aocr_decode_step_plan.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
+    lib.aocr_decode_step_plan.restype = ctypes.c_int
     # H, B, is_f32, L, num_layers, out[10]
     for name in ("aocr_tf_fwd_plan", "aocr_tf_bwd_plan"):
         getattr(lib, name).argtypes = [_I] * 5 + [ctypes.POINTER(_I)]

@@ -77,20 +77,22 @@ def run_rows(m: int, B: int, Ho: int, Wo: int) -> int:
     return 2 * (r + min((r - 1) // Ho + 2, B))
 
 
-def plan(B: int, H: int, W: int, resident: int) -> Optional[Plan]:
-    """The kernel's launch plan for B images of H x W and the blocks the
-    card holds at once (`resident`: 264 on an H100 SXM, 2 a SM): at least
-    `resident` blocks (fewer where there are fewer cells), and the fewest
-    more whose staged rows (`run_rows` of (W + 3) & ~1 floats) fit
-    STAGE_MAX bytes; None where one cell's run does not fit."""
+def plan(B: int, H: int, W: int, resident: int,
+         stage_max: int = STAGE_MAX) -> Optional[Plan]:
+    """The kernel's launch plan (csrc/conv1_route.cuh `cb_plan`, which
+    conv1_pool_dx shares with its own stage_max) for B images of H x W and
+    the blocks the card holds at once (`resident`: 264 on an H100 SXM, 2 a
+    SM): at least `resident` blocks (fewer where there are fewer cells),
+    and the fewest more whose staged rows (`run_rows` of (W + 3) & ~1
+    floats) fit stage_max bytes; None where one cell's run does not fit."""
     Ho, Wo = H // 2, W // 2
     cells = B * Ho * Wo
     rb = 4 * ((W + 3) & ~1)
-    if cells < 1 or resident < 1 or run_rows(1, B, Ho, Wo) * rb > STAGE_MAX:
+    if cells < 1 or resident < 1 or run_rows(1, B, Ho, Wo) * rb > stage_max:
         return None
 
     def fits(n):
-        return run_rows(-(-cells // n), B, Ho, Wo) * rb <= STAGE_MAX
+        return run_rows(-(-cells // n), B, Ho, Wo) * rb <= stage_max
 
     lo, hi = min(resident, cells), cells
     if not fits(lo):  # the fewest blocks that fit: fits(hi) holds
@@ -105,33 +107,41 @@ def plan(B: int, H: int, W: int, resident: int) -> Optional[Plan]:
     return Plan(lo, rows, rows * rb)
 
 
-def checked_plan(B: int, H: int, W: int, cd: torch.dtype) -> Plan:
-    """The launch's plan: ValueError where none fits; on a shape's first
-    launch the kernel's own plan, and the blocks the card holds at once,
-    are read from the library, the plan is held against it and logged."""
-    if plan(B, H, W, 1) is None:
-        raise ValueError(f"conv1_relu_pool_bwd: no kernel plan fits B={B}, "
-                         f"H={H}, W={W}")
+def held_plan(kernel: str, B: int, H: int, W: int, cd: torch.dtype,
+              stage_max: int, cache: dict) -> Plan:
+    """The launch plan of `kernel` (this one, or conv1_pool_dx, which
+    shares csrc/conv1_route.cuh's `cb_plan` with its own stage_max):
+    ValueError where none fits; on a shape's first launch the kernel's own
+    plan (`aocr_<kernel>_plan`), and the blocks the card holds at once,
+    are read from the library, the plan is held against it and logged;
+    `cache` keeps each shape's (Plan, line)."""
+    if plan(B, H, W, 1, stage_max) is None:
+        raise ValueError(f"{kernel}: no kernel plan fits B={B}, H={H}, "
+                         f"W={W}")
     key = (B, H, W, cd)
-    if key not in plans:
+    if key not in cache:
         out = (ctypes.c_int * 4)()
-        err = cuda.library().aocr_conv1_pool_bwd_plan(
+        err = getattr(cuda.library(), f"aocr_{kernel}_plan")(
             B, H, W, int(cd == torch.float32), out)
         if err != 0:
-            raise RuntimeError(f"aocr_conv1_pool_bwd_plan failed: CUDA error "
+            raise RuntimeError(f"aocr_{kernel}_plan failed: CUDA error "
                                f"{err}")
-        p = plan(B, H, W, out[3])
+        p = plan(B, H, W, out[3], stage_max)
         if p is None or tuple(out[:3]) != tuple(p):
-            raise RuntimeError(f"conv1_pool_bwd plan mismatch: kernel "
+            raise RuntimeError(f"{kernel} plan mismatch: kernel "
                                f"{tuple(out)}, wrapper {p}")
-        line = (f"conv1_pool_bwd plan B={B} H={H} W={W} {cd}: {p.blocks} "
-                f"blocks ({out[3]} at once) of "
+        line = (f"{kernel} plan B={B} H={H} W={W} {cd}: {p.blocks} blocks "
+                f"({out[3]} at once) of "
                 f"{-(-B * (H // 2) * (W // 2) // p.blocks)} cells or one "
-                f"fewer, at most {p.rows} image rows staged ({p.smem} B); "
-                f"the tree {levels(p.blocks)}")
-        plans[key] = (p, line)
+                f"fewer, at most {p.rows} image rows staged ({p.smem} B)")
+        cache[key] = (p, line)
         _log.info(line)
-    return plans[key][0]
+    return cache[key][0]
+
+
+def checked_plan(B: int, H: int, W: int, cd: torch.dtype) -> Plan:
+    """The launch's plan (`held_plan`)."""
+    return held_plan("conv1_pool_bwd", B, H, W, cd, STAGE_MAX, plans)
 
 
 def _tree_buffers(dev: torch.device, blocks: int):

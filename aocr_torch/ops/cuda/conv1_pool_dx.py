@@ -8,19 +8,28 @@ routes it (`conv1_pool_bwd.routed`, the kernels' shared
 `csrc/conv1_route.cuh`), then its 16 patch taps are the sum W16 @ dcat
 over the 4 window positions x 64 channels, rounded to the compute dtype.
 Both versions accumulate in float32, as the TPU kernel does, in one
-order: channel by channel, each channel adding at most one term to a tap
-(its winning position's), with separately rounded products and sums.  So
-the kernel and the plain version agree bit for bit, where float32 sums in
-two orders would not (cancelling terms).  Scattering the taps back onto the image (`unpatch`, the
-TPU's `_unpatch`) is plain PyTorch, as it is plain XLA there: the 16 tap
-planes add onto the zero-padded image in (a, b) order in the compute
-dtype, then the padding is cropped.  That order matters in bfloat16.
+order (`tap_sum`): each channel adds one term to each tap (its winning
+position's weight times its cotangent, one rounded product), the 64
+channels are 16 groups of 4 channels 4 j .. 4 j + 3, each group summed
+from +0 in channel order, and the 16 group sums meet in a fixed tree
+(s_k + s_{k+8}, then 4 apart, 2 apart, 1 apart).  So the kernel and the
+plain version agree bit for bit, where float32 sums in two orders would
+not (cancelling terms).  Scattering the taps back onto the image
+(`unpatch`, the TPU's `_unpatch`) is plain PyTorch, as it is plain XLA
+there: the 16 tap planes add onto the zero-padded image in (a, b) order
+in the compute dtype, then the padding is cropped.  That order matters in
+bfloat16.
 
+The kernel runs conv1_pool_bwd's plan (csrc/conv1_route.cuh `cb_plan`,
+with its own STAGE_MAX): as many blocks as the card holds at once, each
+on an equal run of the pooled cells, 16 lanes a cell, 4 channels a lane.
 The taps are laid out (B, Ho, Wo, 16), a cell's 16 values together; the
 TPU kernel's (16, Ho*Wo, B) is its batch-on-lanes layout.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -30,6 +39,16 @@ from aocr_torch.ops.cuda import conv1_pool_bwd
 launches = 0
 
 C1 = 64
+# csrc/conv1_pool_dx.cu's constants
+CPT = 4  # channels a lane, whose terms a group sums in order
+STAGE_MAX = 64 * 1024  # a block's staged image rows, bytes
+# its static shared memory: the tap table (4 positions x 64 channels) and
+# the group sums (16 cells x 16 lanes), rows of 16 floats + 4
+STATIC_BYTES = 2 * 4 * 64 * 20 * 4
+
+# launch plans held against the kernel's, by (B, H, W, dtype): (Plan, the
+# line logged for it)
+plans: dict = {}
 # pool positions (pi, pj) in row-major window order
 _POSITIONS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
@@ -46,19 +65,47 @@ def _w16(w: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
     return out.reshape(16, 4, C1)
 
 
+def tap_sum(terms: torch.Tensor) -> torch.Tensor:
+    """The kernel's float32 sum of the channels' terms (64, ...) over the
+    channels: 16 groups of CPT channels (group j: 4 j .. 4 j + 3), each
+    summed from +0 in channel order, then the groups' sums in a fixed tree
+    (group k + group k + 8, then 4 apart, 2 apart, 1 apart)."""
+    groups = terms.reshape(C1 // CPT, CPT, *terms.shape[1:])
+    s = torch.zeros_like(groups[:, 0])
+    for k in range(CPT):
+        s = s + groups[:, k]
+    while s.shape[0] > 1:
+        h = s.shape[0] // 2
+        s = s[:h] + s[h:]
+    return s[0]
+
+
 def conv1_relu_pool_dx16_plain(x, w, b, dy):
     """Plain PyTorch version; same arguments and result as
     conv1_relu_pool_dx16."""
     dz, _ = conv1_pool_bwd.routed(x, w, b, dy)  # (B, 64, Ho, Wo, 4)
     cd = x.dtype
     w16 = _w16(w, cd)
-    B, _, Ho, Wo, _ = dz.shape
-    taps = dz.new_zeros((B, Ho, Wo, 16))
-    for c in range(C1):
-        # one position of the four holds the channel's term, the others 0:
-        # the sum over positions is the one rounded product
-        taps = taps + torch.einsum("tp,bhwp->bhwt", w16[:, :, c], dz[:, c])
-    return taps.to(cd)
+    # channel c's term on each tap: one position of the four holds its
+    # cotangent, the others 0, so the sum over positions is the one
+    # rounded product
+    terms = torch.einsum("tpc,bchwp->cbhwt", w16, dz)
+    return tap_sum(terms).to(cd)
+
+
+def plan(B: int, H: int, W: int,
+         resident: int) -> Optional[conv1_pool_bwd.Plan]:
+    """The kernel's launch plan (csrc/conv1_route.cuh `cb_plan`) for B
+    images of H x W and the blocks the card holds at once (`resident`):
+    conv1_pool_bwd's, with STAGE_MAX bytes of staged rows a block."""
+    return conv1_pool_bwd.plan(B, H, W, resident, STAGE_MAX)
+
+
+def checked_plan(B: int, H: int, W: int,
+                 cd: torch.dtype) -> conv1_pool_bwd.Plan:
+    """The launch's plan (`conv1_pool_bwd.held_plan`)."""
+    return conv1_pool_bwd.held_plan("conv1_pool_dx", B, H, W, cd,
+                                    STAGE_MAX, plans)
 
 
 def conv1_relu_pool_dx16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -88,10 +135,12 @@ def conv1_relu_pool_dx16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if w.device != dev or w.dtype != torch.float32:
         raise ValueError("conv1_relu_pool_dx16: w must be float32 on x's "
                          "device")
-    w9 = w.reshape(C1, 9).t().contiguous().to(cd)
+    cuda.check_aligned(dy=dy)
+    p = checked_plan(B, H, W, cd)
     out = torch.empty((B, H // 2, W // 2, 16), dtype=cd, device=dev)
-    cuda.launch("conv1_pool_dx", cd, dev, x.data_ptr(), w9.data_ptr(),
-                b.data_ptr(), dy.data_ptr(), out.data_ptr(), B, H, W)
+    cuda.launch("conv1_pool_dx", cd, dev, x.data_ptr(),
+                w.reshape(C1, 9).contiguous().data_ptr(), b.data_ptr(),
+                dy.data_ptr(), out.data_ptr(), B, H, W, p.blocks)
     launches += 1
     return out
 

@@ -9,6 +9,16 @@ the caller gathers from the transition table and in which it bakes the
 PAD rule (no PAD at t=1, PAD always valid later); invalid log-probs count
 as -1e30 before the argmax, then the freeze (decode_step.py:115-128).
 
+The kernel runs `beam_step`'s cluster step at K = 1 (csrc/
+step_cluster.cuh, `plan` below): a cluster of up to 16 SMs owns a tile of
+batch rows; each SM streams its column slices of W_a and W_c (greedy_loop's
+packing, `pack_weights`, once a decode) and multiplies them with the
+tile's rows on the tensor cores in bf16 or the CUDA cores in float32; the
+attention, log-softmax, freeze and argmax are split by rows.  Where no
+plan fits, or where ROUTE says so, the first port's kernel runs (the rows
+route: a block of 4 batch rows streaming every weight), logged once per
+shape.
+
 The plain version mirrors the kernel's numerics, not the XLA route's:
 scores and the context vector are float32 sums over the compute-dtype
 context (`decoder.attention` rounds q and alpha to the compute dtype).
@@ -22,9 +32,21 @@ import torch
 
 from aocr_torch import vocab
 from aocr_torch.ops import cuda
+from aocr_torch.ops.cuda import beam_step
 from aocr_torch.ops.mm import matmul
 
 launches = 0
+# the rows route's launches (counted in `launches` too)
+launches_rows = 0
+
+# "auto": the cluster plan where one fits, else the rows route; "rows":
+# the rows route at every shape (to hold the two kernels against each
+# other)
+ROUTE = "auto"
+
+# launch plans held against the kernel's, by shape key: (beam_step.Plan or
+# None for the rows route, the line logged for it)
+plans: dict = {}
 
 # Lane width the projector pads to (aocr/ops/pallas/decode_step.py PACK_VP).
 PACK_VP = 128
@@ -92,9 +114,9 @@ def freeze_and_pick(logp: torch.Tensor, prev: torch.Tensor,
 
 
 def fused_decode_tail_plain(h_top, context_lbh, prev, w_a, w_c, pw_padded,
-                            pb_padded, valid=None):
+                            pb_padded, valid=None, packed=None):
     """Plain PyTorch version; same arguments and results as
-    fused_decode_tail."""
+    fused_decode_tail (`packed`, the kernel's operands, is not read)."""
     cd = w_a.dtype
     h_tilde, logp = attention_logp_tail(h_top.to(cd), context_lbh, w_a, w_c,
                                         pw_padded, pb_padded, cd)
@@ -102,21 +124,66 @@ def fused_decode_tail_plain(h_top, context_lbh, prev, w_a, w_c, pw_padded,
     return h_tilde, tok, delta
 
 
+def plan(H: int, B: int, dtype: torch.dtype, L: int, Vp: int,
+         active: int) -> Optional[beam_step.Plan]:
+    """The kernel's cluster plan (csrc/decode_step.cu `ds_plan`) for
+    hidden size H, batch B, the compute dtype, the context length L, the
+    padded vocabulary Vp and the clusters of the plan's size the card runs
+    at once (`active`): beam_step's plan at K = 1, nb = bt batch rows a
+    tile; None (the rows route) where none fits."""
+    return beam_step.plan(H, B, 1, dtype, L, Vp, active)
+
+
+def checked_plan(H: int, B: int, cd: torch.dtype, L: int,
+                 Vp: int) -> Optional[beam_step.Plan]:
+    """The launch's route: its cluster plan, or None for the rows route,
+    held against the kernel's own (`aocr_decode_step_plan`) on a shape's
+    first launch and logged (beam_step.held_plan at K = 1)."""
+    return beam_step.held_plan(
+        "decode_step", lambda out: cuda.library().aocr_decode_step_plan(
+            H, B, int(cd == torch.float32), L, Vp, out),
+        H, B, 1, cd, L, Vp, plans, "a block per 4 batch rows")
+
+
+def pack_weights(w_a: torch.Tensor, w_c: torch.Tensor,
+                 context_lbh: torch.Tensor, pw_padded: torch.Tensor,
+                 V: Optional[int] = None) -> Optional[dict]:
+    """The cluster route's operands for a decode's shape, built once for
+    all its steps: {"plan", "wq", "wc" (beam_step.packed_weights), "V"
+    (the projector's real columns; Vp where not given), "scratch"}; None
+    on the CPU and where the launches take the rows route."""
+    if context_lbh.device.type != "cuda" or ROUTE == "rows":
+        return None
+    L, B, H = context_lbh.shape
+    Vp, cd = pw_padded.shape[1], w_a.dtype
+    p = checked_plan(H, B, cd, L, Vp)
+    if p is None:
+        return None
+    V = Vp if V is None else V
+    scratch = torch.empty((beam_step.scratch_bytes(p, cd, H, V),),
+                          dtype=torch.uint8, device=context_lbh.device)
+    return {"plan": p, **beam_step.packed_weights(w_a, w_c, p), "V": V,
+            "scratch": scratch}
+
+
 def fused_decode_tail(h_top: torch.Tensor, context_lbh: torch.Tensor,
                       prev: torch.Tensor, w_a: torch.Tensor,
                       w_c: torch.Tensor, pw_padded: torch.Tensor,
                       pb_padded: torch.Tensor,
-                      valid: Optional[torch.Tensor] = None):
+                      valid: Optional[torch.Tensor] = None,
+                      packed: Optional[dict] = None):
     """h_top (B, H); context_lbh (L, B, H) scan-major, compute dtype; prev
     (B,) int32; w_a (H, H), w_c (2H, H), pw_padded (H, Vp) in the compute
     dtype; pb_padded (Vp,) float32 (pad_projector); valid: an optional
-    (B, Vp) float32 0/1 trie validity plane.
+    (B, Vp) float32 0/1 trie validity plane; packed: `pack_weights` of
+    these weights and this shape (a decode builds it once for its steps;
+    without it each call packs the weights).
 
     Returns (h_tilde (B, H) float32, tokens (B,) int32, score_delta (B,)
     float32): the picked token's log-prob after the freeze, 0 for frozen
     rows.  CPU tensors take the plain version; CUDA tensors launch the
     kernel."""
-    global launches
+    global launches, launches_rows
     if h_top.device.type == "cpu":
         return fused_decode_tail_plain(h_top, context_lbh, prev, w_a, w_c,
                                        pw_padded, pb_padded, valid)
@@ -139,13 +206,26 @@ def fused_decode_tail(h_top: torch.Tensor, context_lbh: torch.Tensor,
     cuda.check(pb_padded, "pb_padded", (Vp,), torch.float32, dev)
     if valid is not None:
         cuda.check(valid, "valid", (B, Vp), torch.float32, dev)
+    p = None if ROUTE == "rows" else checked_plan(H, B, cd, L, Vp)
+    if p is not None:
+        cuda.check_aligned(context_lbh=context_lbh)
+        if packed is None:
+            packed = pack_weights(w_a, w_c, context_lbh, pw_padded)
+        elif packed["plan"] != p:
+            raise ValueError(f"fused_decode_tail: packed for plan "
+                             f"{packed['plan']}, the launch's is {p}")
     h_tilde = torch.empty((B, H), dtype=torch.float32, device=dev)
     tok = torch.empty((B,), dtype=torch.int32, device=dev)
     delta = torch.empty((B,), dtype=torch.float32, device=dev)
+    w = packed if p is not None else {}
     cuda.launch("decode_step", cd, dev, h.data_ptr(), context_lbh.data_ptr(),
                 prev.data_ptr(), w_a.data_ptr(), w_c.data_ptr(),
-                pw_padded.data_ptr(), pb_padded.data_ptr(),
-                cuda.ptr(valid), h_tilde.data_ptr(), tok.data_ptr(),
-                delta.data_ptr(), L, B, H, Vp)
+                cuda.ptr(w.get("wq")), cuda.ptr(w.get("wc")),
+                pw_padded.data_ptr(), pb_padded.data_ptr(), cuda.ptr(valid),
+                h_tilde.data_ptr(), tok.data_ptr(), delta.data_ptr(),
+                cuda.ptr(w.get("scratch")), L, B, H, Vp, w.get("V", Vp),
+                p.nb if p is not None else 0)
     launches += 1
+    if p is None:
+        launches_rows += 1
     return h_tilde, tok, delta

@@ -28,7 +28,7 @@ The trainer runs on the CUDA device unless the caller names another
 (`main(argv, device="cpu")`, as the tests do); without CUDA the default
 raises.  Data parallelism, multi-host runs, augmentation and device-side
 preprocessing are not ported and raise NotImplementedError naming their
-ROADMAP items.
+ROADMAP queue 1 entries by title.
 """
 
 from __future__ import annotations
@@ -77,17 +77,21 @@ class ValDrivenLR:
         return decayed
 
 
+# the ROADMAP items of the options not ported yet
+PARALLEL = "ROADMAP queue 1: Parallel"
+AUGMENT = "ROADMAP queue 1: Augment and device preprocess"
+
+
 def _unported(cfg: Config) -> None:
     """Raise for the options of aocr.train this trainer does not port."""
     for on, flag, item in (
-            (cfg.num_shards > 1, "-num_shards > 1", 11),
-            (cfg.num_model_shards > 1, "-num_model_shards > 1", 11),
-            (cfg.multihost, "-multihost", 11),
-            (cfg.augment, "-augment", 10),
-            (cfg.device_preprocess, "-device_preprocess", 10)):
+            (cfg.num_shards > 1, "-num_shards > 1", PARALLEL),
+            (cfg.num_model_shards > 1, "-num_model_shards > 1", PARALLEL),
+            (cfg.multihost, "-multihost", PARALLEL),
+            (cfg.augment, "-augment", AUGMENT),
+            (cfg.device_preprocess, "-device_preprocess", AUGMENT)):
         if on:
-            raise NotImplementedError(
-                f"{flag} is not ported: ROADMAP queue 1 item {item}")
+            raise NotImplementedError(f"{flag} is not ported: {item}")
 
 
 def _host_later(x: torch.Tensor):

@@ -52,7 +52,8 @@ def _train_step(params: dict, batch_stats: dict, opt_state, images,
     moments; the padded rows carry PAD targets and so no loss."""
     if cfg.augment:
         raise NotImplementedError(
-            "on-device augmentation is not ported: ROADMAP queue 1 item 10")
+            "on-device augmentation is not ported: ROADMAP queue 1: "
+            "Augment and device preprocess")
     dev = optim.leaves(params)[0].device
     images = _on(images, dev).float()
     targets, targets_eval = _on(targets, dev), _on(targets_eval, dev)

@@ -13,7 +13,10 @@ Phases, each raising on failure:
      main paths' shapes (recognition B=512, T=50; training B=400, T=11,
      the three pools after conv2/4/6), in float32 and bfloat16, with
      stated tolerances; tf_fwd, tf_bwd and lstm_bwd also at a ragged
-     B=37; conv1_pool_bwd's two calls bit-identical;
+     B=37; conv1_pool_bwd's two calls bit-identical; conv1_pool_dx bit
+     for bit, also at B=37 and W=36; decode_step on its cluster and rows
+     routes at B=1, 8, 32, 512 with an all-NaN row, and at B=512 with
+     the 88k trie plane and a row left no valid token;
      lstm_fwd also at H=2400, B=8; a tiny model (H=128)
      trained on the card to exact match, whose bf16 greedy and beam-5
      transcripts on the kernel routes (greedy_loop, decode_step,
@@ -60,7 +63,10 @@ Phases, each raising on failure:
      (check_beam_loop at each B), the 88k-trie search and the one whose
      beams all pick EOS at their first step; the
      recognize images/s at B=512, W=100, bf16, T=50, greedy, beam-5,
-     dictionary beam-5 and beam-10; beam_step at K=5 and K=10; tf_fwd without residuals (score's call) at B=1,
+     dictionary beam-5 and beam-10; the tail-route recognize (bf16 and
+     float32) on decode_step's two routes in turns; decode_step at B=1,
+     8, 32, 512 on both routes; beam_step at K=5 and K=10; tf_fwd without
+     residuals (score's call) at B=1,
      32 and 400 against its plain version, and the two teacher-forced
      kernels' launch plans and ptxas registers; lstm_bwd's plan (its
      route by dtype), conv1_pool_bwd's plan, both kernels' ptxas
@@ -384,32 +390,10 @@ def kernel_checks(dev, results: dict, table) -> None:
         tables = greedy_loop.build_tables(tp["decoder"], tp["projector"], E,
                                           True, dt)
         ctx = rand(L, B, Hd).to(dev, dt)
-        # tail: one step, a mix of live and frozen rows
-        h = rand(B, Hd).to(dev, dt)
-        prev = torch.randint(0, cfg.target_vocab_size, (B,), generator=g,
-                             dtype=torch.int32).to(dev)
-        ht, tok, d = decode_step.fused_decode_tail(
-            h, ctx, prev, tables["wa"], tables["wc"], tables["pw"],
-            tables["pb"])
-        ht_p, tok_p, d_p = decode_step.fused_decode_tail_plain(
-            h, ctx, prev, tables["wa"], tables["wc"], tables["pw"],
-            tables["pb"])
-        _, logp0 = decode_step.attention_logp_tail(
-            h, ctx, tables["wa"], tables["wc"], tables["pw"], tables["pb"],
-            dt)
-        _, _, logp = decode_step.freeze_and_pick(logp0, prev)
-        top2 = logp.topk(2, dim=-1).values
+        # tail: one step on both routes at the timed batches, the 88k
+        # trie plane, an all-invalid row and an all-NaN row
+        decode_step_checks(name, dt, tables, table, g, results)
         tol = 1e-4 if dt == torch.float32 else 3e-2
-        clear = (top2[:, 0] - top2[:, 1]) > tol
-        err = max((ht - ht_p).abs().max().item(), (d - d_p).abs().max().item())
-        check(err <= tol, f"decode_step {name}: max err {err}")
-        check(bool((tok == tok_p)[clear].all()),
-              f"decode_step {name}: tokens differ beyond near-ties")
-        results.setdefault(("decode_step", name), []).append(err)
-        log(f"check decode_step {name} B={B} L={L} H={Hd}: max_abs_err "
-            f"{err:.3g} (tol {tol:.3g}); tokens agree "
-            f"{(tok == tok_p).float().mean().item():.4f} "
-            f"(all rows with margin > tol)")
         # loop: the whole T-step decode; then with the EOS bias raised so
         # that about half the rows stop at step 1 (the PAD/EOS freeze beside
         # live rows of the same block), and so that every row does (each
@@ -423,35 +407,110 @@ def kernel_checks(dev, results: dict, table) -> None:
             err = check_loop(name, eos, loop_args, tol,
                              f", EOS at step 1 for ~{frac:.0%} of rows")
             results[("greedy_loop", name)].append(err)
-        # the trie operands: decode_step's validity plane gathered at nodes
-        # of the 88k lexicon that have children, greedy_loop's table
-        inner = (table >= 0).any(1).nonzero().flatten()
-        nodes = inner[torch.randint(0, len(inner), (B,), generator=g)
-                      .to(dev)].to(torch.int32)
-        plane = greedy_loop.trie_valid(table, nodes, tables["pw"].shape[1],
-                                       pad_ok=True)
-        args = (h, ctx, prev, tables["wa"], tables["wc"], tables["pw"],
-                tables["pb"])
-        ht, tok, d = decode_step.fused_decode_tail(*args, valid=plane)
-        ht_p, tok_p, d_p = decode_step.fused_decode_tail_plain(*args,
-                                                               valid=plane)
-        _, _, logp = decode_step.freeze_and_pick(logp0, prev, plane)
-        top2 = logp.topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > tol
-        err = max((ht - ht_p).abs().max().item(), (d - d_p).abs().max().item())
-        check(err <= tol, f"decode_step {name} 88k trie plane: max err {err}")
-        check(bool((tok == tok_p)[clear].all()),
-              f"decode_step {name} 88k trie plane: tokens differ beyond "
-              "near-ties")
-        check(bool((plane.gather(1, tok.long()[:, None]) > 0).all()),
-              f"decode_step {name}: a token the plane forbids")
-        results[("decode_step", name)].append(err)
-        log(f"check decode_step {name} B={B} 88k trie plane: max_abs_err "
-            f"{err:.3g} (tol {tol:.3g}); tokens agree "
-            f"{(tok == tok_p).float().mean().item():.4f}")
         err = check_loop(name, tables, loop_args, tol, ", 88k trie",
                          trie_table=table)
         results[("greedy_loop", name)].append(err)
+
+
+# decode_step's checked and timed batches: the serving latencies and the
+# serving batch (recognize's tail route)
+DECODE_TIMED = (1, 8, 32, B_SERVE)
+
+
+def decode_step_checks(name, dt, tables, table, g, results) -> None:
+    """decode_step on both routes (the cluster plan; the first port's rows
+    kernel, decode_step.ROUTE = "rows") against its plain version at
+    DECODE_TIMED, the decoder of the recognition shape (L=24): h~ and the
+    deltas within tol (1e-4 float32, 3e-2 bf16), tokens equal but at the
+    plain version's near-ties; prev a mix of live and frozen rows; from
+    B=8 on row 3 all NaN (must pick PAD, as the plain version does); at
+    B=512 also the 88k trie plane at inner nodes, with row 5 (live) left
+    no valid token (PAD at -1e30): every pick valid.  Each route's launch
+    count must move."""
+    import torch
+
+    from aocr_torch import vocab
+    from aocr_torch.ops.cuda import decode_step, greedy_loop
+
+    dev = table.device
+    rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
+    L, H, V = W_SERVE // 4 - 1, tables["wa"].shape[0], tables["eg"].shape[0]
+    Vp = tables["pw"].shape[1]
+    tol = 1e-4 if dt == torch.float32 else 3e-2
+    w = (tables["wa"], tables["wc"], tables["pw"], tables["pb"])
+    for route in ("auto", "rows"):
+        decode_step.ROUTE = route
+        try:
+            for B in DECODE_TIMED:
+                ctx = rand(L, B, H).to(dev, dt)
+                h = rand(B, H)
+                if B >= 8:
+                    h[3] = float("nan")
+                h = h.to(dev, dt)
+                prev = torch.randint(0, V, (B,), generator=g,
+                                     dtype=torch.int32).to(dev)
+                prev[:B // 4] = 5  # more live rows
+                if B >= 8:
+                    prev[3] = 5  # the NaN row live: all its log-probs NaN
+                planes = [None]
+                if B == B_SERVE:
+                    inner = (table >= 0).any(1).nonzero().flatten()
+                    nodes = inner[torch.randint(0, len(inner), (B,),
+                                                generator=g).to(dev)]
+                    plane = greedy_loop.trie_valid(table, nodes.int(), Vp,
+                                                   pad_ok=True)
+                    plane[5] = 0.0
+                    plane[3] = 1.0  # the NaN row stays all NaN
+                    prev[5] = 5
+                    planes.append(plane)
+                for plane in planes:
+                    what = (f"decode_step {name} {route} route B={B}"
+                            + (" 88k trie plane" if plane is not None
+                               else ""))
+                    packed = decode_step.pack_weights(
+                        w[0], w[1], ctx, w[2], V)
+                    n = (decode_step.launches, decode_step.launches_rows)
+                    ht, tok, d = decode_step.fused_decode_tail(
+                        h, ctx, prev, *w, valid=plane, packed=packed)
+                    moved = (decode_step.launches - n[0],
+                             decode_step.launches_rows - n[1])
+                    check(moved == (1, int(route == "rows")),
+                          f"{what}: launch counts moved {moved}")
+                    ht_p, tok_p, d_p = decode_step.fused_decode_tail_plain(
+                        h, ctx, prev, *w, valid=plane)
+                    _, logp0 = decode_step.attention_logp_tail(
+                        h, ctx, *w, dt)
+                    _, _, logp = decode_step.freeze_and_pick(logp0, prev,
+                                                             plane)
+                    top2 = logp.topk(2, dim=-1).values
+                    fin = torch.isfinite(ht_p).all(1)
+                    clear = ((top2[:, 0] - top2[:, 1]) > tol) & fin
+                    err = max((ht - ht_p)[fin].abs().max().item(),
+                              (d - d_p)[fin].abs().max().item())
+                    check(err <= tol, f"{what}: max err {err}")
+                    check(bool((tok == tok_p)[clear].all()),
+                          f"{what}: tokens differ beyond near-ties")
+                    if B >= 8:
+                        check(int(tok[3]) == int(tok_p[3]) == vocab.PAD,
+                              f"{what}: the all-NaN row picked "
+                              f"{int(tok[3])} (plain {int(tok_p[3])})")
+                    if plane is not None:
+                        ok = plane.gather(1, tok.long()[:, None])[:, 0] > 0
+                        ok[5] = True  # no valid token there
+                        check(bool(ok.all()),
+                              f"{what}: a token the plane forbids")
+                        check(int(tok[5]) == vocab.PAD
+                              and float(d[5]) == float(d_p[5]),
+                              f"{what}: the row with no valid token picked "
+                              f"{int(tok[5])} at {float(d[5])}")
+                    results.setdefault(("decode_step", name), []).append(err)
+                    log(f"check {what} L={L} H={H}: max_abs_err {err:.3g} "
+                        f"(tol {tol:.3g}); tokens agree "
+                        f"{(tok == tok_p).float().mean().item():.4f} (all "
+                        f"rows with margin > tol)"
+                        + ("; the all-NaN row picks PAD" if B >= 8 else ""))
+        finally:
+            decode_step.ROUTE = "auto"
 
 
 def eos_tables(tables: dict, loop_args, frac: float) -> dict:
@@ -540,6 +599,7 @@ def end_to_end(dev, seed: int):
     from aocr_torch import weights
     from aocr_torch.api import AttentionOCR
     from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import decode_step
 
     base = base_config()
     np_params, np_stats = numpy_model(base, seed)
@@ -565,6 +625,10 @@ def end_to_end(dev, seed: int):
     for k in ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop"):
         check(counts[k] > 0, f"kernel {k} never launched on the recognize "
                              "path")
+    # the tail route's steps all on decode_step's cluster plans
+    check(decode_step.launches_rows == 0,
+          f"decode_step took its rows route {decode_step.launches_rows} "
+          "times on the recognize path")
 
     for (dt, route), res in outs.items():
         for req, (words, scores) in zip(requests, res):
@@ -1231,12 +1295,7 @@ def timings(dev, models, requests, card: str, table):
 
     g = torch.Generator().manual_seed(11)
     rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
-    cfg = base_config()
-    B, L, T = B_SERVE, W_SERVE // 4 - 1, T_MAX
-    He, Hd, E = (cfg.encoder_num_hidden, cfg.decoder_num_hidden,
-                 cfg.target_embedding_size)
-    nl = cfg.decoder_num_layers
-    V = cfg.target_vocab_size
+    B, E = B_SERVE, base_config().target_embedding_size
     ms, bounds, lib = {}, {}, {}
     for dt in (torch.float32, torch.bfloat16):
         name = "f32" if dt == torch.float32 else "bf16"
@@ -1248,39 +1307,18 @@ def timings(dev, models, requests, card: str, table):
         m = models[("float32" if dt == torch.float32 else "bfloat16", "loop")]
         tables = greedy_loop.build_tables(
             m.params["decoder"], m.params["projector"], E, True, dt)
-        ctx = rand(L, B, Hd).to(dev, dt)
-        h = rand(B, Hd).to(dev, dt)
-        prev = torch.full((B,), 5, dtype=torch.int32, device=dev)
-        args = (h, ctx, prev, tables["wa"], tables["wc"], tables["pw"],
-                tables["pb"])
-        pairs["decode_step"] = (lambda: decode_step.fused_decode_tail(*args),
-                                lambda: decode_step.fused_decode_tail_plain(
-                                    *args), 20)
         conv_flops = 2.0 * 9 * 64 * B * 32 * W_SERVE
         bounds[("conv1_pool", name)] = bound(
             conv_flops, tensor_bytes((x, w, b),
                                      conv1_pool.conv1_relu_pool(x, w, b)),
             name)
-        bounds[("decode_step", name)] = bound(
-            B * step_flops(Hd, L, V, nl, True, gates=False),
-            tensor_bytes(args, decode_step.fused_decode_tail(*args)), name)
         for k, (fk, fp, n) in pairs.items():
             k1, k2, p1, p2 = time_pair(fk, fp, n)
             ms[(k, name)] = (min(k1, k2), min(p1, p2))
             log(f"time {k} {name}: kernel {k1:.4f} / {k2:.4f} ms, plain "
                 f"{p1:.4f} / {p2:.4f} ms; bound "
                 f"{bounds[(k, name)][0]:.4f} ms ({bounds[(k, name)][1]})")
-        # the trie plane at inner nodes of the 88k lexicon
-        inner = (table >= 0).any(1).nonzero().flatten()
-        nodes = inner[torch.randint(0, len(inner), (B,), generator=g)
-                      .to(dev)].to(torch.int32)
-        plane = greedy_loop.trie_valid(table, nodes, tables["pw"].shape[1],
-                                       pad_ok=True)
-        kp = cuda_ms(lambda: decode_step.fused_decode_tail(
-            *args, valid=plane), 20)
-        log(f"time decode_step {name} with the 88k trie plane: kernel "
-            f"{kp:.4f} ms")
-        ms[("decode_step_trie", name)] = kp
+        decode_step_timings(dev, name, dt, tables, table, g, ms, bounds)
 
     m = models[("bfloat16", "loop")]
     batch = requests[3]
@@ -1297,15 +1335,117 @@ def timings(dev, models, requests, card: str, table):
         f"{len(batch) / med:.1f} images/s (median of 5: {med * 1e3:.2f} ms; "
         f"mean transcript length {mean_len:.2f}) on {card}")
     profile(f"recognize bf16 loop B={len(batch)}", lambda: m.recognize(batch))
-    for dt, route in (("bfloat16", "tail"), ("float32", "loop")):
+    # the tail route (decode_step once a step) on its cluster plan and on
+    # the first port's rows kernel, in turns; float32's loop route
+    for dt, route, kroute in (("bfloat16", "tail", "auto"),
+                              ("bfloat16", "tail", "rows"),
+                              ("bfloat16", "tail", "auto"),
+                              ("bfloat16", "tail", "rows"),
+                              ("float32", "tail", "auto"),
+                              ("float32", "tail", "rows"),
+                              ("float32", "loop", "auto")):
         mm = models[(dt, route)]
-        mm.recognize(batch)
-        t0 = time.perf_counter()
-        mm.recognize(batch)
-        el = time.perf_counter() - t0
-        log(f"recognize {dt} {route} B={len(batch)}: "
-            f"{len(batch) / el:.1f} images/s ({el * 1e3:.2f} ms, one run)")
+        decode_step.ROUTE = kroute
+        try:
+            mm.recognize(batch)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                mm.recognize(batch)
+                times.append(time.perf_counter() - t0)
+        finally:
+            decode_step.ROUTE = "auto"
+        med = float(np.median(times))
+        what = f" (decode_step's {kroute} route)" if route == "tail" else ""
+        log(f"recognize {dt} {route}{what} B={len(batch)}: "
+            f"{len(batch) / med:.1f} images/s (median of 5: "
+            f"{med * 1e3:.2f} ms; all 5: "
+            f"{', '.join(f'{t * 1e3:.2f}' for t in times)}) on {card}")
+        ms[("recognize", dt, route, kroute)] = med * 1e3
+    decode_step.ROUTE = "rows"
+    try:
+        profile(f"recognize bf16 tail (rows route) B={len(batch)}",
+                lambda: models[("bfloat16", "tail")].recognize(batch))
+    finally:
+        decode_step.ROUTE = "auto"
+    profile(f"recognize bf16 tail B={len(batch)}",
+            lambda: models[("bfloat16", "tail")].recognize(batch))
     return ms, bounds, lib
+
+
+def decode_step_timings(dev, name, dt, tables, table, g, ms: dict,
+                        bounds: dict) -> None:
+    """decode_step at the recognition shape (L=24, the default decoder,
+    every row live) at DECODE_TIMED: its cluster route with the weights
+    packed once (a decode's call), the first port's rows route
+    (decode_step.ROUTE = "rows") and the plain version, by CUDA events in
+    turns (plain, cluster, rows, rows, cluster, plain), the bound and the
+    plan; at B=512 also the call that packs the weights itself and the
+    88k trie plane.  ms[("decode_step", name)] is B=512's (kernel, plain),
+    ms[("decode_step", name, B)] each batch's, ms[("decode_step_rows",
+    name, B)] the rows route's."""
+    import torch
+
+    from aocr_torch.ops.cuda import decode_step, greedy_loop
+
+    rand = lambda *s: torch.rand(*s, generator=g) * 2 - 1
+    cfg = base_config()
+    L, Hd, nl = W_SERVE // 4 - 1, cfg.decoder_num_hidden, \
+        cfg.decoder_num_layers
+    V = cfg.target_vocab_size
+    w = (tables["wa"], tables["wc"], tables["pw"], tables["pb"])
+
+    def rows(fn):
+        def call():
+            decode_step.ROUTE = "rows"
+            try:
+                return fn()
+            finally:
+                decode_step.ROUTE = "auto"
+        return call
+
+    for B in DECODE_TIMED:
+        ctx = rand(L, B, Hd).to(dev, dt)
+        h = rand(B, Hd).to(dev, dt)
+        prev = torch.full((B,), 5, dtype=torch.int32, device=dev)
+        packed = decode_step.pack_weights(w[0], w[1], ctx, w[2], V)
+        kern = lambda: decode_step.fused_decode_tail(h, ctx, prev, *w,
+                                                     packed=packed)
+        plain = lambda: decode_step.fused_decode_tail_plain(h, ctx, prev, *w)
+        n = 20
+        p1 = cuda_ms(plain, n // 2, 1)
+        k1 = cuda_ms(kern, n)
+        r1 = cuda_ms(rows(kern), n)
+        r2 = cuda_ms(rows(kern), n)
+        k2 = cuda_ms(kern, n)
+        p2 = cuda_ms(plain, n // 2, 1)
+        bounds[("decode_step", name, B)] = bound(
+            B * step_flops(Hd, L, V, nl, True, gates=False),
+            tensor_bytes((h, ctx, prev, w), kern()), name)
+        ms[("decode_step", name, B)] = (min(k1, k2), min(p1, p2))
+        ms[("decode_step_rows", name, B)] = min(r1, r2)
+        bnd = bounds[("decode_step", name, B)]
+        log(f"time decode_step {name} B={B}: kernel {k1:.4f} / {k2:.4f} ms "
+            f"(cluster route, weights packed once), rows route {r1:.4f} / "
+            f"{r2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}); "
+            f"{decode_step.plans[(Hd, B, 1, dt, L, w[2].shape[1])][1]}")
+    ms[("decode_step", name)] = ms[("decode_step", name, B_SERVE)]
+    bounds[("decode_step", name)] = bounds[("decode_step", name, B_SERVE)]
+    args = (h, ctx, prev, *w)
+    kc = cuda_ms(lambda: decode_step.fused_decode_tail(*args), 20)
+    # the trie plane at inner nodes of the 88k lexicon
+    inner = (table >= 0).any(1).nonzero().flatten()
+    nodes = inner[torch.randint(0, len(inner), (B_SERVE,), generator=g)
+                  .to(dev)].to(torch.int32)
+    plane = greedy_loop.trie_valid(table, nodes, w[2].shape[1], pad_ok=True)
+    kp = cuda_ms(lambda: decode_step.fused_decode_tail(
+        *args, valid=plane, packed=packed), 20)
+    log(f"time decode_step {name} B={B_SERVE}: {kc:.4f} ms a call that packs "
+        f"the weights itself; with the 88k trie plane {kp:.4f} ms")
+    ms[("decode_step_call", name)] = kc
+    ms[("decode_step_trie", name)] = kp
 
 # greedy_loop's timed batches: the serving latencies and the serving batch
 GREEDY_TIMED = (1, 8, 32, B_SERVE)
@@ -1680,6 +1820,36 @@ def pool_input(g, shape, dev, dt):
         memory_format=torch.channels_last)
 
 
+def dx_check(name, dt, x, w, b, dy, what, results) -> None:
+    """conv1_pool_dx's 16 taps a cell against its plain version: bit for
+    bit (max_abs_err 0; the kernel sums in the plain version's order),
+    and within the first port's tolerances (float32 1e-5 of the scale,
+    bf16 one step)."""
+    import torch
+
+    from aocr_torch.ops.cuda import conv1_pool_dx
+
+    got = conv1_pool_dx.conv1_relu_pool_dx16(x, w, b, dy)
+    want = conv1_pool_dx.conv1_relu_pool_dx16_plain(x, w, b, dy)
+    err = float((got.float() - want.float()).abs().max())
+    results.setdefault(("conv1_pool_dx", name), []).append(err)
+    check(torch.equal(got, want), f"conv1_pool_dx {name}{what}: not "
+                                  f"bit-identical (max err {err})")
+    if dt == torch.float32:
+        rel = rel_err(got, want)
+        check(rel <= 1e-5, f"conv1_pool_dx {name}{what}: max err {rel} of "
+                           "the scale")
+        tail = f"{rel:.3g} of the plain version's max abs (tol 1e-5)"
+    else:
+        steps = bf16_steps(got, want)
+        check(steps <= 1.0, f"conv1_pool_dx {name}{what}: {steps} bf16 "
+                            "steps off")
+        tail = f"at most {steps:.3g} bf16 steps off (tol 1)"
+    plan = conv1_pool_dx.checked_plan(*x.shape[:3], x.dtype)
+    log(f"check conv1_pool_dx {name}{what}: max_abs_err {err:.3g} (tol 0: "
+        f"bit for bit), {tail}; {plan}")
+
+
 def train_kernel_checks(dev, results: dict) -> None:
     """The five training kernel rows against their plain versions at the
     train step's shapes (B=400, L=24, T=11, H_enc=512, H_dec=1024).  Each
@@ -1689,9 +1859,8 @@ def train_kernel_checks(dev, results: dict) -> None:
     import torch
     import torch.nn.functional as F
 
-    from aocr_torch.ops.cuda import (conv1_pool_bwd, conv1_pool_dx,
-                                     lstm_bwd, lstm_fwd, pool_bwd, tf_bwd,
-                                     tf_fwd)
+    from aocr_torch.ops.cuda import (conv1_pool_bwd, lstm_bwd, lstm_fwd,
+                                     pool_bwd, tf_bwd, tf_fwd)
 
     g = torch.Generator().manual_seed(17)
     rand = lambda *s, lo=-1.0, hi=1.0: (torch.rand(*s, generator=g)
@@ -1730,26 +1899,16 @@ def train_kernel_checks(dev, results: dict) -> None:
             want = conv1_pool_bwd.conv1_relu_pool_bwd_plain(x, w, b, dy)
             record("conv1_pool_bwd", name, got, want, 1e-4,
                    f" B={B} ({kind}; two calls bit-identical)")
-            # the image cotangent's 16 taps a cell: float32 within 1e-5 of
-            # the scale (summation order only), bf16 within one step
-            got = conv1_pool_dx.conv1_relu_pool_dx16(x, w, b, dy)
-            want = conv1_pool_dx.conv1_relu_pool_dx16_plain(x, w, b, dy)
-            err = float((got.float() - want.float()).abs().max())
-            results.setdefault(("conv1_pool_dx", name), []).append(err)
-            if f32:
-                rel = rel_err(got, want)
-                check(rel <= 1e-5, f"conv1_pool_dx {name} ({kind}): max err "
-                                   f"{rel} of the scale")
-                what = f"{rel:.3g} of the plain version's max abs (tol 1e-5)"
-            else:
-                steps = bf16_steps(got, want)
-                check(steps <= 1.0, f"conv1_pool_dx {name} ({kind}): "
-                                    f"{steps} bf16 steps off")
-                same = float((got == want).float().mean())
-                what = (f"equal elements {same:.6f}, at most {steps:.3g} "
-                        "bf16 steps off (tol 1)")
-            log(f"check conv1_pool_dx {name} B={B} ({kind}): max_abs_err "
-                f"{err:.3g}, {what}")
+            dx_check(name, dt, x, w, b, dy, f" B={B} ({kind})", results)
+        # the image cotangent also on a ragged batch (B=37: runs that end
+        # inside a warp's pair of cells) and at W=36 with ties
+        for B_, W_, kind in ((37, W_SERVE, "noise"), (B, 36, "ties")):
+            x = rand(B_, 32, W_, 1)
+            if kind == "ties":
+                x = (x * 2).round() / 2
+            dy = rand(B_, 64, 16, W_ // 2).to(dev, dt).permute(0, 2, 3, 1)
+            dx_check(name, dt, x.to(dev, dt), w, b, dy,
+                     f" B={B_} W={W_} ({kind})", results)
         # the fused ReLU + max-pool backward at the three pools' shapes:
         # bit-identical to its plain version and to autograd
         for shape, window in POOLS:
@@ -2549,7 +2708,8 @@ def main() -> int:
                    "beam_cluster_kernel", "tf_fwd_cluster_kernel",
                    "tf_bwd_cluster_kernel", "lstm_bwd_cluster_kernel",
                    "conv1_pool_bwd_kernel", "conv1_pool_bf16_kernel",
-                   "conv1_pool_f32_kernel", "beam_step_cluster_kernel"):
+                   "conv1_pool_f32_kernel", "step_cluster_kernel",
+                   "conv1_pool_dx_kernel"):
         for line in ptxas_summary(out.getvalue(), kernel):
             log(f"ptxas {line}")
 
@@ -2728,6 +2888,32 @@ def main() -> int:
                          "f32_plain_ms": ms[bkey(K, "f32")][1]}
                 for K in BEAM_STEP_K}
             entry["beam10_launches"] = b10counts[k]
+        if k == "decode_step":
+            entry["redesigned"] = ("thread-block clusters: beam_step's "
+                                   "cluster step at K=1 with the greedy "
+                                   "argmax, the weights packed once a "
+                                   "decode; the rows route where no plan "
+                                   "fits")
+            entry["batches"] = {
+                str(B): {"ms": ms[(k, d, B)][0], "plain_ms": ms[(k, d, B)][1],
+                         "rows_route_ms": ms[("decode_step_rows", d, B)],
+                         "bound_ms": bounds[(k, d, B)][0],
+                         "bf16_ms": ms[(k, "bf16", B)][0],
+                         "bf16_plain_ms": ms[(k, "bf16", B)][1],
+                         "bf16_rows_route_ms": ms[("decode_step_rows",
+                                                   "bf16", B)],
+                         "bf16_bound_ms": bounds[(k, "bf16", B)][0]}
+                for B in DECODE_TIMED}
+            entry["trie_88k_ms"] = ms[("decode_step_trie", d)]
+            entry["packing_call_ms"] = ms[("decode_step_call", d)]
+        if k == "conv1_pool_dx":
+            entry["redesigned"] = ("the card's blocks on equal runs of "
+                                   "cells (conv1_pool_bwd's plan), 16 lanes "
+                                   "a cell, 4 channels a lane, the taps "
+                                   "from a table by winning position, the "
+                                   "channels' sum in one fixed tree, bit "
+                                   "for bit the plain version's")
+            entry["bf16_ms"], entry["bf16_plain_ms"] = ms[(k, "bf16")]
         if k == "pool_bwd":
             entry["per"] = "one train step: the three pools, summed"
             entry["library"] = ("max_pool2d_with_indices_backward + "

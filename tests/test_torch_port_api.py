@@ -123,7 +123,8 @@ def test_unported_surfaces_raise():
     them is not ported and names its ROADMAP item."""
     ocr = AttentionOCR.create(_tcfg(device_preprocess=True,
                                     snap_width_ladder=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1: Augment and device preprocess"):
         ocr.recognize(["word.png"])
 
 

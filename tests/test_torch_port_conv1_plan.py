@@ -12,7 +12,10 @@ bfloat16 (only the order of the float32 sums differs); and the plan
 gives every cell one block, stages every row a block reads, and fits the
 H100's shared memory.  Odd widths floor: aocr (even widths only) is run
 on the image with one zero column appended, its last pool column
-dropped.
+dropped.  The image cotangent (conv1_pool_dx): its plain version's fixed
+order of the channels' float32 sum, which the kernel runs bit for bit,
+pinned by numpy scalar arithmetic, and its plan (conv1_pool_bwd's) over
+the image-gradient shapes.
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from aocr.ops.pallas import conv1_pool as jconv1
-from aocr_torch.ops.cuda import conv1_pool, conv1_pool_bwd
+from aocr_torch.ops.cuda import conv1_pool, conv1_pool_bwd, conv1_pool_dx
 
 SMEM = 232448  # an H100 block's shared memory, bytes
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -171,3 +174,79 @@ def test_plan_at_the_main_paths():
         p = conv1_pool.plan(1, 32, 100, dt)
         assert p.blocks == 800 // conv1_pool.MIN_RUN
         assert conv1_pool.plan(512, 32, 100, dt, 132).blocks == 132
+
+
+def _dx_case(dt, B, W, seed):
+    """An image, conv1's weights and a pooled cotangent for the image
+    cotangent: x in the compute dtype, w and b float32, dy (B, 16, W//2,
+    64) in the compute dtype."""
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.uniform(-1, 1, (B, 32, W, 1)).astype(np.float32))
+    w = torch.from_numpy(rs.uniform(-1 / 3, 1 / 3, (64, 1, 3, 3))
+                         .astype(np.float32))
+    b = torch.from_numpy(rs.uniform(-1 / 3, 1 / 3, (64,)).astype(np.float32))
+    dy = torch.from_numpy(rs.uniform(-1, 1, (B, 16, W // 2, 64))
+                          .astype(np.float32))
+    return x.to(dt), w, b, dy.to(dt)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_dx_tap_order(name):
+    """conv1_pool_dx's plain version sums the channels' terms in the
+    kernel's fixed order (csrc/conv1_pool_dx.cu), pinned here by numpy
+    float32 scalar arithmetic: each channel's term the one rounded
+    product W16[tap, p, c] x dy at its winning position p; the 16 groups
+    of 4 channels each summed from +0 in channel order; the group sums
+    added k + (k + 8), then 4 apart, 2 apart, 1 apart; rounded to the
+    compute dtype."""
+    dt = DTYPES[name][0]
+    B, W = 2, 10
+    x, w, b, dy = _dx_case(dt, B, W, 9)
+    got = conv1_pool_dx.conv1_relu_pool_dx16_plain(x, w, b, dy)
+    dz, _ = conv1_pool_bwd.routed(x, w, b, dy)  # (B, 64, Ho, Wo, 4)
+    dz = dz.permute(1, 0, 2, 3, 4).reshape(64, -1, 4).numpy()
+    pos = np.abs(dz).argmax(-1)  # the winning position (any, where 0)
+    g = np.take_along_axis(dz, pos[..., None], -1)[..., 0]
+    w16 = conv1_pool_dx._w16(w, dt).numpy()  # (16, 4, 64)
+    wsel = w16[:, pos, np.arange(64)[:, None]]  # (16 taps, 64, cells)
+    terms = (wsel * g[None]).astype(np.float32)  # float32 products
+    s = []
+    for j in range(16):
+        acc = np.zeros(terms.shape[::2], np.float32)  # (16, cells)
+        for k in range(4):
+            acc = (acc + terms[:, 4 * j + k]).astype(np.float32)
+        s.append(acc)
+    for half in (8, 4, 2, 1):
+        s = [(s[k] + s[k + half]).astype(np.float32) for k in range(half)]
+    want = torch.from_numpy(np.ascontiguousarray(s[0].T)).reshape(
+        B, 16, W // 2, 16).to(dt)
+    assert got.dtype == dt
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B", [1, 37, 400])
+@pytest.mark.parametrize("W", [2, 36, 100])
+def test_dx_plan_covers_the_image_gradient(B, W):
+    """conv1_pool_dx runs conv1_pool_bwd's plan (csrc/conv1_route.cuh
+    `cb_plan`) with its own staging limit: the runs partition the cells,
+    each block's staged rows fit the plan's rows and STAGE_MAX, and two
+    blocks with the kernel's static shared memory (the tap table and the
+    group sums) fit a SM; 264 blocks (2 an SM of an H100) wherever there
+    are that many cells."""
+    H, Ho, Wo = 32, 16, W // 2
+    resident = 264
+    p = conv1_pool_dx.plan(B, H, W, resident)
+    assert p is not None
+    cells = B * Ho * Wo
+    rb = 4 * ((W + 3) & ~1)
+    assert p.blocks == min(resident, cells)
+    assert p.rows * rb == p.smem <= conv1_pool_dx.STAGE_MAX
+    assert 2 * (p.smem + conv1_pool_dx.STATIC_BYTES) <= SMEM
+    i = np.arange(p.blocks)
+    lo, hi = i * cells // p.blocks, (i + 1) * cells // p.blocks
+    assert lo[0] == 0 and hi[-1] == cells and (lo[1:] == hi[:-1]).all()
+    assert (hi > lo).all()
+    g0, g1 = lo // Wo, (hi - 1) // Wo
+    assert (conv1_pool_bwd.base(g1, g0, Ho) + 4).max() <= p.rows
+    assert p == conv1_pool_bwd.plan(B, H, W, resident,
+                                    conv1_pool_dx.STAGE_MAX)

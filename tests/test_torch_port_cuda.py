@@ -60,6 +60,7 @@ pytestmark = pytest.mark.cuda
 
 DTYPES = [torch.float32, torch.bfloat16]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+NEG_F32 = float(torch.tensor(-1e30))  # an invalid token's score
 
 
 @pytest.fixture
@@ -216,23 +217,51 @@ def _decoder_tables(g, dev, dtype, H, V=39, E=8, nl=2, input_feed=True):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_decode_step_kernel(dev, dtype):
+@pytest.mark.parametrize("route", ["auto", "rows"])
+@pytest.mark.parametrize("B", [6, 1, 512])
+def test_decode_step_kernel(dev, dtype, route, B, monkeypatch):
+    """Both routes (the cluster plan, the first port's rows kernel) against
+    the plain version at one batch row, a ragged few and the serving
+    batch; row 3 of the wider batches is all NaN and picks PAD, row 2
+    (prev PAD) is frozen; the weights packed once (the decode's call)
+    give the same bits as packed at the call."""
     g = torch.Generator().manual_seed(3)
-    L, B, H = 9, 6, 256
+    L, H = 9, 256
     t = _decoder_tables(g, dev, dtype, H)
-    h = _rand(g, B, H).to(dev, dtype)
+    h = _rand(g, B, H)
+    if B > 3:
+        h[3] = float("nan")
+    h = h.to(dev, dtype)
     ctx = _rand(g, L, B, H).to(dev, dtype)
-    prev = torch.tensor([1, 2, 0, 5, 17, 1], dtype=torch.int32, device=dev)
-    ht, tok, d = decode_step.fused_decode_tail(h, ctx, prev, t["wa"], t["wc"],
-                                               t["pw"], t["pb"])
+    prev = torch.tensor([1, 2, 0, 5, 17, 1], dtype=torch.int32)
+    prev = prev.repeat(-(-B // 6))[:B].to(dev)
+    monkeypatch.setattr(decode_step, "ROUTE", route)
+    args = (h, ctx, prev, t["wa"], t["wc"], t["pw"], t["pb"])
+    assert decode_step.checked_plan(H, B, dtype, L, t["pw"].shape[1]) \
+        is not None  # the rows route here only where asked for
+    n, nr = decode_step.launches, decode_step.launches_rows
+    ht, tok, d = decode_step.fused_decode_tail(*args)
+    assert decode_step.launches == n + 1
+    assert decode_step.launches_rows == nr + (route == "rows")
     torch.cuda.synchronize()
-    ht_p, tok_p, d_p = decode_step.fused_decode_tail_plain(
-        h, ctx, prev, t["wa"], t["wc"], t["pw"], t["pb"])
-    _close(ht, ht_p, TOL[dtype])
-    _close(d, d_p, TOL[dtype])
-    assert torch.equal(tok[2:3].cpu(), torch.zeros(1, dtype=torch.int32))
+    ht_p, tok_p, d_p = decode_step.fused_decode_tail_plain(*args)
+    ok = torch.ones(B, dtype=torch.bool, device=dev)
+    if B > 3:
+        ok[3] = False
+        assert int(tok[3]) == int(tok_p[3]) == vocab.PAD
+        assert bool(torch.isnan(ht[3]).all())
+    _close(ht[ok], ht_p[ok], TOL[dtype])
+    _close(d[ok], d_p[ok], TOL[dtype])
+    if B > 2:
+        assert int(tok[2]) == vocab.PAD and float(d[2]) == 0.0
     if dtype == torch.float32:
         assert torch.equal(tok.cpu(), tok_p.cpu())
+    if route == "auto":
+        packed = decode_step.pack_weights(t["wa"], t["wc"], ctx, t["pw"],
+                                          39)
+        got = decode_step.fused_decode_tail(*args, packed=packed)
+        for a, b in zip(got, (ht, tok, d)):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -556,12 +585,14 @@ def bf16_steps(got, want):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("W,ties", [(100, False), (81, False), (36, True)])
-def test_conv1_pool_dx_kernel(dev, dtype, W, ties):
+@pytest.mark.parametrize("B", [5, 1, 37, 512])
+def test_conv1_pool_dx_kernel(dev, dtype, W, ties, B):
     """The image cotangent's 16 patch taps against the plain version
-    (float32 within 1e-5 of the scale, bfloat16 within one step), and the
-    unpatched (B, H, W, 1) cotangent; ties as in the dW test."""
+    (float32 within 1e-5 of the scale, bfloat16 within one step, and both
+    bit for bit: the kernel sums in the plain version's order), and the
+    unpatched (B, H, W, 1) cotangent; ties as in the dW test; one image,
+    a ragged batch and the serving batch."""
     g = torch.Generator().manual_seed(31)
-    B = 5
     x = _rand(g, B, 32, W, 1)
     if ties:
         x = (x * 2).round() / 2
@@ -579,6 +610,7 @@ def test_conv1_pool_dx_kernel(dev, dtype, W, ties):
         _close(taps, want, 1e-5 * float(want.abs().max()))
     else:
         assert bf16_steps(taps, want) <= 1.0
+    assert torch.equal(taps, want)
     dx = conv1_pool_dx.conv1_relu_pool_dx(x, w, b, dy)
     dx_p = conv1_pool_dx.conv1_relu_pool_dx_plain(x, w, b, dy)
     assert dx.shape == x.shape and dx.dtype == dtype
@@ -923,7 +955,11 @@ def _trie(dev, words=LEXICON):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_decode_step_kernel_valid_plane(dev, dtype):
+@pytest.mark.parametrize("route", ["auto", "rows"])
+def test_decode_step_kernel_valid_plane(dev, dtype, route, monkeypatch):
+    """The trie plane on both routes: picks only valid tokens, row 4 (live)
+    has no valid token and picks PAD at -1e30, row 1 (prev EOS) is
+    frozen and picks PAD at 0."""
     g = torch.Generator().manual_seed(20)
     L, B, H = 9, 7, 256
     t = _decoder_tables(g, dev, dtype, H)
@@ -936,6 +972,9 @@ def test_decode_step_kernel_valid_plane(dev, dtype):
     nodes = inner[torch.arange(B) % len(inner)].to(torch.int32)
     valid = greedy_loop.trie_valid(table, nodes.to(dev), t["pw"].shape[1],
                                    pad_ok=False)
+    valid[1] = 0.0
+    valid[4] = 0.0
+    monkeypatch.setattr(decode_step, "ROUTE", route)
     args = (h, ctx, prev, t["wa"], t["wc"], t["pw"], t["pb"])
     n = decode_step.launches
     ht, tok, d = decode_step.fused_decode_tail(*args, valid=valid)
@@ -945,7 +984,10 @@ def test_decode_step_kernel_valid_plane(dev, dtype):
                                                            valid=valid)
     _close(ht, ht_p, TOL[dtype])
     _close(d, d_p, TOL[dtype])
+    assert int(tok[4]) == vocab.PAD and float(d[4]) == NEG_F32
+    assert int(tok[1]) == vocab.PAD and float(d[1]) == 0.0
     live = ~((prev == vocab.PAD) | (prev == vocab.EOS))
+    live[4] = False
     picked = valid.gather(1, tok.long()[:, None])[:, 0]
     assert bool((picked[live] > 0).all())
     if dtype == torch.float32:

@@ -132,7 +132,8 @@ def test_datagen_stream_matches_reference(tmp_path, keep_aspect):
 def test_device_preprocess_raises(tmp_path):
     path = _manifest(tmp_path, 2, [100])
     cfg = TConfig(device_preprocess=True, snap_width_ladder=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1: Augment and device preprocess"):
         data.DataGen(str(tmp_path), path, cfg)
 
 

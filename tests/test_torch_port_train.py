@@ -251,7 +251,7 @@ def test_masked_and_synced_batchnorm_raise():
     against the reference)."""
     tp, ts = weights.from_numpy(*_problem(_cfg())[:2])
     images = torch.zeros((2, 32, 36, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Parallel"):
         cnn.apply(tp["cnn"], ts, images, train=True, axis_name="data")
     feats, _ = cnn.apply(tp["cnn"], ts, images, train=True,
                          row_mask=torch.tensor([1.0, 0.0]))

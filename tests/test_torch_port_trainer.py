@@ -229,10 +229,17 @@ def test_trainer_defaults_to_cuda(tmp_path):
                     str(tmp_path / "log.txt")])
 
 
+PARALLEL = "ROADMAP queue 1: Parallel"
+AUGMENT = "ROADMAP queue 1: Augment and device preprocess"
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["-num_shards", "2"], "item 11"), (["-num_model_shards", "2"], "item 11"),
-    (["-multihost"], "item 11"), (["-augment"], "item 10"),
-    (["-device_preprocess", "-no_snap_width_ladder"], "item 10")])
+    (["-num_shards", "2"], PARALLEL), (["-num_model_shards", "2"], PARALLEL),
+    (["-multihost"], PARALLEL), (["-augment"], AUGMENT),
+    (["-device_preprocess", "-no_snap_width_ladder"], AUGMENT)],
+    # the cases' ids from when the items were named by number
+    ids=["flag0-item 11", "flag1-item 11", "flag2-item 11", "flag3-item 10",
+         "flag4-item 10"])
 def test_unported_options_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         train.main(["-phase", "test", "-log_path", str(tmp_path / "l.txt")]

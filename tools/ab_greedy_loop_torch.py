@@ -3,7 +3,8 @@
 
     python3 tools/ab_greedy_loop_torch.py DIR_A DIR_B [--turns 4]
         [--kernel greedy_loop|beam_loop|tf_fwd|tf_bwd|lstm_bwd|
-                  conv1_pool_bwd|conv1_pool|beam_step] [--K 5]
+                  conv1_pool_bwd|conv1_pool|beam_step|decode_step|
+                  conv1_pool_dx] [--K 5]
 
 Each DIR is a checkout that holds aocr_torch/.  greedy_loop and beam_loop
 are timed at the recognition shape (L=24, T=50, the default decoder:
@@ -21,7 +22,13 @@ B=400 and 33, conv1_pool_bwd at the train step's B=400 crops of 32 x 100
 conv1_pool and beam_step).  conv1_pool is timed at the recognition shape (B=512 crops of 32 x 100), with a
 digest of its output (bit-identical outputs give the same digest in every
 checkout); beam_step at B=512 with K beams (--K, 5 or 10), every beam
-live, at the recognition decoder's shape.
+live, at the recognition decoder's shape.  decode_step at the same shape
+at B=512, 32, 8 and 1, every row live (with the weights packed once, as
+a decode calls it, where the checkout packs them), then the bf16
+tail-route recognize (pallas_greedy="tail", decode_step once a step) of
+512 random crops of 32 x 100 on a model of random weights, so that every
+row runs all 50 steps, the median of 5; conv1_pool_dx at the train
+step's B=400 crops of 32 x 100, with a digest of its taps.
 In turns A, B, B, A, ..., each
 turn in a fresh process that builds that checkout's kernels (CUDA events
 over back-to-back launches).  Prints one line a turn and the card's name
@@ -127,6 +134,56 @@ for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         out[f"beam_step {{name}} B={{B}} K={{K}}"] = ms(run, 20)
         kernel_ms(run, "beam", name)
         continue
+    if {kernel!r} == "conv1_pool_dx":
+        import hashlib
+        from aocr_torch.ops.cuda import conv1_pool_dx
+        B = 400
+        x = r(B, 32, 100, 1).to(dt)
+        w, b = r(64, 1, 3, 3) / 3, r(64) / 3
+        dy = r(B, 16, 50, 64).to(dt)
+        run = lambda: conv1_pool_dx.conv1_relu_pool_dx16(x, w, b, dy)
+        out[f"conv1_pool_dx {{name}} B={{B}}"] = ms(run, 50)
+        kernel_ms(run, "conv1_pool_dx", name)
+        y = run().float().cpu().numpy()
+        out[f"conv1_pool_dx {{name}} digest"] = hashlib.sha256(
+            y.tobytes()).hexdigest()[:16]
+        continue
+    if {kernel!r} == "decode_step":
+        import time
+        from aocr_torch.api import AttentionOCR
+        from aocr_torch.config import Config
+        t = greedy_loop.build_tables(tp["decoder"], tp["projector"], E, True,
+                                     dt)
+        w = (t["wa"], t["wc"], t["pw"], t["pb"])
+        for B in (512, 32, 8, 1):
+            ctx = r(L, B, H).to(dt)
+            h = r(B, H).to(dt)
+            prev = torch.full((B,), 5, dtype=torch.int32, device=dev)
+            kw = {{}}
+            if hasattr(decode_step, "pack_weights"):
+                kw["packed"] = decode_step.pack_weights(w[0], w[1], ctx,
+                                                        w[2], V)
+            run = lambda: decode_step.fused_decode_tail(h, ctx, prev, *w,
+                                                        **kw)
+            out[f"decode_step {{name}} B={{B}}"] = ms(run, 20)
+            if B == 512:
+                kernel_ms(run, "decode_step", name)
+                kernel_ms(run, "step_cluster", name)
+        if name == "bf16":
+            m = AttentionOCR.create(Config(
+                input_feed=True, max_decoder_l=T, compute_dtype="bfloat16",
+                pallas_greedy="tail"), device=dev)
+            imgs = rs.randint(0, 256, (512, 32, 100, 1)).astype(np.uint8)
+            m.recognize(imgs)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.recognize(imgs)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out["recognize bf16 tail B=512 (host ms, median of 5)"] = \
+                float(np.median(times))
+        continue
     if {kernel!r} == "conv1_pool_bwd":
         from aocr_torch.ops.cuda import conv1_pool_bwd
         B = 400
@@ -208,7 +265,8 @@ def main() -> int:
     ap.add_argument("--kernel", default="greedy_loop",
                     choices=("greedy_loop", "beam_loop", "tf_fwd",
                              "tf_bwd", "lstm_bwd", "conv1_pool_bwd",
-                             "conv1_pool", "beam_step"))
+                             "conv1_pool", "beam_step", "decode_step",
+                             "conv1_pool_dx"))
     ap.add_argument("--K", type=int, default=5,
                     help="beam_step's beams (5 or 10)")
     args = ap.parse_args()

@@ -5,7 +5,8 @@ A/B variants of its source, on one card.
     python3 tools/beam_step_phases_torch.py [VARIANT ...]
 
 As tools/beam_loop_phases_torch.py, for csrc/beam_step.cu's cluster
-route: each variant (tools/greedy_loop_phases_torch.py's VARIANTS, of
+route (the kernel template of csrc/step_cluster.cuh): each variant
+(tools/greedy_loop_phases_torch.py's VARIANTS, of
 csrc/decoder_cluster.cuh) is built with -DDC_PROBES into
 build/beam_step_phases/ and called through its own C entry points at the
 recognition decoder's shape (L=24, H=1024, V=39, random weights, every
@@ -35,8 +36,10 @@ OUT = os.path.join(glp.ROOT, "build", "beam_step_phases")
 # the times say what the part costs)
 glp.VARIANTS.update({
     # the context read from L2 twice, not staged in shared memory
-    "nostage": [("beam_step.cu", "  const int nst = (int)min((long)Rb, "
-                 "(region - rs_bytes) / ((long)L * H * ESZ));",
+    "nostage": [("step_cluster.cuh",
+                 "  const int nst = (int)min((long)(R + K - 1) / K + 1,\n"
+                 "                           (region - rs_bytes) / "
+                 "((long)L * H * ESZ));",
                  "  const int nst = 0;")],
     # no scores (the dot products of q with the context rows)
     "noscores": [("decoder_cluster.cuh",
