@@ -8,10 +8,12 @@ recognition, and scoring):
     gold = ocr.score(images, ["word", ...])  # teacher-forced log-probs
 
 `recognize` and `score` take a stacked array, a list of (H, W[, 1])
-arrays, or image paths (decoded on the host by `data.images_to_arrays`).
+arrays, or image paths: decoded and preprocessed on the host by
+`data.images_to_arrays`, or with `cfg.device_preprocess` decoded on the
+host and preprocessed on the device (`preprocess.preprocess_varsize`).
 Every entry point runs on the first CUDA device unless the caller names
 another device (`device="cpu"`); without CUDA the default raises.
-Device-side preprocessing and `shard()` are not ported yet (ROADMAP).
+`shard()` is not ported yet (ROADMAP queue 1: Parallel).
 """
 
 from __future__ import annotations
@@ -23,21 +25,11 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from aocr_torch import checkpoint, data, vocab
+from aocr_torch import checkpoint, data, devices, preprocess, vocab
 from aocr_torch.config import GEOMETRY_FIELDS, STRUCT_FIELDS, Config
 from aocr_torch import decode, train_step, weights
 from aocr_torch.models import model as model_lib
 from aocr_torch.utils import trie as trie_lib
-
-
-def _device(device) -> torch.device:
-    """The named device; None means "cuda".  Raises for a CUDA device when
-    CUDA is absent: the CPU runs only when the caller names it."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           "available")
-    return device
 
 
 class AttentionOCR:
@@ -47,7 +39,7 @@ class AttentionOCR:
     def __init__(self, cfg: Config, params: dict, batch_stats: dict,
                  global_step: int = 0, device=None):
         self.cfg = cfg.validate()
-        self.device = _device(device)
+        self.device = devices.resolve(device)
         move = lambda tree: weights.tree_map(tree,
                                              lambda _p, t: t.to(self.device))
         self.params = move(params)
@@ -121,12 +113,16 @@ class AttentionOCR:
         """The active trie transition table (None when unconstrained)."""
         return self._trie
 
-    def _prepare_groups(self, images) -> List[Tuple[List[int], np.ndarray]]:
+    def _prepare_groups(self, images) -> List[Tuple[List[int], object]]:
         """A stacked (B, H, W[, 1]) array, a path, or a list of image paths
         or (H, W[, 1]) arrays of mixed widths -> width-homogeneous
-        (indices, (b, H, W, 1)) batches, in ascending width order.  Paths
-        are decoded and preprocessed on the host by
-        data.images_to_arrays, as aocr.api does."""
+        (indices, (b, H, W, 1)) batches, in ascending width order: numpy
+        arrays, or tensors on self.device where the device preprocessed
+        them.  Paths are decoded and preprocessed on the host by
+        data.images_to_arrays, as aocr.api does; with
+        cfg.device_preprocess and a list of paths, the host only decodes
+        (data.load_raw) and the luminance and resize run on the device
+        (aocr.api's serving fast path)."""
         if hasattr(images, "ndim"):
             a = np.asarray(images, np.float32)
             if a.ndim == 3:
@@ -134,12 +130,23 @@ class AttentionOCR:
             if a.ndim != 4:
                 raise ValueError(f"bad image batch shape {a.shape}")
             return [(list(range(a.shape[0])), a)]
-        if self.cfg.device_preprocess and any(
-                isinstance(it, str) for it in (
-                    [images] if isinstance(images, str) else images)):
-            raise NotImplementedError(
-                "device_preprocess is not ported: ROADMAP queue 1: "
-                "Augment and device preprocess")
+        if isinstance(images, str):
+            images = [images]  # a bare path is one image
+        if self.cfg.device_preprocess and images and isinstance(
+                images[0], str):
+            raws, by_width = [], {}
+            for i, item in enumerate(images):
+                r = data.load_raw(item, self.cfg)
+                if r is None:
+                    raise ValueError(f"cannot decode image {item}")
+                raws.append(r[0])
+                by_width.setdefault(r[1], []).append(i)
+            groups = []
+            for w, idx in sorted(by_width.items()):
+                buf, sizes = data.pack_raw([raws[i] for i in idx])
+                groups.append((idx, preprocess.preprocess_varsize(
+                    buf, sizes, self.cfg.image_height, w, self.device)))
+            return groups
         arrs = data.images_to_arrays(images, self.cfg)
         by_width: dict = {}
         for i, a in enumerate(arrs):
@@ -164,7 +171,7 @@ class AttentionOCR:
         for idx, x in groups:
             labels, sc = decode.beam_decode(
                 self.params, self.batch_stats,
-                torch.from_numpy(x).to(self.device), self.cfg,
+                torch.as_tensor(x).to(self.device), self.cfg,
                 beam_size=K, max_len=T, trie_table=self._trie)
             labels, sc = labels.cpu().numpy(), sc.cpu().numpy()
             for j, i in enumerate(idx):

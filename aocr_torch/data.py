@@ -27,9 +27,10 @@ conversion are vectorized numpy (bilinear, matching torch.image.scale's
 default) or the native library.
 
 The port's own copy of aocr/data.py: the same batch stream from the same
-manifest and seed (tests/test_torch_port_eval.py).  Device-side
-preprocessing (`-device_preprocess`, aocr.preprocess) is not ported:
-ROADMAP queue 1: Augment and device preprocess.
+manifest and seed (tests/test_torch_port_eval.py).  Under
+`-device_preprocess` the host only decodes (`load_raw`) and pads the raw
+pixels into one buffer (`pack_raw`); aocr_torch.preprocess does the
+luminance and resize on the device.
 """
 
 from __future__ import annotations
@@ -46,11 +47,18 @@ from aocr_torch.utils import native
 
 
 class Batch(NamedTuple):
-    images: np.ndarray  # (B, 32, W, 1) float32 in [0, 255]
+    images: Optional[np.ndarray]  # (B, 32, W, 1) float32 in [0, 255];
+    # None in device-preprocess mode (raw/sizes/out_w set instead)
     targets: np.ndarray  # (B, T) int32 [GO, c1..cn] PAD-filled
     targets_eval: np.ndarray  # (B, T) int32 [c1..cn, EOS] PAD-filled
     num_nonzeros: int
     img_paths: List[str]
+    # Device-preprocess payload (cfg.device_preprocess): the host decoded
+    # the bytes but did no pixel math; preprocess.preprocess_varsize
+    # turns it into (B, 32, out_w, 1) on the device.
+    raw: Optional[np.ndarray] = None  # (B, Hp, Wp, 3) uint8|float32
+    sizes: Optional[np.ndarray] = None  # (B, 2) int32 true (h, w)
+    out_w: Optional[int] = None  # resize target width of this bucket
 
     @property
     def rows(self) -> int:
@@ -216,15 +224,58 @@ def load_and_preprocess(
     return _snap_pad(out, cfg)
 
 
+def load_raw(path: str, cfg: Config):
+    """Device-preprocess decode: bytes -> raw pixels, no host pixel math.
+
+    Returns (raw (h, w, c) uint8|float32, target width) or None on a
+    decode failure.  Luminance and resize happen later on the device
+    (aocr_torch.preprocess.preprocess_varsize)."""
+    try:
+        if path.endswith(".npy"):
+            arr = np.load(path)
+            if arr.ndim == 2:
+                arr = arr[..., None]
+            if arr.ndim != 3 or arr.size == 0:
+                return None  # malformed array: skip, don't crash the epoch
+            raw = arr.astype(np.float32)
+            if raw.max() <= 1.0 + 1e-6:
+                raw = raw * 255.0
+        else:
+            from PIL import Image
+
+            with Image.open(path) as im:
+                raw = np.asarray(im.convert("RGB"))  # (h, w, 3) uint8
+    except Exception:
+        return None
+    h, w = raw.shape[:2]
+    if h == 0 or w == 0:
+        return None
+    return raw, _target_width(w, h, cfg)
+
+
+def pack_raw(raws: List[np.ndarray]):
+    """Pad raw images (bottom/right, zeros) into one (B, Hp, Wp, 3)
+    buffer and (B, 2) true sizes for preprocess.preprocess_varsize.  The
+    buffer's dims round up to multiples of (16, 64), as aocr.data's do."""
+    up = lambda n, m: ((n + m - 1) // m) * m  # noqa: E731
+    sizes = np.array([r.shape[:2] for r in raws], np.int32)
+    hp = up(int(sizes[:, 0].max()), 16)
+    wp = up(int(sizes[:, 1].max()), 64)
+    any_float = any(r.dtype != np.uint8 for r in raws)
+    dt = np.float32 if any_float else np.uint8
+    buf = np.zeros((len(raws), hp, wp, 3), dt)
+    for i, r in enumerate(raws):
+        if r.shape[-1] == 1:
+            r = np.repeat(r, 3, axis=-1)  # luma of replicated gray = gray
+        buf[i, : r.shape[0], : r.shape[1]] = r[..., :3]
+    return buf, sizes
+
+
 class DataGen:
     """Width-bucketed batch generator over a `path label` manifest."""
 
     def __init__(self, data_base_dir: str, data_path: str, cfg: Config,
                  rng: Optional[random.Random] = None, log=None):
-        if cfg.device_preprocess:
-            raise NotImplementedError(
-                "-device_preprocess is not ported: ROADMAP queue 1: "
-                "Augment and device preprocess")
         self.cfg = cfg
         self.data_base_dir = data_base_dir
         self.rng = rng or random.Random(cfg.seed)
@@ -268,6 +319,8 @@ class DataGen:
                       f"{cap} chars to fit max_decoder_l")
         self.cursor = 0
         self.buffer: Dict[int, List] = {}
+        self._device = cfg.device_preprocess
+        self._loader = load_raw if self._device else load_and_preprocess
         # Multi-host lockstep requires identical target shapes on every
         # host each step: pad every batch's targets to max_decoder_l
         # instead of the batch max (aocr/parallel/multihost.py).
@@ -322,6 +375,9 @@ class DataGen:
         targets, targets_eval, nnz = vocab.encode_batch(
             labels, pad_to=self._pad_targets_to
         )
+        if self._device:
+            return Batch(None, targets, targets_eval, nnz, paths,
+                         *pack_raw([e[0] for e in entries]), out_w=img_w)
         images = np.empty((B, cfg.image_height, img_w, 1), np.float32)
         for i, (img, _label, _path) in enumerate(entries):
             images[i, :, :, 0] = img
@@ -339,7 +395,7 @@ class DataGen:
             if needs_decode and id(rec) not in self._pending:
                 path = os.path.join(self.data_base_dir, rec[0])
                 self._pending[id(rec)] = self._pool.submit(
-                    load_and_preprocess, path, self.cfg)
+                    self._loader, path, self.cfg)
 
     def _load_record(self, rec) -> Optional[np.ndarray]:
         """Decode one manifest record.  Returns the image or None
@@ -349,7 +405,7 @@ class DataGen:
         if fut is not None:
             img = fut.result()
         else:
-            img = load_and_preprocess(
+            img = self._loader(
                 os.path.join(self.data_base_dir, rec[0]), self.cfg)
         return img
 
@@ -378,14 +434,18 @@ class DataGen:
                 if self._pool is not None:
                     self._schedule_lookahead()
                 img = self._load_record(rec)
-            else:  # cached ndarray
+            else:  # cached: ndarray (host mode) or (raw, width) tuple
                 img = rec[2]
             if img is None:
                 self.cursor += 1
                 continue
-            img_w = img.shape[1]
+            if self._device:
+                payload, img_w = img  # (raw pixels, target width)
+            else:
+                payload, img_w = img, img.shape[1]
             self.cursor += 1
-            self.buffer.setdefault(img_w, []).append((img, rec[1], rec[0]))
+            self.buffer.setdefault(img_w, []).append(
+                (payload, rec[1], rec[0]))
             if len(self.buffer[img_w]) == batch_size:
                 return self._emit(img_w)
         # cursor exhausted: flush partial buckets one per call

@@ -26,9 +26,11 @@ aocr/train.py), on one device:
 
 The trainer runs on the CUDA device unless the caller names another
 (`main(argv, device="cpu")`, as the tests do); without CUDA the default
-raises.  Data parallelism, multi-host runs, augmentation and device-side
-preprocessing are not ported and raise NotImplementedError naming their
-ROADMAP queue 1 entries by title.
+raises.  `-augment` draws each step's augmentation from (`-seed`, the
+global step), so a resumed run replays the same augmentations;
+`-device_preprocess` decodes on the host and resizes on the device.
+Data parallelism and multi-host runs are not ported and raise
+NotImplementedError naming their ROADMAP queue 1 entry by title.
 """
 
 from __future__ import annotations
@@ -43,9 +45,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from aocr_torch import checkpoint, data, eval as eval_lib, optim, \
-    train_step, vocab, weights
-from aocr_torch.api import _device
+from aocr_torch import augment, checkpoint, data, devices, \
+    eval as eval_lib, optim, preprocess, train_step, vocab, weights
 from aocr_torch.config import (GEOMETRY_FIELDS, STRUCT_FIELDS, Config,
                                parse_args)
 from aocr_torch.models import model
@@ -77,21 +78,18 @@ class ValDrivenLR:
         return decayed
 
 
-# the ROADMAP items of the options not ported yet
+# the ROADMAP item of the options not ported yet
 PARALLEL = "ROADMAP queue 1: Parallel"
-AUGMENT = "ROADMAP queue 1: Augment and device preprocess"
 
 
 def _unported(cfg: Config) -> None:
     """Raise for the options of aocr.train this trainer does not port."""
-    for on, flag, item in (
-            (cfg.num_shards > 1, "-num_shards > 1", PARALLEL),
-            (cfg.num_model_shards > 1, "-num_model_shards > 1", PARALLEL),
-            (cfg.multihost, "-multihost", PARALLEL),
-            (cfg.augment, "-augment", AUGMENT),
-            (cfg.device_preprocess, "-device_preprocess", AUGMENT)):
+    for on, flag in (
+            (cfg.num_shards > 1, "-num_shards > 1"),
+            (cfg.num_model_shards > 1, "-num_model_shards > 1"),
+            (cfg.multihost, "-multihost")):
         if on:
-            raise NotImplementedError(f"{flag} is not ported: {item}")
+            raise NotImplementedError(f"{flag} is not ported: {PARALLEL}")
 
 
 def _host_later(x: torch.Tensor):
@@ -119,7 +117,7 @@ class Trainer:
     def __init__(self, cfg: Config, log: Logger, device=None):
         _unported(cfg)
         self.log = log
-        self.device = _device(device)
+        self.device = devices.resolve(device)
         ckpt = None
         if cfg.load_model:
             ckpt = checkpoint.try_load_final(
@@ -187,6 +185,15 @@ class Trainer:
 
     # ------------------------------------------------------------ steps
 
+    def _images(self, batch: data.Batch) -> torch.Tensor:
+        """The batch's pixels on the device: a copy of host-preprocessed
+        images, or raw pixels resized there (-device_preprocess)."""
+        if batch.raw is not None:
+            return preprocess.preprocess_varsize(
+                batch.raw, batch.sizes, self.cfg.image_height, batch.out_w,
+                self.device)
+        return torch.from_numpy(batch.images).to(self.device)
+
     def step_train(self, batch: data.Batch, lr: float):
         """One optimizer step.  Returns the token-sum NLL as a pending
         read (_read gives its float), so the caller can queue the next
@@ -194,12 +201,13 @@ class Trainer:
         tail) is padded with copies of its last image and PAD targets,
         and a row mask keeps them out of the BatchNorm moments and the
         loss normalization (aocr/train.py:324-344)."""
-        im, tg, te = batch.images, batch.targets, batch.targets_eval
+        im = self._images(batch)
+        tg, te = batch.targets, batch.targets_eval
         extra = {}
         if batch.rows < self.cfg.batch_size:
             want, real = self.cfg.batch_size, batch.rows
             pad = want - real
-            im = np.concatenate([im, np.repeat(im[-1:], pad, 0)], 0)
+            im = torch.cat([im, im[-1:].expand(pad, *im.shape[1:])], 0)
             ztg = np.full((pad, tg.shape[1]), vocab.PAD, tg.dtype)
             tg = np.concatenate([tg, ztg], 0)
             te = np.concatenate([te, ztg], 0)
@@ -207,10 +215,9 @@ class Trainer:
                 (np.arange(want) < real).astype(np.float32))}
         dev = self.device
         out = self._train_step(
-            self.params, self.batch_stats, self.opt_state,
-            torch.from_numpy(im).to(dev), torch.from_numpy(tg).to(dev),
-            torch.from_numpy(te).to(dev),
-            lr, None, **extra)
+            self.params, self.batch_stats, self.opt_state, im,
+            torch.from_numpy(tg).to(dev), torch.from_numpy(te).to(dev), lr,
+            augment.step_key(self.cfg.seed, self.global_step), **extra)
         self.params = out.params
         self.batch_stats = out.batch_stats
         self.opt_state = out.opt_state
@@ -236,7 +243,7 @@ class Trainer:
         targets, targets_eval = pad(batch.targets), pad(batch.targets_eval)
         use_trie = self.trie_table is not None
         out, nll, gold_scores = train_step.eval_decode_step(
-            self.params, self.batch_stats, batch.images, targets,
+            self.params, self.batch_stats, self._images(batch), targets,
             targets_eval, cfg, beam_size=cfg.beam_size, max_len=T,
             trie_table=self.trie_table, return_refills=use_trie)
         labels = out[0].cpu().numpy()
@@ -458,7 +465,7 @@ def main(argv=None, device=None) -> None:
     """The CLI: parse argv (default sys.argv[1:]) as aocr.train does and
     run the phase on `device` (default: the CUDA device)."""
     cfg = parse_args(argv)
-    dev = _device(device)
+    dev = devices.resolve(device)
     log = Logger(cfg.log_path)
     log.info("Command Line Arguments:")
     log.info(" ".join(argv if argv is not None else sys.argv[1:]))

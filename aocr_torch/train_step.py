@@ -5,9 +5,11 @@ in train mode (BatchNorm on the batch's moments), the token-sum NLL
 divided by the batch size before the backward -- so gradients, and the
 clip-at-5 threshold, are on the mean-over-batch scale -- then the
 optimizer update.  It reports `loss_sum`, the token sum, as the
-reference's step loss does.  On CUDA tensors every kernel of the path
-runs: conv1 forward and backward, both encoder directions' forward (with
-residuals) and backward recurrences, and the teacher-forced decoder's.
+reference's step loss does.  With cfg.augment the images are first
+augmented on the device (aocr_torch.augment) under the step key passed
+as dropout_rng.  On CUDA tensors every kernel of the path runs: conv1
+forward and backward, both encoder directions' forward (with residuals)
+and backward recurrences, and the teacher-forced decoder's.
 
 Parameters are nested dicts of float32 tensors; a step returns new
 tensors and leaves its inputs as they were.
@@ -21,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from aocr_torch.config import Config
+from aocr_torch import augment as augment_lib
 from aocr_torch import decode
 from aocr_torch import loss as loss_lib
 from aocr_torch import optim
@@ -44,18 +47,21 @@ def _on(x, device: torch.device) -> torch.Tensor:
 def _train_step(params: dict, batch_stats: dict, opt_state, images,
                 targets, targets_eval, lr, dropout_rng=None, *,
                 cfg: Config, real_bs=None, row_mask=None) -> TrainOutput:
-    """One step.  dropout_rng is accepted for the reference's signature;
-    dropout is not ported, so it is unused.  For a batch padded to a
-    fixed size, real_bs is the number of real rows (the loss is divided by
-    it, as the reference divides by the real batch size) and row_mask
-    (B,) marks them, which keeps the padding out of the BatchNorm
-    moments; the padded rows carry PAD targets and so no loss."""
-    if cfg.augment:
-        raise NotImplementedError(
-            "on-device augmentation is not ported: ROADMAP queue 1: "
-            "Augment and device preprocess")
+    """One step.  dropout_rng is the step key, two 32-bit words
+    (augment.step_key); -augment draws from it (dropout is not ported).
+    For a batch padded to a fixed size, real_bs is the number of real rows
+    (the loss is divided by it, as the reference divides by the real batch
+    size) and row_mask (B,) marks them, which keeps the padding out of the
+    BatchNorm moments; the padded rows carry PAD targets and so no
+    loss."""
     dev = optim.leaves(params)[0].device
     images = _on(images, dev).float()
+    if cfg.augment:
+        if dropout_rng is None:
+            raise ValueError("-augment needs the step key (dropout_rng)")
+        # row_offset 0: this step sees the whole batch
+        images = augment_lib.augment_batch(dropout_rng, images,
+                                           cfg.augment_strength)
     targets, targets_eval = _on(targets, dev), _on(targets_eval, dev)
     if row_mask is not None:
         row_mask = _on(row_mask, dev)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of aocr_torch on one NVIDIA GPU (H100): greedy recognition,
-the training step, beam and dictionary recognition, the image gradient
-and the CLI trainer at the full width of the default model, through
-their twelve CUDA kernels (thirteen rows: lstm_fwd's two modes).
+the training step, beam and dictionary recognition, the image gradient,
+the CLI trainer, the micro-batching server, device preprocessing and
+augmentation at the full width of the default model, through their
+twelve CUDA kernels (thirteen rows: lstm_fwd's two modes).
 
     python3 chip_smoke.py [--seed N]
 
@@ -48,9 +49,30 @@ Phases, each raising on failure:
      (conv1_pool_dx and pool_bwd launch), against the plain route;
   4c. the CLI trainer (aocr_torch.train.main) on 1,000 + 400 crops
      written from --seed: bf16 train (a padded partial batch each
-     epoch), -load_model resume, beam-5 test and dictionary test, with
+     epoch), the same epoch with -device_preprocess and with -augment,
+     -load_model resume, beam-5 test and dictionary test, with
      launch counts (pool_bwd 3 a step); float32 train and beam-5 test
      with the kernels against -no_use_pallas;
+  4d. serving (aocr_torch.serve on a thread, the model saved from the
+     numpy weights): a bf16 and a float32 server (max_batch 512, beam-5
+     warmed) through 64 clients x 8 PNG posts and 512 at once (a quarter
+     beam-5) and a /recognize_batch of 512: every answer 200 with a text
+     of the vocabulary and a finite score, float32 texts equal to a
+     direct recognize of the decoded images but at plain near-ties
+     (< 1e-4, counted), /stats counting every request without errors or
+     timeouts, /healthz 200, an undecodable body and an unwarmed beam
+     400, 503 after the drain; requests/s, latency percentiles, rows a
+     batch and padded rows, /recognize_batch images/s against a direct
+     recognize; a bf16 server under -dictionary (the 88k lexicon) without
+     warmup, its transcripts on the lexicon's prefixes; the decoder
+     weight packing's share of a recognize at B=1, 8, 32;
+  4e. device preprocessing: recognize on 512 RGB .npy paths with
+     device_preprocess and without (images within 1e-3, float32
+     transcripts equal but at plain near-ties, ms of each), bf16 and
+     float32; preprocess_varsize on the card against the CPU;
+  4f. augmentation: the bf16 train step at B=400 with cfg.augment, 5
+     steps twice (the same step-1 loss, finite, not the unaugmented
+     loss), its ms against the step without augment, in turns;
   5. timing: each kernel against its plain version (CUDA events), its
      bound (the larger of its operations over the card's peak and its
      bytes over 3.35 TB/s) and, where PyTorch computes the same function
@@ -1999,18 +2021,19 @@ def train_kernel_checks(dev, results: dict) -> None:
 
 
 def run_steps(cfg, np_params, np_stats, batch, dev, n: int):
-    """n train steps on a fixed batch from the numpy weights; returns the
+    """n train steps on a fixed batch from the numpy weights, step i under
+    the step key (cfg.seed, i) (read only with cfg.augment); returns the
     TrainOutput of each."""
-    from aocr_torch import train_step, weights
+    from aocr_torch import augment, train_step, weights
 
     params, stats = weights.from_numpy(np_params, np_stats, dev)
     opt = train_step.init_opt_state(params, cfg)
     step = train_step.make_train_step(cfg)
     images, _words, targets, targets_eval = batch
     outs = []
-    for _ in range(n):
+    for i in range(n):
         out = step(params, stats, opt, images, targets, targets_eval,
-                   cfg.learning_rate, None)
+                   cfg.learning_rate, augment.step_key(cfg.seed, i))
         params, stats, opt = out.params, out.batch_stats, out.opt_state
         outs.append(out)
     return outs
@@ -2543,6 +2566,27 @@ def trainer_phase(dev, seed: int, card: str):
                              f"times, not {n}")
         check(c["conv1_pool_dx"] == 0, "trainer: conv1_pool_dx in training")
         readings["bf16 train"] = (ppl, last_value(msgs, "Val Accuracy"))
+        # 1b. the same epoch with -device_preprocess, then with -augment
+        for tag, flag in (("devpre", "-device_preprocess"),
+                          ("augment", "-augment")):
+            msgs, c, secs = run(tag, *train_args, *bf16, "-num_epochs", "1",
+                                flag)
+            ck_f = final(tag)
+            ppl_f = step_perplexities(msgs)
+            check(ck_f["global_step"] == 3 and len(ppl_f) == 3
+                  and window_perplexities_ok(msgs),
+                  f"trainer {flag}: global_step {ck_f['global_step']}, "
+                  f"step perplexities {ppl_f}")
+            for k, n in (("pool_bwd", 9), ("conv1_pool_bwd", 3),
+                         ("tf_bwd", 3), ("lstm_bwd", 6)):
+                check(c[k] == n, f"trainer {flag}: {k} launched {c[k]} "
+                                 f"times, not {n}")
+            diff = max(float(np.abs(a - b).max()) for a, b in
+                       zip(leaves(ck_f["params"]), leaves(ck["params"])))
+            log(f"trainer bf16 {flag}: step perplexities "
+                f"{[round(x, 3) for x in ppl_f]}, {secs:.1f} s; final "
+                f"params {diff:.3g} from the run without it (max abs)")
+            readings[tag] = ppl_f
         # 2. resume for two epochs: steps 4-9
         msgs, c, _ = run("resume", *train_args, *bf16, "-num_epochs", "2",
                          "-load_model", "-model_dir",
@@ -2651,6 +2695,638 @@ def trainer_phase(dev, seed: int, card: str):
     return total, readings
 
 
+# ------------------------------------------------------------ phase 6
+
+# the serving waves: 64 clients posting 8 requests each, then 512 at once
+SERVE_CLIENTS, SERVE_EACH = 64, 8
+# a float32 transcript may part from the direct decode's only where the
+# plain route's best candidates were this close at some step
+NEAR_TIE = 1e-4
+VOCAB_CHARS = frozenset("0123456789abcdefghijklmnopqrstuvwxyz")
+
+
+def http(url: str, body=None, timeout: float = 300.0):
+    """(status, decoded JSON) of a GET (body None) or a POST.  A connection
+    the server drops or resets raises: that is a serving fault."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def png(img) -> bytes:
+    """A (H, W) image in [0, 255] as PNG bytes (uint8 gray)."""
+    import numpy as np
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.asarray(img).astype(np.uint8)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def start_server(**kw):
+    """aocr_torch.serve.serve(**kw) on a thread; returns (base URL, httpd,
+    recognizer, thread) once it listens, or raises if the thread died."""
+    import threading
+
+    from aocr_torch import serve
+
+    ready, box = threading.Event(), []
+    t = threading.Thread(target=serve.serve, daemon=True, kwargs=dict(
+        host="127.0.0.1", port=0, ready_event=ready, server_box=box, **kw))
+    t.start()
+    while not ready.wait(1.0):
+        if not t.is_alive():
+            raise RuntimeError("the server thread died before listening")
+    httpd, rec = box[0]
+    return f"http://127.0.0.1:{httpd.server_address[1]}", httpd, rec, t
+
+
+def stop_server(httpd, thread) -> None:
+    httpd.shutdown()  # serve() then closes its recognizer and socket
+    thread.join(60)
+    check(not thread.is_alive(), "serve: the server thread did not stop")
+
+
+def post_concurrently(url: str, jobs, clients: int):
+    """jobs: [(query, body)]; `clients` threads post them, thread c the
+    jobs c, c + clients, ... one after another, all starting together.
+    Returns ([(status, payload, seconds)] in job order, wall seconds)."""
+    import threading
+
+    out = [None] * len(jobs)
+    start = threading.Barrier(clients + 1)
+
+    def client(c):
+        start.wait()
+        for i in range(c, len(jobs), clients):
+            t0 = time.perf_counter()
+            status, payload = http(url + jobs[i][0], jobs[i][1])
+            out[i] = (status, payload, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "serve: a client hung")
+    return out, wall
+
+
+@contextlib.contextmanager
+def recorded_margins():
+    """On the plain route, each decode step's smallest gap among the best
+    candidates of each row: greedy's top two (decode_step.freeze_and_pick)
+    and beam's K + 1 (decode._apply_trie_and_topk).  Yields the list of
+    (B,) tensors the steps append."""
+    import torch
+
+    from aocr_torch import decode
+    from aocr_torch.ops.cuda import beam_step, decode_step
+
+    margins = []
+    pick, topk = decode_step.freeze_and_pick, decode._apply_trie_and_topk
+
+    def pick_recorded(logp, prev, valid=None):
+        out = pick(logp, prev, valid)
+        margins.append(beam_step.topk_margin(out[2], 1))
+        return out
+
+    def topk_recorded(total, valid, K):
+        t = total if valid is None else torch.where(
+            valid, total, torch.full_like(total, beam_step.NEG))
+        margins.append(beam_step.topk_margin(t, K))
+        return topk(total, valid, K)
+
+    decode_step.freeze_and_pick = pick_recorded
+    decode._apply_trie_and_topk = topk_recorded
+    try:
+        yield margins
+    finally:
+        decode_step.freeze_and_pick = pick
+        decode._apply_trie_and_topk = topk
+
+
+def plain_margins(ocr, images, beam: int):
+    """(B,) the smallest step margin of each row of a recognize of images
+    by ocr's weights on the plain route (the near-tie rule's reference)."""
+    import torch
+
+    from aocr_torch.api import AttentionOCR
+
+    plain = AttentionOCR(ocr.cfg.replace(use_pallas=False), ocr.params,
+                         ocr.batch_stats, device=ocr.device)
+    with recorded_margins() as m:
+        plain.recognize(images, beam_size=beam)
+    return torch.stack(m).min(0).values.cpu().numpy()
+
+
+def parted(tag: str, got, want, margins) -> int:
+    """Check that every transcript in got equals want's but at a plain
+    near-tie; returns how many parted there."""
+    n = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            n += 1
+            check(margins[i] < NEAR_TIE,
+                  f"{tag}: row {i} served {a!r}, direct {b!r}, plain margin "
+                  f"{margins[i]:.3g}")
+    return n
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def timed_batcher(rec) -> list:
+    """Wrap the server's model so each recognize the batcher runs appends
+    (rows, beam, seconds) to the returned list."""
+    busy = []
+    inner = rec.ocr.recognize
+
+    def timed(images, beam_size=None):
+        t0 = time.perf_counter()
+        try:
+            return inner(images, beam_size=beam_size)
+        finally:
+            busy.append((len(images), beam_size,
+                         time.perf_counter() - t0))
+
+    rec.ocr.recognize = timed
+    return busy
+
+
+def serve_one_dtype(dev, dt: str, model_dir: str, bodies, ingest,
+                    card: str, total: dict, readings: dict) -> None:
+    """bf16 or float32: a fresh server for each wave (so /stats reads that
+    wave alone), the last one also through a /recognize_batch, its error
+    answers and its drain; the launch counts of the traffic (warmups
+    excluded) go into total."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.config import Config
+    from aocr_torch.ops import cuda
+
+    cfg = Config(compute_dtype=dt)
+    n = len(bodies)
+    waves = [  # beam-5 on a quarter of the requests, other rows each wave
+        (f"{SERVE_CLIENTS} clients x {n // SERVE_CLIENTS}",
+         [(f"?beam_size={BEAM}" if i % 4 == 0 else "", bodies[i])
+          for i in range(n)], SERVE_CLIENTS),
+        (f"{n} clients x 1", [(f"?beam_size={BEAM}" if i % 4 == 1 else "",
+                               bodies[i]) for i in range(n)], n)]
+    batch_body = json.dumps({"images": [base64.b64encode(b).decode()
+                                        for b in bodies]}).encode()
+    counts: dict = {}
+    answers, rps = {}, {}
+    for w, (name, jobs, clients) in enumerate(waves):
+        last = w == len(waves) - 1
+        t0 = time.perf_counter()
+        base, httpd, rec, thread = start_server(
+            model_dir=model_dir, max_batch=B_SERVE, warmup_beams=(BEAM,),
+            cfg=cfg)
+        log(f"serve {dt}: listening after {time.perf_counter() - t0:.1f} s"
+            f" (load and warmup of ladder {rec.ladder} x beams 1, {BEAM}); "
+            f"model on {rec.ocr.device}")
+        check(rec.ocr.device.type == "cuda", f"serve {dt}: the model is on "
+                                             f"{rec.ocr.device}")
+        busy = timed_batcher(rec)
+        cuda.reset_launch_counts()
+        out, wall = post_concurrently(f"{base}/recognize", jobs, clients)
+        answers[name] = (jobs, out)
+        rps[name] = n / wall
+        s = http(f"{base}/stats")[1]
+        lat = sorted(o[2] for o in out if o is not None)
+        pick = lambda q: lat[min(int(q * len(lat)), len(lat) - 1)]  # noqa
+        rows = s["batched_rows"] + s["padded_rows"]
+        log(f"serve {dt} {name} requests: {n / wall:.1f} requests/s "
+            f"({wall:.3f} s); /stats p50 {s['latency_s']['p50']} s, p99 "
+            f"{s['latency_s']['p99']} s; client p50 {pick(0.5):.4f} s, p99 "
+            f"{pick(0.99):.4f} s; {s['batches']} batches, "
+            f"{s['batched_rows'] / s['batches']:.1f} rows a batch, "
+            f"padded_rows {s['padded_rows']} ({s['padded_rows'] / rows:.1%} "
+            f"of the decoded rows); the batcher in recognize "
+            f"{sum(c[2] for c in busy):.3f} s of the {wall:.3f} s (greedy at "
+            f"{sorted(c[0] for c in busy if c[1] == 1)}, beam-{BEAM} at "
+            f"{sorted(c[0] for c in busy if c[1] == BEAM)} rows) on {card}")
+        readings[("serve", dt, name)] = s
+        sent = n
+        if last:
+            t0 = time.perf_counter()
+            status, payload = http(f"{base}/recognize_batch", batch_body)
+            batch_s = time.perf_counter() - t0
+            check(status == 200 and len(payload.get("results", [])) == n,
+                  f"serve {dt}: /recognize_batch answered {status}")
+            profile(f"serve {dt}: one /recognize_batch of {n} greedy PNGs",
+                    lambda: http(f"{base}/recognize_batch", batch_body))
+            sent += 2 * n
+        torch.cuda.synchronize()
+        add_counts(counts, cuda.launch_counts())
+        s = http(f"{base}/stats")[1]
+        check(s["requests"] == sent,
+              f"serve {dt}: /stats counted {s['requests']} of {sent}")
+        check(s["errors"] == 0 and s["timeouts"] == 0
+              and s["rejected"] == 0, f"serve {dt}: /stats {s}")
+        if last:
+            # the error answers over HTTP, then the drain
+            check(http(f"{base}/healthz") == (200, {"status": "ok",
+                                                     "model_params": True}),
+                  f"serve {dt}: /healthz")
+            bad = http(f"{base}/recognize", b"not an image")
+            check(bad == (400, {"error": "cannot decode image"}),
+                  f"serve {dt}: undecodable body answered {bad}")
+            cold = http(f"{base}/recognize?beam_size=3", bodies[0])
+            check(cold[0] == 400 and cold[1].get("allowed") == [1, BEAM],
+                  f"serve {dt}: an unwarmed beam answered {cold}")
+            check(http(f"{base}/nowhere")[0] == 404, f"serve {dt}: no 404")
+            check(rec.drain(timeout_s=60.0),
+                  f"serve {dt}: the queue did not drain")
+            late = http(f"{base}/recognize", bodies[0])
+            check(late == (503, {"error": "server draining"}),
+                  f"serve {dt}: a submit after drain answered {late}")
+            log(f"serve {dt}: /healthz 200, undecodable body 400, beam 3 "
+                f"(not warmed) 400, unknown path 404, after drain 503")
+        stop_server(httpd, thread)
+    add_counts(total, counts)
+    log(f"serve {dt} traffic launch counts: {counts}")
+    for k in ("conv1_pool", "lstm_fwd", "greedy_loop", "beam_loop"):
+        check(counts[k] > 0, f"kernel {k} never launched on the serving "
+                             f"path ({dt})")
+
+    # the direct recognize of the images the handler decoded, its time
+    # against the /recognize_batch's
+    ref = AttentionOCR.load(model_dir, cfg=cfg, device=dev)
+    direct = {1: ref.recognize(ingest), BEAM: ref.recognize(
+        ingest, beam_size=BEAM)}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ref.recognize(ingest)
+        times.append(time.perf_counter() - t0)
+    direct_s = float(np.median(times))
+    log(f"serve {dt}: /recognize_batch of {n} PNGs {n / batch_s:.1f} "
+        f"images/s ({batch_s * 1e3:.1f} ms, HTTP, base64, PNG decode and "
+        f"the batcher included); a direct recognize of the same {n} "
+        f"decoded images {n / direct_s:.1f} images/s ({direct_s * 1e3:.1f} "
+        f"ms, median of 3) on {card}")
+    readings[f"serve {dt}"] = {"rps": rps, "batch_ips": n / batch_s,
+                                "direct_ips": n / direct_s}
+
+    # every answer: 200, a text of the vocabulary, a finite score; float32
+    # texts equal to the direct decode's but at plain near-ties
+    margins = ({K: plain_margins(ref, ingest, K) for K in (1, BEAM)}
+               if dt == "float32" else None)
+    served = {1: [], BEAM: []}
+    for name, (jobs, out) in answers.items():
+        for i, ((query, _b), o) in enumerate(zip(jobs, out)):
+            K = BEAM if query else 1
+            ok = (o is not None and o[0] == 200
+                  and set(o[1].get("text", "?")) <= VOCAB_CHARS
+                  and math.isfinite(o[1].get("score", float("nan"))))
+            check(ok, f"serve {dt} {name}: request {i} answered {o}")
+            if ok:
+                served[K].append((i, o[1]["text"]))
+    results = payload.get("results", [])
+    for r in results:
+        check(set(r.get("text", "?")) <= VOCAB_CHARS
+              and math.isfinite(r.get("score", float("nan"))),
+              f"serve {dt}: /recognize_batch result {r}")
+    for K, got in served.items():
+        idx = [i for i, _ in got]
+        want = [direct[K][0][i] for i in idx]
+        if dt == "float32":
+            p = parted(f"serve float32 beam {K}", [t for _i, t in got],
+                       want, margins[K][idx])
+            log(f"serve float32 beam-{K}: {len(got)} served transcripts, "
+                f"{p} parted from the direct recognize at plain near-ties "
+                f"(< {NEAR_TIE:g}), the rest equal")
+        else:
+            same = float(np.mean([a == b for (_i, a), b in zip(got, want)]))
+            log(f"serve {dt} beam-{K}: {len(got)} served transcripts, "
+                f"agreement with the direct recognize {same:.4f} "
+                f"(reported)")
+    if dt == "float32":
+        p = parted("serve float32 /recognize_batch",
+                   [r.get("text") for r in results], direct[1][0],
+                   margins[1])
+        log(f"serve float32 /recognize_batch: {p} of {n} parted at plain "
+            f"near-ties")
+
+
+def serving_phase(dev, seed: int, lexicon, card: str):
+    """aocr_torch.serve at the default model's full width (depth uncut,
+    numpy weights from seed, saved with the port's save): a bf16 and a
+    float32 server (max_batch 512, beam-5 warmed), each through 64
+    clients x 8 PNG requests and 512 at once (a quarter beam-5), a
+    /recognize_batch of 512, its error answers and drain; then a bf16
+    server under -dictionary (the 88k lexicon) without warmup; and the
+    decoder-weight packing's share of a recognize at the ladder's small
+    sizes.  Returns (the launch counts of the traffic, readings)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aocr_torch import data, weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.config import Config
+    from aocr_torch.models import model as model_lib
+    from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import greedy_loop
+
+    log("serve: PNG posts over HTTP (PIL decodes on the card's host)")
+    base = base_config()
+    np_params, np_stats = numpy_model(base, seed)
+    rs = np.random.RandomState(seed + 11)
+    letters = list("abcdefghijklmnopqrstuvwxyz0123456789")
+    words = ["".join(rs.choice(letters, rs.randint(2, 11)))
+             for _ in range(B_SERVE)]
+    bodies = [png(render_word(w)) for w in words]
+    root = tempfile.mkdtemp(prefix="aocr_serve_")
+    total: dict = {}
+    readings: dict = {}
+    try:
+        model_dir = os.path.join(root, "model")
+        AttentionOCR(base, *weights.from_numpy(np_params, np_stats),
+                     device=dev).save(model_dir)
+        # what the handler decodes from each body
+        t0 = time.perf_counter()
+        ingest = [data.load_and_preprocess(b, base) for b in bodies]
+        log(f"serve: the host decode of {len(bodies)} PNG bodies "
+            f"(data.load_and_preprocess, one thread) "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        check(all(im is not None and im.shape == (32, W_SERVE)
+                  for im in ingest), "serve: the PNGs do not decode")
+        for dt in ("bfloat16", "float32"):
+            serve_one_dtype(dev, dt, model_dir, bodies, ingest, card,
+                            total, readings)
+
+        # -dictionary over the 88k lexicon, -no_warmup
+        lex_words, _table = lexicon
+        prefixes = lexicon_prefixes(lex_words)
+        path = os.path.join(root, "lexicon.txt")
+        with open(path, "w") as f:
+            f.write("\n".join(lex_words) + "\n")
+        cfg = Config(compute_dtype="bfloat16")
+        t0 = time.perf_counter()
+        base_url, httpd, rec, thread = start_server(
+            model_dir=model_dir, max_batch=B_SERVE, warmup=False,
+            warmup_beams=(BEAM,), cfg=cfg, dictionary_path=path)
+        up = time.perf_counter() - t0
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = http(f"{base_url}/recognize", bodies[0])
+        first_s = time.perf_counter() - t0
+        check(first[0] == 200 and first_s < rec.request_timeout_s,
+              f"serve -no_warmup: the first request answered {first[0]} "
+              f"after {first_s:.1f} s")
+        jobs = [(f"?beam_size={BEAM}" if i % 2 else "", bodies[i])
+                for i in range(SERVE_CLIENTS)]
+        out, wall = post_concurrently(f"{base_url}/recognize", jobs,
+                                      SERVE_CLIENTS)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        add_counts(total, counts)
+        for k in ("greedy_loop", "beam_loop"):
+            check(counts[k] > 0, f"kernel {k} never launched on the "
+                                 "dictionary serving path")
+        texts = [o[1].get("text") for o in out if o and o[0] == 200]
+        check(len(texts) == len(jobs) and first[1].get("text") in prefixes
+              and all(t in prefixes for t in texts),
+              "serve -dictionary: a transcript off the lexicon or an error")
+        in_lex = float(np.mean([t in set(lex_words) for t in texts]))
+        log(f"serve -dictionary bf16 ({len(lex_words)} words, -no_warmup): "
+            f"listening after {up:.1f} s (the DAWG built), the first "
+            f"request in {first_s:.2f} s (timeout "
+            f"{rec.request_timeout_s:g} s), then {len(jobs)} concurrent "
+            f"greedy and beam-5 requests in {wall:.3f} s, all on the "
+            f"lexicon's prefixes ({in_lex:.3f} whole words); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        stop_server(httpd, thread)
+
+        # greedy_loop.build_tables packs the decoder weights at every
+        # recognize (ROADMAP R5): its share at the ladder's small sizes
+        for dt in ("bfloat16", "float32"):
+            cfg = Config(compute_dtype=dt)
+            ocr = AttentionOCR.load(model_dir, cfg=cfg, device=dev)
+            cd = model_lib.compute_dtype(ocr.cfg)
+            pack = lambda: greedy_loop.build_tables(  # noqa: E731
+                ocr.params["decoder"], ocr.params["projector"],
+                ocr.cfg.target_embedding_size, ocr.cfg.input_feed, cd)
+            pack()
+            torch.cuda.synchronize()
+            pt = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                pack()
+                torch.cuda.synchronize()
+                pt.append(time.perf_counter() - t0)
+            pack_ms = float(np.median(pt)) * 1e3
+            parts = []
+            for B in (1, 8, 32):
+                ocr.recognize(ingest[:B])
+                rt = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    ocr.recognize(ingest[:B])
+                    rt.append(time.perf_counter() - t0)
+                rec_ms = float(np.median(rt)) * 1e3
+                parts.append(f"B={B} recognize {rec_ms:.2f} ms, packing "
+                             f"{pack_ms / rec_ms:.1%}")
+                readings[("pack", dt, B)] = (pack_ms, rec_ms)
+            log(f"serve {dt}: greedy_loop.build_tables {pack_ms:.3f} ms a "
+                f"call (median of 5); " + "; ".join(parts) + f" on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"serving path launch counts: {total}")
+    return total, readings
+
+
+def device_preprocess_phase(dev, seed: int, card: str):
+    """recognize on B=512 .npy paths (RGB uint8 crops, 32 x 100) with
+    device_preprocess and without, bf16 and float32: the images agree
+    within 1e-3 on [0, 255], and float32 transcripts equal but at plain
+    near-ties; preprocess_varsize on the card against the CPU on a
+    mixed-size batch.  Returns the path's launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aocr_torch import data, preprocess, weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.ops import cuda
+
+    base = base_config()
+    np_params, np_stats = numpy_model(base, seed)
+    rs = np.random.RandomState(seed + 13)
+    gray = word_images(rs, B_SERVE, W_SERVE)
+    rgb = np.stack([gray, gray * 0.9 + 12, gray * 0.8 + 30],
+                   -1).clip(0, 255).astype(np.uint8)
+    root = tempfile.mkdtemp(prefix="aocr_devpre_")
+    try:
+        paths = []
+        for i, img in enumerate(rgb):
+            paths.append(os.path.join(root, f"{i}.npy"))
+            np.save(paths[-1], img)
+        host_imgs = np.stack(data.images_to_arrays(paths, base))
+        buf, sizes = data.pack_raw([data.load_raw(p, base)[0]
+                                    for p in paths])
+        dev_imgs = preprocess.preprocess_varsize(buf, sizes, 32, W_SERVE,
+                                                 dev).cpu().numpy()
+        err = float(np.abs(dev_imgs - host_imgs).max())
+        check(err <= 1e-3, f"device preprocess: images {err} from the host "
+                           "path's")
+        sizes_mixed = [(48, 160), (31, 99), (17, 333), (64, 200), (5, 3)]
+        mixed = [rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+                 for h, w in sizes_mixed]
+        mbuf, msizes = data.pack_raw(mixed)
+        on_card = preprocess.preprocess_varsize(mbuf, msizes, 32, 77,
+                                                dev).cpu()
+        on_cpu = preprocess.preprocess_varsize(mbuf, msizes, 32, 77, "cpu")
+        merr = float((on_card - on_cpu).abs().max())
+        check(merr <= 1e-3, f"device preprocess: card and CPU {merr} apart "
+                            "on a mixed-size batch")
+        log(f"device preprocess B={B_SERVE} RGB 32x{W_SERVE}: images "
+            f"{err:.3g} from the host path's (tol 1e-3); a mixed-size "
+            f"batch (1 to 333 px wide) on the card {merr:.3g} from the "
+            f"CPU's")
+
+        models = {}
+        for dt in ("bfloat16", "float32"):
+            for devpre in (False, True):
+                cfg = base.replace(compute_dtype=dt,
+                                   device_preprocess=devpre)
+                models[(dt, devpre)] = AttentionOCR(
+                    cfg, *weights.from_numpy(np_params, np_stats),
+                    device=dev)
+        # the host-preprocess runs first, outside the counted window
+        outs = {k: m.recognize(paths) for k, m in models.items() if not k[1]}
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        outs.update({k: m.recognize(paths) for k, m in models.items()
+                     if k[1]})
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        for k in ("conv1_pool", "lstm_fwd", "greedy_loop"):
+            check(counts[k] > 0, f"kernel {k} never launched on the "
+                                 "device-preprocess path")
+        for dt in ("bfloat16", "float32"):
+            (hw, hs), (dw, ds) = outs[(dt, False)], outs[(dt, True)]
+            check(bool(np.isfinite(ds).all()) and len(dw) == B_SERVE,
+                  f"device preprocess {dt}: bad results")
+            if dt == "float32":
+                margins = plain_margins(models[(dt, False)], host_imgs, 1)
+                p = parted("device preprocess float32", dw, hw, margins)
+                log(f"device preprocess float32: {p} of {B_SERVE} "
+                    "transcripts parted from the host path's at plain "
+                    f"near-ties (< {NEAR_TIE:g}), the rest equal")
+            else:
+                same = float(np.mean([a == b for a, b in zip(dw, hw)]))
+                log(f"device preprocess bf16: agreement with the host path "
+                    f"{same:.4f} (reported)")
+            ms = {}
+            for devpre in (False, True, True, False):
+                t0 = time.perf_counter()
+                models[(dt, devpre)].recognize(paths)
+                ms.setdefault(devpre, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+            log(f"device preprocess {dt} recognize B={B_SERVE} .npy paths: "
+                f"device preprocess {min(ms[True]):.2f} ms, host "
+                f"preprocess {min(ms[False]):.2f} ms (better of two turns, "
+                f"host clock, decode included) on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"device-preprocess path launch counts: {counts}")
+    return counts
+
+
+def augment_phase(dev, tcfg, np_model, batch, card: str):
+    """The bf16 train step at B=400 with cfg.augment: 5 steps twice from
+    the same weights and step keys (the same step-1 loss), finite and not
+    the unaugmented step's; the step's ms with and without augment, in
+    turns.  Returns the path's launch counts."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import augment, train_step, weights
+    from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import lstm_fwd
+
+    cfg = tcfg.replace(augment=True)
+    cuda.reset_launch_counts()
+    runs = [run_steps(cfg, *np_model, batch, dev, TRAIN_STEPS)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    counts["lstm_fwd_collect"] = lstm_fwd.launches_collect
+    for k in ("conv1_pool", "conv1_pool_bwd", "lstm_fwd_collect", "lstm_bwd",
+              "tf_fwd", "tf_bwd", "pool_bwd"):
+        check(counts[k] > 0, f"kernel {k} never launched on the augmented "
+                             "train path")
+    losses = [[float(o.loss_sum) for o in r] for r in runs]
+    plain = float(run_steps(tcfg, *np_model, batch, dev, 1)[0].loss_sum)
+    check(all(math.isfinite(x) for x in losses[0] + losses[1]),
+          f"augment: non-finite loss {losses}")
+    check(losses[0][0] == losses[1][0], f"augment: the same key gave "
+                                        f"{losses[0][0]} and {losses[1][0]}")
+    check(losses[0][0] != plain, "augment: the augmented loss is the plain "
+                                 "step's")
+    drift = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    log(f"augment bf16 B={B_TRAIN}: loss_sum over {TRAIN_STEPS} steps "
+        f"{[round(x, 3) for x in losses[0]]} (unaugmented step 1 "
+        f"{plain:.3f}); a second run from the same keys: step 1 equal, "
+        f"largest relative difference over the steps {drift:.3g}")
+
+    params, stats = weights.from_numpy(*np_model, dev)
+    images, _w, targets, targets_eval = batch
+    images = torch.from_numpy(images).to(dev)
+    targets = torch.from_numpy(targets).to(dev)
+    targets_eval = torch.from_numpy(targets_eval).to(dev)
+    opt = train_step.init_opt_state(params, tcfg)
+    steps = {on: train_step.make_train_step(tcfg.replace(augment=on))
+             for on in (False, True)}
+    key = augment.step_key(tcfg.seed, 0)
+    turns = {False: [], True: []}
+    for on in (False, True, True, False):
+        run = lambda: float(steps[on](  # noqa: E731
+            params, stats, opt, images, targets, targets_eval,
+            tcfg.learning_rate, key).loss_sum)
+        run()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        turns[on].append(float(np.median(times)))
+    log(f"augment: bf16 train step B={B_TRAIN} with augment "
+        f"{[round(t, 2) for t in turns[True]]} ms, without "
+        f"{[round(t, 2) for t in turns[False]]} ms (median of 5 a turn, "
+        f"turns off/on/on/off) on {card}")
+    u_ms = cuda_ms(lambda: augment.augment_batch(key, images), 10)
+    log(f"augment: augment_batch alone at B={B_TRAIN} 32x{W_SERVE}: "
+        f"{u_ms:.3f} ms (CUDA events) on {card}")
+    log(f"augmented train path launch counts: {counts}")
+    return counts
+
+
 # ------------------------------------------------------------ main
 
 def ptxas_summary(text: str, kernel: str) -> list:
@@ -2736,6 +3412,10 @@ def main() -> int:
     tcounts, tcfg, np_model, batch = train_end_to_end(dev, args.seed)
     gcounts = image_gradient(dev, args.seed)
     ccounts, readings = trainer_phase(dev, args.seed, card)
+    scounts, sreadings = serving_phase(dev, args.seed, (words, table_np),
+                                       card)
+    dcounts = device_preprocess_phase(dev, args.seed, card)
+    acounts = augment_phase(dev, tcfg, np_model, batch, card)
     ms, bounds, lib = timings(dev, models, requests, card, table)
     gms, gbounds = greedy_loop_timings(dev, models, results, table)
     ms.update(gms)
@@ -2780,22 +3460,27 @@ def main() -> int:
                 "beam_loop": "aocr/ops/pallas/beam_loop.py:514",
                 "conv1_pool_dx": "aocr/ops/pallas/conv1_pool.py:287",
                 "pool_bwd": "aocr/ops/pallas/pool_bwd.py:117"}
+    # the paths' runs, each counted from 0 just before it and read just
+    # after it
+    paths = {"recognize": counts, "beam": bcounts, "beam-10": b10counts,
+             "train step": tcounts, "image gradient": gcounts,
+             "CLI trainer": ccounts, "serve": scounts,
+             "device preprocess": dcounts, "augment": acounts}
     kernels = []
     for k in cuda.KERNELS:
         d = main_dtype[k]
         entry = {
             "name": k, "route": "cuda", "source": f"aocr_torch/csrc/{k}.cu",
             "replaces": replaces[k],
-            # the recognize, beam, beam-10, train step, image-gradient
-            # and CLI trainer paths' runs, each read right after it
-            "launches": (counts[k] + bcounts[k] + b10counts[k]
-                         + tcounts[k] + gcounts[k] + ccounts[k]),
+            "launches": sum(c_[k] for c_ in paths.values()),
             "max_abs_err": max(results[(k, d)]), "dtype": d,
             "ms": ms[(k, d)][0], "plain_ms": ms[(k, d)][1],
             "bound_ms": bounds[(k, d)][0], "bound_by": bounds[(k, d)][1],
-            "library_ms": lib.get((k, d))}
+            "library_ms": lib.get((k, d)),
+            "launches_by_path": {p_: c_[k] for p_, c_ in paths.items()}}
         if k == "lstm_fwd":
-            c = tcounts["lstm_fwd_collect"] + ccounts["lstm_fwd_collect"]
+            c = (tcounts["lstm_fwd_collect"] + ccounts["lstm_fwd_collect"]
+                 + acounts["lstm_fwd_collect"])
             entry["redesigned"] = ("thread-block clusters, the Wh slice in "
                                    "shared memory, bf16 mma.sync")
             entry["modes"] = {
@@ -2923,6 +3608,12 @@ def main() -> int:
         f"{rates['beam-5']:.1f} images/s, dictionary beam-5 "
         f"{rates['dict-beam-5']:.1f} images/s, beam-{BEAM_STEP_K[1]} "
         f"{rates[f'beam-{BEAM_STEP_K[1]}']:.1f} images/s on {card}")
+    for dt in ("bfloat16", "float32"):
+        r = sreadings[f"serve {dt}"]
+        log(f"serve {dt}: " + ", ".join(
+            f"{v:.1f} requests/s at {w}" for w, v in r["rps"].items())
+            + f"; /recognize_batch {r['batch_ips']:.1f} images/s against a "
+            f"direct recognize's {r['direct_ips']:.1f} on {card}")
     on, off = ms[("enable_ab", "bf16")]
     log(f"bf16 train step B={B_TRAIN}: make_train_step "
         f"{ms[('train_step', 'bf16')]:.2f} ms; pool_bwd.ENABLE on {on:.2f} "

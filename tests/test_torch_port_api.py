@@ -118,14 +118,34 @@ def test_create_is_seeded_and_sized():
     assert len(words) == 5 and np.isfinite(scores).all()
 
 
-def test_unported_surfaces_raise():
-    """Image paths are decoded on the host; device-side preprocessing of
-    them is not ported and names its ROADMAP item."""
-    ocr = AttentionOCR.create(_tcfg(device_preprocess=True,
-                                    snap_width_ladder=False), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1: Augment and device preprocess"):
-        ocr.recognize(["word.png"])
+def test_unported_surfaces_raise(tmp_path):
+    """Device-side preprocessing of image paths, once refused, now runs:
+    recognize() with device_preprocess on .npy paths of mixed sizes
+    (decoded on the host by data.load_raw, luminance and resize by
+    preprocess.preprocess_varsize on the model's device) gives aocr.api's
+    device-preprocess transcripts on the same checkpoint and paths, scores
+    within 1e-5 relative (float32), and the host path's transcripts."""
+    jocr = _sharpened(JaxOCR.create(_cfg(seed=908, device_preprocess=True)))
+    jocr.save(str(tmp_path / "model"))
+    ocr = AttentionOCR.load(str(tmp_path / "model"), device="cpu",
+                            cfg=TConfig(device_preprocess=True))
+    host = AttentionOCR.load(str(tmp_path / "model"), device="cpu")
+    assert ocr.cfg.device_preprocess and not host.cfg.device_preprocess
+    paths = []
+    for i, (word, h, w) in enumerate([("ab", 32, 60), ("cd", 48, 150),
+                                      ("e1", 20, 140), ("xyz", 32, 100)]):
+        img = synth.render_word(word, h, w)
+        if i % 2:
+            img = np.repeat(img[..., None], 3, -1).astype(np.uint8)
+        paths.append(str(tmp_path / f"{i}.npy"))
+        np.save(paths[-1], img)
+    want_words, want_scores = jocr.recognize(paths)
+    words, scores = ocr.recognize(paths)
+    assert words == want_words
+    np.testing.assert_allclose(scores, want_scores, rtol=1e-5, atol=1e-5)
+    assert host.recognize(paths)[0] == words
+    with pytest.raises(ValueError, match="cannot decode"):
+        ocr.recognize([str(tmp_path / "missing.npy")])
 
 
 @pytest.mark.parametrize("beam_size", [1, 2])
@@ -251,6 +271,8 @@ def _assert_port_only(loaded):
             "aocr_torch.utils.trie",
             "aocr_torch.train", "aocr_torch.eval", "aocr_torch.data",
             "aocr_torch.utils.logging_util", "aocr_torch.utils.native",
+            "aocr_torch.serve", "aocr_torch.preprocess",
+            "aocr_torch.augment", "aocr_torch.devices",
             *(f"aocr_torch.ops.cuda.{k}" for k in cuda.KERNELS)} <= port
     assert cuda.KERNELS == (
         "conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",

@@ -130,11 +130,45 @@ def test_datagen_stream_matches_reference(tmp_path, keep_aspect):
 
 
 def test_device_preprocess_raises(tmp_path):
-    path = _manifest(tmp_path, 2, [100])
-    cfg = TConfig(device_preprocess=True, snap_width_ladder=False)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1: Augment and device preprocess"):
-        data.DataGen(str(tmp_path), path, cfg)
+    """-device_preprocess, once refused, now streams: both packages'
+    DataGen in device mode on one manifest and seed give the same batches
+    (raw buffers, sizes, out_w, targets, paths) over two shuffled epochs,
+    and the port's raw batches, resized by preprocess_varsize, match the
+    host-mode stream's images (as tests/test_preprocess.py holds aocr's:
+    rtol 1e-4, atol 0.5)."""
+    from aocr_torch import preprocess
+
+    path = _manifest(tmp_path, 11, [40, 100, 70])
+    kw = dict(batch_size=4, max_decoder_l=12, keep_aspect_ratio=True,
+              seed=6, device_preprocess=True)
+    streams = []
+    for pkg, cfg in ((data, TConfig(**kw)), (jdata, Config(**kw))):
+        gen = pkg.DataGen(str(tmp_path), path, cfg, log=lambda _m: None)
+        out = []
+        for _ in range(2):
+            gen.shuffle()
+            out += list(pkg.prefetched(gen.epoch(4), 2))
+        streams.append(out)
+    ours, ref = streams
+    assert len(ours) == len(ref) > 2
+    for a, b in zip(ours, ref):
+        assert a.images is None and b.images is None
+        np.testing.assert_array_equal(a.raw, b.raw)
+        np.testing.assert_array_equal(a.sizes, b.sizes)
+        assert a.out_w == b.out_w
+        np.testing.assert_array_equal(a.targets, b.targets)
+        np.testing.assert_array_equal(a.targets_eval, b.targets_eval)
+        assert a.num_nonzeros == b.num_nonzeros
+        assert a.img_paths == b.img_paths
+    host = data.DataGen(str(tmp_path), path, TConfig(**{
+        **kw, "device_preprocess": False}), log=lambda _m: None)
+    dev = data.DataGen(str(tmp_path), path, TConfig(**kw),
+                       log=lambda _m: None)
+    for hb, db in zip(host.epoch(4), dev.epoch(4)):
+        assert hb.img_paths == db.img_paths
+        images = preprocess.preprocess_varsize(db.raw, db.sizes, 32,
+                                               db.out_w, "cpu").numpy()
+        np.testing.assert_allclose(images, hb.images, rtol=1e-4, atol=0.5)
 
 
 @pytest.mark.parametrize("initial,minimum,decay,losses", [

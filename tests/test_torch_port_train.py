@@ -30,7 +30,7 @@ from aocr.models import cnn as jcnn
 from aocr.models import decoder as jdec
 from aocr.models import model as jmodel
 from aocr.ops import lstm as jlstm
-from aocr_torch import optim, train_step, weights
+from aocr_torch import augment, optim, train_step, weights
 from aocr_torch.api import AttentionOCR
 from aocr_torch.config import Config as TConfig
 from aocr_torch.models import cnn
@@ -215,12 +215,24 @@ def test_score_matches_reference():
 @pytest.mark.parametrize("what", ["dropout", "remat", "simple_attention",
                                   "augment"])
 def test_unported_training_options_raise(what):
+    """Dropout, remat and simple attention in training name their ROADMAP
+    item; -augment, once refused too, now runs: under a step key the
+    augmented step's loss is finite, differs from the plain step's, and
+    repeats for the same key."""
     cfg = _tcfg(**{what: 0.1 if what == "dropout" else True})
     tp, ts = weights.from_numpy(*_problem(_cfg())[:2])
     images, t, te = _problem(_cfg())[2:]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_step.make_train_step(cfg)(
-            tp, ts, optim.sgd_init(tp), images, t, te, 0.1)
+    step = lambda c, key: train_step.make_train_step(c)(  # noqa: E731
+        tp, ts, optim.sgd_init(tp), images, t, te, 0.1, key)
+    if what != "augment":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            step(cfg, None)
+        return
+    key = augment.step_key(cfg.seed, 4)
+    loss = float(step(cfg, key).loss_sum)
+    assert np.isfinite(loss)
+    assert loss != float(step(cfg.replace(augment=False), key).loss_sum)
+    assert loss == float(step(cfg, key).loss_sum)
 
 
 def test_image_gradient_of_conv1_raises():

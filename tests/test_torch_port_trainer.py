@@ -230,17 +230,46 @@ def test_trainer_defaults_to_cuda(tmp_path):
 
 
 PARALLEL = "ROADMAP queue 1: Parallel"
-AUGMENT = "ROADMAP queue 1: Augment and device preprocess"
 
 
 @pytest.mark.parametrize("flag,item", [
     (["-num_shards", "2"], PARALLEL), (["-num_model_shards", "2"], PARALLEL),
-    (["-multihost"], PARALLEL), (["-augment"], AUGMENT),
-    (["-device_preprocess", "-no_snap_width_ladder"], AUGMENT)],
+    (["-multihost"], PARALLEL), (["-augment"], None),
+    (["-device_preprocess", "-no_snap_width_ladder"], None)],
     # the cases' ids from when the items were named by number
     ids=["flag0-item 11", "flag1-item 11", "flag2-item 11", "flag3-item 10",
          "flag4-item 10"])
-def test_unported_options_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(["-phase", "test", "-log_path", str(tmp_path / "l.txt")]
-                   + flag, device="cpu")
+def test_unported_options_raise(runs, tmp_path, flag, item):
+    """The parallel options name their ROADMAP item.  -augment and
+    -device_preprocess, once refused, now train: the module's run from the
+    same checkpoint with each flag added.  The crops are already 32 x 36,
+    so device preprocessing gives the host-mode run's params (within
+    1e-6); -augment draws from (-seed, global step), so two runs give the
+    same params, and not the unaugmented run's."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            train.main(["-phase", "test", "-log_path",
+                        str(tmp_path / "l.txt")] + flag, device="cpu")
+        return
+    root = runs["root"]
+    port_main = lambda a: train.main(a, device="cpu")  # noqa: E731
+    tags = [f"{flag[0][1:]}_{n}" for n in
+            ((0, 1) if flag == ["-augment"] else (0,))]
+    for tag in tags:  # beside data/, which TRAIN_ARGS name relatively
+        log = _run(port_main, os.path.join(root, tag), TRAIN_ARGS + flag,
+                   os.path.join(root, "init"))
+        step, window = _ppl(log)
+        assert len(step) == 3 and all(np.isfinite(window))
+    got = _final(root, tags[0])
+    plain = _final(root, "port")
+    assert got["global_step"] == plain["global_step"] == 3
+    close = lambda a, b: jax.tree.map(  # noqa: E731
+        lambda x, y: np.testing.assert_allclose(x, y, rtol=0, atol=1e-6),
+        a, b)
+    if flag == ["-augment"]:
+        close(got["params"], _final(root, tags[1])["params"])
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(
+            jax.tree.leaves(got["params"]), jax.tree.leaves(plain["params"])))
+        assert diff > 1e-4
+    else:
+        close(got["params"], plain["params"])
