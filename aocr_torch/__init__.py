@@ -3,10 +3,13 @@
 A port of the JAX package `aocr` (which stays as the reference), slice by
 slice: greedy, beam and dictionary recognition and scoring
 (`aocr_torch.api.AttentionOCR`), the training step
-(`aocr_torch.train_step`) and the CLI trainer (`python -m
-aocr_torch.train`).  Every TPU Pallas kernel of `aocr` is a hand-written
-CUDA kernel for sm_90a (`aocr_torch/csrc`, built at first use); on CPU
-tensors each runs its plain PyTorch version.  The package keeps its own
+(`aocr_torch.train_step`), the CLI trainer (`python -m
+aocr_torch.train`), the server (`python -m aocr_torch.serve`), data
+parallelism (`aocr_torch.parallel`) and the Torch7 checkpoint import
+(`python -m aocr_torch.torch_import`).  Every TPU Pallas kernel of
+`aocr` is a hand-written CUDA kernel for sm_90a (`aocr_torch/csrc`,
+built at first use); on CPU tensors each runs its plain PyTorch
+version.  The package keeps its own
 copies of the framework-neutral modules (`config`, `vocab`,
 `checkpoint`, `data`, `utils/trie`, `utils/logging_util`,
 `utils/native`) and imports neither jax nor `aocr`.

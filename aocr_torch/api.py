@@ -6,6 +6,7 @@ recognition, and scoring):
     words, scores = ocr.recognize(images, beam_size=5)
     ocr.use_dictionary(["word", ...])        # constrain to a lexicon
     gold = ocr.score(images, ["word", ...])  # teacher-forced log-probs
+    ocr.shard()                              # recognize over every GPU
 
 `recognize` and `score` take a stacked array, a list of (H, W[, 1])
 arrays, or image paths: decoded and preprocessed on the host by
@@ -13,12 +14,15 @@ arrays, or image paths: decoded and preprocessed on the host by
 host and preprocessed on the device (`preprocess.preprocess_varsize`).
 Every entry point runs on the first CUDA device unless the caller names
 another device (`device="cpu"`); without CUDA the default raises.
-`shard()` is not ported yet (ROADMAP queue 1: Parallel).
+`shard()` splits each recognize batch over several devices, one host
+thread a device (aocr.api's data-parallel inference, in one process).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import asdict
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -29,6 +33,7 @@ from aocr_torch import checkpoint, data, devices, preprocess, vocab
 from aocr_torch.config import GEOMETRY_FIELDS, STRUCT_FIELDS, Config
 from aocr_torch import decode, train_step, weights
 from aocr_torch.models import model as model_lib
+from aocr_torch.parallel import mesh as mesh_lib
 from aocr_torch.utils import trie as trie_lib
 
 
@@ -46,6 +51,11 @@ class AttentionOCR:
         self.batch_stats = move(batch_stats)
         self.global_step = global_step
         self._trie: Optional[torch.Tensor] = None
+        # shard(): the devices recognize splits over, the weights (and
+        # trie) replicated to each, one decode thread a shard
+        self._shards: List[torch.device] = []
+        self._replicas: dict = {}
+        self._pool: Optional[ThreadPoolExecutor] = None
 
     @classmethod
     def create(cls, cfg: Optional[Config] = None, seed: Optional[int] = None,
@@ -103,15 +113,73 @@ class AttentionOCR:
             raise ValueError(f"trie table of shape {tuple(table.shape)}, "
                              f"expected (nodes, {self.cfg.target_vocab_size})")
         self._trie = table.to(self.device).contiguous()
+        self._replicate()
 
     def clear_dictionary(self) -> None:
         """Drop the dictionary constraint set by use_dictionary()."""
         self._trie = None
+        self._replicate()
 
     @property
     def dictionary_table(self) -> Optional[torch.Tensor]:
         """The active trie transition table (None when unconstrained)."""
         return self._trie
+
+    def shard(self, num_shards: Optional[int] = None,
+              devices: Optional[Sequence] = None) -> "AttentionOCR":
+        """Split recognize() batches across devices (data parallel, one
+        process): the weights are replicated once to each device, each
+        batch is padded to a multiple of the shard count by repeating its
+        last row, split in row order, decoded on each device from a host
+        thread of its own (recognize syncs on the host for the
+        transcripts, so one thread would run the devices in series), and
+        the padding sliced off.  num_shards=None uses every local device
+        of self.device's kind; `devices` may name a device more than once
+        (each entry is one shard).  shard(1) or unshard() restores
+        single-device dispatch.  Only recognize() runs sharded."""
+        if num_shards is not None and num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        if devices is not None and len(devices) == 0:
+            raise ValueError("devices must be non-empty")
+        if mesh_lib.world() > 1:
+            raise ValueError(
+                "AttentionOCR.shard() is single-process; under a "
+                "multi-process group run one recognizer per process over "
+                "its local devices")
+        if num_shards == 1 and devices is None:
+            return self.unshard()
+        devs = mesh_lib.make_mesh(num_data=num_shards, devices=devices,
+                                  kind=self.device.type)
+        self.unshard()
+        self._shards = devs
+        self._replicate()
+        self._pool = ThreadPoolExecutor(max_workers=len(devs),
+                                        thread_name_prefix="aocr-shard")
+        return self
+
+    def _replicate(self) -> None:
+        """The weights and trie on each distinct shard device, once."""
+        self._replicas = {}
+        for d in self._shards:
+            if d in self._replicas:
+                continue
+            move = lambda tree: weights.tree_map(tree, lambda _p, t: t.to(d))
+            self._replicas[d] = (
+                move(self.params), move(self.batch_stats),
+                None if self._trie is None else self._trie.to(d))
+
+    @property
+    def num_shards(self) -> int:
+        """The number of shards recognize() splits over (1 = one
+        device)."""
+        return max(1, len(self._shards))
+
+    def unshard(self) -> "AttentionOCR":
+        """Back to single-device recognize on self.device."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+        self._shards, self._replicas, self._pool = [], {}, None
+        return self
 
     def _prepare_groups(self, images) -> List[Tuple[List[int], object]]:
         """A stacked (B, H, W[, 1]) array, a path, or a list of image paths
@@ -169,15 +237,44 @@ class AttentionOCR:
         K = beam_size or self.cfg.beam_size
         T = max_len or self.cfg.max_decoder_l
         for idx, x in groups:
-            labels, sc = decode.beam_decode(
-                self.params, self.batch_stats,
-                torch.as_tensor(x).to(self.device), self.cfg,
-                beam_size=K, max_len=T, trie_table=self._trie)
-            labels, sc = labels.cpu().numpy(), sc.cpu().numpy()
+            if self._shards:
+                labels, sc = self._decode_sharded(x, K, T)
+            else:
+                labels, sc = self._decode_on(self.device, x, K, T)
             for j, i in enumerate(idx):
                 words[i] = vocab.decode(labels[j])
                 scores[i] = sc[j]
         return words, scores
+
+    def _decode_on(self, dev: torch.device, x, K: int, T: int):
+        """beam_decode of the rows x on dev with its replica of the
+        weights: (labels, scores) as numpy."""
+        params, stats, trie = self._replicas.get(
+            dev, (self.params, self.batch_stats, self._trie))
+        with torch.inference_mode(), (torch.cuda.device(dev)
+                                      if dev.type == "cuda"
+                                      else contextlib.nullcontext()):
+            labels, sc = decode.beam_decode(
+                params, stats, torch.as_tensor(x).to(dev), self.cfg,
+                beam_size=K, max_len=T, trie_table=trie)
+            return labels.cpu().numpy(), sc.cpu().numpy()
+
+    def _decode_sharded(self, x, K: int, T: int):
+        """x split over the shards, padded by repeating its last row."""
+        n, B = len(self._shards), x.shape[0]
+        pad = (-B) % n
+        if pad:
+            tail = x[-1:].repeat(pad, *([1] * (x.ndim - 1))) if isinstance(
+                x, torch.Tensor) else np.repeat(x[-1:], pad, 0)
+            x = (torch.cat([x, tail]) if isinstance(x, torch.Tensor)
+                 else np.concatenate([x, tail]))
+        m = x.shape[0] // n
+        jobs = [self._pool.submit(self._decode_on, d, x[i * m:(i + 1) * m],
+                                  K, T)
+                for i, d in enumerate(self._shards)]
+        parts = [j.result() for j in jobs]
+        labels = np.concatenate([p[0] for p in parts])[:B]
+        return labels, np.concatenate([p[1] for p in parts])[:B]
 
     @torch.inference_mode()
     def score(self, images, transcripts: Sequence[str]) -> np.ndarray:

@@ -23,7 +23,11 @@ BatchNorm normalizes with the batch's biased variance, stores the
 unbiased n/(n-1) one in the running statistics, and runs the closed-form
 backward with both channel sums in float32 (`BNTrainFn`, cnn.py:303-383),
 or, under a row mask, weighted moments and plain autograd (cnn.py:
-384-422); the pools after convs 2, 4 and 6 run the `pool_bwd` kernel as
+384-422); under data parallelism (`group`, a torch.distributed process
+group, the counterpart of aocr's axis_name) both forms reduce their
+moments, and the closed form its backward's channel sums, over the
+group, so every rank normalizes with the global batch's statistics
+(sync-BN, cnn.py:303-418); the pools after convs 2, 4 and 6 run the `pool_bwd` kernel as
 their backward (`ReluPoolFn`, cnn.py:209-235) while `pool_bwd.ENABLE`.
 """
 
@@ -36,6 +40,7 @@ import torch.nn.functional as F
 
 from aocr_torch.ops.cuda import (conv1_pool, conv1_pool_bwd, conv1_pool_dx,
                                  pool_bwd)
+from aocr_torch.parallel import mesh
 
 # name, in_c, out_c, kh, kw, padding, bn  (aocr/models/cnn.py:_CONV_DEFS)
 CONV_DEFS = (
@@ -147,12 +152,17 @@ class BiasAddFn(torch.autograd.Function):
         return dy, dy.float().sum((0, 2, 3))
 
 
-def _bn_train_math(x, scale, bias):
+def _bn_train_math(x, scale, bias, group=None):
     """Train-mode forward: y in the compute dtype, float32 batch (mean,
-    biased var)."""
+    biased var); with a group, the moments averaged over it (pmean, one
+    all-reduce of both)."""
     xf = x.float()
     mean = xf.mean((0, 2, 3))
-    var = xf.square().mean((0, 2, 3)) - mean.square()
+    ex2 = xf.square().mean((0, 2, 3))
+    if group is not None:
+        both = mesh.all_reduce(torch.cat([mean, ex2]), group)
+        mean, ex2 = (both / mesh.world(group)).chunk(2)
+    var = ex2 - mean.square()
     inv = torch.rsqrt(var + BN_EPS) * scale
     return (x * _channels(inv, x.dtype)
             + _channels(bias - mean * inv, x.dtype)), mean, var
@@ -161,11 +171,15 @@ def _bn_train_math(x, scale, bias):
 class BNTrainFn(torch.autograd.Function):
     """Train-mode BatchNorm with the closed-form backward of the
     reference's _bn_train_cvjp.  Returns (y, mean, var); the moments feed
-    only the running statistics and get no gradient."""
+    only the running statistics and get no gradient.  With a group, the
+    backward's two channel sums are summed over it (one all-reduce) and
+    its count is the global one, as the moments were global; the scale
+    and bias gradients stay this rank's (the step sums them)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias):
-        y, mean, var = _bn_train_math(x, scale, bias)
+    def forward(ctx, x, scale, bias, group=None):
+        y, mean, var = _bn_train_math(x, scale, bias, group)
+        ctx.group = group
         ctx.save_for_backward(x, scale, mean, var)
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -179,28 +193,45 @@ class BNTrainFn(torch.autograd.Function):
         sum_dy = dy.float().sum((0, 2, 3))
         sum_dyxh = (dy * xhat).float().sum((0, 2, 3))
         n = float(x.numel() // x.shape[1])
+        g_dy, g_dyxh = sum_dy, sum_dyxh
+        if ctx.group is not None:
+            g_dy, g_dyxh = mesh.all_reduce(torch.cat([sum_dy, sum_dyxh]),
+                                           ctx.group).chunk(2)
+            n *= mesh.world(ctx.group)
         ginv = scale * inv0
-        dx = (dy * _channels(ginv, cd) - _channels(ginv * (sum_dy / n), cd)
-              - xhat * _channels(ginv * (sum_dyxh / n), cd))
-        return dx, sum_dyxh, sum_dy
+        dx = (dy * _channels(ginv, cd) - _channels(ginv * (g_dy / n), cd)
+              - xhat * _channels(ginv * (g_dyxh / n), cd))
+        return dx, sum_dyxh, sum_dy, None
 
 
-def _bn_train(x: torch.Tensor, p: dict, s: dict, row_mask=None):
+def _bn_train(x: torch.Tensor, p: dict, s: dict, row_mask=None,
+              group=None):
     """Train-mode BN: (y, new running stats); the running variance is the
     unbiased n/(n-1) form (Torch7 parity, cnn.py:371-383).  row_mask (B,)
     marks the real rows of a padded batch: the moments and the count
     exclude the others, and the backward is plain autograd over the
-    weighted moments (cnn.py:384-422)."""
+    weighted moments (cnn.py:384-422).  With a group, the moments and
+    the count are the whole group's: the masked form sums (count, sums
+    of x and x^2) with a differentiable all-reduce."""
     if row_mask is None:
-        y, mean, var = BNTrainFn.apply(x, p["scale"], p["bias"])
-        count = float(x.numel() // x.shape[1])
+        y, mean, var = BNTrainFn.apply(x, p["scale"], p["bias"], group)
+        count = float(x.numel() // x.shape[1]) * (
+            1 if group is None else mesh.world(group))
         unbiased = var * (count / max(count - 1.0, 1.0))
     else:
         xf = x.float()
         wgt = row_mask.float()[:, None, None, None]
-        count = (wgt.sum() * (x.shape[2] * x.shape[3])).clamp(min=1.0)
-        mean = (xf * wgt).sum((0, 2, 3)) / count
-        var = (xf.square() * wgt).sum((0, 2, 3)) / count - mean.square()
+        count = wgt.sum() * (x.shape[2] * x.shape[3])
+        xsum = (xf * wgt).sum((0, 2, 3))
+        x2sum = (xf.square() * wgt).sum((0, 2, 3))
+        if group is not None:
+            C = xsum.shape[0]
+            sums = mesh.all_reduce_sum(
+                torch.cat([count.reshape(1), xsum, x2sum]), group)
+            count, xsum, x2sum = sums[0], sums[1:C + 1], sums[C + 1:]
+        count = count.clamp(min=1.0)
+        mean = xsum / count
+        var = x2sum / count - mean.square()
         inv = torch.rsqrt(var + BN_EPS) * p["scale"]
         y = (x * _channels(inv, x.dtype)
              + _channels(p["bias"] - mean * inv, x.dtype))
@@ -228,17 +259,13 @@ def _relu_pool(x: torch.Tensor, idx: int, fused: bool) -> torch.Tensor:
 def apply(params: dict, batch_stats: dict, images: torch.Tensor,
           compute_dtype: torch.dtype = torch.float32,
           use_kernel: bool = True, train: bool = False, row_mask=None,
-          axis_name=None):
+          group=None):
     """images (B, 32, W, 1) float32 in [0, 255] -> features (B, L, 512) in
     the compute dtype; with train=True -> (features, new batch_stats),
     BatchNorm on the batch's moments (only the rows row_mask marks, when
     given).  use_kernel=False runs conv1 as a plain conv and the pools
-    under plain autograd.  axis_name (sync-BN) belongs to data-parallel
-    training, which is not ported."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "synchronized BatchNorm belongs to data-parallel training: "
-            "ROADMAP queue 1: Parallel")
+    under plain autograd.  group (a process group, data-parallel
+    training) makes the train-mode BatchNorm synchronized over it."""
     cd = compute_dtype
     fused = train and use_kernel and pool_bwd.ENABLE
     x = ((images - 128.0) / 128.0).to(cd)
@@ -255,7 +282,8 @@ def apply(params: dict, batch_stats: dict, images: torch.Tensor,
         x = BiasAddFn.apply(x, params[name]["b"])
         if bn and train:
             x, new_stats[name + "_bn"] = _bn_train(
-                x, params[name + "_bn"], batch_stats[name + "_bn"], row_mask)
+                x, params[name + "_bn"], batch_stats[name + "_bn"], row_mask,
+                group)
         elif bn:
             x = _bn_eval(x, params[name + "_bn"], batch_stats[name + "_bn"])
         x = _relu_pool(x, idx, fused)

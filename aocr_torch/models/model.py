@@ -47,17 +47,18 @@ def init(cfg: Config, gen: torch.Generator, device="cpu"
 
 
 def encode(params: dict, batch_stats: dict, images: torch.Tensor,
-           cfg: Config, train: bool = False, row_mask=None):
+           cfg: Config, train: bool = False, row_mask=None, group=None):
     """images (B, 32, W, 1) -> (context (B, L, 2H), dec_init (c0, h0)), and
     with train=True also the new batch_stats (train-mode BatchNorm over
-    the rows row_mask (B,) marks, when given).
+    the rows row_mask (B,) marks, when given; synchronized over the
+    process group `group`, when given).
 
     With cfg.use_pallas the kernels run (on CUDA tensors); use_pallas=False
     is the plain route throughout."""
     cd = compute_dtype(cfg)
     out = cnn.apply(params["cnn"], batch_stats, images, cd,
                     use_kernel=cfg.use_pallas, train=train,
-                    row_mask=row_mask)
+                    row_mask=row_mask, group=group)
     features, new_stats = out if train else (out, None)
     context, dec_init = encoder.apply(params["encoder_fw"],
                                       params["encoder_bw"], features, cd,
@@ -67,14 +68,16 @@ def encode(params: dict, batch_stats: dict, images: torch.Tensor,
 
 def forward_loss(params: dict, batch_stats: dict, images: torch.Tensor,
                  targets: torch.Tensor, targets_eval: torch.Tensor,
-                 cfg: Config, train: bool = False, row_mask=None):
+                 cfg: Config, train: bool = False, row_mask=None,
+                 group=None):
     """Teacher-forced forward pass: (token-sum NLL, new batch_stats,
     log_probs (B, T, V) float32).  In eval mode batch_stats come back
-    unchanged; row_mask as in encode."""
+    unchanged; row_mask and group as in encode."""
     if train:
         context, dec_init, new_stats = encode(params, batch_stats, images,
                                               cfg, train=True,
-                                              row_mask=row_mask)
+                                              row_mask=row_mask,
+                                              group=group)
     else:
         (context, dec_init), new_stats = encode(params, batch_stats, images,
                                                 cfg), batch_stats

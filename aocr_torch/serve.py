@@ -20,10 +20,11 @@ GET  /healthz         -> {"status": "ok", ...}
 GET  /stats           -> request/batch counters and latency percentiles
 
 The model runs on the CUDA device unless the caller names another
-(`serve(..., device="cpu")`, `main(argv, device="cpu")`).  Serving a
-`.aocrx` artifact (`-artifact`) and sharding over several devices
-(`-num_shards` other than 1) are not ported and raise NotImplementedError
-naming their ROADMAP queue 1 items, before any checkpoint is loaded.
+(`serve(..., device="cpu")`, `main(argv, device="cpu")`).  `-num_shards
+N` splits each coalesced batch over N local devices
+(`AttentionOCR.shard`; 0 = every local device).  Serving a `.aocrx`
+artifact (`-artifact`) is not ported and raises NotImplementedError
+naming its ROADMAP queue 1 item, before any checkpoint is loaded.
 """
 
 from __future__ import annotations
@@ -41,13 +42,13 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from aocr_torch import data
+from aocr_torch import data, devices
 from aocr_torch.api import AttentionOCR
 from aocr_torch.config import Config
+from aocr_torch.parallel import mesh
 from aocr_torch.utils import trie as trie_lib
 
-# the ROADMAP items of the options not ported yet
-PARALLEL = "ROADMAP queue 1: Parallel"
+# the ROADMAP item of the option not ported yet
 EXPORT = "ROADMAP queue 1: Export"
 
 
@@ -444,10 +445,17 @@ def serve(model_dir: Optional[str] = None, host: str = "0.0.0.0",
         raise ValueError(
             f"-num_shards must be >= 0 (0 = all local devices), "
             f"got {num_shards}")
-    if num_shards != 1:
-        raise NotImplementedError(
-            f"-num_shards {num_shards} is not ported: {PARALLEL}")
+    if num_shards > 1:
+        have = len(mesh.local_devices(devices.resolve(device)))
+        if num_shards > have:
+            raise ValueError(
+                f"-num_shards {num_shards} but only {have} local devices")
     ocr = AttentionOCR.load(model_dir, cfg=cfg, device=device)
+    if num_shards != 1:
+        # each coalesced batch split over the devices, the weights
+        # replicated, no communication in the decode
+        ocr.shard(None if num_shards == 0 else num_shards)
+        print(f"sharded inference over {ocr.num_shards} devices")
     if dictionary_path:
         # every served transcript is a prefix-trie walk over the word
         # list (the reference's -use_dictionary); load_dictionary caches
@@ -532,8 +540,8 @@ def main(argv=None, device=None):
     p.add_argument("-allow_digit_prefix", "--allow_digit_prefix",
                    action="store_true", default=False)
     p.add_argument("-num_shards", "--num_shards", type=int, default=1,
-                   help="shard each device batch across N devices (not "
-                        "ported: 1 only)")
+                   help="shard each device batch across N local devices "
+                        "(0 = all)")
     args = p.parse_args(argv)
     cfg = Config(beam_size=args.beam_size) if args.beam_size else None
     beams = tuple(int(b) for b in args.warmup_beams.split(",") if b)

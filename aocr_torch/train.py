@@ -1,10 +1,11 @@
 """The CLI entry point and train/eval loops (counterpart of
-aocr/train.py), on one device:
+aocr/train.py), on one device or data-parallel over several:
 
     python -m aocr_torch.train -phase train -data_path train.txt \\
         -val_data_path val.txt -model_dir train/ [flags of aocr.train]
     python -m aocr_torch.train -phase test -load_model -model_dir train/ \\
         -data_path test.txt -beam_size 5 [-use_dictionary] [-visualize]
+    torchrun --nproc_per_node N -m aocr_torch.train -num_shards N ...
 
 - `-phase train`: epoch loop over shuffled width-bucketed batches; the
   running perplexity exp(loss / num_nonzeros) each step, from the sums
@@ -29,8 +30,20 @@ The trainer runs on the CUDA device unless the caller names another
 raises.  `-augment` draws each step's augmentation from (`-seed`, the
 global step), so a resumed run replays the same augmentations;
 `-device_preprocess` decodes on the host and resizes on the device.
-Data parallelism and multi-host runs are not ported and raise
-NotImplementedError naming their ROADMAP queue 1 entry by title.
+
+Data parallelism (`-num_shards N`) runs one process per device in a
+torch.distributed group of N: the group the trainer finds, else one
+initialized from torchrun's environment with the device's default
+backend (NCCL on CUDA); each process takes the device of its
+LOCAL_RANK unless the caller names one.  Without `-multihost` every
+rank reads the same global batches (the one-device run's data order)
+and trains on its rows (parallel.data_parallel); with `-multihost` each
+rank reads its slice of the manifest, feeds fixed local rows and keeps
+in lockstep with the others (parallel.multihost).  Evaluation shards
+the same way (parallel.eval_parallel).  Only rank 0 logs, saves
+checkpoints and writes results.txt.  Tensor parallelism
+(`-num_model_shards > 1`) is not ported and raises NotImplementedError
+naming its ROADMAP queue 1 entry by title.
 """
 
 from __future__ import annotations
@@ -40,13 +53,17 @@ import os
 import sys
 import time
 from dataclasses import asdict
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from aocr_torch import augment, checkpoint, data, devices, \
     eval as eval_lib, optim, preprocess, train_step, vocab, weights
+from aocr_torch.parallel import (data_parallel, eval_parallel,
+                                 mesh as mesh_lib, multihost)
 from aocr_torch.config import (GEOMETRY_FIELDS, STRUCT_FIELDS, Config,
                                parse_args)
 from aocr_torch.models import model
@@ -78,18 +95,71 @@ class ValDrivenLR:
         return decayed
 
 
-# the ROADMAP item of the options not ported yet
-PARALLEL = "ROADMAP queue 1: Parallel"
+# the ROADMAP item of the option not ported yet
+TENSOR_PARALLEL = "ROADMAP queue 1: Tensor parallel"
 
 
-def _unported(cfg: Config) -> None:
-    """Raise for the options of aocr.train this trainer does not port."""
-    for on, flag in (
-            (cfg.num_shards > 1, "-num_shards > 1"),
-            (cfg.num_model_shards > 1, "-num_model_shards > 1"),
-            (cfg.multihost, "-multihost")):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported: {PARALLEL}")
+def _check_parallel(cfg: Config) -> None:
+    """Raise for the parallel options this trainer refuses (before any
+    process group or checkpoint is touched)."""
+    if cfg.num_model_shards > 1:
+        raise NotImplementedError(
+            f"-num_model_shards > 1 is not ported: {TENSOR_PARALLEL}")
+    if cfg.multihost:
+        if cfg.num_shards <= 1:
+            raise ValueError("-multihost requires -num_shards > 1 (the "
+                             "data axis spans every host's devices)")
+        if cfg.keep_aspect_ratio:
+            raise ValueError("-multihost requires fixed-width batches "
+                             "(keep_aspect_ratio=False)")
+        if cfg.device_preprocess:
+            raise ValueError("-multihost and -device_preprocess do not "
+                             "compose yet (each host's rows are assembled "
+                             "from host-side pixel batches)")
+        if cfg.visualize:
+            raise ValueError("-visualize is per-host; run -phase test "
+                             "-visualize single-process on the published "
+                             "checkpoint instead")
+
+
+def _parallel(cfg: Config) -> bool:
+    return cfg.num_shards > 1 or cfg.multihost
+
+
+def _device(cfg: Config, device) -> torch.device:
+    """The device of this process: the named one, else under -num_shards
+    the CUDA device of torchrun's LOCAL_RANK, else the CUDA device."""
+    if device is None and _parallel(cfg):
+        device = f"cuda:{multihost.local_rank()}"
+    return devices.resolve(device)
+
+
+def _join_group(cfg: Config, device: torch.device) -> None:
+    """The process group of -num_shards N: the one found, else one from
+    torchrun's environment (NCCL on CUDA, gloo on the CPU).  Its size
+    must be N."""
+    multihost.initialize(device=device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    n = mesh_lib.world()
+    if n != cfg.num_shards:
+        raise ValueError(
+            f"-num_shards {cfg.num_shards} but the process group has {n} "
+            f"processes: launch one process per device (torchrun "
+            f"--nproc_per_node {cfg.num_shards})")
+    if cfg.batch_size % n:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"num_shards {n}")
+
+
+class _Quiet:
+    """The log of a rank other than 0: it writes nothing."""
+
+    def info(self, msg: str) -> None:
+        pass
+
+    def shutdown(self) -> None:
+        pass
 
 
 def _host_later(x: torch.Tensor):
@@ -115,9 +185,13 @@ def _read(pending) -> float:
 
 class Trainer:
     def __init__(self, cfg: Config, log: Logger, device=None):
-        _unported(cfg)
+        _check_parallel(cfg)
         self.log = log
-        self.device = devices.resolve(device)
+        self.device = _device(cfg, device)
+        self.group = None
+        if _parallel(cfg):
+            _join_group(cfg, self.device)
+            self.group = dist.group.WORLD
         ckpt = None
         if cfg.load_model:
             ckpt = checkpoint.try_load_final(
@@ -147,7 +221,14 @@ class Trainer:
                                "eval_counter": 0}
         self.cfg = cfg.validate()
         self.opt_state = self._restore_opt_state()
-        self._train_step = train_step.make_train_step(self.cfg)
+        if self.group is None:
+            self._train_step = train_step.make_train_step(self.cfg)
+        else:
+            self._train_step = data_parallel.make_dp_train_step(
+                self.cfg, self.group)
+            log.info(f"Data-parallel training over {mesh_lib.world()} "
+                     f"processes ({dist.get_backend()}, one gradient "
+                     f"all-reduce a step)")
         for k, v in sorted(asdict(self.cfg).items()):
             log.info(f"{k}: {v}")
         log.info(f"Number of parameters: {model.num_params(self.params)}")
@@ -157,6 +238,25 @@ class Trainer:
             self.trie_table = torch.from_numpy(trie_lib.load_dictionary(
                 self.cfg.dictionary_path, self.cfg.allow_digit_prefix
             )).to(self.device)
+        self._eval_step = None
+        if self.group is not None:
+            self._eval_step = eval_parallel.make_dp_eval_step(
+                self.cfg, self.group, use_trie=self.trie_table is not None)
+            log.info(f"Sharded evaluation over {mesh_lib.world()} processes "
+                     f"(beam decode + gold pass per rank)")
+        # -multihost: each process feeds local_bs rows a step, in lockstep
+        # with the others (parallel/multihost.py)
+        self._lockstep = self.cfg.multihost
+        if self._lockstep:
+            rank, pc = multihost.process_info()
+            self._count_group = multihost.count_group()
+            self.local_bs = multihost.local_batch_size(self.cfg.batch_size,
+                                                       pc)
+            self._global_rows = self.local_bs * pc
+            log.info(f"Multi-host lockstep: process {rank}/{pc}, "
+                     f"{self.local_bs} rows/host/step")
+        else:
+            self.local_bs = self._global_rows = self.cfg.batch_size
         self.visualize_file = None
 
     def _restore_opt_state(self):
@@ -194,17 +294,41 @@ class Trainer:
                 self.device)
         return torch.from_numpy(batch.images).to(self.device)
 
-    def step_train(self, batch: data.Batch, lr: float):
+    def step_train(self, batch: data.Batch, lr: float, valid_rows=None,
+                   all_full=None):
         """One optimizer step.  Returns the token-sum NLL as a pending
         read (_read gives its float), so the caller can queue the next
         step before it waits.  A batch short of batch_size (an epoch's
         tail) is padded with copies of its last image and PAD targets,
         and a row mask keeps them out of the BatchNorm moments and the
-        loss normalization (aocr/train.py:324-344)."""
-        im = self._images(batch)
+        loss normalization (aocr/train.py:324-344).
+
+        Data-parallel: the batch is padded to a multiple of the ranks
+        (-multihost: to the fixed local rows) and each rank steps on its
+        rows.  valid_rows is the number of real leading rows (lockstep
+        dummies: 0); all_full says whether every process's batch is full
+        (None: decide locally).  The masked or unmasked step must be the
+        same choice on every rank, or their collectives mismatch
+        (aocr/train.py:267-320)."""
         tg, te = batch.targets, batch.targets_eval
         extra = {}
-        if batch.rows < self.cfg.batch_size:
+        if self.group is not None:
+            valid = batch.rows if valid_rows is None else valid_rows
+            n = mesh_lib.world()
+            want = (self.local_bs if self._lockstep
+                    else batch.rows + (-batch.rows) % n)
+            im = batch.images if batch.raw is None else self._images(batch)
+            _, im, tg, te = eval_parallel.pad_rows(n, im, tg, te,
+                                                   total_rows=want)
+            mask = (np.arange(want) < valid).astype(np.float32)
+            if not self._lockstep:  # every rank holds the global batch
+                im, tg, te, mask = mesh_lib.shard_batch(self.group, im, tg,
+                                                        te, mask)
+            if valid < want or all_full is False:
+                extra = {"row_mask": torch.from_numpy(mask)}
+            im = torch.as_tensor(im).to(self.device)
+        elif batch.rows < self.cfg.batch_size:
+            im = self._images(batch)
             want, real = self.cfg.batch_size, batch.rows
             pad = want - real
             im = torch.cat([im, im[-1:].expand(pad, *im.shape[1:])], 0)
@@ -213,6 +337,8 @@ class Trainer:
             te = np.concatenate([te, ztg], 0)
             extra = {"real_bs": float(real), "row_mask": torch.from_numpy(
                 (np.arange(want) < real).astype(np.float32))}
+        else:
+            im = self._images(batch)
         dev = self.device
         out = self._train_step(
             self.params, self.batch_stats, self.opt_state, im,
@@ -231,9 +357,11 @@ class Trainer:
                                   f"norm: {gn:f}")
         return _host_later(out.loss_sum)
 
-    def step_eval(self, batch: data.Batch):
+    def step_eval(self, batch: data.Batch, valid_rows=None):
         """Beam decode and the gold pass from one encode.  Returns
-        (loss_sum, accuracy, cer_sum)."""
+        (loss_sum, accuracy, cer_sum); data-parallel, over every rank's
+        rows, valid_rows marking the real leading ones (lockstep dummies
+        pass 0)."""
         cfg = self.cfg
         B, T = batch.rows, cfg.max_decoder_l
         # the reference pads eval targets to max_decoder_l and decodes
@@ -242,6 +370,9 @@ class Trainer:
                                constant_values=vocab.PAD)
         targets, targets_eval = pad(batch.targets), pad(batch.targets_eval)
         use_trie = self.trie_table is not None
+        if self._eval_step is not None:
+            return self._step_eval_dp(batch, targets, targets_eval,
+                                      B if valid_rows is None else valid_rows)
         out, nll, gold_scores = train_step.eval_decode_step(
             self.params, self.batch_stats, self._images(batch), targets,
             targets_eval, cfg, beam_size=cfg.beam_size, max_len=T,
@@ -265,23 +396,86 @@ class Trainer:
         glens = np.maximum([len(g) for g in golds], 1)
         cer_sum = float(np.minimum(1.0, dists / glens).sum())
         if self.visualize_file is not None:
-            scores = out[1].float().cpu().numpy()
-            gold = gold_scores.float().cpu().numpy()
-            for i, path in enumerate(batch.img_paths):
-                self.visualize_file.write(
-                    f"{path}\t{golds[i]}\t{preds[i]}\t{scores[i]:f}"
-                    f"\t{gold[i]:f}\n")
-            self.visualize_file.flush()
-        if use_trie and refills:
+            self._write_visualize_rows(batch.img_paths, preds, golds,
+                                       out[1].float().cpu().numpy(),
+                                       gold_scores.float().cpu().numpy())
+        self._log_refills(refills, min_valid)
+        return float(nll), accuracy, cer_sum
+
+    def _step_eval_dp(self, batch: data.Batch, targets, targets_eval,
+                      valid_rows: int):
+        """step_eval over the process group (aocr/train.py:368-402): the
+        batch padded to a multiple of the ranks (-multihost: to the fixed
+        local rows), each rank decoding its rows; accuracy and CER come
+        back summed over the real rows, labels gathered for -visualize."""
+        n = mesh_lib.world()
+        im = batch.images if batch.raw is None else self._images(batch)
+        real_b, im, tg, te = eval_parallel.pad_rows(
+            n, im, targets, targets_eval,
+            total_rows=self.local_bs if self._lockstep else None)
+        real_b = min(real_b, valid_rows)
+        mask = (np.arange(im.shape[0]) < real_b).astype(np.float32)
+        if not self._lockstep:  # every rank holds the global batch
+            im, tg, te, mask = mesh_lib.shard_batch(self.group, im, tg, te,
+                                                    mask)
+        out = self._eval_step(self.params, self.batch_stats,
+                              torch.as_tensor(im).to(self.device), tg, te,
+                              self.trie_table, torch.from_numpy(mask))
+        if self.visualize_file is not None:
+            _, preds, golds = eval_lib.eval_word_err_rate(
+                out.labels.cpu().numpy()[:real_b], targets_eval[:real_b])
+            self._write_visualize_rows(
+                batch.img_paths, preds, golds,
+                out.scores.cpu().numpy()[:real_b],
+                out.gold_scores.cpu().numpy()[:real_b])
+        self._log_refills(int(out.refills), int(out.min_valid))
+        return float(out.nll), int(out.accuracy), float(out.cer_sum)
+
+    def _write_visualize_rows(self, paths, preds, golds, scores,
+                              gold_scores) -> None:
+        for i, path in enumerate(paths[:len(preds)]):
+            self.visualize_file.write(
+                f"{path}\t{golds[i]}\t{preds[i]}\t{scores[i]:f}"
+                f"\t{gold_scores[i]:f}\n")
+        self.visualize_file.flush()
+
+    def _log_refills(self, refills: int, min_valid: int) -> None:
+        if self.trie_table is not None and refills:
             # the reference's per-row 'valid beam size' warnings
             # (model.lua:421,480), one line a batch
             self.log.info(f"Warning: valid beam size: {min_valid} "
                           f"({refills} refilled row-steps in batch)")
-        return float(nll), accuracy, cer_sum
+
+    # ------------------------------------------------------ batch stream
+
+    def _dummy_batch(self) -> data.Batch:
+        """An all-masked filler batch: processes whose epoch ended keep
+        issuing the same collectives until every process is done."""
+        cfg = self.cfg
+        B, T = self.local_bs, cfg.max_decoder_l
+        im = np.zeros((B, cfg.image_height, cfg.image_width, 1), np.float32)
+        tg = np.full((B, T), vocab.PAD, np.int32)
+        return data.Batch(im, tg, tg.copy(), 0, ["<dummy>"] * B)
+
+    def _batches(self, gen):
+        """Yield (batch, valid_rows, global_nnz, global_rows), prefetched;
+        lockstep-synchronized across processes under -multihost."""
+        it = data.prefetched(gen, self.cfg.prefetch)
+        if self._lockstep:
+            sync = partial(multihost.sync_counts, group=self._count_group)
+            for b, real, g_nnz, g_rows in multihost.lockstep(
+                    it, self._dummy_batch,
+                    lambda bb: (bb.num_nonzeros, bb.rows), sync):
+                yield b, (b.rows if real else 0), g_nnz, g_rows
+        else:
+            for b in it:
+                yield b, b.rows, b.num_nonzeros, b.rows
 
     # ------------------------------------------------------- validation
 
     def validate(self, val_data: data.DataGen) -> tuple:
+        if self._lockstep:
+            return self._validate_lockstep(val_data)
         cfg = self.cfg
         self.log.info(f"Evaluating model on {cfg.num_batches_val} batches "
                       f"of validation data")
@@ -311,9 +505,33 @@ class Trainer:
             b += 1
         return val_loss, val_nnz, val_acc, val_samples
 
+    def _validate_lockstep(self, val_data: data.DataGen) -> tuple:
+        """-multihost validation: one pass over the sharded manifest,
+        capped at num_batches_val, with lockstep dummies; counts are
+        global."""
+        cfg = self.cfg
+        self.log.info(f"Evaluating model on {cfg.num_batches_val} batches "
+                      f"of validation data")
+        val_loss = val_nnz = val_acc = val_samples = 0
+        b = 0
+        for batch, valid, g_nnz, g_rows in self._batches(
+                val_data.epoch(self.local_bs)):
+            if b >= cfg.num_batches_val:
+                break  # b advances in lockstep: every rank breaks together
+            loss, acc, _cer = self.step_eval(batch, valid)
+            val_loss += loss  # summed over the group: equal on every rank
+            val_nnz += g_nnz
+            val_acc += acc
+            val_samples += g_rows
+            b += 1
+        return val_loss, val_nnz, val_acc, val_samples
+
     def _save(self) -> None:
         """An npz-v2 checkpoint that either package resumes: the
-        reference's parameter layout, optimizer state and meta."""
+        reference's parameter layout, optimizer state and meta.  Only
+        rank 0 writes: the state is the same on every rank."""
+        if multihost.process_info()[0] != 0:
+            return
         state = weights.opt_state_to_numpy(self.opt_state)
         if isinstance(self.opt_state, optim.SGDState):
             self.optim_meta["eval_counter"] = int(state["eval_counter"])
@@ -379,17 +597,20 @@ class Trainer:
 
         for epoch in range(1, cfg.num_epochs + 1):
             train_data.shuffle()
-            for batch in data.prefetched(train_data.epoch(cfg.batch_size),
-                                         cfg.prefetch):
+            for batch, valid, g_nnz, g_rows in self._batches(
+                    train_data.epoch(self.local_bs)):
                 if cfg.profile and profile_started_at is None:
                     prof = self._profiler()
                     prof.start()
                     profile_started_at = self.global_step
                     log.info("Profiler trace started")
-                inflight.append((self.step_train(batch, sched.lr),
-                                 batch.num_nonzeros))
+                step_loss = self.step_train(
+                    batch, sched.lr, valid,
+                    all_full=(g_rows == self._global_rows
+                              if self._lockstep else None))
+                inflight.append((step_loss, g_nnz))
                 steps_in_window += 1
-                window_images += batch.rows
+                window_images += g_rows
                 if (prof is not None and self.global_step
                         - profile_started_at >= cfg.profile_steps):
                     self._stop_profile(prof)
@@ -434,19 +655,19 @@ class Trainer:
 
     def run_test(self, test_data: data.DataGen) -> float:
         cfg, log = self.cfg, self.log
-        if cfg.visualize:
+        if cfg.visualize and multihost.process_info()[0] == 0:
             os.makedirs(cfg.output_dir, exist_ok=True)
             self.visualize_file = open(
                 os.path.join(cfg.output_dir, "results.txt"), "w")
         num_samples = accuracy = 0
         cer = 0.0
         self.global_step = 0
-        for batch in data.prefetched(test_data.epoch(cfg.batch_size),
-                                     cfg.prefetch):
-            _, acc, cer_sum = self.step_eval(batch)
+        for batch, valid, _g_nnz, g_rows in self._batches(
+                test_data.epoch(self.local_bs)):
+            _, acc, cer_sum = self.step_eval(batch, valid)
             accuracy += acc
             cer += cer_sum
-            num_samples += batch.rows
+            num_samples += g_rows
             self.global_step += 1
             if self.global_step % cfg.steps_per_checkpoint == 0:
                 log.info(f"Number of samples {num_samples} - Accuracy = "
@@ -465,8 +686,12 @@ def main(argv=None, device=None) -> None:
     """The CLI: parse argv (default sys.argv[1:]) as aocr.train does and
     run the phase on `device` (default: the CUDA device)."""
     cfg = parse_args(argv)
-    dev = devices.resolve(device)
-    log = Logger(cfg.log_path)
+    _check_parallel(cfg)
+    dev = _device(cfg, device)
+    if _parallel(cfg):
+        _join_group(cfg, dev)
+    rank = multihost.process_info()[0]
+    log = Logger(cfg.log_path) if rank == 0 else _Quiet()
     log.info("Command Line Arguments:")
     log.info(" ".join(argv if argv is not None else sys.argv[1:]))
     log.info("End Command Line Arguments")
@@ -483,11 +708,17 @@ def main(argv=None, device=None) -> None:
     train_data = data.DataGen(cfg.data_base_dir, cfg.data_path, cfg,
                               log=log.info)
     log.info(f"Training data loaded from {cfg.data_path}")
+    if cfg.multihost:
+        train_data.shard(*multihost.process_info())
+        log.info(f"Manifest sharded: {train_data.size()} rows on process "
+                 f"{rank}")
     if cfg.phase == "train":
         log.info(f"Load validation data from {cfg.val_data_path}")
         val_data = data.DataGen(cfg.data_base_dir, cfg.val_data_path, cfg,
                                 log=log.info)
         log.info(f"Validation data loaded from {cfg.val_data_path}")
+        if cfg.multihost:
+            val_data.shard(*multihost.process_info())
         trainer.run_train(train_data, val_data)
     else:
         trainer.run_test(train_data)

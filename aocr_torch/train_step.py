@@ -28,6 +28,7 @@ from aocr_torch import decode
 from aocr_torch import loss as loss_lib
 from aocr_torch import optim
 from aocr_torch.models import model
+from aocr_torch.parallel import mesh
 from aocr_torch.weights import tree_map
 
 
@@ -46,35 +47,61 @@ def _on(x, device: torch.device) -> torch.Tensor:
 
 def _train_step(params: dict, batch_stats: dict, opt_state, images,
                 targets, targets_eval, lr, dropout_rng=None, *,
-                cfg: Config, real_bs=None, row_mask=None) -> TrainOutput:
+                cfg: Config, real_bs=None, row_mask=None,
+                group=None) -> TrainOutput:
     """One step.  dropout_rng is the step key, two 32-bit words
     (augment.step_key); -augment draws from it (dropout is not ported).
     For a batch padded to a fixed size, real_bs is the number of real rows
     (the loss is divided by it, as the reference divides by the real batch
     size) and row_mask (B,) marks them, which keeps the padding out of the
     BatchNorm moments; the padded rows carry PAD targets and so no
-    loss."""
+    loss.
+
+    With a process group (aocr_torch.parallel.data_parallel) the batch is
+    this rank's rows of the global one: augment keys them by global row,
+    BatchNorm is synchronized, real_bs is the global count (rows x ranks,
+    or the all-reduced mask), and one all-reduce sums the gradients and
+    the loss before the optimizer, so every rank makes the same update."""
     dev = optim.leaves(params)[0].device
     images = _on(images, dev).float()
     if cfg.augment:
         if dropout_rng is None:
             raise ValueError("-augment needs the step key (dropout_rng)")
-        # row_offset 0: this step sees the whole batch
+        # the batch's first global row keys the draws
+        offset = 0 if group is None else mesh.rank(group) * images.shape[0]
         images = augment_lib.augment_batch(dropout_rng, images,
-                                           cfg.augment_strength)
+                                           cfg.augment_strength,
+                                           row_offset=offset)
     targets, targets_eval = _on(targets, dev), _on(targets_eval, dev)
     if row_mask is not None:
         row_mask = _on(row_mask, dev)
-    batch_size = images.shape[0] if real_bs is None else float(real_bs)
+    if real_bs is not None:
+        batch_size = float(real_bs)
+    elif group is None:
+        batch_size = images.shape[0]
+    elif row_mask is None:
+        batch_size = images.shape[0] * mesh.world(group)
+    else:
+        batch_size = mesh.all_reduce(row_mask.float().sum(),
+                                     group).clamp(min=1.0)
     leaves = [x.detach().requires_grad_() for x in optim.leaves(params)]
     it = iter(leaves)
     p = tree_map(params, lambda _p, _x: next(it))
     with torch.enable_grad():
         nll, new_stats, _ = model.forward_loss(
             p, batch_stats, images, targets, targets_eval, cfg, train=True,
-            row_mask=row_mask)
+            row_mask=row_mask, group=group)
         mean_loss = nll / batch_size
         flat = torch.autograd.grad(mean_loss, leaves)
+    mean_loss = mean_loss.detach()
+    if group is not None:
+        # psum of the gradients and the loss: one flat buffer, one
+        # all-reduce
+        buf = mesh.all_reduce(torch.cat(
+            [g.reshape(-1) for g in flat] + [mean_loss.reshape(1)]), group)
+        mean_loss = buf[-1]
+        flat = [v.view_as(g) for v, g in zip(
+            buf[:-1].split([g.numel() for g in flat]), flat)]
     it = iter(flat)
     grads = tree_map(params, lambda _p, _x: next(it))
     if cfg.optimizer == "adadelta":
@@ -86,7 +113,7 @@ def _train_step(params: dict, batch_stats: dict, opt_state, images,
     return TrainOutput(
         params=new_params,
         batch_stats=tree_map(new_stats, lambda _p, x: x.detach()),
-        opt_state=new_opt, loss_sum=mean_loss.detach() * batch_size,
+        opt_state=new_opt, loss_sum=mean_loss * batch_size,
         grad_norms=norms)
 
 

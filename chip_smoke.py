@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of aocr_torch on one NVIDIA GPU (H100): greedy recognition,
 the training step, beam and dictionary recognition, the image gradient,
-the CLI trainer, the micro-batching server, device preprocessing and
-augmentation at the full width of the default model, through their
-twelve CUDA kernels (thirteen rows: lstm_fwd's two modes).
+the CLI trainer, the micro-batching server, device preprocessing,
+augmentation, the Torch7 checkpoint import, data-parallel training and
+evaluation and sharded recognition at the full width of the default
+model, through their twelve CUDA kernels (thirteen rows: lstm_fwd's two
+modes).
 
     python3 chip_smoke.py [--seed N]
 
@@ -73,6 +75,31 @@ Phases, each raising on failure:
   4f. augmentation: the bf16 train step at B=400 with cfg.augment, 5
      steps twice (the same step-1 loss, finite, not the unaugmented
      loss), its ms against the step without augment, in turns;
+  4g. the Torch7 import: the reference's checkpoint tree of the default
+     model from --seed numpy weights, written by aocr_torch.t7 with 8-
+     and 4-byte longs, `python -m aocr_torch.torch_import` into model
+     dirs, loaded on the card: params bit-equal to the mapped weights,
+     greedy and beam-5 transcripts and scores at B=512 equal to the
+     directly built model's (bf16 and float32); the stream's MB and the
+     import's seconds;
+  4h. data-parallel training at world size 1 over NCCL: 5
+     make_dp_train_step steps at B=400, bf16 and float32, each held to
+     make_train_step from the same state (float32 params 1e-4, loss
+     1e-5), the step's ms beside the one-card step's (host clock);
+  4i. world size 2 on the one card: two processes (spawn) over a gloo
+     group, the kernels built before the spawn: which collectives gloo
+     runs on CUDA tensors; 3 DP steps and a masked tail with 200 and 100
+     real rows, each step held to one process at B=400 (float32 params
+     rtol 1e-3 atol 2e-4, loss 1e-5; bf16 reported), params bit-equal
+     across the ranks; the DP eval (beam-5, 500 rows padded to 512):
+     labels, accuracy and cer_sum exact, nll 1e-5; the CLI trainer at
+     -num_shards 2 against -num_shards 1 (step perplexities 1e-5, only
+     rank 0 writes); the training kernels launch in each rank;
+  4j. AttentionOCR.shard(devices=[cuda:0, cuda:0]) on B=512 and a
+     mixed-width list, greedy and beam-5: float32 transcripts equal
+     unshard()'s (bf16 reported); shard(2) raises on one card; a bf16
+     server at -num_shards 0 answers 64 posts.  No scaling figure: the
+     machine has one card;
   5. timing: each kernel against its plain version (CUDA events), its
      bound (the larger of its operations over the card's peak and its
      bytes over 3.35 TB/s) and, where PyTorch computes the same function
@@ -107,9 +134,14 @@ import io
 import json
 import math
 import os
+import pickle
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -2020,15 +2052,16 @@ def train_kernel_checks(dev, results: dict) -> None:
     torch.cuda.synchronize()
 
 
-def run_steps(cfg, np_params, np_stats, batch, dev, n: int):
+def run_steps(cfg, np_params, np_stats, batch, dev, n: int, make=None):
     """n train steps on a fixed batch from the numpy weights, step i under
     the step key (cfg.seed, i) (read only with cfg.augment); returns the
-    TrainOutput of each."""
+    TrainOutput of each.  make: the step's maker (default
+    train_step.make_train_step)."""
     from aocr_torch import augment, train_step, weights
 
     params, stats = weights.from_numpy(np_params, np_stats, dev)
     opt = train_step.init_opt_state(params, cfg)
-    step = train_step.make_train_step(cfg)
+    step = (make or train_step.make_train_step)(cfg)
     images, _words, targets, targets_eval = batch
     outs = []
     for i in range(n):
@@ -2435,6 +2468,17 @@ def write_dataset(root: str, seed: int):
     return lexicon
 
 
+def trainer_argv(root: str, tag: str, seed: int, *args):
+    """aocr_torch.train's argv for the data under root, the log at
+    root/<tag>.log and the checkpoints in root/<tag>, then args."""
+    return ["-data_base_dir", root, "-data_path", "train.txt",
+            "-val_data_path", "val.txt",
+            "-log_path", os.path.join(root, f"{tag}.log"),
+            "-model_dir", os.path.join(root, tag), "-input_feed",
+            "-max_decoder_l", str(T_MAX), "-batch_size", str(B_TRAIN),
+            "-seed", str(seed), *args]
+
+
 def run_trainer(root: str, tag: str, seed: int, *args):
     """aocr_torch.train.main on the card with the data under root and
     args, its stdout kept out of this log; returns (its log messages, the
@@ -2448,15 +2492,10 @@ def run_trainer(root: str, tag: str, seed: int, *args):
     from aocr_torch.ops.cuda import lstm_fwd
 
     log_path = os.path.join(root, f"{tag}.log")
-    argv = ["-data_base_dir", root, "-data_path", "train.txt",
-            "-val_data_path", "val.txt", "-log_path", log_path,
-            "-model_dir", os.path.join(root, tag), "-input_feed",
-            "-max_decoder_l", str(T_MAX), "-batch_size", str(B_TRAIN),
-            "-seed", str(seed), *args]
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
-        train.main(argv)
+        train.main(trainer_argv(root, tag, seed, *args))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = cuda.launch_counts()
@@ -3329,6 +3368,772 @@ def augment_phase(dev, tcfg, np_model, batch, card: str):
 
 # ------------------------------------------------------------ main
 
+# ------------------------------------------------------------ phase 7
+
+def t7_reference_tree(np_params, np_stats, cfg):
+    """The reference's checkpoint object tree (its model.lua:724:
+    {{cnn, encoder_fw, encoder_bw, decoder, output_projector}, config,
+    global_step, optim_state}) holding numpy weights of the port's
+    checkpoint layout in torch-native layouts (conv OIHW, nn.Linear (out,
+    in), fused [i|f|o|g] gates, the -prealloc name tags): the tree
+    tests/torch_fixture.py builds, without the JAX package it imports."""
+    import numpy as np
+
+    from aocr_torch.models.cnn import CONV_DEFS
+    from aocr_torch.t7 import TorchObject
+
+    def obj(cls, **fields):
+        return TorchObject(cls, fields)
+
+    def linear(w, b=None, cls="nn.Linear", name=None):
+        fields = {"weight": np.ascontiguousarray(w.T)}
+        if b is not None:
+            fields["bias"] = b
+        if name:
+            fields["name"] = name
+        return TorchObject(cls, fields)
+
+    mods = [obj("nn.AddConstant", constant_scalar=-128.0),
+            obj("nn.MulConstant", constant_scalar=1.0 / 128)]
+    for name, i, o, kh, kw, pad, bn in CONV_DEFS:
+        c = np_params["cnn"][name]
+        p = 1 if pad == "SAME" else 0
+        mods.append(obj("cudnn.SpatialConvolution",
+                        weight=np.ascontiguousarray(
+                            c["w"].transpose(3, 2, 0, 1)),
+                        bias=c["b"], nInputPlane=i, nOutputPlane=o, kH=kh,
+                        kW=kw, dH=1, dW=1, padH=p, padW=p, train=False))
+        if bn:
+            b, st = np_params["cnn"][name + "_bn"], np_stats[name + "_bn"]
+            mods.append(obj("nn.SpatialBatchNormalization",
+                            weight=b["scale"], bias=b["bias"],
+                            running_mean=st["mean"], running_var=st["var"],
+                            eps=1e-5, momentum=0.1, affine=True,
+                            train=False))
+        mods.append(obj("cudnn.ReLU", inplace=True))
+    cnn = obj("nn.Sequential",
+              modules=mods + [obj("nn.View"), obj("nn.Transpose")])
+
+    def lstm(layers, tag, lookup=None, attn=None):
+        mods = []
+        if lookup is not None:
+            mods += [obj("nn.Identity"), obj("nn.LookupTable", weight=lookup),
+                     obj("nn.JoinTable", dimension=2)]
+        for li, lw in enumerate(layers, start=1):
+            mods += [linear(lw["wi"], lw["bi"], name=f"{tag}_L{li}_i2h-reuse"),
+                     linear(lw["wh"], lw["bh"], name=f"{tag}_L{li}_h2h-reuse"),
+                     obj("nn.CAddTable"), obj("nn.Reshape"),
+                     obj("nn.SplitTable")]
+            mods += [obj("nn.Sigmoid") for _ in range(3)] + [obj("nn.Tanh")]
+        if attn is not None:
+            mods.append(obj("nn.gModule", name="decoder_attn", modules=[
+                obj("nn.Identity"),
+                linear(attn["w_a"], cls="nn.LinearNoBias"),
+                obj("nn.MM"), obj("nn.Sum"), obj("nn.SoftMax"),
+                obj("nn.Replicate"), obj("nn.MM"), obj("nn.Sum"),
+                obj("nn.JoinTable"),
+                linear(attn["w_c"], cls="nn.LinearNoBias"),
+                obj("nn.Tanh")]))
+        return obj("nn.gModule", modules=mods)
+
+    dec = np_params["decoder"]
+    groups = [cnn,
+              lstm(np_params["encoder_fw"]["layers"], "encoder-fw"),
+              lstm(np_params["encoder_bw"]["layers"], "encoder-bw"),
+              lstm(dec["layers"], "decoder", lookup=dec["embedding"],
+                   attn=dec),
+              obj("nn.Sequential", modules=[
+                  linear(np_params["projector"]["w"],
+                         np_params["projector"]["b"]),
+                  obj("nn.LogSoftMax")])]
+    config = {"dropout": 0.0,
+              "encoder_num_hidden": cfg.encoder_num_hidden,
+              "encoder_num_layers": cfg.encoder_num_layers,
+              "decoder_num_layers": cfg.decoder_num_layers,
+              "target_vocab_size": cfg.target_vocab_size,
+              "target_embedding_size": cfg.target_embedding_size,
+              "input_feed": cfg.input_feed,
+              "max_encoder_l": cfg.max_encoder_l,
+              "max_decoder_l": cfg.max_decoder_l, "batch_size": 64,
+              "prealloc": True}
+    optim_state = {"learningRate": 0.5, 1: {"evalCounter": 1234.0}}
+    return [groups, config, 1234.0, optim_state]
+
+
+def import_phase(dev, seed: int, card: str):
+    """The reference's Torch7 checkpoint of the default model at full
+    width, from --seed numpy weights: written by aocr_torch.t7 with 8-byte
+    and with 4-byte longs, imported by `python -m aocr_torch.torch_import`
+    into model dirs, loaded on the card: params bit-equal to the weights
+    the direct model gets, greedy and beam-5 transcripts at B=512 equal to
+    the direct model's in bf16 and float32.  Returns (the launch counts of
+    the imported models' recognize, readings)."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import t7, torch_import, weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.config import STRUCT_FIELDS
+    from aocr_torch.ops import cuda
+    from aocr_torch.optim import leaves
+
+    base = base_config()
+    np_params, np_stats = numpy_model(base, seed)
+    batch = word_images(np.random.RandomState(seed + 11), B_SERVE, W_SERVE)
+    want_p, want_s = weights.from_numpy(np_params, np_stats, dev)
+    direct = {}
+    for dt in ("bfloat16", "float32"):
+        ocr = AttentionOCR(base.replace(compute_dtype=dt),
+                           *weights.from_numpy(np_params, np_stats),
+                           device=dev)
+        direct[dt] = {K: ocr.recognize(batch, beam_size=K) for K in (1, BEAM)}
+    root = tempfile.mkdtemp(prefix="aocr_t7_")
+    readings = {}
+    try:
+        tree = t7_reference_tree(np_params, np_stats, base)
+        cuda.reset_launch_counts()
+        for ls in (8, 4):
+            path = os.path.join(root, f"reference_long{ls}.t7")
+            t0 = time.perf_counter()
+            t7.save(path, tree, long_size=ls)
+            write_s = time.perf_counter() - t0
+            mb = os.path.getsize(path) / 2 ** 20
+            t0 = time.perf_counter()
+            torch_import.import_checkpoint(path, long_size=ls)
+            map_s = time.perf_counter() - t0
+            mdir = os.path.join(root, f"model{ls}")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "aocr_torch.torch_import", path, mdir,
+                 "--long_size", str(ls), "--summary"], cwd=ROOT,
+                capture_output=True, text=True, timeout=600)
+            cli_s = time.perf_counter() - t0
+            check(proc.returncode == 0 and "global_step: 1234" in proc.stdout,
+                  f"torch_import --long_size {ls}: rc {proc.returncode}: "
+                  f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
+            log(f"t7 import, {ls}-byte longs: stream {mb:.1f} MB written in "
+                f"{write_s:.2f} s; import_checkpoint {map_s:.2f} s; python "
+                f"-m aocr_torch.torch_import {cli_s:.2f} s (with the "
+                f"interpreter's start); on {card}")
+            readings[ls] = {"mb": mb, "import_s": map_s, "cli_s": cli_s}
+            for dt in ("bfloat16", "float32"):
+                ocr = AttentionOCR.load(mdir, cfg=base.replace(
+                    compute_dtype=dt), device=dev)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    leaves(ocr.params), leaves(want_p))) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        leaves(ocr.batch_stats), leaves(want_s)))
+                check(same, f"t7 import long{ls} {dt}: params not bit-equal "
+                            "to the mapped weights")
+                check(all(getattr(ocr.cfg, k) == getattr(base, k)
+                          for k in STRUCT_FIELDS)
+                      and ocr.global_step == 1234,
+                      f"t7 import long{ls}: config or global_step differ")
+                for K in (1, BEAM):
+                    words, scores = ocr.recognize(batch, beam_size=K)
+                    w0, s0 = direct[dt][K]
+                    check(words == w0 and np.array_equal(scores, s0),
+                          f"t7 import long{ls} {dt} beam {K}: transcripts "
+                          "differ from the direct model's")
+                log(f"t7 import long{ls} {dt}: params bit-equal {same}; "
+                    f"greedy and beam-{BEAM} B={B_SERVE} transcripts equal "
+                    f"the direct model's")
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        for k in ("conv1_pool", "lstm_fwd", "greedy_loop", "beam_loop"):
+            check(counts[k] > 0, f"kernel {k} never launched on the import "
+                                 "path")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, readings
+
+
+# ------------------------------------------------------------ phase 8
+
+# the world-size-2 tail step: 300 real rows of 400 (rank 0 holds 200,
+# rank 1 100); the DP eval: 500 real rows padded to 512
+DP_TAIL_REAL, DP_EVAL_REAL = 300, 500
+DP_STEPS = 3  # full steps before the masked tail
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_counts():
+    from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import lstm_fwd
+
+    import torch
+
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    counts["lstm_fwd_collect"] = lstm_fwd.launches_collect
+    return counts
+
+
+DP_STEP_KERNELS = ("conv1_pool", "conv1_pool_bwd", "lstm_fwd_collect",
+                   "lstm_bwd", "tf_fwd", "tf_bwd", "pool_bwd")
+DP_EVAL_KERNELS = ("conv1_pool", "lstm_fwd", "tf_fwd", "beam_loop")
+
+
+def step_ms(step, args, n: int = 5):
+    """Host-clock ms of n calls of step(*args) (each synchronized), after
+    one warm-up: the list."""
+    import torch
+
+    step(*args)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def dp_world1_phase(dev, seed: int, card: str):
+    """make_dp_train_step at world size 1 over NCCL (a group this phase
+    creates and destroys): 5 steps at B=400, T=11, bf16 and float32, each
+    held to make_train_step on the same batch from the same state
+    (float32 params 1e-4 abs, loss 1e-5 rel; bf16 reported); the two
+    5-step trajectories run apart, and two one-card trajectories, are
+    reported (float32 steps on the card are not bitwise repeatable, and
+    the training problem amplifies a difference from step to step); and
+    both steps' host-clock ms (median of 2x5, in turns): what the
+    collectives cost on one card.  Returns (launch counts of the DP
+    steps, {dtype: (dp ms, one-card ms)})."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from aocr_torch import augment, train_step, weights
+    from aocr_torch.ops import cuda
+    from aocr_torch.parallel import data_parallel
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        inputs = dp_step_inputs(seed)
+        schedule = dp_schedule(inputs, TRAIN_STEPS, False)
+        cuda.reset_launch_counts()
+        records, finals = {}, {}
+        for dt in ("bfloat16", "float32"):
+            cfg = train_config(dt)
+            records[dt] = []
+            finals[dt] = dp_run_steps(
+                cfg, data_parallel.make_dp_train_step(cfg), inputs, schedule,
+                dev, record=records[dt])
+        counts = dp_counts()
+        log(f"dp step world size 1 ({dist.get_backend()}) launch counts: "
+            f"{counts}")
+        for k in DP_STEP_KERNELS:
+            check(counts[k] > 0, f"kernel {k} never launched on the DP step "
+                                 "at world size 1")
+        ms = {}
+        for dt in records:
+            cfg = train_config(dt)
+            loss, perr, _ok = one_process_errors(cfg, inputs, schedule, dev,
+                                                 records[dt])
+            records[dt] = None  # the recorded states' memory
+            one = [dp_run_steps(cfg, train_step.make_train_step(cfg), inputs,
+                                schedule, dev) for _ in (0, 1)]
+            apart = max_abs_diff(finals[dt][1], one[0][1])
+            again = max_abs_diff(one[0][1], one[1][1])
+            log(f"dp step world size 1 {dt}, each of {TRAIN_STEPS} steps vs "
+                f"make_train_step from the same state: loss_sum rel err "
+                f"{loss:.3g}, params max abs err {perr:.3g}"
+                + (" (tol 1e-5, 1e-4)" if dt == "float32" else
+                   " (reported)")
+                + f"; the {TRAIN_STEPS}-step trajectories run apart differ "
+                f"by {apart:.3g}, two one-card runs by {again:.3g}")
+            if dt == "float32":
+                check(loss <= 1e-5 and perr <= 1e-4, "dp step world size 1: "
+                      "float32 disagrees with make_train_step")
+            params, stats = weights.from_numpy(*inputs[0], dev)
+            opt = train_step.init_opt_state(params, cfg)
+            images, _w, t, te = inputs[1]
+            images = torch.from_numpy(images).to(dev)
+            t, te = torch.from_numpy(t).to(dev), torch.from_numpy(te).to(dev)
+            args = (params, stats, opt, images, t, te, cfg.learning_rate,
+                    augment.step_key(cfg.seed, 0))
+            single = train_step.make_train_step(cfg)
+            dstep = data_parallel.make_dp_train_step(cfg)
+            a1 = step_ms(single, args)
+            d1 = step_ms(dstep, args)
+            d2 = step_ms(dstep, args)
+            a2 = step_ms(single, args)
+            ms[dt] = (float(np.median(d1 + d2)), float(np.median(a1 + a2)))
+            log(f"dp step world size 1 {dt} B={B_TRAIN}: "
+                f"{ms[dt][0]:.2f} ms against make_train_step's "
+                f"{ms[dt][1]:.2f} ms (host clock, median of 2x5 in turns) "
+                f"on {card}")
+    finally:
+        dist.destroy_process_group()
+    return counts, ms
+
+
+def gloo_cuda_probe(dev) -> dict:
+    """Which collectives a gloo group runs on CUDA tensors: {name: "ok" or
+    the error's first line}."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    n = dist.get_world_size()
+    for name, fn in (
+            ("all_reduce sum", lambda t: dist.all_reduce(t)),
+            ("all_reduce min", lambda t: dist.all_reduce(
+                t, op=dist.ReduceOp.MIN)),
+            ("all_gather", lambda t: dist.all_gather(
+                [torch.empty_like(t) for _ in range(n)], t)),
+            ("broadcast", lambda t: dist.broadcast(t, 0))):
+        try:
+            fn(torch.ones(4, device=dev))
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # the probe's result, reported
+            out[name] = str(e).splitlines()[0][:200]
+    return out
+
+
+def dp_step_inputs(seed: int):
+    """The DP phases' weights and batches: (np weights, the B=400 batch,
+    the tail's targets and mask)."""
+    import numpy as np
+
+    from aocr_torch import vocab
+
+    np_model = numpy_model(base_config(), seed)
+    batch = train_batch(np.random.RandomState(seed + 2), B_TRAIN)
+    tail_t, tail_te = batch[2].copy(), batch[3].copy()
+    tail_t[DP_TAIL_REAL:] = vocab.PAD
+    tail_te[DP_TAIL_REAL:] = vocab.PAD
+    mask = (np.arange(B_TRAIN) < DP_TAIL_REAL).astype(np.float32)
+    return np_model, batch, tail_t, tail_te, mask
+
+
+def dp_eval_inputs(seed: int):
+    """500 crops and their 10-letter words, targets padded to T_MAX, the
+    batch padded to 512 rows: (images, targets, targets_eval, mask)."""
+    import numpy as np
+
+    from aocr_torch import vocab
+    from aocr_torch.parallel import eval_parallel
+
+    images, words, _t, _te = train_batch(np.random.RandomState(seed + 13),
+                                         DP_EVAL_REAL)
+    t, te, _ = vocab.encode_batch(words, pad_to=T_MAX)
+    real, im, t, te = eval_parallel.pad_rows(2, images, t, te,
+                                             total_rows=B_SERVE)
+    return im, t, te, (np.arange(B_SERVE) < real).astype(np.float32)
+
+
+def dp_schedule(inputs, n_full: int, tail: bool):
+    """The steps' (targets, targets_eval, row mask or None): n_full full
+    steps on the B=400 batch, then, with tail, the masked tail step."""
+    _np_model, batch, tail_t, tail_te, mask = inputs
+    return ([(batch[2], batch[3], None)] * n_full
+            + ([(tail_t, tail_te, mask)] if tail else []))
+
+
+def dp_run_steps(cfg, step, inputs, schedule, dev, loc=None, record=None):
+    """The schedule's steps from the numpy weights, each batch array passed
+    through loc (this rank's rows; None: one process on the whole batch,
+    a masked step then told its real row count); with a record list, each
+    step's (state before it, output) is appended.  Returns (losses, numpy
+    params, numpy stats)."""
+    import torch
+
+    from aocr_torch import augment, train_step, weights
+
+    np_model, batch = inputs[0], inputs[1]
+    params, stats = weights.from_numpy(*np_model, dev)
+    opt = train_step.init_opt_state(params, cfg)
+    whole = loc is None
+    loc = loc or (lambda a: a)
+    images = torch.from_numpy(loc(batch[0])).to(dev)
+    losses = []
+    for i, (t, te, mask) in enumerate(schedule):
+        extra = {} if mask is None else {
+            "row_mask": torch.from_numpy(loc(mask)).to(dev)}
+        if whole and mask is not None:
+            extra["real_bs"] = float(mask.sum())
+        out = step(params, stats, opt, images,
+                   torch.from_numpy(loc(t)).to(dev),
+                   torch.from_numpy(loc(te)).to(dev), cfg.learning_rate,
+                   augment.step_key(cfg.seed, i), **extra)
+        if record is not None:
+            record.append(((params, stats, opt), out))
+        params, stats, opt = out.params, out.batch_stats, out.opt_state
+        losses.append(float(out.loss_sum))
+    p, s = weights.to_numpy(params, stats)
+    return losses, p, s
+
+
+def one_process_errors(cfg, inputs, schedule, dev, record):
+    """Each recorded step against make_train_step on the whole batch from
+    the same state: (max loss_sum rel err, max |param or BN statistic
+    difference|, every one within rtol 1e-3 atol 2e-4)."""
+    import torch
+
+    from aocr_torch import augment, train_step
+    from aocr_torch.optim import leaves
+
+    step = train_step.make_train_step(cfg)
+    images = torch.from_numpy(inputs[1][0]).to(dev)
+    loss_err, perr, ok = 0.0, 0.0, True
+    for i, (((p, s, o), got), (t, te, mask)) in enumerate(zip(record,
+                                                              schedule)):
+        extra = {} if mask is None else {
+            "row_mask": torch.from_numpy(mask).to(dev),
+            "real_bs": float(mask.sum())}
+        want = step(p, s, o, images, torch.from_numpy(t).to(dev),
+                    torch.from_numpy(te).to(dev), cfg.learning_rate,
+                    augment.step_key(cfg.seed, i), **extra)
+        loss_err = max(loss_err, rel_err(got.loss_sum, want.loss_sum))
+        for a, b in zip(leaves(got.params) + leaves(got.batch_stats),
+                        leaves(want.params) + leaves(want.batch_stats)):
+            d = (a - b).abs()
+            perr = max(perr, float(d.max()))
+            ok = ok and bool((d <= 2e-4 + 1e-3 * b.abs()).all())
+    return loss_err, perr, ok
+
+
+# the DP trainer's run: one float32 epoch (2 full steps and a 200-row
+# tail), a checkpoint and a one-batch validation every 2 steps
+DP_TRAIN_ARGS = ("-phase", "train", "-num_epochs", "1",
+                 "-steps_per_checkpoint", "2", "-num_batches_val", "1")
+
+
+def dp_rank(rank: int, world: int, root: str, seed: int,
+            device: str) -> None:
+    """One rank of the world-size-2 phases on `device`, in a gloo group over
+    a file store under root (NCCL refuses two ranks on one device): the
+    gloo probe, the DP step (float32 and bf16; rank 0 then holds each
+    step to make_train_step on the whole batch from the same state), the
+    DP eval (float32 beam-5) and the CLI trainer at -num_shards 2.
+    Writes its results to root/rank<r>.pkl, or its traceback to
+    root/rank<r>.err."""
+    try:
+        sys.path.insert(0, ROOT)
+        import torch
+        import torch.distributed as dist
+
+        from aocr_torch import train, train_step, weights
+        from aocr_torch.ops import cuda
+        from aocr_torch.parallel import data_parallel, eval_parallel, mesh
+
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{root}/store",
+                                rank=rank, world_size=world)
+        out = {"probe": gloo_cuda_probe(dev)}
+        inputs = dp_step_inputs(seed)
+        schedule = dp_schedule(inputs, DP_STEPS, True)
+        records = {}
+        cuda.reset_launch_counts()
+        for dt in ("float32", "bfloat16"):
+            cfg = train_config(dt)
+            records[dt] = [] if rank == 0 else None
+            out[dt] = dp_run_steps(cfg, data_parallel.make_dp_train_step(cfg),
+                                   inputs, schedule, dev, mesh.local_rows,
+                                   records[dt])
+        out["step_counts"] = dp_counts()
+        # the step's host-clock ms in this rank, bf16, full batch (both
+        # ranks share the card; gloo all-reduces through the host)
+        cfg = train_config("bfloat16")
+        params, stats = weights.from_numpy(*inputs[0], dev)
+        b = inputs[1]
+        out["step_ms"] = step_ms(data_parallel.make_dp_train_step(cfg), (
+            params, stats, train_step.init_opt_state(params, cfg),
+            torch.from_numpy(mesh.local_rows(b[0])).to(dev),
+            torch.from_numpy(mesh.local_rows(b[2])).to(dev),
+            torch.from_numpy(mesh.local_rows(b[3])).to(dev),
+            cfg.learning_rate, None))
+        if rank == 0:
+            out["errors"] = {dt: one_process_errors(
+                train_config(dt), inputs, schedule, dev, rec)
+                for dt, rec in records.items()}
+        del records
+        im, t, te, mask = (mesh.local_rows(a) for a in dp_eval_inputs(seed))
+        cfg = base_config().replace(beam_size=BEAM)
+        params, stats = weights.from_numpy(*inputs[0], dev)
+        step = eval_parallel.make_dp_eval_step(cfg)
+        cuda.reset_launch_counts()
+        ev = step(params, stats, torch.from_numpy(im).to(dev), t, te, None,
+                  torch.from_numpy(mask))
+        out["eval_counts"] = dp_counts()
+        out["eval"] = {k: v.cpu().numpy() for k, v in ev._asdict().items()}
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train.main(trainer_argv(root, f"dp_rank{rank}", seed,
+                                    *DP_TRAIN_ARGS, "-num_shards",
+                                    str(world)), device=dev)
+        out["trainer_s"] = time.perf_counter() - t0
+        out["trainer_counts"] = dp_counts()
+        dist.barrier()
+        with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.destroy_process_group()
+    except Exception:
+        with open(os.path.join(root, f"rank{rank}.err"), "w") as f:
+            f.write(f"rank {rank}:\n{traceback.format_exc()}")
+        os._exit(1)
+
+
+def dp_world2_phase(dev, seed: int, card: str):
+    """World size 2 on one card: two processes (torch.multiprocessing,
+    spawn) over a gloo group, the kernels built once by this process
+    before the spawn.  Against this process's one-process runs: the DP
+    step (3 full steps and a masked tail with 200 and 100 real rows;
+    float32 params rtol 1e-3 atol 2e-4 and loss rtol 1e-5, bf16 reported;
+    params bit-equal across the ranks), the DP eval (beam-5, 500 rows
+    padded to 512: labels, accuracy and cer_sum exact, float32 nll 1e-5
+    rel) and the CLI trainer at -num_shards 2 against -num_shards 1 (step
+    perplexities within perplexity_rel_err 1e-5, float32; only rank 0
+    writes the log and checkpoints).  Returns {path: [rank 0 counts, rank
+    1 counts]}."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from aocr_torch import eval as eval_lib
+    from aocr_torch import train_step, weights
+
+    root = tempfile.mkdtemp(prefix="aocr_dp_")
+    try:
+        write_dataset(root, seed)
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=dp_rank, args=(r, 2, root, seed,
+                                                   str(dev)))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p_ in procs:
+            p_.start()
+        deadline = time.monotonic() + 600
+        while any(p_.is_alive() for p_ in procs):
+            if (any(p_.exitcode not in (None, 0) for p_ in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.2)
+        for p_ in procs:
+            if p_.is_alive():
+                p_.kill()
+            p_.join(30)
+        errs_ = [open(os.path.join(root, f)).read()
+                 for f in sorted(os.listdir(root)) if f.endswith(".err")]
+        codes = [p_.exitcode for p_ in procs]
+        log(f"dp world size 2: ranks exited {codes} after "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(not errs_ and codes == [0, 0],
+              "dp world size 2 failed: " + "\n".join(errs_)[-3000:])
+        if errs_ or codes != [0, 0]:
+            return {}
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        log(f"gloo collectives on CUDA tensors: {ranks[0]['probe']}")
+        for r, r_ in enumerate(ranks):
+            log(f"dp step world size 2 bf16 B={B_TRAIN // 2} a rank, rank "
+                f"{r}: {np.median(r_['step_ms']):.2f} ms (host clock, median "
+                f"of 5; both ranks on one card, gloo) on {card}")
+        # (b) the DP step: each step against one process on the whole
+        # batch from the same state (rank 0 measured it), the runs apart
+        # reported
+        inputs = dp_step_inputs(seed)
+        schedule = dp_schedule(inputs, DP_STEPS, True)
+        for dt in ("float32", "bfloat16"):
+            cfg = train_config(dt)
+            want = dp_run_steps(cfg, train_step.make_train_step(cfg), inputs,
+                                schedule, dev)
+            (l0, p0, s0), (l1, p1, s1) = ranks[0][dt], ranks[1][dt]
+            same = all(np.array_equal(a, b) for a, b in zip(
+                _np_leaves(p0) + _np_leaves(s0),
+                _np_leaves(p1) + _np_leaves(s1))) and l0 == l1
+            loss, perr, ok = ranks[0]["errors"][dt]
+            apart = max_abs_diff(p0, want[1])
+            r0 = min(B_TRAIN // 2, DP_TAIL_REAL)
+            log(f"dp step world size 2 {dt} (gloo, one card), {DP_STEPS} "
+                f"full steps + a tail of {r0} and {DP_TAIL_REAL - r0} real "
+                f"rows, each step vs one process at B={B_TRAIN} from the "
+                f"same state: loss rel err {loss:.3g}, params and BN "
+                f"statistics max abs err {perr:.3g}, within rtol 1e-3 atol "
+                f"2e-4: {ok}; ranks bit-equal: {same}"
+                + ("" if dt == "float32" else " (reported)")
+                + f"; run apart: losses {[round(x, 3) for x in l0]} vs "
+                f"{[round(x, 3) for x in want[0]]}, params differ by "
+                f"{apart:.3g}")
+            check(same, f"dp step world size 2 {dt}: ranks differ")
+            if dt == "float32":
+                check(loss <= 1e-5 and ok, "dp step world size 2 float32: "
+                      "disagrees with one process")
+        # (c) the DP eval against one process on the 500 real rows
+        im, t, te, mask = dp_eval_inputs(seed)
+        cfg = base_config().replace(beam_size=BEAM)
+        params, stats = weights.from_numpy(*inputs[0], dev)
+        (labels, _sc, _rf), nll, _gold = train_step.eval_decode_step(
+            params, stats, im[:DP_EVAL_REAL], t[:DP_EVAL_REAL],
+            te[:DP_EVAL_REAL], cfg, beam_size=BEAM, max_len=T_MAX,
+            return_refills=True)
+        gold = torch.from_numpy(te[:DP_EVAL_REAL]).to(dev)
+        acc = int(eval_lib.exact_match(labels, gold).sum())
+        cer = float(eval_lib.char_error_rate(labels, gold).double().sum()
+                    .float())
+        ev0, ev1 = ranks[0]["eval"], ranks[1]["eval"]
+        lab_ok = np.array_equal(ev0["labels"][:DP_EVAL_REAL],
+                                labels.cpu().numpy())
+        nll_err = abs(float(ev0["nll"]) - float(nll)) / abs(float(nll))
+        same = all(np.array_equal(ev0[k], ev1[k]) for k in ev0)
+        log(f"dp eval world size 2, beam-{BEAM} float32, {DP_EVAL_REAL} rows "
+            f"padded to {B_SERVE}: labels equal {lab_ok}, accuracy "
+            f"{int(ev0['accuracy'])} vs {acc}, cer_sum "
+            f"{float(ev0['cer_sum']):.6f} vs {cer:.6f}, nll rel err "
+            f"{nll_err:.3g}; ranks equal {same}")
+        check(lab_ok and int(ev0["accuracy"]) == acc
+              and float(ev0["cer_sum"]) == cer and nll_err <= 1e-5 and same,
+              "dp eval world size 2 disagrees with one process")
+        # (d) the CLI trainer, -num_shards 2 against -num_shards 1
+        msgs, _c, secs = run_trainer(root, "one", seed, *DP_TRAIN_ARGS)
+        with open(os.path.join(root, "dp_rank0.log")) as f:
+            dmsgs = [line.split(" ", 2)[2] for line in f.read().splitlines()]
+        a, b = step_perplexities(dmsgs), step_perplexities(msgs)
+        perr = perplexity_rel_err(a, b)
+        files0 = sorted(os.listdir(os.path.join(root, "dp_rank0")))
+        files1 = [f for f in os.listdir(root) if f.startswith("dp_rank1")]
+        log(f"dp trainer -num_shards 2 (gloo, one card), float32 one epoch: "
+            f"step perplexities {[round(x, 4) for x in a]} vs -num_shards "
+            f"1's {[round(x, 4) for x in b]}: rel err {perr:.3g} (tol 1e-5); "
+            f"{ranks[0]['trainer_s']:.1f} s against {secs:.1f} s; rank 0 "
+            f"wrote {files0}, rank 1 {files1}")
+        check(len(a) == 3 and perr <= 1e-5, "dp trainer: step perplexities "
+              "differ from -num_shards 1")
+        check(files1 == [] and {"model-2", "model-3", "final-model"}
+              <= set(files0) and bool(dmsgs),
+              "dp trainer: only rank 0 may write the log and checkpoints")
+        out = {}
+        for key, kernels in (("step_counts", DP_STEP_KERNELS),
+                             ("eval_counts", DP_EVAL_KERNELS),
+                             ("trainer_counts", DP_STEP_KERNELS)):
+            out[key] = [r_[key] for r_ in ranks]
+            for r, c in enumerate(out[key]):
+                for k in kernels:
+                    check(c[k] > 0, f"kernel {k} never launched in rank {r} "
+                                    f"on the dp path {key}")
+            log(f"dp world size 2 {key}: rank 0 {out[key][0]}, rank 1 "
+                f"{out[key][1]}")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| over two numpy trees of one structure (nan if any
+    leaf is)."""
+    import numpy as np
+
+    return float(np.max([np.abs(x - y).max() for x, y in
+                         zip(_np_leaves(a), _np_leaves(b))]))
+
+
+def _np_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _np_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _np_leaves(v)]
+    return [tree]
+
+
+# ------------------------------------------------------------ phase 9
+
+def shard_phase(dev, seed: int, card: str):
+    """AttentionOCR.shard(devices=[cuda:0, cuda:0]) (one thread a shard)
+    on B=512 and on a mixed-width list, greedy and beam-5, bf16 and
+    float32: float32 transcripts identical to the unsharded model's, bf16
+    reported; shard(2) without devices raises on a one-card machine; a
+    bf16 server at -num_shards 0 (every local device: one here) answers a
+    wave of 64 posts.  No scaling figure: two shards on one card measure
+    nothing a user with two cards would see.  Returns the launch counts
+    of the sharded recognize and the server."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.ops import cuda
+
+    base = base_config()
+    np_params, np_stats = numpy_model(base, seed)
+    rs = np.random.RandomState(seed + 17)
+    requests = [word_images(rs, B_SERVE, W_SERVE),
+                [im for w in (100, 81, 121, 100, 81, 181, 100)
+                 for im in word_images(rs, 3, w)]]
+    ocrs = {dt: AttentionOCR(base.replace(compute_dtype=dt),
+                             *weights.from_numpy(np_params, np_stats),
+                             device=dev) for dt in ("bfloat16", "float32")}
+    want = {(dt, K): [o.recognize(r, beam_size=K) for r in requests]
+            for dt, o in ocrs.items() for K in (1, BEAM)}
+    cuda.reset_launch_counts()
+    got = {}
+    for dt, o in ocrs.items():
+        o.shard(devices=[dev, dev])
+        check(o.num_shards == 2, "shard: num_shards is not 2")
+        for K in (1, BEAM):
+            got[(dt, K)] = [o.recognize(r, beam_size=K) for r in requests]
+        o.unshard()
+    for (dt, K), res in got.items():
+        gw = [w for words, _ in res for w in words]
+        ww = [w for words, _ in want[(dt, K)] for w in words]
+        agree = float(np.mean([a == b for a, b in zip(gw, ww)]))
+        log(f"shard over [cuda:0, cuda:0] {dt} beam {K}: {len(gw)} "
+            f"transcripts, agreement with unshard() {agree:.4f}"
+            + ("" if dt == "float32" else " (reported)"))
+        if dt == "float32":
+            check(gw == ww, f"shard float32 beam {K}: transcripts differ "
+                            "from unshard()'s")
+    try:
+        ocrs["float32"].shard(2)
+        raised = False
+    except ValueError as e:
+        raised = "need 2x1 devices, have 1" in str(e)
+    check(raised == (torch.cuda.device_count() == 1),
+          "shard(2) on a one-card machine did not raise")
+    root = tempfile.mkdtemp(prefix="aocr_shard_")
+    try:
+        ocrs["bfloat16"].save(root)
+        url, httpd, rec, thread = start_server(
+            model_dir=root, max_batch=64, cfg=base.replace(
+                compute_dtype="bfloat16"), warmup=False, num_shards=0,
+            device=dev)
+        try:
+            check(rec.ocr.num_shards == torch.cuda.device_count(),
+                  f"serve -num_shards 0: {rec.ocr.num_shards} shards")
+            imgs = word_images(rs, 64, W_SERVE)
+            res, wall = post_concurrently(
+                f"{url}/recognize", [("", png(im)) for im in imgs], 64)
+            ok = all(r[0] == 200 and np.isfinite(r[1]["score"])
+                     for r in res)
+            check(ok, "serve -num_shards 0: a post failed")
+            log(f"serve bf16 -num_shards 0 ({rec.ocr.num_shards} shard on "
+                f"this machine): 64 posts answered in {wall:.2f} s")
+        finally:
+            stop_server(httpd, thread)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = dp_counts()
+    for k in ("conv1_pool", "lstm_fwd", "greedy_loop", "beam_loop"):
+        check(counts[k] > 0, f"kernel {k} never launched on the shard path")
+    log(f"shard path launch counts: {counts}")
+    return counts
+
+
+
 def ptxas_summary(text: str, kernel: str) -> list:
     """'<instance>: <registers>, <spills>' for each instance of a kernel in
     the build's -Xptxas=-v output (empty where nvcc printed none)."""
@@ -3416,6 +4221,13 @@ def main() -> int:
                                        card)
     dcounts = device_preprocess_phase(dev, args.seed, card)
     acounts = augment_phase(dev, tcfg, np_model, batch, card)
+    icounts, ireadings = import_phase(dev, args.seed, card)
+    w1counts, w1ms = dp_world1_phase(dev, args.seed, card)
+    w2 = dp_world2_phase(dev, args.seed, card)
+    none = {k: 0 for k in cuda.KERNELS + ("lstm_fwd_collect",)}
+    w2 = {k: w2.get(k, [none, none]) for k in ("step_counts", "eval_counts",
+                                              "trainer_counts")}
+    shcounts = shard_phase(dev, args.seed, card)
     ms, bounds, lib = timings(dev, models, requests, card, table)
     gms, gbounds = greedy_loop_timings(dev, models, results, table)
     ms.update(gms)
@@ -3465,7 +4277,13 @@ def main() -> int:
     paths = {"recognize": counts, "beam": bcounts, "beam-10": b10counts,
              "train step": tcounts, "image gradient": gcounts,
              "CLI trainer": ccounts, "serve": scounts,
-             "device preprocess": dcounts, "augment": acounts}
+             "device preprocess": dcounts, "augment": acounts,
+             "torch import": icounts, "dp step world 1": w1counts,
+             "shard": shcounts}
+    for key, name in (("step_counts", "dp step"), ("eval_counts", "dp eval"),
+                      ("trainer_counts", "dp CLI trainer")):
+        for r in (0, 1):
+            paths[f"{name} world 2 rank {r}"] = w2[key][r]
     kernels = []
     for k in cuda.KERNELS:
         d = main_dtype[k]
@@ -3477,10 +4295,17 @@ def main() -> int:
             "ms": ms[(k, d)][0], "plain_ms": ms[(k, d)][1],
             "bound_ms": bounds[(k, d)][0], "bound_by": bounds[(k, d)][1],
             "library_ms": lib.get((k, d)),
-            "launches_by_path": {p_: c_[k] for p_, c_ in paths.items()}}
+            "launches_by_path": {p_: c_[k] for p_, c_ in paths.items()},
+            # the DP step and eval at world size 2, each rank's launches
+            "launches_dp": {"step": [c_[k] for c_ in w2["step_counts"]],
+                            "eval": [c_[k] for c_ in w2["eval_counts"]]}}
         if k == "lstm_fwd":
             c = (tcounts["lstm_fwd_collect"] + ccounts["lstm_fwd_collect"]
-                 + acounts["lstm_fwd_collect"])
+                 + acounts["lstm_fwd_collect"]
+                 + w1counts["lstm_fwd_collect"]
+                 + sum(c_["lstm_fwd_collect"] for key in ("step_counts",
+                                                          "trainer_counts")
+                       for c_ in w2[key]))
             entry["redesigned"] = ("thread-block clusters, the Wh slice in "
                                    "shared memory, bf16 mma.sync")
             entry["modes"] = {
@@ -3614,6 +4439,13 @@ def main() -> int:
             f"{v:.1f} requests/s at {w}" for w, v in r["rps"].items())
             + f"; /recognize_batch {r['batch_ips']:.1f} images/s against a "
             f"direct recognize's {r['direct_ips']:.1f} on {card}")
+    for dt, (dms, ams) in w1ms.items():
+        log(f"dp step world size 1 (NCCL) {dt} B={B_TRAIN}: {dms:.2f} ms "
+            f"against make_train_step's {ams:.2f} ms on {card}")
+    for ls, r in ireadings.items():
+        log(f"t7 import {ls}-byte longs: {r['mb']:.1f} MB stream, "
+            f"import_checkpoint {r['import_s']:.2f} s, the CLI "
+            f"{r['cli_s']:.2f} s on {card}")
     on, off = ms[("enable_ab", "bf16")]
     log(f"bf16 train step B={B_TRAIN}: make_train_step "
         f"{ms[('train_step', 'bf16')]:.2f} ms; pool_bwd.ENABLE on {on:.2f} "

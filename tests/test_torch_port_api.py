@@ -273,6 +273,10 @@ def _assert_port_only(loaded):
             "aocr_torch.utils.logging_util", "aocr_torch.utils.native",
             "aocr_torch.serve", "aocr_torch.preprocess",
             "aocr_torch.augment", "aocr_torch.devices",
+            "aocr_torch.t7", "aocr_torch.torch_import",
+            "aocr_torch.parallel.mesh", "aocr_torch.parallel.multihost",
+            "aocr_torch.parallel.data_parallel",
+            "aocr_torch.parallel.eval_parallel",
             *(f"aocr_torch.ops.cuda.{k}" for k in cuda.KERNELS)} <= port
     assert cuda.KERNELS == (
         "conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",

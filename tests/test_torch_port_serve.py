@@ -3,12 +3,14 @@ against aocr.serve on one checkpoint (the same PNG requests give equal
 transcripts and scores within 1e-4, float32), and tests/test_serve.py's
 cases that need no artifact and no shards, on the port's server
 (device="cpu", so every kernel wrapper takes its plain version).  The
-two options not ported, -artifact and -num_shards other than 1, raise
-before any checkpoint load."""
+option not ported, -artifact, raises before any checkpoint load, and
+-num_shards is validated before it (tests/test_torch_port_parallel.py
+serves through AttentionOCR.shard)."""
 
 import base64
 import io
 import json
+import re
 import threading
 import urllib.error
 import urllib.request
@@ -322,22 +324,29 @@ def test_recognize_batch_endpoint(server):
 @pytest.mark.parametrize("argv,item", [
     (["-artifact", "m.aocrx"], "ROADMAP queue 1: Export"),
     (["-model_dir", "missing", "-num_shards", "2"],
-     "ROADMAP queue 1: Parallel"),
-    (["-model_dir", "missing", "-num_shards", "0"],
-     "ROADMAP queue 1: Parallel")])
+     "-num_shards 2 but only 1 local devices"),
+    (["-model_dir", "missing", "-num_shards", "0"], None)],
+    # the cases' ids from when -num_shards was refused
+    ids=["argv0-ROADMAP queue 1: Export", "argv1-ROADMAP queue 1: Parallel",
+         "argv2-ROADMAP queue 1: Parallel"])
 def test_unported_options_raise_before_load(monkeypatch, argv, item):
-    """-artifact and -num_shards other than 1 name their ROADMAP items by
-    title, through serve() and the CLI, before any checkpoint load (made
-    to fail loudly here)."""
+    """-artifact names its ROADMAP item by title, through serve() and the
+    CLI, before any checkpoint load (made to fail loudly here).
+    -num_shards, once refused too, is validated as aocr.serve does: more
+    shards than local devices (the one CPU) raise before the load, and 0
+    (every local device) reaches it."""
     def no_load(*_a, **_k):
         raise AssertionError("the checkpoint was loaded")
 
     monkeypatch.setattr(tserve.AttentionOCR, "load", no_load)
     kw = {k.lstrip("-"): (int(v) if k == "-num_shards" else v)
           for k, v in zip(argv[::2], argv[1::2])}
-    with pytest.raises(NotImplementedError, match=item):
+    error = (AssertionError if item is None else ValueError
+             if "num_shards" in item else NotImplementedError)
+    match = "the checkpoint was loaded" if item is None else re.escape(item)
+    with pytest.raises(error, match=match):
         tserve.serve(device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         tserve.main(argv, device="cpu")
     with pytest.raises(ValueError, match="exactly one"):
         tserve.serve(device="cpu")

@@ -258,13 +258,36 @@ def test_image_gradient_of_conv1_raises():
 
 
 def test_masked_and_synced_batchnorm_raise():
-    """Sync-BN (axis_name) still raises, naming its ROADMAP item; the row
-    mask of a padded batch is ported (test_torch_port_eval.py holds it
-    against the reference)."""
+    """Sync-BN, once refused, runs: over a process group of one (gloo, an
+    in-memory store) cnn.apply(train=True, group=...) gives the features,
+    the new running statistics and the weight gradients of the
+    unsynchronized BN bit for bit, unmasked and with the row mask of a
+    padded batch (tests/test_torch_port_parallel.py holds two ranks
+    against the one-process BN and aocr's data-parallel step)."""
+    import torch.distributed as dist
+
     tp, ts = weights.from_numpy(*_problem(_cfg())[:2])
-    images = torch.zeros((2, 32, 36, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Parallel"):
-        cnn.apply(tp["cnn"], ts, images, train=True, axis_name="data")
-    feats, _ = cnn.apply(tp["cnn"], ts, images, train=True,
-                         row_mask=torch.tensor([1.0, 0.0]))
-    assert bool(torch.isfinite(feats).all())
+    images = torch.from_numpy(np.random.RandomState(9).uniform(
+        0, 255, (2, 32, 36, 1)).astype(np.float32))
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        for mask in (None, torch.tensor([1.0, 0.0])):
+            outs = []
+            for group in (None, dist.group.WORLD):
+                leaves = [x.detach().requires_grad_()
+                          for x in optim.leaves(tp["cnn"])]
+                it = iter(leaves)
+                p = weights.tree_map(tp["cnn"], lambda _p, _x: next(it))
+                feats, stats = cnn.apply(p, ts, images, train=True,
+                                         row_mask=mask, group=group)
+                grads = torch.autograd.grad(feats.square().sum(), leaves)
+                outs.append((feats, optim.leaves(stats), grads))
+            (f0, s0, g0), (f1, s1, g1) = outs
+            assert bool(torch.isfinite(f0).all())
+            assert torch.equal(f0, f1)
+            assert all(torch.equal(a, b) for a, b in zip(s0, s1))
+            assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    finally:
+        dist.destroy_process_group()

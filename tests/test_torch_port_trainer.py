@@ -106,6 +106,40 @@ def runs(tmp_path_factory):
     return out
 
 
+def _parallel_run(runs, flag) -> None:
+    """The module's train run with flag in two spawned gloo ranks, each
+    in its own directory beside data/."""
+    from tests.torch_parallel_worker import run_group
+
+    root = runs["root"]
+    tag = "_".join(f[1:] for f in flag if f.startswith("-"))
+    for r in (0, 1):
+        shutil.copytree(os.path.join(root, "init", "model"),
+                        os.path.join(root, tag, f"rank{r}", "model"))
+    argv = [a.replace("../data", "../../data") for a in TRAIN_ARGS + flag]
+    run_group([("train", "trainer", dict(root=os.path.join(root, tag),
+                                         argv=argv))], timeout=120)
+    with open(os.path.join(root, tag, "rank0", "log.txt")) as f:
+        step, window = _ppl(f.read().splitlines())
+    assert len(step) == 3 and all(np.isfinite(window))
+    assert sorted(os.listdir(os.path.join(root, tag, "rank1", "model"))) \
+        == sorted(os.listdir(os.path.join(root, "init", "model")))
+    got = _final(root, f"{tag}/rank0")
+    plain = _final(root, "port")
+    assert got["global_step"] == plain["global_step"] == 3
+    if "-multihost" in flag:
+        init = _final(root, "init")
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(
+            jax.tree.leaves(got["params"]),
+            jax.tree.leaves(init["params"])))
+        assert diff > 1e-4
+        return
+    step_one, _ = _ppl(runs["port"])
+    np.testing.assert_allclose(step[1:], step_one[1:], rtol=1e-5)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(
+        a, b, rtol=0, atol=1e-5), got["params"], plain["params"])
+
+
 def _final(root, name):
     return checkpoint.load(checkpoint.final_path(
         os.path.join(root, name, "model")))
@@ -229,27 +263,36 @@ def test_trainer_defaults_to_cuda(tmp_path):
                     str(tmp_path / "log.txt")])
 
 
-PARALLEL = "ROADMAP queue 1: Parallel"
+TENSOR_PARALLEL = "ROADMAP queue 1: Tensor parallel"
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["-num_shards", "2"], PARALLEL), (["-num_model_shards", "2"], PARALLEL),
-    (["-multihost"], PARALLEL), (["-augment"], None),
+    (["-num_shards", "2"], None), (["-num_model_shards", "2"],
+                                   TENSOR_PARALLEL),
+    (["-multihost", "-num_shards", "2"], None), (["-augment"], None),
     (["-device_preprocess", "-no_snap_width_ladder"], None)],
     # the cases' ids from when the items were named by number
     ids=["flag0-item 11", "flag1-item 11", "flag2-item 11", "flag3-item 10",
          "flag4-item 10"])
 def test_unported_options_raise(runs, tmp_path, flag, item):
-    """The parallel options name their ROADMAP item.  -augment and
-    -device_preprocess, once refused, now train: the module's run from the
-    same checkpoint with each flag added.  The crops are already 32 x 36,
-    so device preprocessing gives the host-mode run's params (within
-    1e-6); -augment draws from (-seed, global step), so two runs give the
-    same params, and not the unaugmented run's."""
+    """Tensor parallelism names its ROADMAP item.  The other options,
+    once refused, now train: the module's run from the same checkpoint
+    with each flag added.  -num_shards 2 runs in two processes over gloo
+    (tests/torch_parallel_worker.py) and gives the one-process run's
+    params within 1e-5; -multihost -num_shards 2 shards the manifest (5
+    rows a process, steps of 2, 2 and a masked 1), keeps the processes
+    in lockstep and trains 3 steps.  Only rank 0 writes the log and the
+    checkpoints.  The crops are already 32 x 36, so device preprocessing
+    gives the host-mode run's params (within 1e-6); -augment draws from
+    (-seed, global step), so two runs give the same params, and not the
+    unaugmented run's."""
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             train.main(["-phase", "test", "-log_path",
                         str(tmp_path / "l.txt")] + flag, device="cpu")
+        return
+    if "-num_shards" in flag:
+        _parallel_run(runs, flag)
         return
     root = runs["root"]
     port_main = lambda a: train.main(a, device="cpu")  # noqa: E731
