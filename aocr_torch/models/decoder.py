@@ -16,8 +16,10 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from aocr_torch.models.encoder import init_lstm_layer
+from aocr_torch.ops import dropout as dropout_lib
 from aocr_torch.ops import lstm
 from aocr_torch.ops.cuda import tf_bwd, tf_fwd
 from aocr_torch.ops.mm import matmul, outer_sum
@@ -193,48 +195,141 @@ class TFCoreFn(torch.autograd.Function):
                 dg[0].to(xp_dtype), dctx.to(ctx_dtype), dc0, dh0, *drest)
 
 
-# the ROADMAP item of the training options not ported yet
-_OPTIONS = "ROADMAP queue 1: Training options"
+def _identity(x):
+    return x
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} in training is not ported: {item}")
+def _per_step(params: dict, dec_init, targets: torch.Tensor,
+              context: torch.Tensor, *, input_feed: bool, cd: torch.dtype,
+              rate: float, keep, remat: bool, simple: bool, tp
+              ) -> torch.Tensor:
+    """The teacher-forced decode as aocr's scan body
+    (aocr/models/decoder.py:657-695) a step at a time under plain
+    autograd: the hoisted layer-0 projection, then per step the layer-0
+    gates, the layers above with dropout on their inputs, the attention
+    and dropout on h~.  keep: the masks (T, sites, B, H) of
+    ops.dropout.masks, or None.  remat runs each step under
+    torch.utils.checkpoint (aocr's jax.checkpoint(body)).
+
+    tp: None, or the model axis of tensor parallelism
+    (parallel.tensor_parallel.ModelAxis) with `params` this rank's shard:
+    each gate product and the query are this rank's columns, gathered
+    before the gate math and the scores; W_c multiplies this rank's rows
+    of [ctx ; h_top] and the partial products are summed over the axis.
+    Replicated inputs enter a product through `copy`, whose backward sums
+    the ranks' partial cotangents."""
+    if tp is None:
+        copy = gather = scatter = reduce = _identity
+    else:
+        copy, gather, scatter, reduce = tp.copy, tp.gather, tp.scatter, \
+            tp.reduce
+    layer0 = params["layers"][0]
+    E = params["embedding"].shape[1]
+    # products take the compute-dtype values widened to float32 (mm.matmul
+    # does the same), so a copy's cotangent sums over ranks in float32
+    wide = lambda x: x.to(cd).float()  # noqa: E731
+    emb = params["embedding"][targets.t().long()]  # (T, B, E) scan-major
+    xp = matmul(copy(wide(emb)), layer0["wi"][:E].to(cd)) + layer0["bi"] \
+        + layer0["bh"]
+    xp = xp.to(cd)
+    if input_feed:
+        wfh0 = torch.cat([layer0["wi"][E:].to(cd), layer0["wh"].to(cd)], 0)
+    else:
+        wfh0 = layer0["wh"].to(cd)
+    rest = [(torch.cat([l["wi"].to(cd), l["wh"].to(cd)], 0), l["bi"],
+             l["bh"]) for l in params["layers"][1:]]
+    wa, wc = params["w_a"].to(cd), params["w_c"].to(cd)
+    nl = len(params["layers"])
+    # the context in the compute dtype, widened once for every step
+    ctx_f = context.to(cd).float()
+
+    def body(attn, cs, hs, xp_t, keep_t):
+        if input_feed:
+            ah = torch.cat([wide(attn), wide(hs[0])], dim=-1)
+        else:
+            ah = wide(hs[0])
+        gates = gather(xp_t + matmul(copy(ah), wfh0))
+        c, h = lstm.gate_math(gates, cs[0])
+        new_cs, new_hs = [c], [h]
+        x = h
+        for i, (w, bi, bh) in enumerate(rest, start=1):
+            if keep_t is not None:
+                x = dropout_lib.apply(x, keep_t[i - 1], rate)
+            xh = torch.cat([wide(x), wide(hs[i])], dim=-1)
+            gates = gather(matmul(copy(xh), w) + bi + bh)
+            c, h = lstm.gate_math(gates, cs[i])
+            new_cs.append(c)
+            new_hs.append(h)
+            x = h
+        h_top = new_hs[-1]
+        query = gather(matmul(copy(wide(h_top)), wa))
+        scores = torch.einsum("blh,bh->bl", ctx_f, query.to(cd).float())
+        alpha = torch.softmax(scores, dim=-1)
+        cvec = torch.einsum("bl,blh->bh", alpha.to(cd).float(), ctx_f)
+        if simple:
+            h_tilde = cvec + h_top.float()
+        else:
+            cat = torch.cat([cvec, h_top.float()], dim=-1)
+            h_tilde = torch.tanh(reduce(matmul(scatter(cat).to(cd), wc)))
+        if keep_t is not None:
+            h_tilde = dropout_lib.apply(h_tilde, keep_t[nl - 1], rate)
+        return (h_tilde, *new_cs, *new_hs)
+
+    state = init_state(dec_init, nl)
+    attn, cs, hs = state.attn, state.cs, state.hs
+    checkpointed = remat and torch.is_grad_enabled()
+    hts = []
+    for t in range(targets.shape[1]):
+        args = (attn, cs, hs, xp[t], None if keep is None else keep[t])
+        if checkpointed:
+            out = checkpoint(body, *args, use_reentrant=False)
+        else:
+            out = body(*args)
+        attn, cs, hs = out[0], tuple(out[1:1 + nl]), tuple(out[1 + nl:])
+        hts.append(attn)
+    return torch.stack(hts, dim=1)
 
 
 def teacher_forced(params: dict, dec_init, targets: torch.Tensor,
                    context: torch.Tensor, *, input_feed: bool,
                    compute_dtype: torch.dtype = torch.float32,
                    dropout: float = 0.0, train: bool = False,
+                   dropout_key=None, row_offset: int = 0,
                    remat: bool = False, simple: bool = False,
-                   custom_grad: bool = True, use_kernel: bool = True
-                   ) -> torch.Tensor:
+                   custom_grad: bool = True, use_kernel: bool = True,
+                   tp=None) -> torch.Tensor:
     """Teacher-forced decode over targets (B, T) -> h~ (B, T, H) float32.
 
     The embedding part of layer 0's input projection is hoisted into one
     matmul over all T steps and stored in the compute dtype, with both
-    layer-0 biases (decoder.py:608-618); the recurrence is `TFCoreFn`
-    (the tf_fwd / tf_bwd kernels, their plain versions with
-    use_kernel=False), or the `tf_fwd` kernel alone where autograd does
-    not record.  custom_grad=False, and the simple attention (eval only),
-    run the per-step `step` under plain autograd."""
-    if train and dropout > 0.0:
-        _not_ported("dropout", "JAX's threefry dropout stream cannot be "
-                    f"reproduced ({_OPTIONS})")
-    if train and remat:
-        _not_ported("remat", _OPTIONS)
-    if train and simple:
-        _not_ported("simple attention", _OPTIONS)
+    layer-0 biases (decoder.py:608-618).  The route is aocr's choice
+    (decoder.py:629-632): `TFCoreFn` (the tf_fwd / tf_bwd kernels, their
+    plain versions with use_kernel=False), or the `tf_fwd` kernel alone
+    where autograd does not record, unless custom_grad is off, remat or
+    the simple attention is on, dropout applies (train with dropout > 0)
+    or the weights are sharded over a model axis (tp); those run
+    `_per_step` under plain autograd.
+
+    Dropout draws its masks from dropout_key, the step key (two 32-bit
+    words), for the global rows row_offset.. (ops/dropout.py); train
+    with dropout > 0 and no key raises ValueError.  Eval ignores
+    dropout."""
     cd = compute_dtype
+    drop = train and dropout > 0.0
+    if drop and dropout_key is None:
+        raise ValueError("dropout>0 in train mode requires dropout_rng")
+    if not custom_grad or remat or simple or drop or tp is not None:
+        keep = None
+        if drop:
+            B, T = targets.shape
+            rows = row_offset + torch.arange(B, device=targets.device)
+            keep = dropout_lib.masks(dropout_key, rows, T,
+                                     len(params["layers"]),
+                                     params["w_a"].shape[0], dropout)
+        return _per_step(params, dec_init, targets, context,
+                         input_feed=input_feed, cd=cd, rate=dropout,
+                         keep=keep, remat=remat, simple=simple, tp=tp)
     c0, h0 = dec_init
-    if simple or not custom_grad:
-        prep = prepare(params, cd)
-        state = init_state(dec_init, len(params["layers"]))
-        hts = []
-        for t in range(targets.shape[1]):
-            state, ht = step(prep, state, targets[:, t], context,
-                             input_feed=input_feed, simple=simple)
-            hts.append(ht)
-        return torch.stack(hts, dim=1)
     layer0 = params["layers"][0]
     E = params["embedding"].shape[1]
     emb = params["embedding"][targets.t().long()]  # (T, B, E) scan-major

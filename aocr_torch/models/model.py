@@ -54,7 +54,9 @@ def encode(params: dict, batch_stats: dict, images: torch.Tensor,
     process group `group`, when given).
 
     With cfg.use_pallas the kernels run (on CUDA tensors); use_pallas=False
-    is the plain route throughout."""
+    is the plain route throughout.  cfg.fused_encoder_proj runs both
+    encoder directions' layer 0 from one input projection
+    (aocr/models/model.py:79-82), in training and in eval."""
     cd = compute_dtype(cfg)
     out = cnn.apply(params["cnn"], batch_stats, images, cd,
                     use_kernel=cfg.use_pallas, train=train,
@@ -62,17 +64,20 @@ def encode(params: dict, batch_stats: dict, images: torch.Tensor,
     features, new_stats = out if train else (out, None)
     context, dec_init = encoder.apply(params["encoder_fw"],
                                       params["encoder_bw"], features, cd,
-                                      use_kernel=cfg.use_pallas)
+                                                        use_kernel=cfg.use_pallas,
+                                      fused_l0=cfg.fused_encoder_proj)
     return (context, dec_init, new_stats) if train else (context, dec_init)
 
 
 def forward_loss(params: dict, batch_stats: dict, images: torch.Tensor,
                  targets: torch.Tensor, targets_eval: torch.Tensor,
                  cfg: Config, train: bool = False, row_mask=None,
-                 group=None):
+                 group=None, dropout_key=None, row_offset: int = 0,
+                 tp=None):
     """Teacher-forced forward pass: (token-sum NLL, new batch_stats,
     log_probs (B, T, V) float32).  In eval mode batch_stats come back
-    unchanged; row_mask and group as in encode."""
+    unchanged; row_mask and group as in encode; dropout_key, row_offset
+    and tp as in loss_from_context."""
     if train:
         context, dec_init, new_stats = encode(params, batch_stats, images,
                                               cfg, train=True,
@@ -82,22 +87,29 @@ def forward_loss(params: dict, batch_stats: dict, images: torch.Tensor,
         (context, dec_init), new_stats = encode(params, batch_stats, images,
                                                 cfg), batch_stats
     nll, log_probs = loss_from_context(params, context, dec_init, targets,
-                                       targets_eval, cfg, train)
+                                       targets_eval, cfg, train,
+                                       dropout_key, row_offset, tp)
     return nll, new_stats, log_probs
 
 
 def loss_from_context(params: dict, context: torch.Tensor, dec_init,
                       targets: torch.Tensor, targets_eval: torch.Tensor,
-                      cfg: Config, train: bool = False):
+                      cfg: Config, train: bool = False, dropout_key=None,
+                      row_offset: int = 0, tp=None):
     """Teacher-forced decode + loss from an encoder context: (token-sum
-    NLL, log_probs)."""
+    NLL, log_probs).  dropout_key is the step key dropout draws from
+    (aocr's dropout_rng), row_offset the batch's first global row; tp the
+    model axis of tensor parallelism, with params["decoder"] and
+    params["projector"] this rank's shards (parallel.tensor_parallel)."""
     cd = compute_dtype(cfg)
     h_tildes = decoder.teacher_forced(
         params["decoder"], dec_init, targets, context,
         input_feed=cfg.input_feed, compute_dtype=cd, dropout=cfg.dropout,
-        train=train, remat=cfg.remat, simple=cfg.simple_attention,
-        custom_grad=cfg.decoder_custom_vjp, use_kernel=cfg.use_pallas)
-    log_probs = head.apply(params["projector"], h_tildes, cd)
+        train=train, dropout_key=dropout_key, row_offset=row_offset,
+        remat=cfg.remat, simple=cfg.simple_attention,
+        custom_grad=cfg.decoder_custom_vjp, use_kernel=cfg.use_pallas,
+        tp=tp)
+    log_probs = head.apply(params["projector"], h_tildes, cd, tp)
     return loss_lib.nll_sum(log_probs, targets_eval), log_probs
 
 

@@ -143,3 +143,103 @@ def unidirectional_scan(
     scan = lstm_fwd.lstm_fwd_scan if use_kernel else lstm_fwd.lstm_fwd_scan_plain
     hs, finals = scan(wh, xp, c0.float(), h0.float(), reverse)
     return hs.transpose(0, 1), finals
+
+
+def _bidir_proj(wi_fw, wi_bw, biases_fw, biases_bw, xs, cd):
+    """Both directions' layer-0 input projections from ONE (L*B, D) @
+    (D, 8H) product (aocr/ops/lstm.py::_bidir_proj): (x_t (L, B, D) in the
+    compute dtype, w8 (D, 8H), xp_fw, xp_bw (L, B, 4H)).  biases_*: (bi,
+    bh), added in aocr's order.  The split projections are stored in the
+    compute dtype, as `proj_input` stores the per-direction ones, so the
+    fused path computes what the unfused one does; aocr's fused path
+    keeps them float32 (it skips its XPROJ_COMPUTE_DTYPE rounding there),
+    which in bf16 parts from its own unfused path by that rounding."""
+    x_t = xs.transpose(0, 1).to(cd)
+    w8 = torch.cat([wi_fw.to(cd), wi_bw.to(cd)], dim=1)
+    proj = matmul(x_t, w8)
+    G = wi_fw.shape[1]
+    xp_fw = (proj[..., :G] + biases_fw[0] + biases_fw[1]).to(cd)
+    xp_bw = (proj[..., G:] + biases_bw[0] + biases_bw[1]).to(cd)
+    return x_t, w8, xp_fw.contiguous(), xp_bw.contiguous()
+
+
+class BidirFn(torch.autograd.Function):
+    """Both directions of one encoder layer from a fused input projection,
+    with aocr's custom backward (aocr/ops/lstm.py::_bidir_custom): the
+    forward runs one (L*B, D) @ (D, 8H) product, then each direction's
+    `lstm_fwd` kernel (with residuals) from its half; the backward runs
+    each direction's `lstm_bwd` kernel, then dWi is one (D, L*B) x
+    (L*B, 8H) product and dxs one (L*B, 8H) x (8H, D) product, which sums
+    the two directions' input cotangents.  Returns each direction's
+    scan-major h stack (L, B, H) and float32 finals."""
+
+    @staticmethod
+    def forward(ctx, wi_f, wh_f, bi_f, bh_f, wi_b, wh_b, bi_b, bh_b, xs,
+                c0f, h0f, c0b, h0b, cd: torch.dtype, use_kernel: bool):
+        x_t, w8, xp_f, xp_b = _bidir_proj(wi_f, wi_b, (bi_f, bh_f),
+                                          (bi_b, bh_b), xs, cd)
+        scan = (lstm_fwd.lstm_fwd_scan if use_kernel
+                else lstm_fwd.lstm_fwd_scan_plain)
+        whf, whb = wh_f.to(cd).contiguous(), wh_b.to(cd).contiguous()
+        hs_f, (cf_f, hf_f), (ifog_f, cs_f) = scan(
+            whf, xp_f, c0f.float(), h0f.float(), False, collect=True)
+        hs_b, (cf_b, hf_b), (ifog_b, cs_b) = scan(
+            whb, xp_b, c0b.float(), h0b.float(), True, collect=True)
+        ctx.save_for_backward(x_t, w8, whf, whb, c0f, h0f, c0b, h0b, hs_f,
+                              ifog_f, cs_f, hs_b, ifog_b, cs_b)
+        ctx.meta = (cd, use_kernel, xs.dtype)
+        return hs_f, cf_f, hf_f, hs_b, cf_b, hf_b
+
+    @staticmethod
+    def backward(ctx, dhs_f, dcf_f, dhf_f, dhs_b, dcf_b, dhf_b):
+        (x_t, w8, whf, whb, c0f, h0f, c0b, h0b, hs_f, ifog_f, cs_f, hs_b,
+         ifog_b, cs_b) = ctx.saved_tensors
+        cd, use_kernel, xs_dtype = ctx.meta
+        bwd = (lstm_bwd.lstm_bwd_scan if use_kernel
+               else lstm_bwd.lstm_bwd_scan_plain)
+        f32 = lambda t: t.float().contiguous()  # noqa: E731
+        dg_f, dh0f, dc0f = bwd(whf, f32(dhs_f), ifog_f, cs_f, f32(c0f),
+                               f32(dcf_f), f32(dhf_f), False)
+        dg_b, dh0b, dc0b = bwd(whb, f32(dhs_b), ifog_b, cs_b, f32(c0b),
+                               f32(dcf_b), f32(dhf_b), True)
+        # the x-side gradients of both directions: one wide product each
+        dg8 = torch.cat([dg_f, dg_b], dim=-1)
+        dwi8 = outer_sum(x_t, dg8)
+        dxs = matmul(dg8, w8.t()).transpose(0, 1)
+        dwh_f = outer_sum(shift(hs_f, h0f).to(cd), dg_f)
+        dwh_b = outer_sum(shift(hs_b, h0b, True).to(cd), dg_b)
+        db_f = dg_f.float().sum((0, 1))
+        db_b = dg_b.float().sum((0, 1))
+        G = dg_f.shape[-1]
+        return (dwi8[:, :G], dwh_f, db_f, db_f, dwi8[:, G:], dwh_b, db_b,
+                db_b, dxs.to(xs_dtype), dc0f, dh0f, dc0b, dh0b, None, None)
+
+
+def bidirectional_scan(layer_fw: dict, layer_bw: dict, xs: torch.Tensor,
+                       c0_fw, h0_fw, c0_bw, h0_bw,
+                       compute_dtype: torch.dtype = torch.float32,
+                       use_kernel: bool = True):
+    """Both directions of one LSTM layer over xs (B, L, D) from one fused
+    input projection (aocr/ops/lstm.py::bidirectional_scan): the math of
+    two unidirectional_scan calls.  Returns (hs_fw (B, L, H), (c_f, h_f)
+    fw, hs_bw (B, L, H), (c_f, h_f) bw); hs are views of scan-major
+    stacks.  Where autograd records, the scan is `BidirFn`."""
+    cd = compute_dtype
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*layer_fw.values(),
+                                      *layer_bw.values(), xs)):
+        hs_f, cf_f, hf_f, hs_b, cf_b, hf_b = BidirFn.apply(
+            layer_fw["wi"], layer_fw["wh"], layer_fw["bi"], layer_fw["bh"],
+            layer_bw["wi"], layer_bw["wh"], layer_bw["bi"], layer_bw["bh"],
+            xs, c0_fw, h0_fw, c0_bw, h0_bw, cd, use_kernel)
+        return (hs_f.transpose(0, 1), (cf_f, hf_f), hs_b.transpose(0, 1),
+                (cf_b, hf_b))
+    _x, _w, xp_f, xp_b = _bidir_proj(
+        layer_fw["wi"], layer_bw["wi"], (layer_fw["bi"], layer_fw["bh"]),
+        (layer_bw["bi"], layer_bw["bh"]), xs, cd)
+    scan = lstm_fwd.lstm_fwd_scan if use_kernel else lstm_fwd.lstm_fwd_scan_plain
+    hs_f, fin_f = scan(layer_fw["wh"].to(cd).contiguous(), xp_f,
+                       c0_fw.float(), h0_fw.float(), False)
+    hs_b, fin_b = scan(layer_bw["wh"].to(cd).contiguous(), xp_b,
+                       c0_bw.float(), h0_bw.float(), True)
+    return hs_f.transpose(0, 1), fin_f, hs_b.transpose(0, 1), fin_b

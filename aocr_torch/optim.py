@@ -45,17 +45,31 @@ def tree_zip(fn, tree, *others):
     return tree_map(tree, lambda p, x: fn(x, *(_at(o, p) for o in others)))
 
 
+def _sq(tree) -> torch.Tensor:
+    return sum(x.float().square().sum() for x in leaves(tree))
+
+
 def group_norm(tree) -> torch.Tensor:
     """float32 L2 norm of all leaves of a group, as one flattened vector."""
-    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+    return torch.sqrt(_sq(tree))
+
+
+def sq_sums(grads: dict) -> dict:
+    """Each group's squared float32 L2 norm."""
+    return {g: _sq(grads[g]) for g in grads}
 
 
 @torch.no_grad()
-def clip_grads_by_group(grads: dict, max_norm: float = CLIP_NORM):
-    """Per-group gradient clipping.  Returns (clipped_grads, norms)."""
+def clip_grads_by_group(grads: dict, max_norm: float = CLIP_NORM,
+                        sq_sums_fn=None):
+    """Per-group gradient clipping.  Returns (clipped_grads, norms).
+    sq_sums_fn (default `sq_sums`) gives each group's squared norm: under
+    tensor parallelism the sharded leaves' squares summed over the model
+    axis (parallel.tensor_parallel.ModelAxis.sq_sums)."""
     out, norms = {}, {}
+    sq = (sq_sums_fn or sq_sums)(grads)
     for g in grads:
-        n = group_norm(grads[g])
+        n = torch.sqrt(sq[g])
         scale = torch.where(n > max_norm, max_norm / n, torch.ones_like(n))
         out[g] = tree_map(grads[g], lambda _p, x: x * scale)
         norms[g] = n
@@ -96,10 +110,11 @@ def sgd_init(params: dict, hyper: SGDHyper = SGDHyper()) -> SGDState:
 
 @torch.no_grad()
 def sgd_update(params: dict, grads: dict, state: SGDState, lr,
-               hyper: SGDHyper = SGDHyper()
+               hyper: SGDHyper = SGDHyper(), sq_sums_fn=None
                ) -> Tuple[dict, SGDState, dict]:
-    """One SGD step.  Returns (new_params, new_state, grad_norms)."""
-    grads, norms = clip_grads_by_group(grads)
+    """One SGD step.  Returns (new_params, new_state, grad_norms).
+    sq_sums_fn as in clip_grads_by_group."""
+    grads, norms = clip_grads_by_group(grads, sq_sums_fn=sq_sums_fn)
     if hyper.weight_decay != 0.0:
         grads = tree_zip(lambda g, p: g + hyper.weight_decay * p, grads,
                          params)
@@ -136,9 +151,9 @@ def adadelta_init(params: dict) -> AdadeltaState:
 @torch.no_grad()
 def adadelta_update(params: dict, grads: dict, state: AdadeltaState,
                     rho: float = 0.9, eps: float = 1e-6,
-                    weight_decay: float = 0.0
+                    weight_decay: float = 0.0, sq_sums_fn=None
                     ) -> Tuple[dict, AdadeltaState, dict]:
-    grads, norms = clip_grads_by_group(grads)
+    grads, norms = clip_grads_by_group(grads, sq_sums_fn=sq_sums_fn)
     if weight_decay != 0.0:
         grads = tree_zip(lambda g, p: g + weight_decay * p, grads, params)
     acc_g = tree_zip(lambda a, g: rho * a + (1 - rho) * g * g,

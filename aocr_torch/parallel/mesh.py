@@ -1,10 +1,12 @@
-"""The data axis as a torch.distributed process group (counterpart of
+"""The mesh axes as torch.distributed process groups (counterpart of
 aocr/parallel/mesh.py).
 
 aocr shards a global batch over a mesh of devices in one process; the
 port runs one process per device, so the data axis is a process group
 and each rank holds the rows that aocr's `shard_batch` would place on
-its device: rank r of n takes rows [r * B/n, (r + 1) * B/n).  The
+its device: rank r of n takes rows [r * B/n, (r + 1) * B/n).  A (data,
+model) mesh is a `Grid` of the world's ranks, data-major as aocr's
+`make_mesh` reshapes its devices: rank = d * num_model + m.  The
 collectives below are the counterparts of `psum`, `pmin` and a gather
 of sharded outputs.  They take the tensors where they lie: NCCL groups
 and gloo groups alike (gloo runs all_reduce, all_gather and broadcast on
@@ -13,7 +15,7 @@ CUDA tensors: chip_smoke.py's probe, torch 2.11 on an H100).
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -42,10 +44,11 @@ def local_devices(device) -> List[torch.device]:
 def make_mesh(num_data: Optional[int] = None, num_model: int = 1,
               devices: Optional[Sequence] = None,
               kind="cuda") -> List[torch.device]:
-    """The devices of a (data, model) mesh, data-major: by default every
-    local device of `kind` on the data axis.  Raises aocr's ValueErrors
-    for an axis below 1 and for more devices than there are.  A device
-    may be named more than once (each entry is one shard)."""
+    """The devices of a (data, model) mesh, data-major (the device of grid
+    rank d * num_model + m at that index): by default every local device
+    of `kind` on the data axis.  Raises aocr's ValueErrors for an axis
+    below 1 and for more devices than there are.  A device may be named
+    more than once (each entry is one shard)."""
     devs = [torch.device(d) for d in (devices if devices is not None
                                       else local_devices(kind))]
     if num_data is None:
@@ -57,11 +60,40 @@ def make_mesh(num_data: Optional[int] = None, num_model: int = 1,
     if num_data * num_model > len(devs):
         raise ValueError(
             f"need {num_data}x{num_model} devices, have {len(devs)}")
-    if num_model > 1:
-        raise NotImplementedError(
-            "a model axis (tensor parallelism) is not ported: ROADMAP "
-            "queue 1: Tensor parallel")
-    return devs[:num_data]
+    return devs[:num_data * num_model]
+
+
+class Grid(NamedTuple):
+    """This rank's place on a (data, model) mesh of the world's ranks."""
+    num_data: int
+    num_model: int
+    d: int             # this rank's index on the data axis
+    m: int             # ... and on the model axis
+    data_group: object   # the ranks with this rank's m (its data axis)
+    model_group: object  # the ranks with this rank's d (its model axis)
+
+
+def make_grid(num_data: int, num_model: int) -> Grid:
+    """The (num_data, num_model) grid of the initialized world, whose size
+    must be their product.  Every rank creates every group, in one order
+    (torch.distributed.new_group is collective over the world), and keeps
+    its own two."""
+    n = world()
+    if num_data < 1 or num_model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got data={num_data} "
+                         f"model={num_model}")
+    if not dist.is_initialized() or n != num_data * num_model:
+        raise ValueError(f"a {num_data}x{num_model} (data, model) grid "
+                         f"needs a process group of {num_data * num_model}, "
+                         f"have {n}")
+    d, m = divmod(rank(), num_model)
+    data_groups = [dist.new_group([dd * num_model + mm
+                                   for dd in range(num_data)])
+                   for mm in range(num_model)]
+    model_groups = [dist.new_group([dd * num_model + mm
+                                    for mm in range(num_model)])
+                    for dd in range(num_data)]
+    return Grid(num_data, num_model, d, m, data_groups[m], model_groups[d])
 
 
 def rows_of(x, r: int, n: int):

@@ -6,6 +6,8 @@ aocr/train.py), on one device or data-parallel over several:
     python -m aocr_torch.train -phase test -load_model -model_dir train/ \\
         -data_path test.txt -beam_size 5 [-use_dictionary] [-visualize]
     torchrun --nproc_per_node N -m aocr_torch.train -num_shards N ...
+    torchrun --nproc_per_node ND*NM -m aocr_torch.train -num_shards ND \
+        -num_model_shards NM ...
 
 - `-phase train`: epoch loop over shuffled width-bucketed batches; the
   running perplexity exp(loss / num_nonzeros) each step, from the sums
@@ -41,9 +43,18 @@ and trains on its rows (parallel.data_parallel); with `-multihost` each
 rank reads its slice of the manifest, feeds fixed local rows and keeps
 in lockstep with the others (parallel.multihost).  Evaluation shards
 the same way (parallel.eval_parallel).  Only rank 0 logs, saves
-checkpoints and writes results.txt.  Tensor parallelism
-(`-num_model_shards > 1`) is not ported and raises NotImplementedError
-naming its ROADMAP queue 1 entry by title.
+checkpoints and writes results.txt.
+
+DP x TP (`-num_model_shards NM > 1`, aocr/train.py:148-206) runs ND * NM
+processes as a (data, model) grid (parallel.mesh.Grid, rank = d * NM +
+m): the data axis takes the batch's rows, the model axis the decoder's
+and the projector's weights (parallel.tensor_parallel), each rank
+holding its shards of the params and the optimizer state.  Evaluation
+runs as aocr's flat data mesh over all ND * NM ranks on the gathered
+params.  Checkpoints stay whole: every rank takes part in gathering
+the params and the optimizer state, rank 0 writes them, and a resume
+shards what every rank loaded.  Under -multihost each data shard reads
+its slice of the manifest (the model ranks of a shard the same rows).
 """
 
 from __future__ import annotations
@@ -53,7 +64,6 @@ import os
 import sys
 import time
 from dataclasses import asdict
-from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -63,7 +73,8 @@ import torch.distributed as dist
 from aocr_torch import augment, checkpoint, data, devices, \
     eval as eval_lib, optim, preprocess, train_step, vocab, weights
 from aocr_torch.parallel import (data_parallel, eval_parallel,
-                                 mesh as mesh_lib, multihost)
+                                 mesh as mesh_lib, multihost,
+                                 tensor_parallel)
 from aocr_torch.config import (GEOMETRY_FIELDS, STRUCT_FIELDS, Config,
                                parse_args)
 from aocr_torch.models import model
@@ -95,16 +106,9 @@ class ValDrivenLR:
         return decayed
 
 
-# the ROADMAP item of the option not ported yet
-TENSOR_PARALLEL = "ROADMAP queue 1: Tensor parallel"
-
-
 def _check_parallel(cfg: Config) -> None:
     """Raise for the parallel options this trainer refuses (before any
     process group or checkpoint is touched)."""
-    if cfg.num_model_shards > 1:
-        raise NotImplementedError(
-            f"-num_model_shards > 1 is not ported: {TENSOR_PARALLEL}")
     if cfg.multihost:
         if cfg.num_shards <= 1:
             raise ValueError("-multihost requires -num_shards > 1 (the "
@@ -123,7 +127,7 @@ def _check_parallel(cfg: Config) -> None:
 
 
 def _parallel(cfg: Config) -> bool:
-    return cfg.num_shards > 1 or cfg.multihost
+    return cfg.num_shards > 1 or cfg.num_model_shards > 1 or cfg.multihost
 
 
 def _device(cfg: Config, device) -> torch.device:
@@ -135,21 +139,40 @@ def _device(cfg: Config, device) -> torch.device:
 
 
 def _join_group(cfg: Config, device: torch.device) -> None:
-    """The process group of -num_shards N: the one found, else one from
-    torchrun's environment (NCCL on CUDA, gloo on the CPU).  Its size
-    must be N."""
+    """The process group of -num_shards N (x -num_model_shards M): the one
+    found, else one from torchrun's environment (NCCL on CUDA, gloo on
+    the CPU).  Its size must be N * M."""
     multihost.initialize(device=device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     n = mesh_lib.world()
-    if n != cfg.num_shards:
+    nd, nm = cfg.num_shards, cfg.num_model_shards
+    if n != nd * nm:
+        what = (f"-num_shards {nd}" if nm == 1 else
+                f"-num_shards {nd} x -num_model_shards {nm}")
         raise ValueError(
-            f"-num_shards {cfg.num_shards} but the process group has {n} "
-            f"processes: launch one process per device (torchrun "
-            f"--nproc_per_node {cfg.num_shards})")
-    if cfg.batch_size % n:
+            f"{what} but the process group has {n} processes: launch one "
+            f"process per device (torchrun --nproc_per_node {nd * nm})")
+    if cfg.batch_size % nd:
         raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
-                         f"num_shards {n}")
+                         f"num_shards {nd}")
+
+
+def _data_shard(cfg: Config) -> tuple:
+    """(this process's data shard, the shards): the manifest slice it
+    reads under -multihost (the model ranks of a shard read the same)."""
+    rank, _count = multihost.process_info()
+    return rank // cfg.num_model_shards, cfg.num_shards
+
+
+def _map_opt_state(state, fn):
+    """An optimizer state with fn applied to each of its param-shaped
+    trees (SGD's momentum buffer, Adadelta's accumulators)."""
+    if isinstance(state, optim.AdadeltaState):
+        return optim.AdadeltaState(fn(state.acc_grad), fn(state.acc_delta))
+    if state.momentum_buf is None:
+        return state
+    return state._replace(momentum_buf=fn(state.momentum_buf))
 
 
 class _Quiet:
@@ -188,10 +211,15 @@ class Trainer:
         _check_parallel(cfg)
         self.log = log
         self.device = _device(cfg, device)
-        self.group = None
+        # the data axis (training) and the flat axis of every rank (eval)
+        self.group = self.eval_group = self.grid = None
         if _parallel(cfg):
             _join_group(cfg, self.device)
-            self.group = dist.group.WORLD
+            self.group = self.eval_group = dist.group.WORLD
+            if cfg.num_model_shards > 1:
+                self.grid = mesh_lib.make_grid(cfg.num_shards,
+                                               cfg.num_model_shards)
+                self.group = self.grid.data_group
         ckpt = None
         if cfg.load_model:
             ckpt = checkpoint.try_load_final(
@@ -221,7 +249,20 @@ class Trainer:
                                "eval_counter": 0}
         self.cfg = cfg.validate()
         self.opt_state = self._restore_opt_state()
-        if self.group is None:
+        if self.grid is not None:
+            # every rank holds the whole state; each keeps its shards
+            self.params = tensor_parallel.shard_params(self.params,
+                                                       self.grid)
+            self.opt_state = _map_opt_state(
+                self.opt_state,
+                lambda t: tensor_parallel.shard_params(t, self.grid))
+            self._train_step = tensor_parallel.make_tp_train_step(
+                self.cfg, self.grid)
+            nd, nm = self.grid.num_data, self.grid.num_model
+            log.info(f"DP x TP training over a {nd}x{nm} (data, model) mesh "
+                     f"({dist.get_backend()}, the decoder and projector "
+                     f"weights sharded over the model axis)")
+        elif self.group is None:
             self._train_step = train_step.make_train_step(self.cfg)
         else:
             self._train_step = data_parallel.make_dp_train_step(
@@ -239,20 +280,34 @@ class Trainer:
                 self.cfg.dictionary_path, self.cfg.allow_digit_prefix
             )).to(self.device)
         self._eval_step = None
-        if self.group is not None:
+        if self.eval_group is not None:
             self._eval_step = eval_parallel.make_dp_eval_step(
-                self.cfg, self.group, use_trie=self.trie_table is not None)
-            log.info(f"Sharded evaluation over {mesh_lib.world()} processes "
-                     f"(beam decode + gold pass per rank)")
+                self.cfg, self.eval_group,
+                use_trie=self.trie_table is not None)
+            if self.grid is None:
+                log.info(f"Sharded evaluation over {mesh_lib.world()} "
+                         f"processes (beam decode + gold pass per rank)")
+            else:
+                log.info(f"Sharded evaluation over {mesh_lib.world()} "
+                         f"devices (beam decode + gold pass per shard, on "
+                         f"the gathered params)")
         # -multihost: each process feeds local_bs rows a step, in lockstep
         # with the others (parallel/multihost.py)
         self._lockstep = self.cfg.multihost
         if self._lockstep:
             rank, pc = multihost.process_info()
             self._count_group = multihost.count_group()
+            # a data shard's rows: the model ranks of a shard hold the same
+            shards = self.cfg.num_shards
             self.local_bs = multihost.local_batch_size(self.cfg.batch_size,
-                                                       pc)
-            self._global_rows = self.local_bs * pc
+                                                       shards)
+            self._global_rows = self.local_bs * shards
+            n_eval = shards * self.cfg.num_model_shards
+            if self._global_rows % n_eval:
+                raise ValueError(
+                    f"global rows {self._global_rows} not divisible by the "
+                    f"{n_eval}-device eval mesh (num_shards x "
+                    f"num_model_shards)")
             log.info(f"Multi-host lockstep: process {rank}/{pc}, "
                      f"{self.local_bs} rows/host/step")
         else:
@@ -282,6 +337,13 @@ class Trainer:
             "buf_fresh": meta.get("buf_fresh", saved_buf is None)},
             self.device)
         return state if buf is None else state._replace(momentum_buf=buf)
+
+    def _whole_params(self) -> dict:
+        """The whole params: under DP x TP gathered from the model ranks
+        (a collective every rank makes), else the params."""
+        if self.grid is None:
+            return self.params
+        return tensor_parallel.gather_params(self.params, self.grid)
 
     # ------------------------------------------------------------ steps
 
@@ -314,7 +376,7 @@ class Trainer:
         extra = {}
         if self.group is not None:
             valid = batch.rows if valid_rows is None else valid_rows
-            n = mesh_lib.world()
+            n = mesh_lib.world(self.group)
             want = (self.local_bs if self._lockstep
                     else batch.rows + (-batch.rows) % n)
             im = batch.images if batch.raw is None else self._images(batch)
@@ -349,9 +411,10 @@ class Trainer:
         self.opt_state = out.opt_state
         if self.cfg.log_norms:
             # reference optim_sgd.lua:49 prints per-group param/grad norms
+            whole = self._whole_params()
             for i, g in enumerate(optim.GROUPS):
                 if g in out.grad_norms:
-                    pn = float(optim.group_norm(self.params[g]))
+                    pn = float(optim.group_norm(whole[g]))
                     gn = float(out.grad_norms[g])
                     self.log.info(f"i: {i + 1}, param norm: {pn:f}, grad "
                                   f"norm: {gn:f}")
@@ -408,7 +471,7 @@ class Trainer:
         batch padded to a multiple of the ranks (-multihost: to the fixed
         local rows), each rank decoding its rows; accuracy and CER come
         back summed over the real rows, labels gathered for -visualize."""
-        n = mesh_lib.world()
+        n = mesh_lib.world(self.eval_group)
         im = batch.images if batch.raw is None else self._images(batch)
         real_b, im, tg, te = eval_parallel.pad_rows(
             n, im, targets, targets_eval,
@@ -416,9 +479,13 @@ class Trainer:
         real_b = min(real_b, valid_rows)
         mask = (np.arange(im.shape[0]) < real_b).astype(np.float32)
         if not self._lockstep:  # every rank holds the global batch
-            im, tg, te, mask = mesh_lib.shard_batch(self.group, im, tg, te,
-                                                    mask)
-        out = self._eval_step(self.params, self.batch_stats,
+            im, tg, te, mask = mesh_lib.shard_batch(self.eval_group, im, tg,
+                                                    te, mask)
+        elif self.grid is not None:  # the data shard's rows, split further
+            im, tg, te, mask = (mesh_lib.rows_of(a, self.grid.m,
+                                                 self.grid.num_model)
+                                for a in (im, tg, te, mask))
+        out = self._eval_step(self._whole_params(), self.batch_stats,
                               torch.as_tensor(im).to(self.device), tg, te,
                               self.trie_table, torch.from_numpy(mask))
         if self.visualize_file is not None:
@@ -462,7 +529,13 @@ class Trainer:
         lockstep-synchronized across processes under -multihost."""
         it = data.prefetched(gen, self.cfg.prefetch)
         if self._lockstep:
-            sync = partial(multihost.sync_counts, group=self._count_group)
+            nm = self.cfg.num_model_shards
+
+            def sync(*counts):
+                # the model ranks of a data shard count its batch once
+                out = multihost.sync_counts(*counts, group=self._count_group)
+                return tuple(c // nm for c in out)
+
             for b, real, g_nnz, g_rows in multihost.lockstep(
                     it, self._dummy_batch,
                     lambda bb: (bb.num_nonzeros, bb.rows), sync):
@@ -529,10 +602,16 @@ class Trainer:
     def _save(self) -> None:
         """An npz-v2 checkpoint that either package resumes: the
         reference's parameter layout, optimizer state and meta.  Only
-        rank 0 writes: the state is the same on every rank."""
+        rank 0 writes: the state is the same on every rank (under DP x TP
+        every rank first takes part in gathering it whole)."""
+        params, opt_state = self._whole_params(), self.opt_state
+        if self.grid is not None:
+            opt_state = _map_opt_state(
+                opt_state,
+                lambda t: tensor_parallel.gather_params(t, self.grid))
         if multihost.process_info()[0] != 0:
             return
-        state = weights.opt_state_to_numpy(self.opt_state)
+        state = weights.opt_state_to_numpy(opt_state)
         if isinstance(self.opt_state, optim.SGDState):
             self.optim_meta["eval_counter"] = int(state["eval_counter"])
             if state["momentum_buf"] is not None:
@@ -540,7 +619,7 @@ class Trainer:
                 self.optim_meta["buf_fresh"] = bool(state["buf_fresh"])
         else:
             self.optim_meta["adadelta"] = state
-        params, stats = weights.to_numpy(self.params, self.batch_stats)
+        params, stats = weights.to_numpy(params, self.batch_stats)
         path = checkpoint.save(self.cfg.model_dir, params, stats,
                                asdict(self.cfg), self.global_step,
                                self.optim_meta)
@@ -709,7 +788,7 @@ def main(argv=None, device=None) -> None:
                               log=log.info)
     log.info(f"Training data loaded from {cfg.data_path}")
     if cfg.multihost:
-        train_data.shard(*multihost.process_info())
+        train_data.shard(*_data_shard(cfg))
         log.info(f"Manifest sharded: {train_data.size()} rows on process "
                  f"{rank}")
     if cfg.phase == "train":
@@ -718,7 +797,7 @@ def main(argv=None, device=None) -> None:
                                 log=log.info)
         log.info(f"Validation data loaded from {cfg.val_data_path}")
         if cfg.multihost:
-            val_data.shard(*multihost.process_info())
+            val_data.shard(*_data_shard(cfg))
         trainer.run_train(train_data, val_data)
     else:
         trainer.run_test(train_data)

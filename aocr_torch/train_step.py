@@ -7,9 +7,12 @@ clip-at-5 threshold, are on the mean-over-batch scale -- then the
 optimizer update.  It reports `loss_sum`, the token sum, as the
 reference's step loss does.  With cfg.augment the images are first
 augmented on the device (aocr_torch.augment) under the step key passed
-as dropout_rng.  On CUDA tensors every kernel of the path runs: conv1
-forward and backward, both encoder directions' forward (with residuals)
-and backward recurrences, and the teacher-forced decoder's.
+as dropout_rng, and so are the decoder's dropout masks (ops/dropout.py).
+On CUDA tensors every kernel of the path runs: conv1 forward and
+backward, both encoder directions' forward (with residuals) and
+backward recurrences, and the teacher-forced decoder's, which dropout,
+remat, the simple attention and tensor parallelism leave for the
+per-step decoder under autograd, as aocr does.
 
 Parameters are nested dicts of float32 tensors; a step returns new
 tensors and leaves its inputs as they were.
@@ -48,9 +51,11 @@ def _on(x, device: torch.device) -> torch.Tensor:
 def _train_step(params: dict, batch_stats: dict, opt_state, images,
                 targets, targets_eval, lr, dropout_rng=None, *,
                 cfg: Config, real_bs=None, row_mask=None,
-                group=None) -> TrainOutput:
+                group=None, tp=None) -> TrainOutput:
     """One step.  dropout_rng is the step key, two 32-bit words
-    (augment.step_key); -augment draws from it (dropout is not ported).
+    (augment.step_key); -augment and dropout draw from it, each on a
+    stream of its own (augment.AUG_TAG, dropout.DROPOUT_TAG), keyed by
+    global row.
     For a batch padded to a fixed size, real_bs is the number of real rows
     (the loss is divided by it, as the reference divides by the real batch
     size) and row_mask (B,) marks them, which keeps the padding out of the
@@ -61,14 +66,19 @@ def _train_step(params: dict, batch_stats: dict, opt_state, images,
     this rank's rows of the global one: augment keys them by global row,
     BatchNorm is synchronized, real_bs is the global count (rows x ranks,
     or the all-reduced mask), and one all-reduce sums the gradients and
-    the loss before the optimizer, so every rank makes the same update."""
+    the loss before the optimizer, so every rank makes the same update.
+
+    With tp (parallel.tensor_parallel.ModelAxis) the group is the data
+    axis of a (data, model) grid and params, opt_state and the returned
+    ones are this rank's shards: the decoder and the projector run
+    sharded, and tp reduces the gradients and the clipping norms."""
     dev = optim.leaves(params)[0].device
     images = _on(images, dev).float()
+    # the batch's first global row keys the augment and dropout draws
+    offset = 0 if group is None else mesh.rank(group) * images.shape[0]
     if cfg.augment:
         if dropout_rng is None:
             raise ValueError("-augment needs the step key (dropout_rng)")
-        # the batch's first global row keys the draws
-        offset = 0 if group is None else mesh.rank(group) * images.shape[0]
         images = augment_lib.augment_batch(dropout_rng, images,
                                            cfg.augment_strength,
                                            row_offset=offset)
@@ -90,11 +100,16 @@ def _train_step(params: dict, batch_stats: dict, opt_state, images,
     with torch.enable_grad():
         nll, new_stats, _ = model.forward_loss(
             p, batch_stats, images, targets, targets_eval, cfg, train=True,
-            row_mask=row_mask, group=group)
+            row_mask=row_mask, group=group, dropout_key=dropout_rng,
+            row_offset=offset, tp=tp)
         mean_loss = nll / batch_size
-        flat = torch.autograd.grad(mean_loss, leaves)
+        # the simple attention leaves w_c unused: its gradient is zero
+        flat = torch.autograd.grad(mean_loss, leaves, allow_unused=True,
+                                   materialize_grads=True)
     mean_loss = mean_loss.detach()
-    if group is not None:
+    if tp is not None:
+        flat, mean_loss = tp.reduce_grads(params, list(flat), mean_loss)
+    elif group is not None:
         # psum of the gradients and the loss: one flat buffer, one
         # all-reduce
         buf = mesh.all_reduce(torch.cat(
@@ -104,12 +119,15 @@ def _train_step(params: dict, batch_stats: dict, opt_state, images,
             buf[:-1].split([g.numel() for g in flat]), flat)]
     it = iter(flat)
     grads = tree_map(params, lambda _p, _x: next(it))
+    sq_sums_fn = None if tp is None else tp.sq_sums
     if cfg.optimizer == "adadelta":
         new_params, new_opt, norms = optim.adadelta_update(
-            params, grads, opt_state, weight_decay=cfg.weight_decay)
+            params, grads, opt_state, weight_decay=cfg.weight_decay,
+            sq_sums_fn=sq_sums_fn)
     else:
         new_params, new_opt, norms = optim.sgd_update(
-            params, grads, opt_state, lr, optim.hyper_from_config(cfg))
+            params, grads, opt_state, lr, optim.hyper_from_config(cfg),
+            sq_sums_fn=sq_sums_fn)
     return TrainOutput(
         params=new_params,
         batch_stats=tree_map(new_stats, lambda _p, x: x.detach()),

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of aocr_torch on one NVIDIA GPU (H100): greedy recognition,
 the training step, beam and dictionary recognition, the image gradient,
-the CLI trainer, the micro-batching server, device preprocessing,
-augmentation, the Torch7 checkpoint import, data-parallel training and
-evaluation and sharded recognition at the full width of the default
+the CLI trainer and the results gallery, the micro-batching server,
+device preprocessing, augmentation, the Torch7 checkpoint import,
+data-parallel training and evaluation, sharded recognition, the
+training options (dropout, remat, simple attention, the fused encoder
+projection) and DP x TP training at the full width of the default
 model, through their twelve CUDA kernels (thirteen rows: lstm_fwd's two
 modes).
 
@@ -52,9 +54,11 @@ Phases, each raising on failure:
   4c. the CLI trainer (aocr_torch.train.main) on 1,000 + 400 crops
      written from --seed: bf16 train (a padded partial batch each
      epoch), the same epoch with -device_preprocess and with -augment,
-     -load_model resume, beam-5 test and dictionary test, with
-     launch counts (pool_bwd 3 a step); float32 train and beam-5 test
-     with the kernels against -no_use_pallas;
+     -load_model resume, beam-5 test (its results.txt rendered by
+     python -m aocr_torch.visualizer.generate_html: one <li> a row, a
+     PNG a crop) and dictionary test, with launch counts (pool_bwd 3 a
+     step); float32 train and beam-5 test with the kernels against
+     -no_use_pallas;
   4d. serving (aocr_torch.serve on a thread, the model saved from the
      numpy weights): a bf16 and a float32 server (max_batch 512, beam-5
      warmed) through 64 clients x 8 PNG posts and 512 at once (a quarter
@@ -100,6 +104,25 @@ Phases, each raising on failure:
      unshard()'s (bf16 reported); shard(2) raises on one card; a bf16
      server at -num_shards 0 answers 64 posts.  No scaling figure: the
      machine has one card;
+  4k. the training options at B=400, T=11, 3 steps from the --seed
+     weights, bf16 and float32: dropout 0.3 (each (step, site) keep rate
+     within 0.7 +- 0.005, bf16 params bit-equal for one key twice and
+     moved by another, remat + dropout = dropout within 1e-6), remat
+     (float32 = no remat within the train step's gates; peak memory at
+     B=400 and 1600, bf16), the simple attention (kernel route = plain
+     route) and -fused_encoder_proj (float32 step = unfused step; bf16
+     greedy and beam-5 transcripts at B=512 equal the unfused model's;
+     its A/B); the teacher-forced kernels launch only on the fused
+     step; each option's bf16 step ms;
+  4l. DP x TP over gloo on the one card: the (1, 2) grid in 2
+     processes and the (2, 2) grid in 4, float32 B=400: 3 steps and a
+     masked tail, each held to one process (loss 1e-4, params rtol 1e-3
+     atol 3e-4, grad norms 1e-5), replicated leaves bit-equal on every
+     rank and each shard across its data ranks, a dropout step at (1,
+     2), bf16 reported, the step's ms (not a scaling figure); at (2, 2)
+     the eval on the gathered params over the 4 ranks and the CLI
+     trainer at -num_shards 2 -num_model_shards 2 against -num_shards
+     1, its checkpoint loaded in one process;
   5. timing: each kernel against its plain version (CUDA events), its
      bound (the larger of its operations over the card's peak and its
      bytes over 3.35 TB/s) and, where PyTorch computes the same function
@@ -2548,14 +2571,42 @@ def read_results(path: str):
         return [line.rstrip("\n").split("\t") for line in f]
 
 
+def visualize(data_root: str, out: str, rows) -> None:
+    """python -m aocr_torch.visualizer.generate_html on a -visualize run's
+    results.txt: index.html has one <li> a row, and every .npy crop is
+    rendered to a PNG."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "aocr_torch.visualizer.generate_html",
+         "--output_dir", out, "--data_base_dir", data_root],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    check(run.returncode == 0, f"generate_html failed: {run.stderr[-2000:]}")
+    if run.returncode:
+        return
+    with open(os.path.join(out, "website", "index.html")) as f:
+        items = f.read().count("<li ")
+    images = os.listdir(os.path.join(out, "website", "images"))
+    pngs = sum(f.endswith(".png") for f in images)
+    crops = len({r[0] for r in rows})
+    check(items == len(rows) and pngs == crops == len(images),
+          f"generate_html: {items} items for {len(rows)} rows, {pngs} PNGs "
+          f"of {len(images)} images for {crops} crops")
+    log(f"visualizer: index.html with {items} items for {len(rows)} rows "
+        f"of results.txt, {pngs} PNGs rendered from {crops} .npy crops "
+        f"({secs:.1f} s)")
+
+
 def trainer_phase(dev, seed: int, card: str):
     """python -m aocr_torch.train at the default model's full width on
     N_TRAIN + N_VAL crops written from seed: bf16 train (one epoch: 2
     full steps and a 200-row partial one, a checkpoint and a one-batch
     validation every 2 steps), a -load_model resume of two epochs, a
-    beam-5 test and a beam-5 dictionary test; then a float32 train run
-    and a float32 beam-5 test with the kernels and with -no_use_pallas.
-    Returns (the launch counts of all runs, their readings)."""
+    beam-5 test (its results.txt rendered by python -m
+    aocr_torch.visualizer.generate_html) and a beam-5 dictionary test;
+    then a float32 train run and a float32 beam-5 test with the kernels
+    and with -no_use_pallas.  Returns (the launch counts of all runs,
+    their readings)."""
     import shutil
     import tempfile
 
@@ -2669,6 +2720,8 @@ def trainer_phase(dev, seed: int, card: str):
             if extra:
                 check(all(r[2] in prefixes for r in rows),
                       f"trainer {tag}: a transcript off the lexicon")
+            else:
+                visualize(root, out, rows)
             log(f"trainer {tag} bf16 beam-5 B={N_VAL}: accuracy {acc:f}, "
                 f"CER {cer:f}, {len(set(r[2] for r in rows))} distinct "
                 f"transcripts, {secs:.2f} s with set-up")
@@ -3887,6 +3940,46 @@ def dp_rank(rank: int, world: int, root: str, seed: int,
         os._exit(1)
 
 
+def run_spawned(target, world: int, args, root: str, timeout: float,
+                what: str):
+    """`world` processes (torch.multiprocessing, spawn) running
+    target(rank, *args), joined within timeout and killed past it: the
+    ranks' pickled results from root/rank<r>.pkl, or None after a failed
+    check with the ranks' tracebacks."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p_ in procs:
+        p_.start()
+    deadline = time.monotonic() + timeout
+    while any(p_.is_alive() for p_ in procs):
+        if (any(p_.exitcode not in (None, 0) for p_ in procs)
+                or time.monotonic() > deadline):
+            break
+        time.sleep(0.2)
+    for p_ in procs:
+        if p_.is_alive():
+            p_.kill()
+        p_.join(30)
+    errs_ = [open(os.path.join(root, f)).read()
+             for f in sorted(os.listdir(root)) if f.endswith(".err")]
+    codes = [p_.exitcode for p_ in procs]
+    log(f"{what}: ranks exited {codes} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(not errs_ and codes == [0] * world,
+          f"{what} failed: " + "\n".join(errs_)[-3000:])
+    if errs_ or codes != [0] * world:
+        return None
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks
+
+
 def dp_world2_phase(dev, seed: int, card: str):
     """World size 2 on one card: two processes (torch.multiprocessing,
     spawn) over a gloo group, the kernels built once by this process
@@ -3901,7 +3994,6 @@ def dp_world2_phase(dev, seed: int, card: str):
     1 counts]}."""
     import numpy as np
     import torch
-    import torch.multiprocessing as mp
 
     from aocr_torch import eval as eval_lib
     from aocr_torch import train_step, weights
@@ -3909,36 +4001,10 @@ def dp_world2_phase(dev, seed: int, card: str):
     root = tempfile.mkdtemp(prefix="aocr_dp_")
     try:
         write_dataset(root, seed)
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=dp_rank, args=(r, 2, root, seed,
-                                                   str(dev)))
-                 for r in range(2)]
-        t0 = time.perf_counter()
-        for p_ in procs:
-            p_.start()
-        deadline = time.monotonic() + 600
-        while any(p_.is_alive() for p_ in procs):
-            if (any(p_.exitcode not in (None, 0) for p_ in procs)
-                    or time.monotonic() > deadline):
-                break
-            time.sleep(0.2)
-        for p_ in procs:
-            if p_.is_alive():
-                p_.kill()
-            p_.join(30)
-        errs_ = [open(os.path.join(root, f)).read()
-                 for f in sorted(os.listdir(root)) if f.endswith(".err")]
-        codes = [p_.exitcode for p_ in procs]
-        log(f"dp world size 2: ranks exited {codes} after "
-            f"{time.perf_counter() - t0:.1f} s")
-        check(not errs_ and codes == [0, 0],
-              "dp world size 2 failed: " + "\n".join(errs_)[-3000:])
-        if errs_ or codes != [0, 0]:
+        ranks = run_spawned(dp_rank, 2, (2, root, seed, str(dev)), root,
+                            600, "dp world size 2")
+        if ranks is None:
             return {}
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
-                ranks.append(pickle.load(f))
         log(f"gloo collectives on CUDA tensors: {ranks[0]['probe']}")
         for r, r_ in enumerate(ranks):
             log(f"dp step world size 2 bf16 B={B_TRAIN // 2} a rank, rank "
@@ -4048,6 +4114,720 @@ def _np_leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _np_leaves(v)]
     return [tree]
+
+
+# ------------------------------------------------------------ phase 4k
+
+# the training options' steps: 3 from one --seed state, each option's
+# step also held to its counterpart from the same state
+OPT_STEPS = 3
+OPT_DROPOUT = 0.3
+# the train step's gates (train_end_to_end): loss rel, norms rel, params
+TRAIN_TOLS = (1e-5, 1e-4, 1e-4)
+
+
+def held_steps(cfg, other, np_model, batch, dev, n: int, record=None):
+    """n steps of cfg from the numpy weights; each step's state also
+    stepped by `other` (a config) under the same key: (the outputs of
+    cfg, the outputs of other, each a list)."""
+    import torch
+
+    from aocr_torch import augment, train_step, weights
+
+    params, stats = weights.from_numpy(*np_model, dev)
+    opt = train_step.init_opt_state(params, cfg)
+    step, ostep = (train_step.make_train_step(c) for c in (cfg, other))
+    images, _w, targets, targets_eval = batch
+    images = torch.from_numpy(images).to(dev)
+    targets = torch.from_numpy(targets).to(dev)
+    targets_eval = torch.from_numpy(targets_eval).to(dev)
+    outs, others = [], []
+    for i in range(n):
+        args = (params, stats, opt, images, targets, targets_eval,
+                cfg.learning_rate, augment.step_key(cfg.seed, i))
+        out = step(*args)
+        others.append(ostep(*args))
+        outs.append(out)
+        params, stats, opt = out.params, out.batch_stats, out.opt_state
+    return outs, others
+
+
+def worst(pairs):
+    """The largest step_agreement terms over (got, want) pairs."""
+    errs_ = [step_agreement(a, b) for a, b in pairs]
+    return tuple(max(e[i] for e in errs_) for i in range(3))
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (float32 steps on the card are
+    otherwise not bitwise repeatable)."""
+    import torch
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def peak_mib(cfg, np_model, batch, dev) -> float:
+    """torch.cuda.max_memory_allocated of one train step (MiB), counted
+    from the memory the step's inputs already hold."""
+    import torch
+
+    from aocr_torch import augment, train_step, weights
+
+    params, stats = weights.from_numpy(*np_model, dev)
+    opt = train_step.init_opt_state(params, cfg)
+    images, _w, targets, targets_eval = (
+        torch.from_numpy(a).to(dev) if not isinstance(a, list) else a
+        for a in batch)
+    step = train_step.make_train_step(cfg)
+    args = (params, stats, opt, images, targets, targets_eval,
+            cfg.learning_rate, augment.step_key(cfg.seed, 0))
+    step(*args)  # warm-up: workspaces and caches
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 2 ** 20
+
+
+def options_phase(dev, tcfg, np_model, batch, card: str):
+    """The training options at B=400, T=11 from the --seed weights, bf16
+    and float32, OPT_STEPS steps each:
+    - dropout 0.3: each (step, site) keep rate of the port's draws within
+      0.7 +- 0.005; bf16 params bit-equal for the same key twice, not for
+      another key; remat + dropout against dropout alone, float32, each
+      step from the same state (params 1e-6 abs, deterministic cuDNN);
+    - remat against no remat, float32, each step from the same state
+      (the train step's gates); the bf16 step's peak memory with and
+      without remat at B=400 and B=1600;
+    - the simple attention, float32: the kernel route held to the plain
+      route (use_pallas=False) with the train step's gates;
+    - -fused_encoder_proj: the float32 step against the unfused step
+      (the train step's gates), bf16 greedy and beam-5 transcripts at
+      B=512 equal to the unfused model's, the bf16 step's ms fused and
+      unfused;
+    - each option's bf16 step ms beside the default step's (host clock,
+      median of 5).
+    The teacher-forced kernels must launch only on the fused-projection
+    step; the CNN and encoder kernels on every option's.  Returns (the
+    launch counts of the option steps, in all and by option)."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import augment, train_step, weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.ops import cuda, dropout
+    from aocr_torch.optim import leaves
+
+    f32 = tcfg.replace(compute_dtype="float32")
+    options = {"dropout": dict(dropout=OPT_DROPOUT), "remat": dict(remat=True),
+               "simple": dict(simple_attention=True),
+               "fused": dict(fused_encoder_proj=True)}
+    counts, total = {}, {k: 0 for k in cuda.KERNELS + ("lstm_fwd_collect",)}
+    outs = {}
+    for name, kw in options.items():
+        cuda.reset_launch_counts()
+        for dt, base in (("bf16", tcfg), ("f32", f32)):
+            outs[(name, dt)] = run_steps(base.replace(**kw), *np_model, batch,
+                                         dev, OPT_STEPS)
+        counts[name] = dp_counts()
+        add_counts(total, counts[name])
+        tf = counts[name]["tf_fwd"] + counts[name]["tf_bwd"]
+        for k in ("conv1_pool", "conv1_pool_bwd", "lstm_fwd_collect",
+                  "lstm_bwd", "pool_bwd"):
+            check(counts[name][k] > 0, f"kernel {k} never launched on the "
+                                       f"{name} train step")
+        check(tf > 0 if name == "fused" else tf == 0,
+              f"{name} train step: the teacher-forced kernels launched "
+              f"{tf} times")
+        log(f"options {name} launch counts ({OPT_STEPS} steps bf16 + "
+            f"float32): {counts[name]}")
+        for dt in ("bf16", "f32"):
+            losses = [float(o.loss_sum) for o in outs[(name, dt)]]
+            check(all(math.isfinite(x) for x in losses),
+                  f"options {name} {dt}: loss {losses}")
+    readings = {}
+    # dropout: the draws' keep rate, repeatability and keys
+    rows = torch.arange(B_TRAIN, device=dev)
+    keep = dropout.masks(augment.step_key(tcfg.seed, 0), rows, WORD_LEN + 1,
+                         tcfg.decoder_num_layers, tcfg.decoder_num_hidden,
+                         OPT_DROPOUT).float().mean((2, 3))
+    lo, hi = float(keep.min()), float(keep.max())
+    check(abs(lo - 0.7) <= 0.005 and abs(hi - 0.7) <= 0.005,
+          f"dropout keep rate per (step, site) in [{lo}, {hi}]")
+    dcfg = tcfg.replace(dropout=OPT_DROPOUT)
+    again = run_steps(dcfg, *np_model, batch, dev, 1)[0]
+    first = outs[("dropout", "bf16")][0]
+    same = all(torch.equal(a, b) for a, b in zip(leaves(again.params),
+                                                 leaves(first.params)))
+    other = run_steps(dcfg.replace(seed=tcfg.seed + 1), *np_model, batch,
+                      dev, 1)[0]
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        leaves(other.params), leaves(first.params)))
+    check(same, "dropout bf16: the same key gave other params")
+    check(moved > 0, "dropout bf16: another key gave the same params")
+    with deterministic_cudnn():
+        d32, r32 = held_steps(f32.replace(dropout=OPT_DROPOUT),
+                              f32.replace(dropout=OPT_DROPOUT, remat=True),
+                              np_model, batch, dev, OPT_STEPS)
+        _l, _n, rd_err = worst(zip(r32, d32))
+        m32, n32 = held_steps(f32, f32.replace(remat=True), np_model, batch,
+                              dev, OPT_STEPS)
+        rl, rn, rp = worst(zip(n32, m32))
+    check(rd_err <= 1e-6, f"remat + dropout vs dropout, float32: params "
+                          f"differ by {rd_err}")
+    check(rl <= TRAIN_TOLS[0] and rp <= 1e-4,
+          f"remat vs no remat, float32: loss rel {rl}, params {rp}")
+    log(f"options dropout {OPT_DROPOUT} B={B_TRAIN}: keep rate per (step, "
+        f"site) {lo:.5f}..{hi:.5f} over {B_TRAIN}x"
+        f"{tcfg.decoder_num_hidden} draws each (band 0.7 +- 0.005); bf16 "
+        f"params for one key twice bit-equal {same}, another key moves "
+        f"them by {moved:.3g}; float32 remat + dropout vs dropout, each of "
+        f"{OPT_STEPS} steps from the same state: params max abs err "
+        f"{rd_err:.3g} (tol 1e-6)")
+    log(f"options remat float32, each of {OPT_STEPS} steps vs no remat from "
+        f"the same state: loss rel err {rl:.3g}, grad norm rel err "
+        f"{rn:.3g}, params max abs err {rp:.3g} (tol 1e-5, -, 1e-4)")
+    # simple attention: the kernel route against the plain route
+    scfg = f32.replace(simple_attention=True)
+    sk, sp = held_steps(scfg, scfg.replace(use_pallas=False), np_model,
+                        batch, dev, 1)
+    sl, sn, spar = worst(zip(sk, sp))
+    check(sl <= TRAIN_TOLS[0] and sn <= TRAIN_TOLS[1]
+          and spar <= TRAIN_TOLS[2],
+          f"simple attention float32: kernels vs plain route: {sl}, {sn}, "
+          f"{spar}")
+    log(f"options simple attention float32 step, kernel route vs plain "
+        f"route on the card: loss rel err {sl:.3g}, grad norm rel err "
+        f"{sn:.3g}, params max abs err {spar:.3g} (tol {TRAIN_TOLS})")
+    # fused projection: the float32 step against the unfused step
+    fk, fu = held_steps(f32.replace(fused_encoder_proj=True), f32, np_model,
+                        batch, dev, 1)
+    fl, fn, fpar = worst(zip(fk, fu))
+    check(fl <= TRAIN_TOLS[0] and fn <= TRAIN_TOLS[1]
+          and fpar <= TRAIN_TOLS[2],
+          f"fused projection float32 step vs unfused: {fl}, {fn}, {fpar}")
+    log(f"options -fused_encoder_proj float32 step vs unfused: loss rel err "
+        f"{fl:.3g}, grad norm rel err {fn:.3g}, params max abs err "
+        f"{fpar:.3g} (tol {TRAIN_TOLS})")
+    # ... its bf16 transcripts at B=512, greedy and beam-5
+    rs = np.random.RandomState(tcfg.seed + 17)
+    crops = word_images(rs, B_SERVE, W_SERVE)
+    cuda.reset_launch_counts()
+    texts = {}
+    for fused in (False, True):
+        cfg = base_config().replace(compute_dtype="bfloat16",
+                                    fused_encoder_proj=fused)
+        ocr = AttentionOCR(cfg, *weights.from_numpy(*np_model), device=dev)
+        for beam in (1, BEAM):
+            texts[(fused, beam)] = ocr.recognize(list(crops),
+                                                 beam_size=beam)[0]
+    counts["fused recognize"] = dp_counts()
+    add_counts(total, counts["fused recognize"])
+    for beam in (1, BEAM):
+        a, b = texts[(True, beam)], texts[(False, beam)]
+        same_rows = sum(x == y for x, y in zip(a, b))
+        check(same_rows == len(b), f"fused projection bf16 beam-{beam}: "
+                                   f"{len(b) - same_rows} transcripts differ")
+        log(f"options -fused_encoder_proj bf16 recognize B={B_SERVE} "
+            f"beam-{beam}: {same_rows} of {len(b)} transcripts equal the "
+            f"unfused model's")
+    # peak memory with and without remat, bf16
+    for B in (B_TRAIN, 4 * B_TRAIN):
+        big = tuple(np.concatenate([a] * (B // B_TRAIN)) if not
+                    isinstance(a, list) else a * (B // B_TRAIN)
+                    for a in batch)
+        for name, cfg in (("default", tcfg), ("per-step", tcfg.replace(
+                decoder_custom_vjp=False)), ("remat", tcfg.replace(
+                    remat=True))):
+            readings[("peak", name, B)] = peak_mib(cfg.replace(batch_size=B),
+                                                   np_model, big, dev)
+        log(f"options remat bf16 B={B}: the step's peak memory above its "
+            f"inputs (torch.cuda.max_memory_allocated) default route "
+            f"{readings[('peak', 'default', B)]:.0f} MiB, per-step decoder "
+            f"without remat {readings[('peak', 'per-step', B)]:.0f} MiB, "
+            f"with remat {readings[('peak', 'remat', B)]:.0f} MiB on {card}")
+    # each option's bf16 step ms beside the default's, and the fused
+    # projection's A/B in turns
+    params, stats = weights.from_numpy(*np_model, dev)
+    images, _w, t, te = (torch.from_numpy(a).to(dev)
+                         if not isinstance(a, list) else a for a in batch)
+
+    def ms_of(cfg):
+        return step_ms(train_step.make_train_step(cfg), (
+            params, stats, train_step.init_opt_state(params, cfg), images,
+            t, te, cfg.learning_rate, augment.step_key(cfg.seed, 0)))
+
+    order = [("default", {}), *options.items()]
+    runs_ = {n: [] for n, _ in order}
+    for n, kw in order + order[::-1]:
+        runs_[n] += ms_of(tcfg.replace(**kw))
+    for n in runs_:
+        readings[("ms", n)] = float(np.median(runs_[n]))
+    log(f"options bf16 train step B={B_TRAIN}: " + ", ".join(
+        f"{n} {readings[('ms', n)]:.2f} ms" for n in runs_)
+        + f" (host clock, median of 2x5, the options in turns, then in the "
+        f"reverse order) on {card}")
+    turns = {True: [], False: []}
+    for fused in (True, False, False, True):
+        turns[fused].append(float(np.median(ms_of(
+            tcfg.replace(fused_encoder_proj=fused)))))
+    log(f"options -fused_encoder_proj A/B, bf16 train step B={B_TRAIN}: "
+        f"fused {turns[True]} ms, unfused {turns[False]} ms (host clock, "
+        f"median of 5 a turn, turns fused/unfused/unfused/fused) on {card}")
+    return total, counts
+
+# ------------------------------------------------------------ phase 4l
+
+# the tensor-parallel grids on the one card: (data, model) and processes
+TP_GRIDS = ((1, 2), (2, 2))
+TP_STEP_KERNELS = ("conv1_pool", "conv1_pool_bwd", "lstm_fwd_collect",
+                   "lstm_bwd", "pool_bwd")
+
+
+def tp_run_steps(cfg, grid, inputs, schedule, dev, record=None):
+    """The schedule's make_tp_train_step steps at this rank's place on the
+    grid from the numpy weights (its shards; its data shard's rows).  With
+    a record list, each step's (whole state before it, the output with
+    the params gathered) is appended (every rank takes part in the
+    gathers).  Returns (losses, grad norms, gathered numpy params and
+    stats, this rank's final shards as numpy leaves)."""
+    import torch
+
+    from aocr_torch import augment, train, train_step, weights
+    from aocr_torch.optim import leaves
+    from aocr_torch.parallel import mesh, tensor_parallel as tpl
+
+    np_model, batch = inputs[0], inputs[1]
+    whole, stats = weights.from_numpy(*np_model, dev)
+    params = tpl.shard_params(whole, grid)
+    del whole
+    opt = train_step.init_opt_state(params, cfg)
+    step = tpl.make_tp_train_step(cfg, grid)
+    loc = lambda a: mesh.local_rows(a, grid.data_group)  # noqa: E731
+    images = torch.from_numpy(loc(batch[0])).to(dev)
+    gather = lambda tree: tpl.gather_params(tree, grid)  # noqa: E731
+    losses, norms = [], []
+    for i, (t, te, mask) in enumerate(schedule):
+        extra = {} if mask is None else {
+            "row_mask": torch.from_numpy(loc(mask)).to(dev)}
+        before = None if record is None else (
+            gather(params), stats, train._map_opt_state(opt, gather))
+        out = step(params, stats, opt, images,
+                   torch.from_numpy(loc(t)).to(dev),
+                   torch.from_numpy(loc(te)).to(dev), cfg.learning_rate,
+                   augment.step_key(cfg.seed, i), **extra)
+        if record is not None:
+            record.append((before, out._replace(params=gather(out.params))))
+        params, stats, opt = out.params, out.batch_stats, out.opt_state
+        losses.append(float(out.loss_sum))
+        norms.append({k: float(v) for k, v in out.grad_norms.items()})
+    p, s = weights.to_numpy(gather(params), stats)
+    local = [x.detach().cpu().numpy() for x in leaves(params)]
+    return losses, norms, p, s, local
+
+
+def tp_one_process_errors(cfg, inputs, schedule, dev, record):
+    """Each recorded TP step against make_train_step on the whole batch
+    from the same state: (max loss_sum rel err, {group: max grad-norm rel
+    err}, max |param difference|, every param within rtol 1e-3 atol
+    3e-4)."""
+    import torch
+
+    from aocr_torch import augment, train_step
+    from aocr_torch.optim import leaves
+
+    step = train_step.make_train_step(cfg)
+    images = torch.from_numpy(inputs[1][0]).to(dev)
+    loss_err = perr = 0.0
+    norm_err = {}
+    ok = True
+    for i, (((p, s, o), got), (t, te, mask)) in enumerate(zip(record,
+                                                              schedule)):
+        extra = {} if mask is None else {
+            "row_mask": torch.from_numpy(mask).to(dev),
+            "real_bs": float(mask.sum())}
+        want = step(p, s, o, images, torch.from_numpy(t).to(dev),
+                    torch.from_numpy(te).to(dev), cfg.learning_rate,
+                    augment.step_key(cfg.seed, i), **extra)
+        loss_err = max(loss_err, rel_err(got.loss_sum, want.loss_sum))
+        for k in want.grad_norms:
+            norm_err[k] = max(norm_err.get(k, 0.0), rel_err(
+                got.grad_norms[k], want.grad_norms[k]))
+        for a, b in zip(leaves(got.params), leaves(want.params)):
+            d = (a - b).abs()
+            perr = max(perr, float(d.max()))
+            ok = ok and bool((d <= 3e-4 + 1e-3 * b.abs()).all())
+    return loss_err, norm_err, perr, ok
+
+
+def tp_dp_errors(cfg, grid, inputs, schedule, dev, record):
+    """Each recorded TP step against make_dp_train_step over the grid's
+    data group from the same state (the whole params on every rank: the
+    same rows a rank and the same sync-BN, no model axis); every rank
+    takes part.  Returns (max loss_sum rel err, {group: max grad-norm rel
+    err})."""
+    import torch
+
+    from aocr_torch import augment
+    from aocr_torch.parallel import data_parallel, mesh
+
+    step = data_parallel.make_dp_train_step(cfg, grid.data_group)
+    loc = lambda a: mesh.local_rows(a, grid.data_group)  # noqa: E731
+    images = torch.from_numpy(loc(inputs[1][0])).to(dev)
+    loss_err, norm_err = 0.0, {}
+    for i, (((p, s, o), got), (t, te, mask)) in enumerate(zip(record,
+                                                              schedule)):
+        extra = {} if mask is None else {
+            "row_mask": torch.from_numpy(loc(mask)).to(dev)}
+        want = step(p, s, o, images, torch.from_numpy(loc(t)).to(dev),
+                    torch.from_numpy(loc(te)).to(dev), cfg.learning_rate,
+                    augment.step_key(cfg.seed, i), **extra)
+        loss_err = max(loss_err, rel_err(got.loss_sum, want.loss_sum))
+        for k in want.grad_norms:
+            norm_err[k] = max(norm_err.get(k, 0.0), rel_err(
+                got.grad_norms[k], want.grad_norms[k]))
+    return loss_err, norm_err
+
+
+def tp_rank(rank: int, nd: int, nm: int, root: str, seed: int,
+            device: str) -> None:
+    """One rank of a (nd, nm) grid on `device` in a gloo group over a file
+    store under root: the TP step (3 full steps and the masked tail,
+    float32 recorded, rank 0 holding each step to make_train_step from
+    the same state; bf16 reported) and its host-clock ms; at (1, 2) a
+    float32 step with dropout against the one-process dropout step; at
+    (2, 2) the eval (aocr's flat data mesh over the 4 ranks on the
+    gathered params, beam-5) and the CLI trainer at -num_shards 2
+    -num_model_shards 2, then its checkpoint resumed by a Trainer of the
+    grid and gathered whole.  Writes root/rank<r>.pkl or root/rank<r>.err."""
+    try:
+        sys.path.insert(0, ROOT)
+        import torch
+        import torch.distributed as dist
+
+        from aocr_torch import train, train_step, weights
+        from aocr_torch.config import parse_args
+        from aocr_torch.ops import cuda
+        from aocr_torch.parallel import eval_parallel, mesh
+        from aocr_torch.parallel import tensor_parallel as tpl
+
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{root}/store",
+                                rank=rank, world_size=nd * nm)
+        grid = mesh.make_grid(nd, nm)
+        out = {"grid": (grid.d, grid.m)}
+        inputs = dp_step_inputs(seed)
+        schedule = dp_schedule(inputs, DP_STEPS, True)
+        cuda.reset_launch_counts()
+        record = []
+        out["float32"] = tp_run_steps(train_config("float32"), grid, inputs,
+                                      schedule, dev, record)
+        out["bfloat16"] = tp_run_steps(train_config("bfloat16"), grid,
+                                       inputs, schedule, dev)
+        drop = []
+        if nd == 1:
+            out["dropout"] = tp_run_steps(
+                train_config("float32").replace(dropout=OPT_DROPOUT), grid,
+                inputs, schedule[:1], dev, drop)
+        out["step_counts"] = dp_counts()
+        if nd > 1:
+            out["dp_errors"] = tp_dp_errors(train_config("float32"), grid,
+                                            inputs, schedule, dev, record)
+        if rank == 0:
+            out["errors"] = tp_one_process_errors(
+                train_config("float32"), inputs, schedule, dev, record)
+            if drop:
+                out["dropout_errors"] = tp_one_process_errors(
+                    train_config("float32").replace(dropout=OPT_DROPOUT),
+                    inputs, schedule[:1], dev, drop)
+        del record, drop
+        cfg = train_config("float32")
+        params, stats = weights.from_numpy(*inputs[0], dev)
+        shards = tpl.shard_params(params, grid)
+        b = inputs[1]
+        loc = lambda a: mesh.local_rows(a, grid.data_group)  # noqa: E731
+        out["step_ms"] = step_ms(tpl.make_tp_train_step(cfg, grid), (
+            shards, stats, train_step.init_opt_state(shards, cfg),
+            torch.from_numpy(loc(b[0])).to(dev),
+            torch.from_numpy(loc(b[2])).to(dev),
+            torch.from_numpy(loc(b[3])).to(dev), cfg.learning_rate, None))
+        if nd == 2:
+            # the eval: the flat data mesh of every rank, gathered params
+            im, t, te, mask = (mesh.local_rows(a)
+                               for a in dp_eval_inputs(seed))
+            ecfg = base_config().replace(beam_size=BEAM)
+            cuda.reset_launch_counts()
+            ev = eval_parallel.make_dp_eval_step(ecfg)(
+                tpl.gather_params(shards, grid), stats,
+                torch.from_numpy(im).to(dev), t, te, None,
+                torch.from_numpy(mask))
+            out["eval_counts"] = dp_counts()
+            out["eval"] = {k: v.cpu().numpy() for k, v in
+                           ev._asdict().items()}
+            flags = ("-num_shards", str(nd), "-num_model_shards", str(nm))
+            cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                train.main(trainer_argv(root, f"tp_rank{rank}", seed,
+                                        *DP_TRAIN_ARGS, *flags), device=dev)
+            out["trainer_s"] = time.perf_counter() - t0
+            out["trainer_counts"] = dp_counts()
+            dist.barrier()
+            # rank 0's checkpoint, resumed by every rank and gathered
+            tr = train.Trainer(parse_args(trainer_argv(
+                root, "tp_rank0", seed, "-load_model", *flags)),
+                train._Quiet(), dev)
+            whole = tr._whole_params()
+            if rank == 0:
+                out["resumed"] = weights.to_numpy(whole, tr.batch_stats)
+        dist.barrier()
+        with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.destroy_process_group()
+    except Exception:
+        with open(os.path.join(root, f"rank{rank}.err"), "w") as f:
+            f.write(f"rank {rank}:\n{traceback.format_exc()}")
+        os._exit(1)
+
+
+def _np_by_path(tree, path=()) -> dict:
+    """{path: leaf} of a nested dict/list."""
+    if isinstance(tree, dict):
+        return {k_: v_ for k, v in tree.items()
+                for k_, v_ in _np_by_path(v, path + (k,)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k_: v_ for i, v in enumerate(tree)
+                for k_, v_ in _np_by_path(v, path + (i,)).items()}
+    return {path: tree}
+
+
+def tp_phase(dev, seed: int, card: str):
+    """DP x TP on the one card over gloo, all ranks on cuda:0: the (1, 2)
+    grid in 2 processes and the (2, 2) grid in 4, the kernels built
+    once by this process before the spawns.  Float32 at global B=400,
+    T=11: 3 full steps and a masked tail (data shards of 200 and 100
+    real rows at (2, 2)), each step held by rank 0 to make_train_step on
+    the whole batch from the same state (loss rtol 1e-4, gathered params
+    rtol 1e-3 atol 3e-4 -- tests/test_tensor_parallel.py's tolerances --
+    and, at (1, 2), per-group grad norms rtol 1e-5; at (2, 2) the norms
+    move with sync-BN's sums over the data shards, so there they are
+    reported against one process and held, rtol 1e-5, to the DP step over
+    the same data group from the same state); every rank's gathered state the
+    same, replicated leaves bit-equal on every rank and each shard
+    across its data ranks; bf16 reported; at (1, 2) a dropout-0.3 step
+    against the one-process dropout step; the TP step's host-clock ms
+    (gloo through the host, both or all four ranks on one card: no
+    scaling figure).  At (2, 2) the eval on the gathered params over all
+    4 ranks (beam-5, 500 rows padded to 512) against one process, and
+    the CLI trainer at -num_shards 2 -num_model_shards 2 against
+    -num_shards 1 (step perplexities rtol 1e-5, float32; only rank 0
+    writes), whose checkpoint loads in one process and gives the
+    transcripts of the params the grid gathers on resuming it.  The
+    step's CNN and encoder kernels launch in every rank, the
+    teacher-forced training kernels in none.  Returns {path: [counts of
+    each rank]}."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import checkpoint
+    from aocr_torch import eval as eval_lib
+    from aocr_torch import train_step, weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.optim import leaves
+    from aocr_torch.parallel import tensor_parallel as tpl
+
+    inputs = dp_step_inputs(seed)
+    schedule = dp_schedule(inputs, DP_STEPS, True)
+    specs = leaves(tpl.param_specs(weights.from_numpy(*inputs[0])[0]))
+    paths = {}
+    for nd, nm in TP_GRIDS:
+        tag = f"{nd}x{nm}"
+        root = tempfile.mkdtemp(prefix="aocr_tp_")
+        try:
+            if nd == 2:
+                write_dataset(root, seed)
+            ranks = run_spawned(tp_rank, nd * nm,
+                                (nd, nm, root, seed, str(dev)), root, 900,
+                                f"tp {tag}")
+            if ranks is None:
+                continue
+            check([r_["grid"] for r_ in ranks]
+                  == [divmod(r, nm) for r in range(nd * nm)],
+                  f"tp {tag}: grid places {[r_['grid'] for r_ in ranks]}")
+            loss, norms, perr, ok = ranks[0]["errors"]
+            norm = max(norms.values())
+            fmt = lambda d: ", ".join(  # noqa: E731
+                f"{k} {v:.3g}" for k, v in d.items())
+            log(f"tp step {tag} float32 (gloo, one card), {DP_STEPS} full "
+                f"steps + a tail of {DP_TAIL_REAL} real rows, each step vs "
+                f"one process at B={B_TRAIN} from the same state: loss rel "
+                f"err {loss:.3g} (tol 1e-4), gathered params max abs err "
+                f"{perr:.3g}, within rtol 1e-3 atol 3e-4: {ok}; grad norm "
+                f"rel err by group {fmt(norms)}"
+                + (" (tol 1e-5)" if nd == 1 else ""))
+            check(loss <= 1e-4 and ok and (nd > 1 or norm <= 1e-5),
+                  f"tp step {tag} float32 disagrees with one process")
+            if nd > 1:
+                # with a data axis the norms move with sync-BN's sums over
+                # the data shards: the model axis's own part is held to the
+                # DP step over the same data group
+                dls = [r_["dp_errors"] for r_ in ranks]
+                dnorm = max(max(d[1].values()) for d in dls)
+                dloss = max(d[0] for d in dls)
+                log(f"tp step {tag} float32, each step vs make_dp_train_step "
+                    f"over the same data group from the same state (sync-BN "
+                    f"over {nd} data shards, no model axis), every rank: "
+                    f"loss rel err {dloss:.3g} (tol 1e-4), grad norm rel err "
+                    f"{dnorm:.3g} (tol 1e-5); rank 0 by group "
+                    f"{fmt(dls[0][1])}")
+                check(dloss <= 1e-4 and dnorm <= 1e-5,
+                      f"tp step {tag} float32 disagrees with the DP step "
+                      f"over its data group")
+            for dt in ("float32", "bfloat16"):
+                outs = [r_[dt] for r_ in ranks]
+                same = all(o[0] == outs[0][0] and all(
+                    np.array_equal(a, b) for a, b in zip(
+                        _np_leaves(o[2]), _np_leaves(outs[0][2])))
+                    for o in outs)
+                rep = all(np.array_equal(o[4][i], (
+                    outs[r % nm] if spec is not None else outs[0])[4][i])
+                    for r, o in enumerate(outs)
+                    for i, spec in enumerate(specs))
+                check(same and rep, f"tp {tag} {dt}: ranks differ (gathered "
+                                    f"state equal {same}, replicated leaves "
+                                    f"and shards equal {rep})")
+                want = dp_run_steps(train_config(dt),
+                                    train_step.make_train_step(
+                                        train_config(dt)),
+                                    inputs, schedule, dev)
+                log(f"tp step {tag} {dt}: ranks' gathered state equal "
+                    f"{same}, replicated leaves bit-equal on every rank and "
+                    f"each shard across its data ranks {rep}; run apart: "
+                    f"losses {[round(x, 3) for x in outs[0][0]]} vs one "
+                    f"process {[round(x, 3) for x in want[0]]}, params "
+                    f"differ by {max_abs_diff(outs[0][2], want[1]):.3g}"
+                    + (" (reported)" if dt == "bfloat16" else ""))
+            for r, r_ in enumerate(ranks):
+                log(f"tp step {tag} float32 global B={B_TRAIN}, rank {r}: "
+                    f"{np.median(r_['step_ms']):.2f} ms (host clock, median "
+                    f"of 5; gloo through the host, {nd * nm} ranks on one "
+                    f"card: not a scaling figure) on {card}")
+            if "dropout_errors" in ranks[0]:
+                loss, norms, perr, ok = ranks[0]["dropout_errors"]
+                norm = max(norms.values())
+                log(f"tp step {tag} float32 dropout {OPT_DROPOUT} vs the "
+                    f"one-process dropout step: loss rel err {loss:.3g}, "
+                    f"grad norm rel err {norm:.3g}, params max abs err "
+                    f"{perr:.3g}, within rtol 1e-3 atol 3e-4: {ok}")
+                check(loss <= 1e-4 and norm <= 1e-5 and ok,
+                      f"tp {tag} dropout step disagrees with one process")
+            keys = [("step_counts", TP_STEP_KERNELS)]
+            if nd == 2:
+                keys += [("eval_counts", DP_EVAL_KERNELS),
+                         ("trainer_counts", TP_STEP_KERNELS)]
+            for key, kernels in keys:
+                counts = [r_[key] for r_ in ranks]
+                paths[f"tp {key[:-7]} {tag}"] = counts
+                for r, c in enumerate(counts):
+                    for k in kernels:
+                        check(c[k] > 0, f"kernel {k} never launched in rank "
+                                        f"{r} on the tp {tag} {key}")
+                    if key != "eval_counts":
+                        check(c["tf_bwd"] == 0 and (
+                            key != "step_counts" or c["tf_fwd"] == 0),
+                              f"tp {tag} {key}: the teacher-forced kernels "
+                              f"launched in rank {r}: {c}")
+                log(f"tp {tag} {key}: " + "; ".join(
+                    f"rank {r} {c}" for r, c in enumerate(counts)))
+            if nd != 2:
+                continue
+            # the eval against one process on the 500 real rows
+            im, t, te, _mask = dp_eval_inputs(seed)
+            cfg = base_config().replace(beam_size=BEAM)
+            params, stats = weights.from_numpy(*inputs[0], dev)
+            (labels, _sc, _rf), nll, _gold = train_step.eval_decode_step(
+                params, stats, im[:DP_EVAL_REAL], t[:DP_EVAL_REAL],
+                te[:DP_EVAL_REAL], cfg, beam_size=BEAM, max_len=T_MAX,
+                return_refills=True)
+            gold = torch.from_numpy(te[:DP_EVAL_REAL]).to(dev)
+            acc = int(eval_lib.exact_match(labels, gold).sum())
+            cer = float(eval_lib.char_error_rate(labels, gold).double().sum()
+                        .float())
+            evs = [r_["eval"] for r_ in ranks]
+            lab_ok = np.array_equal(evs[0]["labels"][:DP_EVAL_REAL],
+                                    labels.cpu().numpy())
+            nll_err = abs(float(evs[0]["nll"]) - float(nll)) / abs(float(nll))
+            same = all(np.array_equal(e[k], evs[0][k]) for e in evs
+                       for k in evs[0])
+            log(f"tp eval {tag} (the flat data mesh of 4 ranks, gathered "
+                f"params), beam-{BEAM} float32, {DP_EVAL_REAL} rows padded "
+                f"to {B_SERVE}: labels equal {lab_ok}, accuracy "
+                f"{int(evs[0]['accuracy'])} vs {acc}, cer_sum "
+                f"{float(evs[0]['cer_sum']):.6f} vs {cer:.6f}, nll rel err "
+                f"{nll_err:.3g}; ranks equal {same}")
+            check(lab_ok and int(evs[0]["accuracy"]) == acc
+                  and float(evs[0]["cer_sum"]) == cer and nll_err <= 1e-5
+                  and same, f"tp eval {tag} disagrees with one process")
+            # the CLI trainer against -num_shards 1
+            msgs, _c, secs = run_trainer(root, "one", seed, *DP_TRAIN_ARGS)
+            with open(os.path.join(root, "tp_rank0.log")) as f:
+                tmsgs = [line.split(" ", 2)[2]
+                         for line in f.read().splitlines()]
+            a, b = step_perplexities(tmsgs), step_perplexities(msgs)
+            perr = perplexity_rel_err(a, b)
+            files0 = sorted(os.listdir(os.path.join(root, "tp_rank0")))
+            others = [f for f in os.listdir(root) if f.startswith(
+                ("tp_rank1", "tp_rank2", "tp_rank3"))]
+            mesh_line = any("DP x TP training over a 2x2 (data, model) mesh"
+                            in m for m in tmsgs)
+            eval_line = any("Sharded evaluation over 4 devices" in m
+                            for m in tmsgs)
+            log(f"tp trainer -num_shards 2 -num_model_shards 2 (gloo, one "
+                f"card), float32 one epoch: step perplexities "
+                f"{[round(x, 4) for x in a]} vs -num_shards 1's "
+                f"{[round(x, 4) for x in b]}: rel err {perr:.3g} (tol "
+                f"1e-5); {ranks[0]['trainer_s']:.1f} s against {secs:.1f} "
+                f"s; the mesh line {mesh_line}, the eval line {eval_line}; "
+                f"rank 0 wrote {files0}, ranks 1-3 {others}")
+            check(len(a) == 3 and perr <= 1e-5 and mesh_line and eval_line,
+                  "tp trainer: step perplexities or log lines differ")
+            check(others == [] and {"model-2", "model-3", "final-model"}
+                  <= set(files0), "tp trainer: only rank 0 may write the "
+                                  "log and checkpoints")
+            # its checkpoint in one process against the params the grid
+            # gathered on resuming it
+            ckpt = checkpoint.try_load_final(os.path.join(root, "tp_rank0"))
+            rp, rs_ = ranks[0]["resumed"]
+            a_, b_ = _np_by_path(ckpt["params"]), _np_by_path(rp)
+            bits = a_.keys() == b_.keys() and all(
+                np.array_equal(a_[k], b_[k]) for k in a_)
+            one = AttentionOCR.load(os.path.join(root, "tp_rank0"),
+                                    device=dev)
+            grid_ocr = AttentionOCR(one.cfg, *weights.from_numpy(rp, rs_),
+                                    device=dev)
+            crops = word_images(np.random.RandomState(seed + 19), B_SERVE,
+                                W_SERVE)
+            w1, _ = one.recognize(crops, beam_size=1)
+            w2, _ = grid_ocr.recognize(crops, beam_size=1)
+            check(bits and w1 == w2, f"tp trainer checkpoint: params "
+                                     f"bit-equal {bits}, transcripts equal "
+                                     f"{w1 == w2}")
+            log(f"tp trainer checkpoint loaded in one process: params "
+                f"bit-equal to the grid's gathered resume {bits}, greedy "
+                f"transcripts at B={B_SERVE} equal {w1 == w2}")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    return paths
 
 
 # ------------------------------------------------------------ phase 9
@@ -4228,6 +5008,8 @@ def main() -> int:
     w2 = {k: w2.get(k, [none, none]) for k in ("step_counts", "eval_counts",
                                               "trainer_counts")}
     shcounts = shard_phase(dev, args.seed, card)
+    ocounts, oby = options_phase(dev, tcfg, np_model, batch, card)
+    tpcounts = tp_phase(dev, args.seed, card)
     ms, bounds, lib = timings(dev, models, requests, card, table)
     gms, gbounds = greedy_loop_timings(dev, models, results, table)
     ms.update(gms)
@@ -4279,11 +5061,14 @@ def main() -> int:
              "CLI trainer": ccounts, "serve": scounts,
              "device preprocess": dcounts, "augment": acounts,
              "torch import": icounts, "dp step world 1": w1counts,
-             "shard": shcounts}
+             "shard": shcounts, "training options": ocounts}
     for key, name in (("step_counts", "dp step"), ("eval_counts", "dp eval"),
                       ("trainer_counts", "dp CLI trainer")):
         for r in (0, 1):
             paths[f"{name} world 2 rank {r}"] = w2[key][r]
+    for key, ranks in tpcounts.items():
+        for r, c_ in enumerate(ranks):
+            paths[f"{key} rank {r}"] = c_
     kernels = []
     for k in cuda.KERNELS:
         d = main_dtype[k]
@@ -4298,14 +5083,14 @@ def main() -> int:
             "launches_by_path": {p_: c_[k] for p_, c_ in paths.items()},
             # the DP step and eval at world size 2, each rank's launches
             "launches_dp": {"step": [c_[k] for c_ in w2["step_counts"]],
-                            "eval": [c_[k] for c_ in w2["eval_counts"]]}}
+                            "eval": [c_[k] for c_ in w2["eval_counts"]]},
+            # DP x TP (gloo, one card): each rank's launches a path
+            "launches_tp": {key[3:]: [c_[k] for c_ in ranks]
+                            for key, ranks in tpcounts.items()},
+            # the training options' steps (bf16 and float32, 3 each)
+            "launches_options": {o_: c_[k] for o_, c_ in oby.items()}}
         if k == "lstm_fwd":
-            c = (tcounts["lstm_fwd_collect"] + ccounts["lstm_fwd_collect"]
-                 + acounts["lstm_fwd_collect"]
-                 + w1counts["lstm_fwd_collect"]
-                 + sum(c_["lstm_fwd_collect"] for key in ("step_counts",
-                                                          "trainer_counts")
-                       for c_ in w2[key]))
+            c = sum(c_.get("lstm_fwd_collect", 0) for c_ in paths.values())
             entry["redesigned"] = ("thread-block clusters, the Wh slice in "
                                    "shared memory, bf16 mma.sync")
             entry["modes"] = {

@@ -277,6 +277,8 @@ def _assert_port_only(loaded):
             "aocr_torch.parallel.mesh", "aocr_torch.parallel.multihost",
             "aocr_torch.parallel.data_parallel",
             "aocr_torch.parallel.eval_parallel",
+            "aocr_torch.ops.dropout", "aocr_torch.parallel.tensor_parallel",
+            "aocr_torch.visualizer", "aocr_torch.visualizer.generate_html",
             *(f"aocr_torch.ops.cuda.{k}" for k in cuda.KERNELS)} <= port
     assert cuda.KERNELS == (
         "conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",

@@ -215,24 +215,35 @@ def test_score_matches_reference():
 @pytest.mark.parametrize("what", ["dropout", "remat", "simple_attention",
                                   "augment"])
 def test_unported_training_options_raise(what):
-    """Dropout, remat and simple attention in training name their ROADMAP
-    item; -augment, once refused too, now runs: under a step key the
-    augmented step's loss is finite, differs from the plain step's, and
-    repeats for the same key."""
+    """The training options, once refused, now train (the per-step
+    decoder under autograd; tests/test_torch_port_options.py holds each
+    to aocr): under a step key the step's loss is finite and repeats for
+    the same key.  Dropout and -augment change the step (dropout without
+    a key raises ValueError, as aocr does), remat gives the step without
+    it within 1e-5, the simple attention another step."""
     cfg = _tcfg(**{what: 0.1 if what == "dropout" else True})
     tp, ts = weights.from_numpy(*_problem(_cfg())[:2])
     images, t, te = _problem(_cfg())[2:]
     step = lambda c, key: train_step.make_train_step(c)(  # noqa: E731
         tp, ts, optim.sgd_init(tp), images, t, te, 0.1, key)
-    if what != "augment":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step(cfg, None)
-        return
+    off = {"dropout": 0.0, "remat": False, "simple_attention": False,
+           "augment": False}
     key = augment.step_key(cfg.seed, 4)
-    loss = float(step(cfg, key).loss_sum)
+    out = step(cfg, key)
+    loss = float(out.loss_sum)
+    plain = step(cfg.replace(**{what: off[what]}), key)
     assert np.isfinite(loss)
-    assert loss != float(step(cfg.replace(augment=False), key).loss_sum)
     assert loss == float(step(cfg, key).loss_sum)
+    if what == "remat":
+        np.testing.assert_allclose(loss, float(plain.loss_sum), rtol=1e-5)
+        for a, b in zip(optim.leaves(out.params), optim.leaves(plain.params)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-5)
+    else:
+        assert loss != float(plain.loss_sum)
+    if what == "dropout":
+        with pytest.raises(ValueError, match="dropout_rng"):
+            step(cfg, None)
 
 
 def test_image_gradient_of_conv1_raises():

@@ -263,35 +263,28 @@ def test_trainer_defaults_to_cuda(tmp_path):
                     str(tmp_path / "log.txt")])
 
 
-TENSOR_PARALLEL = "ROADMAP queue 1: Tensor parallel"
-
-
 @pytest.mark.parametrize("flag,item", [
-    (["-num_shards", "2"], None), (["-num_model_shards", "2"],
-                                   TENSOR_PARALLEL),
+    (["-num_shards", "2"], None), (["-num_model_shards", "2"], None),
     (["-multihost", "-num_shards", "2"], None), (["-augment"], None),
     (["-device_preprocess", "-no_snap_width_ladder"], None)],
     # the cases' ids from when the items were named by number
     ids=["flag0-item 11", "flag1-item 11", "flag2-item 11", "flag3-item 10",
          "flag4-item 10"])
 def test_unported_options_raise(runs, tmp_path, flag, item):
-    """Tensor parallelism names its ROADMAP item.  The other options,
-    once refused, now train: the module's run from the same checkpoint
-    with each flag added.  -num_shards 2 runs in two processes over gloo
-    (tests/torch_parallel_worker.py) and gives the one-process run's
-    params within 1e-5; -multihost -num_shards 2 shards the manifest (5
-    rows a process, steps of 2, 2 and a masked 1), keeps the processes
-    in lockstep and trains 3 steps.  Only rank 0 writes the log and the
-    checkpoints.  The crops are already 32 x 36, so device preprocessing
-    gives the host-mode run's params (within 1e-6); -augment draws from
-    (-seed, global step), so two runs give the same params, and not the
-    unaugmented run's."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            train.main(["-phase", "test", "-log_path",
-                        str(tmp_path / "l.txt")] + flag, device="cpu")
-        return
-    if "-num_shards" in flag:
+    """The options, once refused, now train: the module's run from the
+    same checkpoint with each flag added.  -num_shards 2, and
+    -num_model_shards 2 (a 1x2 (data, model) grid), run in two processes
+    over gloo (tests/torch_parallel_worker.py) and give the one-process
+    run's step perplexities (rtol 1e-5) and params within 1e-5;
+    -multihost -num_shards 2 shards the manifest (5 rows a process, steps
+    of 2, 2 and a masked 1), keeps the processes in lockstep and trains 3
+    steps.  Only rank 0 writes the log and the checkpoints.  The crops
+    are already 32 x 36, so device preprocessing gives the host-mode
+    run's params (within 1e-6); -augment draws from (-seed, global
+    step), so two runs give the same params, and not the unaugmented
+    run's."""
+    assert item is None
+    if "-num_shards" in flag or "-num_model_shards" in flag:
         _parallel_run(runs, flag)
         return
     root = runs["root"]

@@ -1,6 +1,7 @@
-"""Spawned ranks for the port's data-parallel tests on the CPU.
+"""Spawned ranks for the port's data- and tensor-parallel tests on the
+CPU.
 
-`run_group(jobs)` starts a gloo group of two processes (torch
+`run_group(jobs)` starts a gloo group of two processes, or `world` (torch
 multiprocessing, spawn, a file store in a temporary directory), runs the
 jobs in order in every rank and returns each rank's results.  The ranks
 import torch and aocr_torch only; the JAX package stays in the test
@@ -178,3 +179,44 @@ def trainer(root: str, argv):
     finally:
         os.chdir(cwd)
     return None
+
+
+def tp_step(cfg_kw, params, stats, images, targets, targets_eval, num_data,
+            num_model, lr=0.1, row_mask=None, steps=1, key=None):
+    """`steps` make_tp_train_step steps at this rank's place on a
+    (num_data, num_model) grid of the world: the params sharded
+    (tensor_parallel.shard_params), the rows of its data shard.  Returns
+    the gathered numpy params, the batch stats, each step's loss_sum and
+    grad norms, this rank's shards (numpy leaves in the params' order)
+    and whether gather_params(shard_params(x)) is x."""
+    import torch
+
+    from aocr_torch import optim, train_step, weights
+    from aocr_torch.config import Config
+    from aocr_torch.parallel import mesh, tensor_parallel
+
+    cfg = Config(**cfg_kw).validate()
+    grid = mesh.make_grid(num_data, num_model)
+    whole, ts = weights.from_numpy(params, stats)
+    tp = tensor_parallel.shard_params(whole, grid)
+    back = tensor_parallel.gather_params(tp, grid)
+    roundtrip = all(torch.equal(a, b) for a, b in zip(optim.leaves(back),
+                                                      optim.leaves(whole)))
+    opt = train_step.init_opt_state(tp, cfg)
+    step = tensor_parallel.make_tp_train_step(cfg, grid)
+    g = grid.data_group
+    im, tg, te = mesh.shard_batch(g, images, targets, targets_eval)
+    extra = {}
+    if row_mask is not None:
+        extra["row_mask"] = torch.from_numpy(mesh.local_rows(row_mask, g))
+    losses, norms = [], []
+    for _ in range(steps):
+        out = step(tp, ts, opt, im, tg, te, lr, key, **extra)
+        tp, ts, opt = out.params, out.batch_stats, out.opt_state
+        losses.append(float(out.loss_sum))
+        norms.append({k: float(v) for k, v in out.grad_norms.items()})
+    p_np, s_np = weights.to_numpy(tensor_parallel.gather_params(tp, grid),
+                                  ts)
+    return {"params": p_np, "stats": s_np, "losses": losses, "norms": norms,
+            "local": [_np(x) for x in optim.leaves(tp)],
+            "grid": (grid.d, grid.m), "roundtrip": roundtrip}
