@@ -10,7 +10,8 @@ Greedy routes, chosen as the reference chooses them:
   no meaning on the card, so "auto" always takes the loop here.
 - cfg.use_pallas, pallas_greedy "tail": a host loop of steps, each the
   plain LSTM stack followed by the `decode_step` kernel (its weight
-  slices packed once a decode), the trie plane gathered per step.
+  slices packed at the first step, `decode_step.recall`), the trie plane
+  gathered per step.
 - use_pallas=False (or simple_attention): the XLA-equivalent route,
   `decoder.step` + `head.apply` in plain PyTorch.
 
@@ -33,7 +34,10 @@ gets logp[PAD] = 0, so it emits PAD with an unchanged score), the
 finality of a batch row whose beams are all frozen, and the trie rules:
 at t=1 only the root's children, without PAD; later PAD always valid and
 keeping the node.  A host loop synchronises once a step, on its
-all-frozen check.
+all-frozen check, unless early_exit=False: then it runs all max_len
+steps and branches on no tensor's value, so that torch.export traces the
+decode (aocr_torch/export.py).  The kernels are reached through their
+custom ops (`aocr_torch::...`), which a traced program keeps as nodes.
 """
 
 from __future__ import annotations
@@ -50,20 +54,26 @@ from aocr_torch.ops.cuda import beam_loop, beam_step, decode_step, greedy_loop
 
 def greedy_decode(params: dict, batch_stats: dict, images: torch.Tensor,
                   cfg: Config, max_len: int,
-                  trie_table: Optional[torch.Tensor] = None):
+                  trie_table: Optional[torch.Tensor] = None,
+                  early_exit: bool = True):
     """images (B, 32, W, 1) -> (labels (B, max_len) int32, scores (B,)
-    float32 cumulative log-probs)."""
+    float32 cumulative log-probs).  early_exit as in
+    greedy_from_context."""
     context, dec_init = model.encode(params, batch_stats, images, cfg)
     return greedy_from_context(params, context, dec_init, cfg, max_len,
-                               trie_table)
+                               trie_table, early_exit=early_exit)
 
 
 def greedy_from_context(params: dict, context: torch.Tensor, dec_init,
                         cfg: Config, max_len: int,
-                        trie_table: Optional[torch.Tensor] = None):
+                        trie_table: Optional[torch.Tensor] = None,
+                        early_exit: bool = True):
     """Greedy decode from an encoder context (B, L, H) and dec_init;
     trie_table an optional (N, V) int32 transition table on the same
-    device."""
+    device.  early_exit=False runs all max_len steps of the host loop
+    instead of stopping once every row is frozen (the same labels and
+    scores: a frozen row emits PAD at no cost), so that nothing branches
+    on a tensor's value and torch.export can trace the decode."""
     cd = model.compute_dtype(cfg)
     context = context.to(cd)
     dec_params, proj = params["decoder"], params["projector"]
@@ -86,16 +96,14 @@ def greedy_from_context(params: dict, context: torch.Tensor, dec_init,
         pw, pb = decode_step.pad_projector(proj["w"].to(cd), proj["b"])
         ctx_lbh = context.transpose(0, 1).contiguous()
         width = pw.shape[1]
-        # the kernel's packed weight slices, once for every step
-        packed = decode_step.pack_weights(prep["w_a"], prep["w_c"], ctx_lbh,
-                                          pw, cfg.target_vocab_size)
     prev = torch.full((B,), vocab.GO, dtype=torch.int32, device=dev)
     nodes = torch.zeros((B,), dtype=torch.int32, device=dev)
     labels = torch.full((B, max_len), vocab.PAD, dtype=torch.int32,
                         device=dev)
     scores = torch.zeros((B,), dtype=torch.float32, device=dev)
     for t in range(max_len):
-        if t > 0 and bool(((prev == vocab.PAD) | (prev == vocab.EOS)).all()):
+        if early_exit and t > 0 and bool(
+                ((prev == vocab.PAD) | (prev == vocab.EOS)).all()):
             break
         # the root's children at t=0, without PAD; later PAD always valid
         valid = (None if trie_table is None else greedy_loop.trie_valid(
@@ -105,7 +113,7 @@ def greedy_from_context(params: dict, context: torch.Tensor, dec_init,
                                                input_feed=cfg.input_feed)
             h_tilde, tok, delta = decode_step.fused_decode_tail(
                 h_top, ctx_lbh, prev, prep["w_a"], prep["w_c"], pw, pb,
-                valid=valid, packed=packed)
+                valid=valid, V=cfg.target_vocab_size)
             state = decoder.DecoderState(attn=h_tilde.to(cd), cs=cs, hs=hs)
         else:
             state, h_tilde = decoder.step(prep, state, prev, context,
@@ -126,16 +134,19 @@ def greedy_from_context(params: dict, context: torch.Tensor, dec_init,
 def beam_decode(params: dict, batch_stats: dict, images: torch.Tensor,
                 cfg: Config, beam_size: int, max_len: int,
                 trie_table: Optional[torch.Tensor] = None,
-                return_refills: bool = False):
+                return_refills: bool = False, early_exit: bool = True):
     """Decode a batch; beam_size is clamped to the vocab size, and 1 is the
     greedy path.  Returns (labels (B, max_len) int32, scores (B,) float32,
     the best beam's cumulative log-prob), and with return_refills also
     (refills, min_valid): the live rows' steps with fewer than K valid
     trie continuations and the fewest valid continuations seen (the
-    reference's 'valid beam size' warnings, model.lua:421-436)."""
+    reference's 'valid beam size' warnings, model.lua:421-436).
+    early_exit=False runs every step of the host loops (as
+    greedy_from_context)."""
     context, dec_init = model.encode(params, batch_stats, images, cfg)
     return beam_from_context(params, context, dec_init, cfg, beam_size,
-                             max_len, trie_table, return_refills)
+                             max_len, trie_table, return_refills,
+                             early_exit)
 
 
 def _apply_trie_and_topk(total: torch.Tensor, valid: Optional[torch.Tensor],
@@ -152,12 +163,12 @@ def _apply_trie_and_topk(total: torch.Tensor, valid: Optional[torch.Tensor],
 def beam_from_context(params: dict, context: torch.Tensor, dec_init,
                       cfg: Config, beam_size: int, max_len: int,
                       trie_table: Optional[torch.Tensor] = None,
-                      return_refills: bool = False):
+                      return_refills: bool = False, early_exit: bool = True):
     """beam_decode from an encoder context (B, L, H) and dec_init."""
     K = min(beam_size, cfg.target_vocab_size)
     if K == 1:
         out = greedy_from_context(params, context, dec_init, cfg, max_len,
-                                  trie_table)
+                                  trie_table, early_exit)
         if return_refills:
             # PAD is always a valid greedy continuation: no refills
             return out + ((torch.zeros((), dtype=torch.int32),
@@ -226,7 +237,7 @@ def beam_from_context(params: dict, context: torch.Tensor, dec_init,
         T, B, K).clone()
     for t in range(1, T):
         frozen = (prev == vocab.PAD) | (prev == vocab.EOS)
-        if bool(frozen.all()):
+        if early_exit and bool(frozen.all()):
             break
         cs, hs, h_top = decoder.lstm_stack(prep, state, prev.reshape(-1),
                                            input_feed=cfg.input_feed)

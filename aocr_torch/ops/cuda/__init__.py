@@ -9,7 +9,10 @@ every module on a machine without `nvcc`.
 
 Each kernel module (`KERNELS`) holds a wrapper, a plain PyTorch version,
 and a plain integer `launches` that the wrapper bumps at each kernel
-launch (some keep per-mode counters `launches_*` beside it).
+launch (some keep per-mode counters `launches_*` beside it).  The
+inference kernels' wrappers (`OPS`) call a `torch.library` custom op,
+`aocr_torch::<wrapper>`, whose body is the launch (or, on CPU tensors,
+the plain version) and whose fake version states the outputs' shapes.
 """
 
 from __future__ import annotations
@@ -35,6 +38,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",
            "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd", "beam_step",
            "beam_loop", "conv1_pool_dx", "pool_bwd")
+
+# the inference kernels, whose wrappers call custom ops
+# (`aocr_torch::<wrapper>`, registered when their module is imported) so
+# that torch.export traces them as nodes of a program (aocr_torch/export.py)
+OPS = ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop", "beam_step",
+       "beam_loop")
 
 _lock = threading.Lock()
 _lib = None
@@ -255,6 +264,15 @@ def check_aligned(**tensors) -> None:
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def register_ops() -> None:
+    """Register the custom ops of OPS (import their modules); needs no
+    nvcc: an op builds its kernel when it first launches on the card."""
+    import importlib
+
+    for k in OPS:
+        importlib.import_module(f"{__name__}.{k}")
 
 
 def launch_counts() -> dict:

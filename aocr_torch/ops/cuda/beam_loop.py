@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import ctypes
 import logging
-from typing import Optional
+from types import SimpleNamespace
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -260,23 +261,61 @@ def fused_beam_loop(context_lbh: torch.Tensor, init_state, tokens0, scores0,
     (T, B, K) int32, par_hist (T, B, K) int32, scores (B, K) float32,
     lengths (B, K) int32), and with a trie (refills, min_valid), 0-d int32:
     the live rows' steps with fewer than K valid candidates and the fewest
-    valid candidates seen.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, or raise ValueError where no plan fits the
-    shape (K past MAX_K among them: pallas_beam="tail" takes those).  The
-    projector's columns past V must be pad_projector's zeros."""
-    global launches
-    if context_lbh.device.type == "cpu":
-        return fused_beam_loop_plain(context_lbh, init_state, tokens0,
-                                     scores0, nodes0, tables, num_layers,
-                                     input_feed, T, K, count_lengths,
-                                     trie_table)
-    if context_lbh.device.type != "cuda":
+    valid candidates seen.  Runs the custom op aocr_torch::fused_beam_loop
+    (`op`, the state and tables as its flat arguments): CPU tensors take
+    the plain version; CUDA tensors launch the kernel, or raise ValueError
+    where no plan fits the shape (K past MAX_K among them:
+    pallas_beam="tail" takes those).  The projector's columns past V must
+    be pad_projector's zeros."""
+    if context_lbh.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_beam_loop: unsupported device "
                          f"{context_lbh.device}")
+    state = [init_state.attn]
+    for c, h in zip(init_state.cs, init_state.hs):
+        state += [c, h]
+    t = tables
+    out = op(context_lbh, state, tokens0, scores0, nodes0, t["eg"],
+             t["wfh0"], t["wx"], t["bx"], t["wa"], t["wc"], t["pw"],
+             t["pb"], trie_table, num_layers, input_feed, T, K,
+             count_lengths)
+    return out if trie_table is not None else out[:4]
+
+
+@torch.library.custom_op("aocr_torch::fused_beam_loop", mutates_args=())
+def op(context_lbh: torch.Tensor, init_state: List[torch.Tensor],
+       tokens0: torch.Tensor, scores0: torch.Tensor,
+       nodes0: Optional[torch.Tensor], eg: torch.Tensor, wfh0: torch.Tensor,
+       wx: torch.Tensor, bx: torch.Tensor, wa: torch.Tensor,
+       wc: torch.Tensor, pw: torch.Tensor, pb: torch.Tensor,
+       trie_table: Optional[torch.Tensor], num_layers: int,
+       input_feed: bool, T: int, K: int, count_lengths: bool
+       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                  torch.Tensor, torch.Tensor]:
+    """fused_beam_loop as a custom op: init_state the GO step's [attn,
+    c_0, h_0, c_1, h_1, ...]; returns (tok_hist, par_hist, scores,
+    lengths, refills, min_valid), the last two 0 and K without a trie.
+    The plan, the weight packing and the scratch are sized here, from
+    the real batch, so that torch.export traces the search as one node."""
+    global launches
+    t = {"eg": eg, "wfh0": wfh0, "wx": wx, "bx": bx, "wa": wa, "wc": wc,
+         "pw": pw, "pb": pb}
+    if context_lbh.device.type == "cpu":
+        st = SimpleNamespace(attn=init_state[0], cs=init_state[1::2],
+                             hs=init_state[2::2])
+        # scores0 copied: a search that ends at once returns its scores,
+        # and an op's outputs must not alias its inputs
+        out = fused_beam_loop_plain(context_lbh, st, tokens0,
+                                    scores0.clone(), nodes0, t, num_layers,
+                                    input_feed, T, K, count_lengths,
+                                    trie_table)
+        if trie_table is None:
+            out += (torch.zeros((), dtype=torch.int32),
+                    torch.full((), K, dtype=torch.int32))
+        return out
     L, B, H = context_lbh.shape
-    cd, dev = tables["wa"].dtype, context_lbh.device
-    Vp = tables["pw"].shape[1]
-    V = tables["eg"].shape[0]
+    cd, dev = wa.dtype, context_lbh.device
+    Vp = pw.shape[1]
+    V = eg.shape[0]
     G = 4 * H
     if H % 4 or Vp % 4 or T < 1 or num_layers < 1 or not 1 <= K <= V:
         raise ValueError(f"fused_beam_loop: H={H}, Vp={Vp}, T={T}, K={K}, "
@@ -285,23 +324,19 @@ def fused_beam_loop(context_lbh: torch.Tensor, init_state, tokens0, scores0,
     cuda.check(context_lbh, "context_lbh", (L, B, H), cd, dev)
     cuda.check(tokens0, "tokens0", (B, K), torch.int32, dev)
     cuda.check(scores0, "scores0", (B, K), torch.float32, dev)
-    cuda.check(tables["eg"], "eg", (V, G), cd, dev)
-    cuda.check(tables["wfh0"], "wfh0", (2 * H if input_feed else H, G), cd,
-               dev)
-    cuda.check(tables["wx"], "wx", (num_layers - 1, 2 * H, G), cd, dev)
-    cuda.check(tables["bx"], "bx", (num_layers - 1, G), torch.float32, dev)
-    cuda.check(tables["wa"], "wa", (H, H), cd, dev)
-    cuda.check(tables["wc"], "wc", (2 * H, H), cd, dev)
-    cuda.check(tables["pw"], "pw", (H, Vp), cd, dev)
-    cuda.check(tables["pb"], "pb", (Vp,), torch.float32, dev)
+    cuda.check(eg, "eg", (V, G), cd, dev)
+    cuda.check(wfh0, "wfh0", (2 * H if input_feed else H, G), cd, dev)
+    cuda.check(wx, "wx", (num_layers - 1, 2 * H, G), cd, dev)
+    cuda.check(bx, "bx", (num_layers - 1, G), torch.float32, dev)
+    cuda.check(wa, "wa", (H, H), cd, dev)
+    cuda.check(wc, "wc", (2 * H, H), cd, dev)
+    cuda.check(pw, "pw", (H, Vp), cd, dev)
+    cuda.check(pb, "pb", (Vp,), torch.float32, dev)
     if trie_table is not None:
         cuda.check(trie_table, "trie_table", (None, V), torch.int32, dev)
         cuda.check(nodes0, "nodes0", (B, K), torch.int32, dev)
     # the t=1 state, one (2*nl+1, H) block a batch row: attn, c_l, h_l
-    slots = [init_state.attn]
-    for c, h in zip(init_state.cs, init_state.hs):
-        slots += [c, h]
-    init = torch.stack([s.float() for s in slots], dim=1).contiguous()
+    init = torch.stack([s.float() for s in init_state], dim=1).contiguous()
     cuda.check(init, "init_state", (B, 2 * num_layers + 1, H), torch.float32,
                dev)
     tok_hist = torch.empty((T, B, K), dtype=torch.int32, device=dev)
@@ -314,21 +349,35 @@ def fused_beam_loop(context_lbh: torch.Tensor, init_state, tokens0, scores0,
         minv = torch.empty((B,), dtype=torch.int32, device=dev)
     scratch = torch.zeros((scratch_bytes(p, cd, H, num_layers, V),),
                           dtype=torch.uint8, device=dev)
-    t = tables
     w = greedy_loop.pack_weights(t, p, num_layers, input_feed)
     cuda.launch("beam_loop", cd, dev, context_lbh.data_ptr(),
                 init.data_ptr(), tokens0.data_ptr(), scores0.data_ptr(),
                 cuda.ptr(nodes0 if trie_table is not None else None),
-                t["eg"].data_ptr(), w["w0"].data_ptr(), w["wl"].data_ptr(),
-                t["bx"].data_ptr(), w["wq"].data_ptr(), w["wc"].data_ptr(),
-                t["pw"].data_ptr(), t["pb"].data_ptr(), cuda.ptr(trie_table),
+                eg.data_ptr(), w["w0"].data_ptr(), w["wl"].data_ptr(),
+                bx.data_ptr(), w["wq"].data_ptr(), w["wc"].data_ptr(),
+                pw.data_ptr(), pb.data_ptr(), cuda.ptr(trie_table),
                 tok_hist.data_ptr(), par_hist.data_ptr(), scores.data_ptr(),
                 lengths.data_ptr(), cuda.ptr(refills), cuda.ptr(minv),
                 scratch.data_ptr(), L, B, H, Vp, V, T, num_layers,
                 int(input_feed), K, int(count_lengths))
     launches += 1
-    out = (tok_hist, par_hist, scores, lengths)
     if trie_table is None:
-        return out
-    return out + (refills.sum().to(torch.int32),
-                  minv.min().to(torch.int32))
+        return (tok_hist, par_hist, scores, lengths,
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.full((), K, dtype=torch.int32, device=dev))
+    return (tok_hist, par_hist, scores, lengths,
+            refills.sum().to(torch.int32), minv.min().to(torch.int32))
+
+
+@op.register_fake
+def _(context_lbh, init_state, tokens0, scores0, nodes0, eg, wfh0, wx, bx,
+      wa, wc, pw, pb, trie_table, num_layers, input_feed, T, K,
+      count_lengths):
+    B = context_lbh.shape[1]
+    i32 = torch.int32
+    return (context_lbh.new_empty((T, B, K), dtype=i32),
+            context_lbh.new_empty((T, B, K), dtype=i32),
+            context_lbh.new_empty((B, K), dtype=torch.float32),
+            context_lbh.new_empty((B, K), dtype=i32),
+            context_lbh.new_empty((), dtype=i32),
+            context_lbh.new_empty((), dtype=i32))

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import logging
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -313,16 +313,36 @@ def fused_beam_tail(context_lbh: torch.Tensor, h_top_packed: torch.Tensor,
 
     Returns (h_tilde (B, K*H) float32, new_scores (B, K) float32, parents
     (B, K) int32, tokens (B, K) int32), and with `valid` the valid-
-    candidate count (B,) int32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    global launches
-    if context_lbh.device.type == "cpu":
-        return fused_beam_tail_plain(context_lbh, h_top_packed, prev_tokens,
-                                     scores, w_a, w_c, pw_padded, pb_padded,
-                                     K, V, valid)
-    if context_lbh.device.type != "cuda":
+    candidate count (B,) int32.  Runs the custom op
+    aocr_torch::fused_beam_tail (`op`): CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if context_lbh.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_beam_tail: unsupported device "
                          f"{context_lbh.device}")
+    out = op(context_lbh, h_top_packed, prev_tokens, scores, w_a, w_c,
+             pw_padded, pb_padded, K, V, valid)
+    return out if valid is not None else out[:4]
+
+
+@torch.library.custom_op("aocr_torch::fused_beam_tail", mutates_args=())
+def op(context_lbh: torch.Tensor, h_top_packed: torch.Tensor,
+       prev_tokens: torch.Tensor, scores: torch.Tensor, w_a: torch.Tensor,
+       w_c: torch.Tensor, pw_padded: torch.Tensor, pb_padded: torch.Tensor,
+       K: int, V: int, valid: Optional[torch.Tensor]
+       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                  torch.Tensor]:
+    """fused_beam_tail as a custom op: (h_tilde, new_scores, parents,
+    tokens, nvalid), nvalid zeros without a plane.  The plan, the weight
+    packing and the scratch are sized here, from the real batch, so that
+    torch.export traces the step as one node."""
+    global launches
+    if context_lbh.device.type == "cpu":
+        out = fused_beam_tail_plain(context_lbh, h_top_packed, prev_tokens,
+                                    scores, w_a, w_c, pw_padded, pb_padded,
+                                    K, V, valid)
+        if valid is None:
+            out += (torch.zeros((prev_tokens.shape[0],), dtype=torch.int32),)
+        return out
     L, B, H = context_lbh.shape
     Vp = pw_padded.shape[1]
     cd, dev = w_a.dtype, context_lbh.device
@@ -344,8 +364,8 @@ def fused_beam_tail(context_lbh: torch.Tensor, h_top_packed: torch.Tensor,
     new_scores = torch.empty((B, K), dtype=torch.float32, device=dev)
     parents = torch.empty((B, K), dtype=torch.int32, device=dev)
     tokens = torch.empty((B, K), dtype=torch.int32, device=dev)
-    nvalid = (torch.empty((B,), dtype=torch.int32, device=dev)
-              if valid is not None else None)
+    nvalid = (torch.empty if valid is not None else torch.zeros)(
+        (B,), dtype=torch.int32, device=dev)
     w = scratch = None
     if p is not None:
         cuda.check_aligned(context_lbh=context_lbh)
@@ -358,8 +378,20 @@ def fused_beam_tail(context_lbh: torch.Tensor, h_top_packed: torch.Tensor,
                 cuda.ptr(w and w["wc"]), pw_padded.data_ptr(),
                 pb_padded.data_ptr(), cuda.ptr(valid), h_tilde.data_ptr(),
                 new_scores.data_ptr(), parents.data_ptr(), tokens.data_ptr(),
-                cuda.ptr(nvalid), cuda.ptr(scratch), L, B, H, Vp, V, K,
-                p.nb if p is not None else 0)
+                cuda.ptr(nvalid if valid is not None else None),
+                cuda.ptr(scratch),
+                L, B, H, Vp, V, K, p.nb if p is not None else 0)
     launches += 1
-    out = (h_tilde, new_scores, parents, tokens)
-    return out + (nvalid,) if valid is not None else out
+    return h_tilde, new_scores, parents, tokens, nvalid
+
+
+@op.register_fake
+def _(context_lbh, h_top_packed, prev_tokens, scores, w_a, w_c, pw_padded,
+      pb_padded, K, V, valid):
+    L, B, H = context_lbh.shape
+    f32, i32 = torch.float32, torch.int32
+    return (context_lbh.new_empty((B, K * H), dtype=f32),
+            context_lbh.new_empty((B, K), dtype=f32),
+            context_lbh.new_empty((B, K), dtype=i32),
+            context_lbh.new_empty((B, K), dtype=i32),
+            context_lbh.new_empty((B,), dtype=i32))

@@ -160,13 +160,22 @@ def conv1_relu_pool(x: torch.Tensor, w: torch.Tensor,
 
     x (B, H, W, 1) in the compute dtype (float32 or bfloat16); w
     (64, 1, 3, 3) and b (64,) float32.  Returns (B, H//2, W//2, 64) NHWC in
-    x's dtype.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    x's dtype.  Runs the custom op aocr_torch::conv1_relu_pool (`op`):
+    CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv1_relu_pool: unsupported device {x.device}")
+    return op(x, w, b)
+
+
+@torch.library.custom_op("aocr_torch::conv1_relu_pool", mutates_args=())
+def op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """conv1_relu_pool as a custom op, so that torch.export traces it as
+    one node (its fake version below states the output from the input
+    shapes); the plan is picked here, from the real batch."""
     global launches
     if x.device.type == "cpu":
         return conv1_relu_pool_plain(x, w, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv1_relu_pool: unsupported device {x.device}")
     B, H, W, C = x.shape
     cd = x.dtype
     if C != 1 or tuple(w.shape) != (C1, 1, 3, 3) or H < 2 or W < 2:
@@ -183,3 +192,9 @@ def conv1_relu_pool(x: torch.Tensor, w: torch.Tensor,
                 b.data_ptr(), out.data_ptr(), B, H, W, p.blocks)
     launches += 1
     return out
+
+
+@op.register_fake
+def _(x, w, b):
+    B, H, W, _ = x.shape
+    return x.new_empty((B, H // 2, W // 2, C1))

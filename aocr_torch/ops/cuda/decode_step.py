@@ -26,6 +26,7 @@ context (`decoder.attention` rounds q and alpha to the compute dtype).
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -114,9 +115,10 @@ def freeze_and_pick(logp: torch.Tensor, prev: torch.Tensor,
 
 
 def fused_decode_tail_plain(h_top, context_lbh, prev, w_a, w_c, pw_padded,
-                            pb_padded, valid=None, packed=None):
+                            pb_padded, valid=None, packed=None, V=None):
     """Plain PyTorch version; same arguments and results as
-    fused_decode_tail (`packed`, the kernel's operands, is not read)."""
+    fused_decode_tail (`packed` and V, the kernel's operands, are not
+    read)."""
     cd = w_a.dtype
     h_tilde, logp = attention_logp_tail(h_top.to(cd), context_lbh, w_a, w_c,
                                         pw_padded, pb_padded, cd)
@@ -151,7 +153,10 @@ def pack_weights(w_a: torch.Tensor, w_c: torch.Tensor,
     """The cluster route's operands for a decode's shape, built once for
     all its steps: {"plan", "wq", "wc" (beam_step.packed_weights), "V"
     (the projector's real columns; Vp where not given), "scratch"}; None
-    on the CPU and where the launches take the rows route."""
+    on the CPU and where the launches take the rows route.  The result is
+    also kept for this context tensor and these weights (`remember`), so
+    the steps of the decode find it there."""
+    global packs
     if context_lbh.device.type != "cuda" or ROUTE == "rows":
         return None
     L, B, H = context_lbh.shape
@@ -162,8 +167,49 @@ def pack_weights(w_a: torch.Tensor, w_c: torch.Tensor,
     V = Vp if V is None else V
     scratch = torch.empty((beam_step.scratch_bytes(p, cd, H, V),),
                           dtype=torch.uint8, device=context_lbh.device)
-    return {"plan": p, **beam_step.packed_weights(w_a, w_c, p), "V": V,
-            "scratch": scratch}
+    packed = {"plan": p, **beam_step.packed_weights(w_a, w_c, p), "V": V,
+              "scratch": scratch}
+    packs += 1
+    remember(context_lbh, w_a, w_c, packed)
+    return packed
+
+
+# packings done (a decode on the cluster route packs once)
+packs = 0
+# the packed operands of the decodes under way, by id of their context
+# tensor: (weak references to the context, W_a and W_c; the packing).  A
+# decode's steps are separate launches (and separate calls of the custom
+# op, which takes tensors only), so its first step packs and the others
+# find the packing here; an entry goes when its context tensor is freed,
+# so a later decode, even with the same weight tensors changed in place,
+# packs anew.
+_packed: dict = {}
+
+
+def remember(context_lbh: torch.Tensor, w_a: torch.Tensor,
+             w_c: torch.Tensor, packed: dict) -> None:
+    """Keep `packed` (pack_weights of these weights) for the steps of the
+    decode over context_lbh."""
+    key = id(context_lbh)
+
+    def gone(ref, key=key):
+        if _packed.get(key, (None,))[0] is ref:
+            del _packed[key]
+
+    _packed[key] = (weakref.ref(context_lbh, gone), weakref.ref(w_a),
+                    weakref.ref(w_c), packed)
+
+
+def recall(context_lbh: torch.Tensor, w_a: torch.Tensor, w_c: torch.Tensor,
+           plan, V: int) -> Optional[dict]:
+    """The packing remembered for this context tensor and these weights,
+    of this plan and V; None where there is none."""
+    e = _packed.get(id(context_lbh))
+    if (e is None or e[0]() is not context_lbh or e[1]() is not w_a
+            or e[2]() is not w_c or e[3]["plan"] != plan
+            or e[3]["V"] != V):
+        return None
+    return e[3]
 
 
 def fused_decode_tail(h_top: torch.Tensor, context_lbh: torch.Tensor,
@@ -171,25 +217,43 @@ def fused_decode_tail(h_top: torch.Tensor, context_lbh: torch.Tensor,
                       w_c: torch.Tensor, pw_padded: torch.Tensor,
                       pb_padded: torch.Tensor,
                       valid: Optional[torch.Tensor] = None,
-                      packed: Optional[dict] = None):
+                      packed: Optional[dict] = None,
+                      V: Optional[int] = None):
     """h_top (B, H); context_lbh (L, B, H) scan-major, compute dtype; prev
     (B,) int32; w_a (H, H), w_c (2H, H), pw_padded (H, Vp) in the compute
     dtype; pb_padded (Vp,) float32 (pad_projector); valid: an optional
-    (B, Vp) float32 0/1 trie validity plane; packed: `pack_weights` of
-    these weights and this shape (a decode builds it once for its steps;
-    without it each call packs the weights).
+    (B, Vp) float32 0/1 trie validity plane; V the projector's real
+    columns (Vp where not given).  The cluster route's weight packing is
+    made at a decode's first step and found by its later ones (`recall`);
+    packed, `pack_weights` of these weights and this shape, is that
+    packing made ahead (its V is used).
 
     Returns (h_tilde (B, H) float32, tokens (B,) int32, score_delta (B,)
     float32): the picked token's log-prob after the freeze, 0 for frozen
-    rows.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    rows.  Runs the custom op aocr_torch::fused_decode_tail (`op`): CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if h_top.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_decode_tail: unsupported device "
+                         f"{h_top.device}")
+    if packed is not None:
+        remember(context_lbh, w_a, w_c, packed)
+        V = packed["V"]
+    return op(h_top, context_lbh, prev, w_a, w_c, pw_padded, pb_padded,
+              valid, pw_padded.shape[1] if V is None else V)
+
+
+@torch.library.custom_op("aocr_torch::fused_decode_tail", mutates_args=())
+def op(h_top: torch.Tensor, context_lbh: torch.Tensor, prev: torch.Tensor,
+       w_a: torch.Tensor, w_c: torch.Tensor, pw_padded: torch.Tensor,
+       pb_padded: torch.Tensor, valid: Optional[torch.Tensor], V: int
+       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fused_decode_tail as a custom op, so that torch.export traces a
+    step as one node; the route and plan are picked, and the weights
+    packed or recalled, here, from the real batch."""
     global launches, launches_rows
     if h_top.device.type == "cpu":
         return fused_decode_tail_plain(h_top, context_lbh, prev, w_a, w_c,
                                        pw_padded, pb_padded, valid)
-    if h_top.device.type != "cuda":
-        raise ValueError(f"fused_decode_tail: unsupported device "
-                         f"{h_top.device}")
     L, B, H = context_lbh.shape
     Vp = pw_padded.shape[1]
     cd, dev = w_a.dtype, h_top.device
@@ -207,25 +271,30 @@ def fused_decode_tail(h_top: torch.Tensor, context_lbh: torch.Tensor,
     if valid is not None:
         cuda.check(valid, "valid", (B, Vp), torch.float32, dev)
     p = None if ROUTE == "rows" else checked_plan(H, B, cd, L, Vp)
+    w: dict = {}
     if p is not None:
         cuda.check_aligned(context_lbh=context_lbh)
-        if packed is None:
-            packed = pack_weights(w_a, w_c, context_lbh, pw_padded)
-        elif packed["plan"] != p:
-            raise ValueError(f"fused_decode_tail: packed for plan "
-                             f"{packed['plan']}, the launch's is {p}")
+        w = (recall(context_lbh, w_a, w_c, p, V)
+             or pack_weights(w_a, w_c, context_lbh, pw_padded, V))
     h_tilde = torch.empty((B, H), dtype=torch.float32, device=dev)
     tok = torch.empty((B,), dtype=torch.int32, device=dev)
     delta = torch.empty((B,), dtype=torch.float32, device=dev)
-    w = packed if p is not None else {}
     cuda.launch("decode_step", cd, dev, h.data_ptr(), context_lbh.data_ptr(),
                 prev.data_ptr(), w_a.data_ptr(), w_c.data_ptr(),
                 cuda.ptr(w.get("wq")), cuda.ptr(w.get("wc")),
                 pw_padded.data_ptr(), pb_padded.data_ptr(), cuda.ptr(valid),
                 h_tilde.data_ptr(), tok.data_ptr(), delta.data_ptr(),
-                cuda.ptr(w.get("scratch")), L, B, H, Vp, w.get("V", Vp),
-                p.nb if p is not None else 0)
+                cuda.ptr(w.get("scratch")), L, B, H, Vp,
+                V if p is not None else Vp, p.nb if p is not None else 0)
     launches += 1
     if p is None:
         launches_rows += 1
     return h_tilde, tok, delta
+
+
+@op.register_fake
+def _(h_top, context_lbh, prev, w_a, w_c, pw_padded, pb_padded, valid, V):
+    B, H = h_top.shape
+    return (h_top.new_empty((B, H), dtype=torch.float32),
+            h_top.new_empty((B,), dtype=torch.int32),
+            h_top.new_empty((B,), dtype=torch.float32))

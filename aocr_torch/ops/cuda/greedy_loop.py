@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import logging
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -448,22 +448,41 @@ def fused_greedy_loop(context_lbh: torch.Tensor, c0: torch.Tensor,
     float32 layer-1 state from the encoder finals; tables from
     build_tables; trie_table an optional (N, V) int32 transition table.
     Returns (labels (B, T) int32, PAD after EOS, and scores (B,) float32,
-    cumulative log-probs after the freeze).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel, or raise ValueError where no
-    plan fits the shape.  The projector's columns past V must be
-    pad_projector's zeros: the kernel gives them b_p alone.""" 
-    global launches
-    if context_lbh.device.type == "cpu":
-        return fused_greedy_loop_plain(context_lbh, c0, h0, tables,
-                                       num_layers, input_feed, T,
-                                       trie_table=trie_table)
-    if context_lbh.device.type != "cuda":
+    cumulative log-probs after the freeze).  Runs the custom op
+    aocr_torch::fused_greedy_loop (`op`, the tables as its flat
+    arguments): CPU tensors take the plain version; CUDA tensors launch
+    the kernel, or raise ValueError where no plan fits the shape.  The
+    projector's columns past V must be pad_projector's zeros: the kernel
+    gives them b_p alone."""
+    if context_lbh.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_greedy_loop: unsupported device "
                          f"{context_lbh.device}")
+    t = tables
+    return op(context_lbh, c0, h0, t["eg"], t["wfh0"], t["wx"], t["bx"],
+              t["wa"], t["wc"], t["pw"], t["pb"], trie_table, num_layers,
+              input_feed, T)
+
+
+@torch.library.custom_op("aocr_torch::fused_greedy_loop", mutates_args=())
+def op(context_lbh: torch.Tensor, c0: torch.Tensor, h0: torch.Tensor,
+       eg: torch.Tensor, wfh0: torch.Tensor, wx: torch.Tensor,
+       bx: torch.Tensor, wa: torch.Tensor, wc: torch.Tensor,
+       pw: torch.Tensor, pb: torch.Tensor,
+       trie_table: Optional[torch.Tensor], num_layers: int,
+       input_feed: bool, T: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fused_greedy_loop as a custom op, so that torch.export traces the
+    decode as one node; the plan, the weight packing and the scratch are
+    sized here, from the real batch."""
+    global launches
+    t = {"eg": eg, "wfh0": wfh0, "wx": wx, "bx": bx, "wa": wa, "wc": wc,
+         "pw": pw, "pb": pb}
+    if context_lbh.device.type == "cpu":
+        return fused_greedy_loop_plain(context_lbh, c0, h0, t, num_layers,
+                                       input_feed, T, trie_table=trie_table)
     L, B, H = context_lbh.shape
-    cd, dev = tables["wa"].dtype, context_lbh.device
-    Vp = tables["pw"].shape[1]
-    V = tables["eg"].shape[0]
+    cd, dev = wa.dtype, context_lbh.device
+    Vp = pw.shape[1]
+    V = eg.shape[0]
     G = 4 * H
     if H % 4 or Vp % 4 or T < 1 or num_layers < 1:
         raise ValueError(f"fused_greedy_loop: H={H}, Vp={Vp}, T={T}, "
@@ -472,29 +491,35 @@ def fused_greedy_loop(context_lbh: torch.Tensor, c0: torch.Tensor,
     cuda.check(context_lbh, "context_lbh", (L, B, H), cd, dev)
     cuda.check(c0, "c0", (B, H), torch.float32, dev)
     cuda.check(h0, "h0", (B, H), torch.float32, dev)
-    cuda.check(tables["eg"], "eg", (V, G), cd, dev)
-    cuda.check(tables["wfh0"], "wfh0", (2 * H if input_feed else H, G), cd,
-               dev)
-    cuda.check(tables["wx"], "wx", (num_layers - 1, 2 * H, G), cd, dev)
-    cuda.check(tables["bx"], "bx", (num_layers - 1, G), torch.float32, dev)
-    cuda.check(tables["wa"], "wa", (H, H), cd, dev)
-    cuda.check(tables["wc"], "wc", (2 * H, H), cd, dev)
-    cuda.check(tables["pw"], "pw", (H, Vp), cd, dev)
-    cuda.check(tables["pb"], "pb", (Vp,), torch.float32, dev)
+    cuda.check(eg, "eg", (V, G), cd, dev)
+    cuda.check(wfh0, "wfh0", (2 * H if input_feed else H, G), cd, dev)
+    cuda.check(wx, "wx", (num_layers - 1, 2 * H, G), cd, dev)
+    cuda.check(bx, "bx", (num_layers - 1, G), torch.float32, dev)
+    cuda.check(wa, "wa", (H, H), cd, dev)
+    cuda.check(wc, "wc", (2 * H, H), cd, dev)
+    cuda.check(pw, "pw", (H, Vp), cd, dev)
+    cuda.check(pb, "pb", (Vp,), torch.float32, dev)
     if trie_table is not None:
         cuda.check(trie_table, "trie_table", (None, V), torch.int32, dev)
     labels = torch.empty((B, T), dtype=torch.int32, device=dev)
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     scratch = torch.zeros((scratch_bytes(p, cd, H, num_layers, V),),
                           dtype=torch.uint8, device=dev)
-    t = tables
     w = pack_weights(t, p, num_layers, input_feed)
     cuda.launch("greedy_loop", cd, dev, context_lbh.data_ptr(),
-                c0.data_ptr(), h0.data_ptr(), t["eg"].data_ptr(),
-                w["w0"].data_ptr(), w["wl"].data_ptr(), t["bx"].data_ptr(),
-                w["wq"].data_ptr(), w["wc"].data_ptr(), t["pw"].data_ptr(),
-                t["pb"].data_ptr(), cuda.ptr(trie_table), labels.data_ptr(),
+                c0.data_ptr(), h0.data_ptr(), eg.data_ptr(),
+                w["w0"].data_ptr(), w["wl"].data_ptr(), bx.data_ptr(),
+                w["wq"].data_ptr(), w["wc"].data_ptr(), pw.data_ptr(),
+                pb.data_ptr(), cuda.ptr(trie_table), labels.data_ptr(),
                 scores.data_ptr(), scratch.data_ptr(), L, B, H, Vp, V, T,
                 num_layers, int(input_feed))
     launches += 1
     return labels, scores
+
+
+@op.register_fake
+def _(context_lbh, c0, h0, eg, wfh0, wx, bx, wa, wc, pw, pb, trie_table,
+      num_layers, input_feed, T):
+    B = context_lbh.shape[1]
+    return (context_lbh.new_empty((B, T), dtype=torch.int32),
+            context_lbh.new_empty((B,), dtype=torch.float32))

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import logging
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -207,13 +207,31 @@ def lstm_fwd_scan(wh: torch.Tensor, x_proj: torch.Tensor, c0: torch.Tensor,
     """wh (H, 4H) compute dtype; x_proj (L, B, 4H) float32 or compute
     dtype; c0, h0 (B, H) float32.  Returns (hs (L, B, H) scan-major in the
     compute dtype, (c_f, h_f) float32), and with collect the residuals
-    (ifog (L, B, 4H), cs (L, B, H)) in the compute dtype.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    (ifog (L, B, 4H), cs (L, B, H)) in the compute dtype.  Runs the custom
+    op aocr_torch::lstm_fwd_scan (`op`): CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if wh.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_fwd_scan: unsupported device {wh.device}")
+    hs, cf, hf, ifog, cs = op(wh, x_proj, c0, h0, reverse, collect)
+    if collect:
+        return hs, (cf, hf), (ifog, cs)
+    return hs, (cf, hf)
+
+
+@torch.library.custom_op("aocr_torch::lstm_fwd_scan", mutates_args=())
+def op(wh: torch.Tensor, x_proj: torch.Tensor, c0: torch.Tensor,
+       h0: torch.Tensor, reverse: bool, collect: bool
+       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                  torch.Tensor]:
+    """lstm_fwd_scan as a custom op: (hs, c_f, h_f, ifog, cs), the last
+    two empty without collect.  The plan is picked here, from the real
+    batch, so that torch.export traces the scan as one node."""
     global launches, launches_collect
     if wh.device.type == "cpu":
-        return lstm_fwd_scan_plain(wh, x_proj, c0, h0, reverse, collect)
-    if wh.device.type != "cuda":
-        raise ValueError(f"lstm_fwd_scan: unsupported device {wh.device}")
+        out = lstm_fwd_scan_plain(wh, x_proj, c0, h0, reverse, collect)
+        hs, (cf, hf) = out[:2]
+        ifog, cs = out[2] if collect else (wh.new_empty(0), wh.new_empty(0))
+        return hs, cf, hf, ifog, cs
     L, B, G = x_proj.shape
     H = G // 4
     cd, dev = wh.dtype, wh.device
@@ -229,8 +247,8 @@ def lstm_fwd_scan(wh: torch.Tensor, x_proj: torch.Tensor, c0: torch.Tensor,
     hs = torch.empty((L, B, H), dtype=cd, device=dev)
     cf = torch.empty((B, H), dtype=torch.float32, device=dev)
     hf = torch.empty((B, H), dtype=torch.float32, device=dev)
-    ifog = torch.empty((L, B, G), dtype=cd, device=dev) if collect else None
-    cs = torch.empty((L, B, H), dtype=cd, device=dev) if collect else None
+    ifog = torch.empty((L, B, G) if collect else 0, dtype=cd, device=dev)
+    cs = torch.empty((L, B, H) if collect else 0, dtype=cd, device=dev)
     cuda.launch("lstm_fwd", cd, dev, wh.data_ptr(), x_proj.data_ptr(),
                 int(x_proj.dtype == torch.float32), c0.data_ptr(),
                 h0.data_ptr(), hs.data_ptr(), cf.data_ptr(), hf.data_ptr(),
@@ -239,5 +257,14 @@ def lstm_fwd_scan(wh: torch.Tensor, x_proj: torch.Tensor, c0: torch.Tensor,
     launches += 1
     if collect:
         launches_collect += 1
-        return hs, (cf, hf), (ifog, cs)
-    return hs, (cf, hf)
+    return hs, cf, hf, ifog, cs
+
+
+@op.register_fake
+def _(wh, x_proj, c0, h0, reverse, collect):
+    L, B, G = x_proj.shape
+    H = G // 4
+    hs = wh.new_empty((L, B, H))
+    ifog = wh.new_empty((L, B, G) if collect else 0)
+    cs = wh.new_empty((L, B, H) if collect else 0)
+    return hs, c0.new_empty((B, H)), c0.new_empty((B, H)), ifog, cs

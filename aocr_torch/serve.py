@@ -22,9 +22,10 @@ GET  /stats           -> request/batch counters and latency percentiles
 The model runs on the CUDA device unless the caller names another
 (`serve(..., device="cpu")`, `main(argv, device="cpu")`).  `-num_shards
 N` splits each coalesced batch over N local devices
-(`AttentionOCR.shard`; 0 = every local device).  Serving a `.aocrx`
-artifact (`-artifact`) is not ported and raises NotImplementedError
-naming its ROADMAP queue 1 item, before any checkpoint is loaded.
+(`AttentionOCR.shard`; 0 = every local device).  `-artifact m.aocrx`
+serves a `.aocrx` artifact (`python -m aocr_torch.export`) instead of a
+checkpoint: its beam size, dictionary and batch are frozen into it, so
+the knobs that would change them raise before the load.
 """
 
 from __future__ import annotations
@@ -48,9 +49,6 @@ from aocr_torch.config import Config
 from aocr_torch.parallel import mesh
 from aocr_torch.utils import trie as trie_lib
 
-# the ROADMAP item of the option not ported yet
-EXPORT = "ROADMAP queue 1: Export"
-
 
 class _Pending:
     __slots__ = ("image", "beam_size", "event", "text", "score", "error",
@@ -73,6 +71,44 @@ class QueueFull(Exception):
     instead of piling up."""
 
 
+class _ArtifactRecognizer:
+    """AttentionOCR-shaped facade over an `.aocrx` deployment artifact
+    (aocr_torch.export.ExportedRecognizer), so that the batcher serves
+    frozen programs and live checkpoints through one code path.
+
+    The artifact fixes the decode mode at export time: exactly one beam
+    size (and dictionary constraint) is available.  A single-width
+    artifact resizes every ingest image to its one exported width; a
+    multi-width artifact serves through ITS width ladder (aspect-
+    preserving ingest, widths padded up to the exported steps)."""
+
+    def __init__(self, rec):
+        self._rec = rec
+        self.device = rec.device
+        self.beam_size = int(rec.meta["beam_size"])
+        self.cfg = rec.preprocess_config().replace(
+            beam_size=self.beam_size)
+        b = rec.meta["batch"]
+        # a pinned-batch artifact has one device shape (the loader chunks
+        # and pads to it), which the batcher must know: ladder-padding
+        # request groups on top of that would be wasted decode rows
+        self.fixed_device_batch = None if b == "poly" else int(b)
+        # a multi-width artifact carries its own width ladder; the batcher
+        # pads ingest widths to THE ARTIFACT'S steps (a re-derived ladder
+        # could feed widths no program was exported for)
+        self.serving_width_ladder = (rec.widths if len(rec.widths) > 1
+                                     else None)
+
+    def recognize(self, images, beam_size=None):
+        if beam_size is not None and beam_size != self.beam_size:
+            raise ValueError(
+                f"artifact was exported with beam_size={self.beam_size}; "
+                f"{beam_size} is not available")
+        # the list passes through: widths may mix (the loader buckets per
+        # exported program and returns results in input order)
+        return self._rec.recognize(list(images))
+
+
 class BatchingRecognizer:
     """Coalesce concurrent recognize() calls into device batches.
 
@@ -81,18 +117,31 @@ class BatchingRecognizer:
     sliced), so the decode meets a handful of shapes, each planned and
     launched once in warmup, instead of one per arrival pattern.  Under
     keep_aspect_ratio the widths pad up to data.width_ladder's steps the
-    same way."""
+    same way.  fixed_device_batch: the model runs one pinned device shape
+    whatever the group's size (a pinned-batch artifact chunks inside), so
+    groups are not padded and warmup runs that one shape."""
 
     def __init__(self, ocr: AttentionOCR, max_batch: int = 64,
                  batch_window_ms: float = 5.0, max_queue: int = 1024,
-                 request_timeout_s: float = 120.0):
+                 request_timeout_s: float = 120.0,
+                 fixed_device_batch: Optional[int] = None):
         self.ocr = ocr
         self.max_batch = max_batch
-        self.ladder = sorted({n for n in (1, 8, 32, max_batch)
-                              if n <= max_batch})
-        # None when the fixed-width preprocessing already yields one width
-        self.width_ladder = (data.width_ladder(ocr.cfg)
-                             if ocr.cfg.keep_aspect_ratio else None)
+        self.fixed_device_batch = fixed_device_batch
+        if fixed_device_batch:
+            self.ladder = [fixed_device_batch]
+        else:
+            self.ladder = sorted({n for n in (1, 8, 32, max_batch)
+                                  if n <= max_batch})
+        # an artifact's own widths where it has several; else
+        # data.width_ladder under keep_aspect_ratio; None when the
+        # fixed-width preprocessing already yields one width
+        override = getattr(ocr, "serving_width_ladder", None)
+        if override:
+            self.width_ladder = sorted(override)
+        else:
+            self.width_ladder = (data.width_ladder(ocr.cfg)
+                                 if ocr.cfg.keep_aspect_ratio else None)
         self.window_s = batch_window_ms / 1000.0
         self.max_queue = max_queue
         self.request_timeout_s = request_timeout_s
@@ -128,6 +177,8 @@ class BatchingRecognizer:
         return img  # wider than the ladder top (clamped upstream)
 
     def _pad_to(self, n: int) -> int:
+        if self.fixed_device_batch:
+            return n  # the device shape is pinned; padding adds nothing
         for step in self.ladder:
             if n <= step:
                 return step
@@ -332,12 +383,16 @@ def make_handler(recognizer: BatchingRecognizer, cfg: Config,
                     return None
             return beam
 
-        def _read_body(self):
+        def _read_body(self) -> bytes:
             length = int(self.headers.get("Content-Length", 0))
-            if length <= 0:
-                self._json(400, {"error": "empty body"})
-                return None
-            return self.rfile.read(length)
+            return self.rfile.read(length) if length > 0 else b""
+
+        def _empty(self, raw: bytes) -> bool:
+            """True, after answering 400, where the body is empty."""
+            if raw:
+                return False
+            self._json(400, {"error": "empty body"})
+            return True
 
         def _refuse(self):
             if recognizer.draining:
@@ -345,14 +400,11 @@ def make_handler(recognizer: BatchingRecognizer, cfg: Config,
             else:
                 self._json(429, {"error": "queue full, retry later"})
 
-        def _do_batch(self, query: str):
+        def _do_batch(self, query: str, raw: bytes):
             """POST /recognize_batch: {"images": [<base64>, ...]} -> one
             coalesced device batch, results in input order."""
             beam = self._beam_from_query(query)
-            if beam is None:
-                return
-            raw = self._read_body()
-            if raw is None:
+            if beam is None or self._empty(raw):
                 return
             try:
                 items = json.loads(raw)["images"]
@@ -389,17 +441,18 @@ def make_handler(recognizer: BatchingRecognizer, cfg: Config,
 
         def do_POST(self):
             parsed = urlparse(self.path)
+            # the body is read before any answer: an answer that left it
+            # unread would have the socket's close reset the connection,
+            # and the client could lose the answer
+            raw = self._read_body()
             if parsed.path == "/recognize_batch":
-                self._do_batch(parsed.query)
+                self._do_batch(parsed.query, raw)
                 return
             if parsed.path != "/recognize":
                 self._json(404, {"error": "not found"})
                 return
             beam = self._beam_from_query(parsed.query)
-            if beam is None:
-                return
-            raw = self._read_body()
-            if raw is None:
+            if beam is None or self._empty(raw):
                 return
             img = data.load_and_preprocess(raw, cfg)
             if img is None:
@@ -431,16 +484,26 @@ def serve(model_dir: Optional[str] = None, host: str = "0.0.0.0",
           num_shards: int = 1,
           artifact: Optional[str] = None,
           device=None):
-    """Load the checkpoint in model_dir on `device` (default: the CUDA
-    device), warm the ladder's shapes, and serve until shut down (a
-    SIGTERM or SIGINT drains first).  server_box, when given, receives
-    (httpd, recognizer) before ready_event is set."""
+    """Load the checkpoint in model_dir, or the `.aocrx` artifact, on
+    `device` (default: the CUDA device), warm the ladder's shapes, and
+    serve until shut down (a SIGTERM or SIGINT drains first).  server_box,
+    when given, receives (httpd, recognizer) before ready_event is set."""
     # the flags first, before the checkpoint load, so a typo fails fast
     if (model_dir is None) == (artifact is None):
         raise ValueError("pass exactly one of -model_dir / -artifact")
     if artifact is not None:
-        raise NotImplementedError(
-            f"-artifact (.aocrx serving) is not ported: {EXPORT}")
+        # the artifact froze its decode mode at export time; these knobs
+        # have nothing to act on, so they raise instead of being ignored
+        frozen = {"-dictionary": dictionary_path,
+                  "-num_shards != 1": num_shards != 1 or None,
+                  "-beam_size/cfg": cfg, "-warmup_beams": warmup_beams or
+                  None}
+        bad = [k for k, v in frozen.items() if v]
+        if bad:
+            raise ValueError(
+                f"{', '.join(bad)} cannot be combined with -artifact: "
+                "beam size, dictionary, and sharding are frozen into the "
+                "artifact at export time")
     if num_shards < 0:
         raise ValueError(
             f"-num_shards must be >= 0 (0 = all local devices), "
@@ -450,7 +513,16 @@ def serve(model_dir: Optional[str] = None, host: str = "0.0.0.0",
         if num_shards > have:
             raise ValueError(
                 f"-num_shards {num_shards} but only {have} local devices")
-    ocr = AttentionOCR.load(model_dir, cfg=cfg, device=device)
+    if artifact is not None:
+        from aocr_torch.export import ExportedRecognizer
+
+        ocr = _ArtifactRecognizer(ExportedRecognizer.load(artifact, device))
+        model_dir = artifact  # for the startup banner
+        print(f"artifact: beam_size={ocr.beam_size}, "
+              f"dictionary={ocr._rec.meta['use_dictionary']}, "
+              f"batch={ocr._rec.meta['batch']}")
+    else:
+        ocr = AttentionOCR.load(model_dir, cfg=cfg, device=device)
     if num_shards != 1:
         # each coalesced batch split over the devices, the weights
         # replicated, no communication in the decode
@@ -467,7 +539,8 @@ def serve(model_dir: Optional[str] = None, host: str = "0.0.0.0",
               f"{dictionary_path}")
     recognizer = BatchingRecognizer(
         ocr, max_batch, batch_window_ms, max_queue=max_queue,
-        request_timeout_s=request_timeout_s)
+        request_timeout_s=request_timeout_s,
+        fixed_device_batch=getattr(ocr, "fixed_device_batch", None))
     allowed_beams = {ocr.cfg.beam_size} | set(warmup_beams)
     if warmup:
         print(f"warming up decode for batch sizes {recognizer.ladder} x "
@@ -519,7 +592,8 @@ def main(argv=None, device=None):
         prog="aocr_torch.serve", description="micro-batching OCR HTTP server")
     p.add_argument("-model_dir", "--model_dir", default=None)
     p.add_argument("-artifact", "--artifact", default=None,
-                   help=".aocrx deployment artifact (not ported)")
+                   help=".aocrx deployment artifact "
+                        "(python -m aocr_torch.export)")
     p.add_argument("-host", "--host", default="0.0.0.0")
     p.add_argument("-port", "--port", type=int, default=8000)
     p.add_argument("-max_batch", "--max_batch", type=int, default=64)

@@ -31,6 +31,15 @@ def _is_conv_w(path) -> bool:
     return len(path) == 3 and path[0] == "cnn" and path[2] == "w"
 
 
+def conv_to_port(params: dict) -> dict:
+    """A params tree of tensors in the reference's layout -> the port's:
+    the conv weights transposed (kh, kw, I, O) -> (O, I, kh, kw),
+    contiguous; the other leaves as they are (the export program's first
+    step)."""
+    return tree_map(params, lambda path, t: t.permute(3, 2, 0, 1)
+                    .contiguous() if _is_conv_w(path) else t)
+
+
 def _params_in(params, device):
     """A params-shaped tree of numpy arrays -> port tensors."""
     def conv(path, a):

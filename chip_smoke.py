@@ -123,6 +123,20 @@ Phases, each raising on failure:
      the eval on the gathered params over the 4 ranks and the CLI
      trainer at -num_shards 2 -num_model_shards 2 against -num_shards
      1, its checkpoint loaded in one process;
+  4m. export (after 4d): aocr_torch.export at B=512, T=50 (12 for the
+     host-loop routes, whose traces unroll their steps): a plain greedy
+     float32 artifact traced on the CPU (in a spawned process) and
+     loaded on the card against the live use_pallas=False recognize;
+     kernel artifacts (the custom ops aocr_torch::...) traced on the
+     card for greedy float32 and bf16 (greedy_loop), beam-5 under the
+     88k lexicon (beam_loop), beam-10 (beam_step) and the greedy tail
+     route (decode_step, its weights packed once a decode), each held
+     to the live recognize of its model (transcripts equal, scores rtol
+     1e-5) with its launches counted; update_weights with a perturbed
+     projector against the live model holding it; a /recognize_batch
+     of 64 PNGs through serve(artifact=...) against a direct call; each
+     artifact's MB, trace and load seconds and recognize ms beside the
+     live recognize's;
   5. timing: each kernel against its plain version (CUDA events), its
      bound (the larger of its operations over the card's peak and its
      bytes over 3.35 TB/s) and, where PyTorch computes the same function
@@ -3250,6 +3264,265 @@ def serving_phase(dev, seed: int, lexicon, card: str):
     return total, readings
 
 
+# The decode steps of the export phase's host-loop programs (the plain
+# route, beam_step's and decode_step's): tracing unrolls the loop, ~100
+# nodes a step, and a 50-step beam-10 program took 105 s to trace on the
+# H100 machine's host; the whole-loop kernels' programs decode all T_MAX.
+T_EXPORT_HOST = 12
+# the kernel artifacts of the export phase: (name, compute dtype, the
+# cfg's routes, beam size, the 88k lexicon, the kernel of the route,
+# decode steps: None for T_MAX)
+EXPORT_ROUTES = (
+    ("greedy f32", "float32", "loop", 1, False, "greedy_loop", None),
+    ("greedy bf16", "bfloat16", "loop", 1, False, "greedy_loop", None),
+    ("dict beam-5 bf16", "bfloat16", "loop", BEAM, True, "beam_loop",
+     None),
+    (f"beam-{BEAM_STEP_K[1]} bf16", "bfloat16", "loop", BEAM_STEP_K[1],
+     False, "beam_step", T_EXPORT_HOST),
+    ("greedy tail f32", "float32", "tail", 1, False, "decode_step",
+     T_EXPORT_HOST))
+
+
+def export_plain_cpu(seed: int, path: str, out: str) -> None:
+    """The export phase's plain artifact, traced on the CPU in a process
+    of its own (spawn) while the parent traces the kernel artifacts on
+    the card: greedy, float32, use_pallas=False, from the --seed weights.
+    T_EXPORT_HOST steps.  Writes its trace seconds to out, or its
+    traceback to out + ".err"."""
+    try:
+        sys.path.insert(0, ROOT)
+        from aocr_torch import export, weights
+        from aocr_torch.api import AttentionOCR
+
+        base = base_config().replace(use_pallas=False)
+        ocr = AttentionOCR(base, *weights.from_numpy(*numpy_model(base, seed)),
+                           device="cpu")
+        t0 = time.perf_counter()
+        export.export_recognizer(ocr, path, max_len=T_EXPORT_HOST,
+                                 device="cpu")
+        with open(out, "w") as f:
+            json.dump({"trace_s": time.perf_counter() - t0}, f)
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def export_phase(dev, seed: int, lexicon, card: str):
+    """aocr_torch.export at the default model's full width (depth uncut,
+    numpy weights from seed), B=512 crops of 32 x 100, T=50 (the
+    host-loop programs T_EXPORT_HOST): (a) a plain
+    greedy artifact traced on the CPU (in a spawned process, meanwhile)
+    and loaded on the card, against the live float32 recognize with
+    use_pallas=False (transcripts equal, scores rtol 1e-5); (b) kernel
+    artifacts traced on the card on each route of EXPORT_ROUTES, each
+    held to the live recognize of its model (transcripts equal, scores
+    rtol 1e-5, whether bit-equal reported), the launches of its
+    recognize counted from 0 (its route's kernels must launch, and a
+    tail-route decode must pack decode_step's weights once); (c) a
+    weight-only update_weights with perturbed weights against the live
+    model holding them; (d) a /recognize_batch of 64 PNGs through
+    serve(artifact=...) against a direct call of the artifact; (e) each
+    artifact's size, trace and load seconds, and the artifact's and the
+    live recognize's ms (median of 5 after a warm-up, host clock).
+    Returns (the launch counts of the artifacts' recognizes and the
+    served wave, readings)."""
+    import base64
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from aocr_torch import data, export, weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import decode_step
+
+    log("export: .aocrx artifacts of torch.export programs")
+    base = base_config()
+    np_params, np_stats = numpy_model(base, seed)
+    words, table_np = lexicon
+    rs = np.random.RandomState(seed + 13)
+    batch = word_images(rs, B_SERVE, W_SERVE)
+    root = tempfile.mkdtemp(prefix="aocr_export_")
+    total: dict = {}
+    readings: dict = {}
+
+    def model(dt, route="loop", params=np_params, **kw):
+        cfg = base.replace(compute_dtype=dt, pallas_greedy=route,
+                           pallas_beam=route, **kw)
+        return AttentionOCR(cfg, *weights.from_numpy(params, np_stats),
+                            device=dev)
+
+    def ms(fn, n: int = 5) -> float:
+        fn()
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts)) * 1e3
+
+    def held(tag, got, want, tol=1e-5):
+        """got and want (words, scores): transcripts equal and scores
+        within tol relative; returns (rows differing, max |score gap|)."""
+        diff = sum(a != b for a, b in zip(got[0], want[0]))
+        gap = float(np.abs(got[1] - want[1]).max())
+        check(len(got[0]) == len(want[0]) and diff == 0,
+              f"export {tag}: {diff} transcripts differ from the live "
+              "recognize")
+        check(bool(np.allclose(got[1], want[1], rtol=tol, atol=0)),
+              f"export {tag}: score gap {gap} past rtol {tol}")
+        return diff, gap
+
+    def reading(tag, path, trace_s, load_s, art_ms, live_ms, gap, T):
+        mb = os.path.getsize(path) / 1e6
+        readings[tag] = {"mb": mb, "trace_s": trace_s, "load_s": load_s,
+                         "ms": art_ms, "live_ms": live_ms, "gap": gap,
+                         "T": T}
+        log(f"export {tag}: artifact {mb:.1f} MB, traced in {trace_s:.1f} s,"
+            f" loaded in {load_s:.1f} s; recognize B={B_SERVE} T={T} "
+            f"{art_ms:.2f} ms against the live {live_ms:.2f} ms (median of "
+            f"5 after a "
+            f"warm-up, host clock); scores "
+            + ("bit-equal" if gap == 0 else f"within {gap:.3g}")
+            + f" on {card}")
+
+    plain_path = os.path.join(root, "plain.aocrx")
+    child = mp.get_context("spawn").Process(
+        target=export_plain_cpu,
+        args=(seed, plain_path, os.path.join(root, "plain.json")))
+    child.start()
+    try:
+        # (b) the kernel artifacts, traced on the card
+        paths = {}
+        for name, dt, route, K, dictionary, kernel, T in EXPORT_ROUTES:
+            T = T or T_MAX
+            m = model(dt, route)
+            if dictionary:
+                m.set_dictionary_table(table_np)
+            path = paths[name] = os.path.join(root, f"{len(paths)}.aocrx")
+            t0 = time.perf_counter()
+            export.export_recognizer(m, path, beam_size=K, max_len=T,
+                                     use_pallas=True, device=dev)
+            trace_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rec = export.ExportedRecognizer.load(path, dev)
+            load_s = time.perf_counter() - t0
+            rec.recognize(batch[:8])  # the kernels' plans for a batch of 8
+            cuda.reset_launch_counts()
+            packs = decode_step.packs
+            got = rec.recognize(batch)
+            torch.cuda.synchronize()
+            counts = cuda.launch_counts()
+            add_counts(total, counts)
+            log(f"export {name} artifact recognize launch counts: {counts}")
+            for k in ("conv1_pool", "lstm_fwd", kernel):
+                check(counts[k] > 0, f"export {name}: kernel {k} never "
+                                     "launched by the artifact")
+            if kernel == "decode_step":
+                check(decode_step.packs - packs == 1,
+                      f"export {name}: decode_step's weights packed "
+                      f"{decode_step.packs - packs} times in one decode")
+            want = m.recognize(batch, beam_size=K, max_len=T)
+            _diff, gap = held(name, got, want)
+            if dictionary:
+                prefixes = lexicon_prefixes(words)
+                check(all(w in prefixes for w in got[0]),
+                      f"export {name}: a transcript off the lexicon")
+            reading(name, path, trace_s, load_s,
+                    ms(lambda: rec.recognize(batch)),
+                    ms(lambda: m.recognize(batch, beam_size=K, max_len=T)),
+                    gap, T)
+            if name == "greedy bf16":
+                src, src_rec, src_got = path, rec, got
+            del rec, m
+
+        # (c) a weight-only update of the bf16 greedy kernel artifact
+        perturbed = {**np_params, "projector": {
+            "w": np_params["projector"]["w"] * 1.25,
+            "b": np_params["projector"]["b"]}}
+        m2 = model("bfloat16", params=perturbed)
+        upd = os.path.join(root, "updated.aocrx")
+        t0 = time.perf_counter()
+        export.update_weights(src, m2, upd)
+        upd_s = time.perf_counter() - t0
+        got = export.ExportedRecognizer.load(upd, dev).recognize(batch)
+        _diff, gap = held("update_weights", got, m2.recognize(batch))
+        moved = sum(a != b for a, b in zip(got[0], src_got[0]))
+        check(not np.array_equal(got[1], src_got[1]),
+              "export update_weights: the scores did not move")
+        log(f"export update_weights: written in {upd_s:.1f} s; {moved} of "
+            f"{B_SERVE} transcripts moved with the perturbed projector; "
+            f"equal to the live model holding those weights (scores "
+            + ("bit-equal" if gap == 0 else f"within {gap:.3g}") + ")")
+
+        # (d) one wave through serve(artifact=...)
+        bodies = [png(img) for img in batch[:64]]
+        cfg = src_rec.preprocess_config()
+        ingest = np.stack([data.load_and_preprocess(b, cfg) for b in bodies])
+        want = src_rec.recognize(ingest)
+        cuda.reset_launch_counts()
+        url, httpd, srv, thread = start_server(
+            artifact=src, device=dev, max_batch=64, warmup=False)
+        try:
+            body = json.dumps({"images": [base64.b64encode(b).decode()
+                                          for b in bodies]}).encode()
+            status, payload = http(f"{url}/recognize_batch", body)
+            wrong_beam = http(f"{url}/recognize?beam_size={BEAM}",
+                              bodies[0])[0]
+        finally:
+            stop_server(httpd, thread)
+        torch.cuda.synchronize()
+        add_counts(total, cuda.launch_counts())
+        texts = [r.get("text") for r in payload.get("results", [])]
+        check(status == 200 and texts == want[0],
+              f"export serve: /recognize_batch answered {status}, "
+              f"{sum(a != b for a, b in zip(texts, want[0]))} texts differ "
+              "from the direct call")
+        check(wrong_beam == 400, f"export serve: beam {BEAM} answered "
+                                 f"{wrong_beam}, not 400")
+        log(f"export serve(artifact=...): /recognize_batch of 64 PNGs "
+            f"{status}, texts equal to the direct call "
+            f"{texts == want[0]}; beam {BEAM} refused {wrong_beam}")
+
+        # (a) the plain artifact traced on the CPU, served on the card
+        child.join(600)
+        check(child.exitcode == 0, "export: the CPU trace failed: "
+              + (open(os.path.join(root, "plain.json.err")).read()[-2000:]
+                 if os.path.exists(os.path.join(root, "plain.json.err"))
+                 else f"exit code {child.exitcode}"))
+        if child.exitcode == 0:
+            with open(os.path.join(root, "plain.json")) as f:
+                trace_s = json.load(f)["trace_s"]
+            t0 = time.perf_counter()
+            rec = export.ExportedRecognizer.load(plain_path, dev)
+            load_s = time.perf_counter() - t0
+            live = model("float32", use_pallas=False)
+            cuda.reset_launch_counts()
+            got = rec.recognize(batch)
+            torch.cuda.synchronize()
+            counts = cuda.launch_counts()
+            check(not any(counts.values()),
+                  f"export plain: the plain artifact launched {counts}")
+            _diff, gap = held("plain (traced on the CPU)", got,
+                              live.recognize(batch, max_len=T_EXPORT_HOST))
+            reading("plain greedy f32 (traced on the CPU)", plain_path,
+                    trace_s, load_s, ms(lambda: rec.recognize(batch)),
+                    ms(lambda: live.recognize(batch,
+                                              max_len=T_EXPORT_HOST)), gap,
+                    T_EXPORT_HOST)
+    finally:
+        if child.is_alive():
+            child.kill()
+        child.join(30)
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"export path launch counts: {total}")
+    return total, readings
+
+
 def device_preprocess_phase(dev, seed: int, card: str):
     """recognize on B=512 .npy paths (RGB uint8 crops, 32 x 100) with
     device_preprocess and without, bf16 and float32: the images agree
@@ -4999,6 +5272,8 @@ def main() -> int:
     ccounts, readings = trainer_phase(dev, args.seed, card)
     scounts, sreadings = serving_phase(dev, args.seed, (words, table_np),
                                        card)
+    ecounts, ereadings = export_phase(dev, args.seed, (words, table_np),
+                                      card)
     dcounts = device_preprocess_phase(dev, args.seed, card)
     acounts = augment_phase(dev, tcfg, np_model, batch, card)
     icounts, ireadings = import_phase(dev, args.seed, card)
@@ -5058,7 +5333,7 @@ def main() -> int:
     # after it
     paths = {"recognize": counts, "beam": bcounts, "beam-10": b10counts,
              "train step": tcounts, "image gradient": gcounts,
-             "CLI trainer": ccounts, "serve": scounts,
+             "CLI trainer": ccounts, "serve": scounts, "export": ecounts,
              "device preprocess": dcounts, "augment": acounts,
              "torch import": icounts, "dp step world 1": w1counts,
              "shard": shcounts, "training options": ocounts}
@@ -5224,6 +5499,11 @@ def main() -> int:
             f"{v:.1f} requests/s at {w}" for w, v in r["rps"].items())
             + f"; /recognize_batch {r['batch_ips']:.1f} images/s against a "
             f"direct recognize's {r['direct_ips']:.1f} on {card}")
+    for tag, r in ereadings.items():
+        log(f"export {tag}: {r['mb']:.1f} MB, trace {r['trace_s']:.1f} s, "
+            f"load {r['load_s']:.1f} s, recognize B={B_SERVE} T={r['T']} "
+            f"{r['ms']:.2f} ms against the live {r['live_ms']:.2f} ms on "
+            f"{card}")
     for dt, (dms, ams) in w1ms.items():
         log(f"dp step world size 1 (NCCL) {dt} B={B_TRAIN}: {dms:.2f} ms "
             f"against make_train_step's {ams:.2f} ms on {card}")

@@ -455,9 +455,11 @@ def test_greedy_loop_unserved_shape_raises(dev):
     H = 8200  # more than 512 units a block
     assert greedy_loop.plan(H, 1, torch.bfloat16, 2, 128, 1, 1) is None
     # the plan is checked before the tables, so these stand in for them
-    t = {"eg": torch.zeros(39, 4, device=dev, dtype=torch.bfloat16),
-         "wa": torch.zeros(1, 1, device=dev, dtype=torch.bfloat16),
-         "pw": torch.zeros(1, 128, device=dev, dtype=torch.bfloat16)}
+    # (every build_tables key: the wrapper passes each to the custom op)
+    z1 = lambda *s_: torch.zeros(*s_, device=dev, dtype=torch.bfloat16)
+    t = {"eg": z1(39, 4), "wa": z1(1, 1), "pw": z1(1, 128), "wfh0": z1(1, 4),
+         "wx": z1(0, 1, 4), "bx": torch.zeros(0, 4, device=dev),
+         "wc": z1(2, 1), "pb": torch.zeros(128, device=dev)}
     ctx = torch.zeros(2, 1, H, device=dev, dtype=torch.bfloat16)
     z = torch.zeros(1, H, device=dev)
     n = greedy_loop.launches
@@ -1280,3 +1282,42 @@ def test_beam_recognize_on_cuda_matches_cpu(dev, route):
         assert (beam_loop if route == "loop" else beam_step).launches > n
         assert wg == wc
         np.testing.assert_allclose(sg, sc, rtol=1e-4, atol=1e-3)
+
+
+# the kernel an export route's artifact launches, by (route, beam size)
+EXPORT_ROUTES = {("loop", 1): greedy_loop, ("tail", 1): decode_step,
+                 ("loop", 5): beam_loop, ("tail", 5): beam_step}
+
+
+@pytest.mark.parametrize("route,K", sorted(EXPORT_ROUTES))
+def test_kernel_artifact_matches_live_recognize(dev, tmp_path, route, K):
+    """A kernel artifact (export_recognizer(use_pallas=True)) traced on
+    the card holds its route's custom ops; loaded on the card, its
+    recognize (under the dictionary at beam-5) launches the route's
+    kernels and equals the live kernel recognize: transcripts identical,
+    float32 scores within 1e-5 relative.  A tail-route greedy decode
+    packs decode_step's weights once."""
+    from aocr_torch import export
+
+    cfg = Config(input_feed=True, encoder_num_hidden=64,
+                 target_embedding_size=8, max_decoder_l=10,
+                 pallas_greedy=route, pallas_beam=route)
+    ocr = AttentionOCR.create(cfg, seed=26, device=dev)
+    if K > 1:
+        ocr.use_dictionary(LEXICON)
+    rs = np.random.RandomState(27)
+    images = rs.uniform(0, 255, (37, 32, 100)).astype(np.float32)
+    art = export.export_recognizer(ocr, str(tmp_path / "k.aocrx"),
+                                   beam_size=K, use_pallas=True, device=dev)
+    rec = export.ExportedRecognizer.load(art, dev)
+    kernel = EXPORT_ROUTES[route, K]
+    n, packs = (conv1_pool.launches, lstm_fwd.launches,
+                kernel.launches), decode_step.packs
+    got_w, got_s = rec.recognize(images)
+    assert conv1_pool.launches > n[0] and lstm_fwd.launches > n[1]
+    assert kernel.launches > n[2]
+    if kernel is decode_step:
+        assert decode_step.packs == packs + 1
+    want_w, want_s = ocr.recognize(images, beam_size=K)
+    assert got_w == want_w
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-5)

@@ -3,8 +3,10 @@ against aocr.serve on one checkpoint (the same PNG requests give equal
 transcripts and scores within 1e-4, float32), and tests/test_serve.py's
 cases that need no artifact and no shards, on the port's server
 (device="cpu", so every kernel wrapper takes its plain version).  The
-option not ported, -artifact, raises before any checkpoint load, and
--num_shards is validated before it (tests/test_torch_port_parallel.py
+-artifact cases serve `.aocrx` artifacts of aocr_torch.export (a poly
+batch, a pinned batch, several widths) with answers equal to the live
+model's, and the knobs frozen into an artifact raise before any load;
+-num_shards is validated before the load (tests/test_torch_port_parallel.py
 serves through AttentionOCR.shard)."""
 
 import base64
@@ -21,6 +23,7 @@ import torch
 
 from aocr.api import AttentionOCR as JaxOCR
 from aocr.config import Config
+from aocr_torch import export as texport
 from aocr_torch import serve as tserve
 from aocr_torch.api import AttentionOCR
 from aocr_torch.config import Config as TConfig
@@ -31,6 +34,8 @@ KW = dict(input_feed=True, encoder_num_hidden=16, target_embedding_size=8,
           max_decoder_l=8, image_width=32)
 CFG = Config(**KW)
 TCFG = TConfig(**KW)
+# the live model an artifact (the plain route) is held against
+PLAIN = TCFG.replace(use_pallas=False)
 
 
 def _start(serve_fn, timeout=120, **kw):
@@ -321,28 +326,58 @@ def test_recognize_batch_endpoint(server):
         assert e.value.code == 400
 
 
+@pytest.fixture(scope="module")
+def artifact(model_dir, tmp_path_factory):
+    """A poly-batch greedy artifact of the checkpoint, and its model."""
+    ocr = AttentionOCR.load(model_dir, cfg=PLAIN, device="cpu")
+    path = str(tmp_path_factory.mktemp("serve_art") / "m.aocrx")
+    texport.export_recognizer(ocr, path, device="cpu")
+    return path, ocr
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["-artifact", "m.aocrx"], "ROADMAP queue 1: Export"),
+    (["-artifact", "m.aocrx"], "serves"),
     (["-model_dir", "missing", "-num_shards", "2"],
      "-num_shards 2 but only 1 local devices"),
     (["-model_dir", "missing", "-num_shards", "0"], None)],
-    # the cases' ids from when -num_shards was refused
+    # the cases' ids from when -artifact and -num_shards were refused
     ids=["argv0-ROADMAP queue 1: Export", "argv1-ROADMAP queue 1: Parallel",
          "argv2-ROADMAP queue 1: Parallel"])
-def test_unported_options_raise_before_load(monkeypatch, argv, item):
-    """-artifact names its ROADMAP item by title, through serve() and the
-    CLI, before any checkpoint load (made to fail loudly here).
-    -num_shards, once refused too, is validated as aocr.serve does: more
-    shards than local devices (the one CPU) raise before the load, and 0
-    (every local device) reaches it."""
+def test_unported_options_raise_before_load(monkeypatch, artifact, argv,
+                                            item):
+    """-artifact, once refused, serves a .aocrx artifact written by
+    aocr_torch.export without loading any checkpoint (the load is made to
+    fail loudly here): its answer equals a direct recognize, and the CLI
+    hands the path to serve().  -num_shards, once refused too, is
+    validated as aocr.serve does: more shards than local devices (the one
+    CPU) raise before the load, and 0 (every local device) reaches it."""
     def no_load(*_a, **_k):
         raise AssertionError("the checkpoint was loaded")
 
+    if item == "serves":
+        art, ocr = artifact  # the argv's m.aocrx
+        monkeypatch.setattr(tserve.AttentionOCR, "load", no_load)
+        base, httpd, recognizer = _start(tserve.serve, artifact=art,
+                                         device="cpu")
+        try:
+            status, payload = _post(f"{base}/recognize", _png_bytes("ab"))
+        finally:
+            _stop(httpd, recognizer)
+        assert status == 200
+        img = synth.render_word("ab", 32, 32).astype(np.float32)
+        want, _ = ocr.recognize(img[None])
+        assert payload["text"] == want[0]
+        seen = {}
+        monkeypatch.setattr(tserve, "serve",
+                            lambda *a, **k: seen.update(k, args=a))
+        tserve.main(["-artifact", art], device="cpu")
+        assert seen["artifact"] == art and seen["args"][0] is None
+        assert seen["device"] == "cpu"
+        return
     monkeypatch.setattr(tserve.AttentionOCR, "load", no_load)
     kw = {k.lstrip("-"): (int(v) if k == "-num_shards" else v)
           for k, v in zip(argv[::2], argv[1::2])}
-    error = (AssertionError if item is None else ValueError
-             if "num_shards" in item else NotImplementedError)
+    error = AssertionError if item is None else ValueError
     match = "the checkpoint was loaded" if item is None else re.escape(item)
     with pytest.raises(error, match=match):
         tserve.serve(device="cpu", **kw)
@@ -350,6 +385,108 @@ def test_unported_options_raise_before_load(monkeypatch, argv, item):
         tserve.main(argv, device="cpu")
     with pytest.raises(ValueError, match="exactly one"):
         tserve.serve(device="cpu")
+
+
+def test_serve_artifact(artifact):
+    """tests/test_serve.py::test_serve_artifact on the port: an artifact
+    server answers like the live model (the texts of 8 posts coalesced
+    into batches), only the artifact's frozen beam size is served, and the
+    decode-mode knobs raise before any load."""
+    art, ocr = artifact
+    base, httpd, recognizer = _start(tserve.serve, artifact=art,
+                                     batch_window_ms=20.0, device="cpu")
+    try:
+        words = ["ab", "cd", "ef", "gh", "ij", "kl", "mn", "op"]
+        answers = _post_all(f"{base}/recognize",
+                            [_png_bytes(w) for w in words])
+        req = urllib.request.Request(f"{base}/recognize?beam_size=5",
+                                     data=_png_bytes("ab"), method="POST")
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(req, timeout=30)
+        assert e.value.code == 400
+    finally:
+        _stop(httpd, recognizer)
+    imgs = np.stack([synth.render_word(w, 32, 32).astype(np.float32)
+                     for w in words])
+    want, _ = ocr.recognize(imgs)
+    assert [p["text"] for _s, p in answers] == want
+    assert all(s == 200 for s, _p in answers)
+    for kw, name in ((dict(dictionary_path="words.txt"), "-dictionary"),
+                     (dict(num_shards=2), "-num_shards"),
+                     (dict(cfg=TCFG), "-beam_size/cfg"),
+                     (dict(warmup_beams=(5,)), "-warmup_beams")):
+        with pytest.raises(ValueError, match=re.escape(name) + ".*frozen "
+                                             "into the artifact"):
+            tserve.serve(artifact=art, device="cpu", **kw)
+
+
+def test_pinned_artifact_skips_ladder_padding(model_dir, tmp_path):
+    """A pinned-batch artifact has ONE device shape; the batcher must not
+    ladder-pad request groups on top of the artifact's own chunking
+    (tests/test_serve.py's case, on the port)."""
+    from aocr_torch.export import ExportedRecognizer
+
+    ocr = AttentionOCR.load(model_dir, cfg=PLAIN, device="cpu")
+    art = str(tmp_path / "m.aocrx")
+    texport.export_recognizer(ocr, art, batch=2, device="cpu")
+    facade = tserve._ArtifactRecognizer(ExportedRecognizer.load(art, "cpu"))
+    assert facade.fixed_device_batch == 2
+    rec = tserve.BatchingRecognizer(
+        facade, max_batch=8, batch_window_ms=5.0,
+        fixed_device_batch=facade.fixed_device_batch)
+    try:
+        assert rec._pad_to(5) == 5  # no ladder padding
+        assert rec.ladder == [2]  # warmup runs exactly one shape
+        rec.warmup([facade.beam_size])
+        img = synth.render_word("ab", 32, 32).astype(np.float32)
+        p = rec.submit(img, facade.beam_size)
+        assert p.error is None
+        assert p.text == ocr.recognize(img[None])[0][0]
+        assert rec.snapshot_stats()["padded_rows"] == 0
+    finally:
+        rec.close()
+
+
+def test_multi_width_artifact_serving(tmp_path):
+    """A keep_aspect_ratio model exports one program per width-ladder
+    step; the batcher adopts the ARTIFACT'S ladder and mixed-width groups
+    decode through the right programs, as the live model decodes them
+    (tests/test_serve.py's case, on the port)."""
+    from aocr_torch import data as tdata
+    from aocr_torch.export import ExportedRecognizer
+
+    cfg = PLAIN.replace(keep_aspect_ratio=True, min_aspect_ratio=0.5,
+                       max_aspect_ratio=1.0)
+    ocr = AttentionOCR.create(cfg, device="cpu")
+    ladder = tdata.width_ladder(cfg)
+    art = str(tmp_path / "mw.aocrx")
+    texport.export_recognizer(ocr, art, max_len=4, device="cpu")
+    facade = tserve._ArtifactRecognizer(ExportedRecognizer.load(art, "cpu"))
+    assert facade.serving_width_ladder == ladder
+    assert facade.cfg.keep_aspect_ratio is True
+    rec = tserve.BatchingRecognizer(facade, max_batch=8,
+                                    batch_window_ms=30.0)
+    try:
+        assert rec.width_ladder == ladder
+        imgs = [synth.render_word("ab", 32, 18).astype(np.float32),
+                synth.render_word("cd", 32, 32).astype(np.float32)]
+        results = [None, None]
+
+        def submit(i):
+            results[i] = rec.submit(imgs[i], facade.beam_size)
+
+        threads = [threading.Thread(target=submit, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert all(p is not None and p.error is None for p in results)
+        want, _ = ocr.recognize([rec.pad_width(im) for im in imgs],
+                                max_len=4)
+        assert [p.text for p in results] == want
+    finally:
+        rec.close()
 
 
 def test_serve_defaults_to_cuda(model_dir):
