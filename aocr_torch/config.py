@@ -50,6 +50,11 @@ class Config:
     # --- Network (reference src/train.lua:47-53) ---
     dropout: float = 0.0
     target_embedding_size: int = 20
+    # Feed h~ of the previous step into decoder layer 0 beside the token
+    # embedding (the reference's -input_feed).  Off, the CLI trainer's
+    # default, layer 0's weights hold one segment instead of two; the
+    # decoder kernels take either (the library's AttentionOCR.create and
+    # chip_smoke.py's main paths set it, its no-input-feed phase not).
     input_feed: bool = False
     encoder_num_hidden: int = 512
     encoder_num_layers: int = 1
@@ -108,24 +113,22 @@ class Config:
     # --- TPU-native extensions (no reference equivalent) ---
     # Compute dtype for convs/matmuls; params always float32.
     compute_dtype: str = "float32"  # or "bfloat16"
-    # Pallas-fused greedy decode tail (attention+projector+argmax in one
-    # kernel, ops/pallas/decode_step.py).  Default on: beats the XLA
-    # decomposition in both the 50-step worst case and the early-exit
-    # regime on v5e with bit-identical transcripts.  -no_use_pallas
-    # disables (e.g. for non-TPU backends the flag is a no-op anyway).
+    # The decoder's CUDA kernels (aocr_torch/ops/cuda; the names keep the
+    # reference's "pallas").  -no_use_pallas runs every decode on the
+    # plain PyTorch route; kernel wrappers given CPU tensors run their
+    # plain versions either way.
     use_pallas: bool = True
-    # Which fused greedy strategy use_pallas selects: "auto" runs the
-    # whole-decode-loop kernel (ops/pallas/greedy_loop.py) when its VMEM
-    # footprint fits and falls back to the per-step fused tail
-    # (ops/pallas/decode_step.py) otherwise; "loop"/"tail" force one for
-    # A/B measurement (tools/ab_pallas.py).
+    # Which greedy kernel use_pallas selects (aocr_torch/decode.py):
+    # "auto" runs the whole decode as one greedy_loop launch where its
+    # cluster plan fits the shape, else the per-step decode_step tail,
+    # else the plain route; "loop"/"tail" force one for A/B measurement
+    # and warn where it has no plan.
     pallas_greedy: str = "auto"  # "auto" | "loop" | "tail"
-    # Which fused beam strategy use_pallas selects: "auto" runs the
-    # whole-beam-loop kernel (ops/pallas/beam_loop.py) when its VMEM
-    # footprint fits, falling back to the per-step fused tail
-    # (ops/pallas/beam_step.py) at B>=512 and pure XLA below; "loop"/
-    # "tail" force one for A/B measurement (tools/ab_pallas.py; "tail"
-    # also lifts the B>=512 gate so it can be measured at any batch).
+    # Which beam kernel use_pallas selects: "auto" runs the search after
+    # its t=1 step as one beam_loop launch where its plan fits (beams up
+    # to beam_loop.MAX_K), else a beam_step launch a step (any batch:
+    # the reference's B>=512 gate is a TPU measurement), else the plain
+    # route; "loop"/"tail" force one and warn where it has no plan.
     pallas_beam: str = "auto"  # "auto" | "loop" | "tail"
     # Cache decoded images in RAM after first touch (the reference caches
     # unconditionally, data_gen.lua:80; disable for datasets larger than
@@ -192,7 +195,10 @@ class Config:
     pad_targets: bool = False
     # Image geometry (reference hard-codes 32-tall, width 100:
     # src/data/data_gen.lua:16,78). keep_aspect_ratio=False reproduces the
-    # hard-coded width-100 behavior; True uses the clamped aspect-ratio width.
+    # hard-coded width-100 behavior; True uses the clamped aspect-ratio
+    # width (16 ... 320 at 32 tall, so contexts of L = W/4 - 1 = 3 ... 79
+    # steps; the decoder kernels plan for each L, and the server and a
+    # multi-width .aocrx pad up to data.width_ladder's steps).
     image_height: int = 32
     image_width: int = 100
     keep_aspect_ratio: bool = False

@@ -2,31 +2,37 @@
 aocr/decode.py: greedy_decode, greedy_from_context, beam_decode,
 beam_from_context, _apply_trie_and_topk, _backtrack_best).
 
-Greedy routes, chosen as the reference chooses them:
+The routes are chosen as the reference chooses them, from the kernels'
+plan functions (`greedy_route`, `beam_route`), and logged once a shape:
 
-- cfg.use_pallas, pallas_greedy "auto" or "loop": the whole decode is the
-  `greedy_loop` kernel, the trie in the kernel.  The reference falls back
-  to the per-step tail when its VMEM estimate does not fit; that gate has
-  no meaning on the card, so "auto" always takes the loop here.
-- cfg.use_pallas, pallas_greedy "tail": a host loop of steps, each the
-  plain LSTM stack followed by the `decode_step` kernel (its weight
-  slices packed at the first step, `decode_step.recall`), the trie plane
-  gathered per step.
-- use_pallas=False (or simple_attention): the XLA-equivalent route,
-  `decoder.step` + `head.apply` in plain PyTorch.
+- greedy, cfg.use_pallas, pallas_greedy "auto" or "loop": the whole
+  decode is the `greedy_loop` kernel, the trie in the kernel, where
+  `greedy_loop.plan` fits the shape.  Where it does not (a decoder wider
+  than 16 blocks of greedy_loop.MAX_UNITS units, for one), the per-step
+  tail below, as the reference falls back when its VMEM estimate does
+  not fit; "loop" then warns, as the reference's does.
+- greedy, pallas_greedy "tail" (or the fallback): a host loop of steps,
+  each the plain LSTM stack followed by the `decode_step` kernel (its
+  weight slices packed at the first step, `decode_step.recall`), the trie
+  plane gathered per step, where `decode_step.fits` the shape (its
+  cluster plan, or its rows route); else the plain route.
+- use_pallas=False (or simple_attention), or no kernel fits: the
+  XLA-equivalent route, `decoder.step` + `head.apply` in plain PyTorch.
 
 Beam routes (K = min(beam_size, V); K = 1 is greedy).  Every route first
 runs the batch-sized t=1 GO step in plain PyTorch and its top-K over V:
 
-- cfg.use_pallas, pallas_beam "auto" or "loop", K <= beam_loop.MAX_K: the
-  rest of the search is one `beam_loop` launch.  The TPU's VMEM `fits`
-  gate means nothing on the card.
-- pallas_beam "tail", or K > MAX_K: a host loop of steps, each the plain
-  LSTM stack over the B*K beams followed by the `beam_step` kernel.  The
-  reference's B >= 512 gate on this route was a TPU measurement and is
-  not carried over.
-- use_pallas=False (or simple_attention): the XLA-equivalent route,
-  `decoder.lstm_stack` + `decoder.attention_grouped` + `head.apply`.
+- cfg.use_pallas, pallas_beam "auto" or "loop": the rest of the search
+  is one `beam_loop` launch where `beam_loop.plan` fits the shape (K <=
+  beam_loop.MAX_K, as the reference's `fits`).  Else, and for "tail":
+- a host loop of steps, each the plain LSTM stack over the B*K beams
+  followed by the `beam_step` kernel, where `beam_step.fits` the shape.
+  The reference's B >= 512 gate on this route was a TPU measurement and
+  is not carried over.  Else:
+- use_pallas=False (or simple_attention), or no kernel fits: the
+  XLA-equivalent route, `decoder.lstm_stack` +
+  `decoder.attention_grouped` + `head.apply`.  A forced "loop" or "tail"
+  that does not get its kernel warns.
 
 On CPU tensors each kernel's plain version runs in its place.  Every
 route keeps the PAD/EOS freeze (a beam whose previous token is PAD or EOS
@@ -42,6 +48,8 @@ custom ops (`aocr_torch::...`), which a traced program keeps as nodes.
 
 from __future__ import annotations
 
+import logging
+import warnings
 from typing import Optional
 
 import torch
@@ -50,6 +58,72 @@ from aocr_torch import vocab
 from aocr_torch.config import Config
 from aocr_torch.models import decoder, head, model
 from aocr_torch.ops.cuda import beam_loop, beam_step, decode_step, greedy_loop
+
+
+_log = logging.getLogger(__name__)
+# the route taken at each shape key, logged at its first decode
+routes: dict = {}
+
+
+def _route(what: str, mode: str, loop_fits, tail_fits, key: tuple,
+           shape: str) -> str:
+    """"loop" where mode is not "tail" and loop_fits(), else "tail" where
+    tail_fits(), else "plain"; a forced mode ("loop", "tail") that does
+    not get its kernel warns, as the reference's does (a forced mode
+    silently measuring another route would corrupt A/B numbers).  Logged
+    at a key's first decode."""
+    route = ("loop" if mode != "tail" and loop_fits() else
+             "tail" if tail_fits() else "plain")
+    if mode in ("loop", "tail") and route != mode:
+        warnings.warn(f"pallas_{what}={mode!r} requested but its kernel has "
+                      f"no plan ({shape}); falling back to the {route} "
+                      "route", stacklevel=3)
+    if (what, key) not in routes:
+        routes[(what, key)] = route
+        _log.info(f"{what} route at {key}: {route}")
+    return route
+
+
+def _plan_args(cfg: Config, B):
+    """(compute dtype, the batch the plans are read at, padded vocabulary,
+    layers): B, or 1 where B is symbolic (a program traced for any
+    batch); a plan that fits one row fitted every batch tried
+    (tests/test_torch_port_routes.py)."""
+    Vp = -(-cfg.target_vocab_size // decode_step.PACK_VP) * \
+        decode_step.PACK_VP
+    return (model.compute_dtype(cfg), B if isinstance(B, int) else 1, Vp,
+            cfg.decoder_num_layers)
+
+
+def greedy_route(cfg: Config, B, L: int, H: int) -> str:
+    """The greedy decode's route for B rows over a context of L x H:
+    "loop" (greedy_loop), "tail" (decode_step a step) or "plain" (module
+    docstring)."""
+    if not cfg.use_pallas or cfg.simple_attention:
+        return "plain"
+    cd, b, Vp, nl = _plan_args(cfg, B)
+    return _route(
+        "greedy", cfg.pallas_greedy,
+        lambda: H % 4 == 0 and greedy_loop.plan(H, b, cd, L, Vp, nl,
+                                                1) is not None,
+        lambda: decode_step.fits(H, b, cd, L, Vp), (H, b, str(cd), L, nl),
+        f"L={L}, H={H}, B={B}, {nl} layers, {cd}")
+
+
+def beam_route(cfg: Config, B, L: int, H: int, K: int) -> str:
+    """The beam search's route after its t=1 step, for B rows of K beams
+    over a context of L x H: "loop" (beam_loop), "tail" (beam_step a step)
+    or "plain" (module docstring)."""
+    if not cfg.use_pallas or cfg.simple_attention:
+        return "plain"
+    cd, b, Vp, nl = _plan_args(cfg, B)
+    return _route(
+        "beam", cfg.pallas_beam,
+        lambda: H % 4 == 0 and beam_loop.plan(H, b, K, cd, L, Vp, nl,
+                                              1) is not None,
+        lambda: beam_step.fits(H, b, K, cd, L, Vp, cfg.target_vocab_size),
+        (H, b, K, str(cd), L, nl),
+        f"L={L}, H={H}, B={B}, K={K}, {nl} layers, {cd}")
 
 
 def greedy_decode(params: dict, batch_stats: dict, images: torch.Tensor,
@@ -77,8 +151,9 @@ def greedy_from_context(params: dict, context: torch.Tensor, dec_init,
     cd = model.compute_dtype(cfg)
     context = context.to(cd)
     dec_params, proj = params["decoder"], params["projector"]
-    fused = cfg.use_pallas and not cfg.simple_attention
-    if fused and cfg.pallas_greedy in ("auto", "loop"):
+    B, L, H = context.shape
+    route = greedy_route(cfg, B, L, H)
+    if route == "loop":
         tables = greedy_loop.build_tables(dec_params, proj,
                                           cfg.target_embedding_size,
                                           cfg.input_feed, cd)
@@ -88,7 +163,8 @@ def greedy_from_context(params: dict, context: torch.Tensor, dec_init,
             cfg.decoder_num_layers, cfg.input_feed, max_len,
             trie_table=trie_table)
 
-    B, dev = context.shape[0], context.device
+    dev = context.device
+    fused = route == "tail"
     prep = decoder.prepare(dec_params, cd)
     state = decoder.init_state(dec_init, cfg.decoder_num_layers)
     width = cfg.target_vocab_size  # of the validity plane
@@ -202,8 +278,8 @@ def beam_from_context(params: dict, context: torch.Tensor, dec_init,
         min_valid = torch.full((), K, dtype=torch.int32, device=dev)
         nodes = torch.zeros((B, K), dtype=torch.int32, device=dev)
 
-    fused = cfg.use_pallas and not cfg.simple_attention
-    if fused and cfg.pallas_beam != "tail" and K <= beam_loop.MAX_K:
+    route = beam_route(cfg, B, L, H, K)
+    if route == "loop":
         tables = greedy_loop.build_tables(dec_params, proj,
                                           cfg.target_embedding_size,
                                           cfg.input_feed, cd)
@@ -225,6 +301,7 @@ def beam_from_context(params: dict, context: torch.Tensor, dec_init,
     state = decoder.DecoderState(attn=rep(state.attn),
                                  cs=tuple(rep(c) for c in state.cs),
                                  hs=tuple(rep(h) for h in state.hs))
+    fused = route == "tail"
     if fused:
         pw, pb = decode_step.pad_projector(proj["w"].to(cd), proj["b"])
         ctx_lbh = context.transpose(0, 1).contiguous()

@@ -161,6 +161,22 @@ def plan(H: int, B: int, K: int, dtype: torch.dtype, L: int, Vp: int,
                          lambda q: _smem(q, esz, K, H, L, Vp))
 
 
+# beam rows a block of the rows route (csrc/beam_step.cu BEAM_BT)
+ROWS_BT = 8
+
+
+def fits(H: int, B: int, K: int, dtype: torch.dtype, L: int, Vp: int,
+         V: int) -> bool:
+    """Whether a launch runs the shape: H a multiple of 4, 1 <= K <= V,
+    and its cluster plan, or else a rows-route block (ROWS_BT beam rows,
+    then the K x V candidates and 4 words a beam) within a block's shared
+    memory."""
+    return H % 4 == 0 and 1 <= K <= V and (
+        plan(H, B, K, dtype, L, Vp, 1) is not None
+        or decode_step.rows_smem(H, L, Vp, ROWS_BT, K * V + 4 * K)
+        <= greedy_loop.SMEM_MAX)
+
+
 def scratch_bytes(p: Plan, dtype: torch.dtype, H: int, V: int) -> int:
     """Bytes of the cluster route's scratch (csrc/beam_step.cu
     `bs_scratch`): two exchange planes in the compute dtype (the tile's h
@@ -360,6 +376,9 @@ def op(context_lbh: torch.Tensor, h_top_packed: torch.Tensor,
     if valid is not None:
         cuda.check(valid, "valid", (B, K * Vp), torch.float32, dev)
     p = checked_plan(H, B, K, cd, L, Vp)
+    if p is None and not fits(H, B, K, cd, L, Vp, V):
+        raise ValueError(f"fused_beam_tail: no route fits H={H}, B={B}, "
+                         f"K={K}, L={L}, Vp={Vp} in {cd}")
     h_tilde = torch.empty((B, K * H), dtype=torch.float32, device=dev)
     new_scores = torch.empty((B, K), dtype=torch.float32, device=dev)
     parents = torch.empty((B, K), dtype=torch.int32, device=dev)

@@ -136,6 +136,28 @@ def plan(H: int, B: int, dtype: torch.dtype, L: int, Vp: int,
     return beam_step.plan(H, B, 1, dtype, L, Vp, active)
 
 
+# batch rows a block of the rows route (csrc/decode_tail.cuh DEC_BT)
+ROWS_BT = 4
+
+
+def rows_smem(H: int, L: int, Vp: int, rows: int = ROWS_BT,
+              extra: int = 0) -> int:
+    """Dynamic shared memory bytes of a rows-route block of `rows` rows
+    (csrc/decode_tail.cuh `TailSmemT::bytes`): 3H + L + Vp floats and 3
+    words a row, then `extra` floats."""
+    return 4 * (rows * (3 * H + L + Vp + 3) + extra)
+
+
+def fits(H: int, B: int, dtype: torch.dtype, L: int, Vp: int) -> bool:
+    """Whether a launch runs the shape: H a multiple of 4, and its cluster
+    plan, or else a rows-route block within a block's shared memory."""
+    from aocr_torch.ops.cuda import greedy_loop
+
+    return H % 4 == 0 and (
+        (ROUTE != "rows" and plan(H, B, dtype, L, Vp, 1) is not None)
+        or rows_smem(H, L, Vp) <= greedy_loop.SMEM_MAX)
+
+
 def checked_plan(H: int, B: int, cd: torch.dtype, L: int,
                  Vp: int) -> Optional[beam_step.Plan]:
     """The launch's route: its cluster plan, or None for the rows route,
@@ -271,6 +293,9 @@ def op(h_top: torch.Tensor, context_lbh: torch.Tensor, prev: torch.Tensor,
     if valid is not None:
         cuda.check(valid, "valid", (B, Vp), torch.float32, dev)
     p = None if ROUTE == "rows" else checked_plan(H, B, cd, L, Vp)
+    if p is None and not fits(H, B, cd, L, Vp):
+        raise ValueError(f"fused_decode_tail: no route fits H={H}, B={B}, "
+                         f"L={L}, Vp={Vp} in {cd}")
     w: dict = {}
     if p is not None:
         cuda.check_aligned(context_lbh=context_lbh)

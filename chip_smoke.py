@@ -5,9 +5,10 @@ the CLI trainer and the results gallery, the micro-batching server,
 device preprocessing, augmentation, the Torch7 checkpoint import,
 data-parallel training and evaluation, sharded recognition, the
 training options (dropout, remat, simple attention, the fused encoder
-projection) and DP x TP training at the full width of the default
-model, through their twelve CUDA kernels (thirteen rows: lstm_fwd's two
-modes).
+projection), DP x TP training, export, the CLI's default decoder
+without input feed, -keep_aspect_ratio over the width ladder with
+Adadelta, and the demo, at the full width of the default model, through
+their twelve CUDA kernels (thirteen rows: lstm_fwd's two modes).
 
     python3 chip_smoke.py [--seed N]
 
@@ -16,7 +17,9 @@ Phases, each raising on failure:
      aocr_torch/csrc (nvcc, sm_90a, one process per source);
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (recognition B=512, T=50; training B=400, T=11,
-     the three pools after conv2/4/6), in float32 and bfloat16, with
+     the three pools after conv2/4/6; conv1_pool also at the width
+     ladder's ends W=16 and 320, lstm_fwd at their L=3 and 79), in
+     float32 and bfloat16, with
      stated tolerances; tf_fwd, tf_bwd and lstm_bwd also at a ragged
      B=37; conv1_pool_bwd's two calls bit-identical; conv1_pool_dx bit
      for bit, also at B=37 and W=36; decode_step on its cluster and rows
@@ -137,6 +140,35 @@ Phases, each raising on failure:
      of 64 PNGs through serve(artifact=...) against a direct call; each
      artifact's MB, trace and load seconds and recognize ms beside the
      live recognize's;
+  4n. the CLI's default decoder, without input feed (cli_config; layer
+     0's weights one segment), at full width: the decoder kernels
+     against their plain versions (greedy_loop at B=512 with and
+     without the 88k trie, decode_step at B=1 and 512, beam_step at K=5
+     and 10, beam_loop, tf_fwd and tf_bwd at B=400 and 37), the trained
+     fixture's bf16 transcripts on every kernel route, phases 3-3c on
+     its model (float32 transcripts equal to the plain route's), 5
+     float32 train steps each held to the plain route's step from the
+     same state, and the CLI trainer without -input_feed (float32, 3
+     steps and a greedy test, kernels against -no_use_pallas);
+  4o. -keep_aspect_ratio -snap_width_ladder over the ladder 16 ... 320
+     (L = 3 ... 79) on that decoder: greedy_loop and beam_loop against
+     their plain versions at L=3 and L=79 (B=512, T=50, random states
+     that keep the searches live, with and without the 88k trie, both
+     dtypes); recognize at every width (B=64)
+     and a B=512 list of every width, greedy and beam-5, both dtypes
+     (float32 transcripts equal to the plain route's); 2 Adadelta train
+     steps at every width, each held to the plain route's from one
+     state; the CLI trainer with -optimizer adadelta on words rendered
+     at the ladder's widths (a step a width bucket; its perplexity and
+     params errors against -no_use_pallas stated, not held: see
+     tools/keep_aspect_drift_torch.py) and its beam-5 test, kernels
+     against -no_use_pallas (its distinct transcripts logged); a server's wave of PNGs of widths between the
+     steps (/stats' padded rows) against a direct recognize; a
+     multi-width .aocrx bit-equal to the live route at every width,
+     served once;
+  4p. python -m aocr_torch.demo at a reduced size (DEMO_WORDS words,
+     DEMO_EPOCHS epochs): its artifact equal to the live model on every
+     replayed image, the greedy exact match at least DEMO_FLOOR;
   5. timing: each kernel against its plain version (CUDA events), its
      bound (the larger of its operations over the card's peak and its
      bytes over 3.35 TB/s) and, where PyTorch computes the same function
@@ -206,12 +238,20 @@ PEAK_BYTES = 3.35e12
 
 
 def base_config():
-    """The repo's default model at full width, as AttentionOCR.create
+    """The library's default model at full width, as AttentionOCR.create
     makes it: CNN 64->512, encoder 512 per direction, decoder 1024 x 2
-    layers with input feed, E=20, V=39."""
+    layers with input feed, E=20, V=39.  The CLI trainer's default has no
+    input feed (cli_config)."""
     from aocr_torch.config import Config
 
     return Config(input_feed=True, max_decoder_l=T_MAX)
+
+
+def cli_config():
+    """The CLI trainer's default decoder at full width: base_config
+    without input feed (Config's default), so layer 0's weights hold one
+    segment (the embedding's rows and h0's) instead of two."""
+    return base_config().replace(input_feed=False)
 
 
 def log(msg: str) -> None:
@@ -263,7 +303,9 @@ def numpy_model(cfg, seed: int):
         "cnn": cnn, "encoder_fw": enc(), "encoder_bw": enc(),
         "decoder": {
             "embedding": rs.standard_normal((V, E)).astype(np.float32),
-            "layers": [layer((E + Hd) if k == 0 else Hd, Hd)
+            # layer 0 reads the embedding, and h~ with input feed
+            "layers": [layer((E + Hd * cfg.input_feed) if k == 0 else Hd,
+                             Hd)
                        for k in range(cfg.decoder_num_layers)],
             "w_a": u(1 / math.sqrt(Hd), Hd, Hd),
             "w_c": u(1 / math.sqrt(2 * Hd), 2 * Hd, Hd)},
@@ -412,26 +454,26 @@ def synthetic_lexicon():
 # ------------------------------------------------------------ phase 2
 
 def kernel_checks(dev, results: dict, table) -> None:
-    """Each kernel vs its plain version at the main path's shapes; the
-    trie operands of decode_step and greedy_loop with `table`, the 88k
+    """Each kernel vs its plain version at the main path's shapes: conv1
+    at W=100 and 81 and at the width ladder's ends (16, 320), lstm_fwd
+    at their contexts (L=24, 3, 79), then the decoder kernels
+    (decoder_kernel_checks) on the library's default decoder; the trie
+    operands of decode_step and greedy_loop with `table`, the 88k
     lexicon's DAWG on the card."""
     import torch
 
-    from aocr_torch import weights
-    from aocr_torch.ops.cuda import (conv1_pool, decode_step, greedy_loop,
-                                     lstm_fwd)
+    from aocr_torch.ops.cuda import conv1_pool, lstm_fwd
 
     g = torch.Generator().manual_seed(7)
     rand = lambda *s, lo=-1.0, hi=1.0: (torch.rand(*s, generator=g)
                                         * (hi - lo) + lo)
     cfg = base_config()
-    B, L, T = B_SERVE, W_SERVE // 4 - 1, T_MAX
-    He, Hd, E = (cfg.encoder_num_hidden, cfg.decoder_num_hidden,
-                 cfg.target_embedding_size)
+    B = B_SERVE
+    He = cfg.encoder_num_hidden
     for dt in (torch.float32, torch.bfloat16):
         name = "f32" if dt == torch.float32 else "bf16"
         # conv1: images scaled to [-1, 1], conv1's init law
-        for W in (100, 81):
+        for W in (100, 81, 16, 320):
             x = rand(B, 32, W, 1).to(dev, dt)
             w = rand(64, 1, 3, 3, lo=-1 / 3, hi=1 / 3).to(dev)
             b = rand(64, lo=-1 / 3, hi=1 / 3).to(dev)
@@ -445,22 +487,27 @@ def kernel_checks(dev, results: dict, table) -> None:
                 err.max().item())
             log(f"check conv1_pool {name} B={B} W={W}: max_abs_err "
                 f"{err.max().item():.3g} (tol {tol:.3g} abs + rel)")
-        # lstm_fwd: one encoder direction, H=512, L=24
-        wh = rand(He, 4 * He, lo=-He ** -0.5, hi=He ** -0.5).to(dev, dt)
-        xp = rand(L, B, 4 * He).to(dev, dt)
-        c0, h0 = torch.zeros(B, He, device=dev), torch.zeros(B, He, device=dev)
+        # lstm_fwd: one encoder direction, H=512, over the contexts of
+        # W = 100, 16 and 320
         tol = 1e-4 if dt == torch.float32 else 5e-2
-        for reverse in (False, True):
-            hs, (cf, hf) = lstm_fwd.lstm_fwd_scan(wh, xp, c0, h0, reverse)
-            hs_p, (cf_p, hf_p) = lstm_fwd.lstm_fwd_scan_plain(wh, xp, c0, h0,
-                                                              reverse)
-            err = max((a.float() - b.float()).abs().max().item()
-                      for a, b in ((hs, hs_p), (cf, cf_p), (hf, hf_p)))
-            check(err <= tol, f"lstm_fwd {name} reverse={reverse}: {err}")
-            results.setdefault(("lstm_fwd", name), []).append(err)
-            log(f"check lstm_fwd {name} B={B} L={L} H={He} "
-                f"reverse={reverse}: max_abs_err {err:.3g} (tol {tol:.3g})")
+        wh = rand(He, 4 * He, lo=-He ** -0.5, hi=He ** -0.5).to(dev, dt)
+        c0, h0 = torch.zeros(B, He, device=dev), torch.zeros(B, He, device=dev)
+        for L in (W_SERVE // 4 - 1, 3, 79):
+            xp = rand(L, B, 4 * He).to(dev, dt)
+            for reverse in (False, True):
+                hs, (cf, hf) = lstm_fwd.lstm_fwd_scan(wh, xp, c0, h0, reverse)
+                hs_p, (cf_p, hf_p) = lstm_fwd.lstm_fwd_scan_plain(
+                    wh, xp, c0, h0, reverse)
+                err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in ((hs, hs_p), (cf, cf_p), (hf, hf_p)))
+                check(err <= tol, f"lstm_fwd {name} L={L} reverse={reverse}:"
+                                  f" {err}")
+                results.setdefault(("lstm_fwd", name), []).append(err)
+                log(f"check lstm_fwd {name} B={B} L={L} H={He} "
+                    f"reverse={reverse}: max_abs_err {err:.3g} (tol "
+                    f"{tol:.3g})")
         # past 128 units a block (H > 2048) bf16 warps hold 3 mma tiles
+        L = W_SERVE // 4 - 1
         Hw, Bw = 2400, 8
         wh = rand(Hw, 4 * Hw, lo=-Hw ** -0.5, hi=Hw ** -0.5).to(dev, dt)
         xp = rand(L, Bw, 4 * Hw).to(dev, dt)
@@ -474,31 +521,56 @@ def kernel_checks(dev, results: dict, table) -> None:
         log(f"check lstm_fwd {name} B={Bw} L={L} H={Hw} (plan "
             f"{lstm_fwd.plan(Hw, Bw, dt, 1)}): max_abs_err {err:.3g} "
             f"(tol {tol:.3g})")
-        # decoder tables from the default model's weights (numpy_model)
+    decoder_kernel_checks(dev, results, table, cfg, g, DECODE_TIMED,
+                          ("auto", "rows"))
+
+
+def decoder_kernel_checks(dev, results: dict, table, cfg, g, batches,
+                          routes) -> None:
+    """The greedy decoder kernels of cfg's decoder vs their plain
+    versions, float32 and bf16, at the recognition shape (L=24): the
+    decode_step checks at `batches` on `routes` (decode_step_checks),
+    then greedy_loop over T steps at B=512, with about half and all of
+    the rows stopping at step 1, and under the 88k trie."""
+    import torch
+
+    from aocr_torch import weights
+    from aocr_torch.ops.cuda import greedy_loop
+
+    rand = lambda *s, lo=-1.0, hi=1.0: (torch.rand(*s, generator=g)
+                                        * (hi - lo) + lo)
+    B, L, T = B_SERVE, W_SERVE // 4 - 1, T_MAX
+    Hd, E, feed = (cfg.decoder_num_hidden, cfg.target_embedding_size,
+                   cfg.input_feed)
+    what = "" if feed else ", no input feed"
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        # decoder tables from the model's weights (numpy_model)
         p, _ = numpy_model(cfg, 3)
         tp, _ = weights.from_numpy({"decoder": p["decoder"],
                                     "projector": p["projector"]}, {}, dev)
         tables = greedy_loop.build_tables(tp["decoder"], tp["projector"], E,
-                                          True, dt)
+                                          feed, dt)
         ctx = rand(L, B, Hd).to(dev, dt)
-        # tail: one step on both routes at the timed batches, the 88k
-        # trie plane, an all-invalid row and an all-NaN row
-        decode_step_checks(name, dt, tables, table, g, results)
+        # tail: one step at the batches, the 88k trie plane, an
+        # all-invalid row and an all-NaN row
+        decode_step_checks(name, dt, tables, table, g, results, batches,
+                           routes)
         tol = 1e-4 if dt == torch.float32 else 3e-2
         # loop: the whole T-step decode; then with the EOS bias raised so
         # that about half the rows stop at step 1 (the PAD/EOS freeze beside
         # live rows of the same block), and so that every row does (each
         # block's early exit)
         c0, h0 = rand(B, Hd).to(dev), rand(B, Hd).to(dev)
-        loop_args = (ctx, c0, h0, cfg.decoder_num_layers, T)
-        err = check_loop(name, tables, loop_args, tol, "")
+        loop_args = (ctx, c0, h0, cfg.decoder_num_layers, feed, T)
+        err = check_loop(name, tables, loop_args, tol, what)
         results.setdefault(("greedy_loop", name), []).append(err)
         for frac in (0.5, 1.0):
             eos = eos_tables(tables, loop_args, frac)
             err = check_loop(name, eos, loop_args, tol,
-                             f", EOS at step 1 for ~{frac:.0%} of rows")
+                             f"{what}, EOS at step 1 for ~{frac:.0%} of rows")
             results[("greedy_loop", name)].append(err)
-        err = check_loop(name, tables, loop_args, tol, ", 88k trie",
+        err = check_loop(name, tables, loop_args, tol, f"{what}, 88k trie",
                          trie_table=table)
         results[("greedy_loop", name)].append(err)
 
@@ -508,10 +580,12 @@ def kernel_checks(dev, results: dict, table) -> None:
 DECODE_TIMED = (1, 8, 32, B_SERVE)
 
 
-def decode_step_checks(name, dt, tables, table, g, results) -> None:
-    """decode_step on both routes (the cluster plan; the first port's rows
-    kernel, decode_step.ROUTE = "rows") against its plain version at
-    DECODE_TIMED, the decoder of the recognition shape (L=24): h~ and the
+def decode_step_checks(name, dt, tables, table, g, results, batches,
+                       routes) -> None:
+    """decode_step on `routes` ("auto": the cluster plan; "rows": the
+    first port's rows kernel, decode_step.ROUTE = "rows") against its
+    plain version at `batches`, the decoder of the recognition shape
+    (L=24): h~ and the
     deltas within tol (1e-4 float32, 3e-2 bf16), tokens equal but at the
     plain version's near-ties; prev a mix of live and frozen rows; from
     B=8 on row 3 all NaN (must pick PAD, as the plain version does); at
@@ -529,10 +603,10 @@ def decode_step_checks(name, dt, tables, table, g, results) -> None:
     Vp = tables["pw"].shape[1]
     tol = 1e-4 if dt == torch.float32 else 3e-2
     w = (tables["wa"], tables["wc"], tables["pw"], tables["pb"])
-    for route in ("auto", "rows"):
+    for route in routes:
         decode_step.ROUTE = route
         try:
-            for B in DECODE_TIMED:
+            for B in batches:
                 ctx = rand(L, B, H).to(dev, dt)
                 h = rand(B, H)
                 if B >= 8:
@@ -610,13 +684,13 @@ def eos_tables(tables: dict, loop_args, frac: float) -> dict:
     from aocr_torch import vocab
     from aocr_torch.ops.cuda import greedy_loop
 
-    ctx, c0, h0, nl, _T = loop_args
+    ctx, c0, h0, nl, feed, _T = loop_args
     lo, hi = -100.0, 100.0
     for _ in range(30):
         mid = (lo + hi) / 2
         t = dict(tables, pb=tables["pb"].clone())
         t["pb"][vocab.EOS] += mid
-        lab, _ = greedy_loop.fused_greedy_loop_plain(ctx, c0, h0, t, nl, True,
+        lab, _ = greedy_loop.fused_greedy_loop_plain(ctx, c0, h0, t, nl, feed,
                                                      1)
         if (lab[:, 0] == vocab.EOS).float().mean().item() < frac:
             lo = mid
@@ -638,12 +712,12 @@ def check_loop(name: str, tables: dict, loop_args, tol: float, what: str,
     from aocr_torch import vocab
     from aocr_torch.ops.cuda import greedy_loop
 
-    ctx, c0, h0, nl, T = loop_args
+    ctx, c0, h0, nl, feed, T = loop_args
     B = ctx.shape[1]
-    lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, tables, nl, True, T,
+    lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, tables, nl, feed, T,
                                             trie_table=trie_table)
     lab_p, sc_p, margin = greedy_loop.fused_greedy_loop_plain(
-        ctx, c0, h0, tables, nl, True, T, return_margins=True,
+        ctx, c0, h0, tables, nl, feed, T, return_margins=True,
         trie_table=trie_table)
     differ = lab != lab_p
     first = torch.where(differ.any(1), differ.float().argmax(1),
@@ -681,9 +755,10 @@ def check_loop(name: str, tables: dict, loop_args, tol: float, what: str,
 
 # ------------------------------------------------------------ phase 3
 
-def end_to_end(dev, seed: int):
-    """Drive AttentionOCR.recognize; returns (launch counts, the models,
-    the requests)."""
+def end_to_end(dev, seed: int, base=None):
+    """Drive AttentionOCR.recognize on base's model (by default the
+    library's, base_config); returns (launch counts, the models, the
+    requests)."""
     import numpy as np
     import torch
 
@@ -692,7 +767,8 @@ def end_to_end(dev, seed: int):
     from aocr_torch.ops import cuda
     from aocr_torch.ops.cuda import decode_step
 
-    base = base_config()
+    base = base or base_config()
+    tag = "" if base.input_feed else "no input feed "
     np_params, np_stats = numpy_model(base, seed)
     rs = np.random.RandomState(seed + 1)
     requests = [word_images(rs, n, W_SERVE) for n in (1, 8, 32, B_SERVE)]
@@ -712,10 +788,10 @@ def end_to_end(dev, seed: int):
             for k, m in models.items()}
     torch.cuda.synchronize()
     counts = cuda.launch_counts()
-    log(f"recognize path launch counts: {counts}")
+    log(f"{tag}recognize path launch counts: {counts}")
     for k in ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop"):
-        check(counts[k] > 0, f"kernel {k} never launched on the recognize "
-                             "path")
+        check(counts[k] > 0, f"kernel {k} never launched on the {tag}"
+                             "recognize path")
     # the tail route's steps all on decode_step's cluster plans
     check(decode_step.launches_rows == 0,
           f"decode_step took its rows route {decode_step.launches_rows} "
@@ -735,15 +811,15 @@ def end_to_end(dev, seed: int):
         want = [w for words, _ in plain[(dt, route)] for w in words]
         agree = float(np.mean([a == b for a, b in zip(got, want)]))
         lens = [len(w) for w in got]
-        log(f"e2e {dt} {route}: {len(got)} transcripts, {len(set(got))} "
-            f"distinct, mean length {np.mean(lens):.2f}; agreement with "
-            f"the plain route on the card {agree:.4f}")
+        log(f"e2e {tag}{dt} {route}: {len(got)} transcripts, "
+            f"{len(set(got))} distinct, mean length {np.mean(lens):.2f}; "
+            f"agreement with the plain route on the card {agree:.4f}")
         if dt == "float32":
-            check(got == want, f"float32 {route}: kernel and plain routes "
-                               "disagree")
+            check(got == want, f"{tag}float32 {route}: kernel and plain "
+                               "routes disagree")
             dsc = max(np.abs(a[1] - b[1]).max() for a, b in
                       zip(res, plain[(dt, route)]))
-            check(dsc <= 1e-3, f"float32 {route}: score gap {dsc}")
+            check(dsc <= 1e-3, f"{tag}float32 {route}: score gap {dsc}")
     # a reference on a small input: the port on the CPU (plain versions)
     small = requests[2][:4]
     ref = AttentionOCR(models[("float32", "loop")].cfg,
@@ -751,10 +827,11 @@ def end_to_end(dev, seed: int):
     want_w, want_s = ref.recognize(small)
     for route in ("loop", "tail"):
         got_w, got_s = models[("float32", route)].recognize(small)
-        check(got_w == want_w, f"float32 {route}: card and CPU disagree")
+        check(got_w == want_w, f"{tag}float32 {route}: card and CPU "
+                               "disagree")
         check(bool(np.allclose(got_s, want_s, rtol=1e-4, atol=1e-3)),
-              f"float32 {route}: card and CPU scores differ")
-    log(f"e2e float32 card == CPU on 4 images: {want_w}")
+              f"{tag}float32 {route}: card and CPU scores differ")
+    log(f"e2e {tag}float32 card == CPU on 4 images: {want_w}")
     return counts, models, requests
 
 
@@ -849,13 +926,13 @@ def beam_step_checks(name, dt, K, ctx, tables, table, tiny, results, g,
     log(f"  {beam_step.plans[(Hd, B, K, dt, L, vp)][1]}")
 
 
-def beam_kernel_checks(dev, results: dict, table) -> None:
+def beam_kernel_checks(dev, results: dict, table, cfg=None) -> None:
     """beam_step and beam_loop against their plain versions at the beam
-    path's shapes (B=512, K=5, T=50, L=24, the default decoder), float32
-    and bf16: without a trie, with the 88k lexicon's table, under
-    length_normalize, and with a tiny lexicon where most beams dead-end
-    (the beam_step plane then has no PAD, so rows run short of K valid
-    candidates and refill)."""
+    path's shapes (B=512, K=5, T=50, L=24, cfg's decoder, by default the
+    library's), float32 and bf16: without a trie, with the 88k lexicon's
+    table, under length_normalize, and with a tiny lexicon where most
+    beams dead-end (the beam_step plane then has no PAD, so rows run short
+    of K valid candidates and refill)."""
     import torch
 
     from aocr_torch import vocab, weights
@@ -866,11 +943,12 @@ def beam_kernel_checks(dev, results: dict, table) -> None:
     g = torch.Generator().manual_seed(27)
     rand = lambda *s, lo=-1.0, hi=1.0: (torch.rand(*s, generator=g)
                                         * (hi - lo) + lo)
-    cfg = base_config()
+    cfg = cfg or base_config()
     B, L, T, K = B_SERVE, W_SERVE // 4 - 1, T_MAX, BEAM
     V, Hd, E = (cfg.target_vocab_size, cfg.decoder_num_hidden,
                 cfg.target_embedding_size)
-    nl = cfg.decoder_num_layers
+    nl, feed = cfg.decoder_num_layers, cfg.input_feed
+    nofeed = "" if feed else ", no input feed"
     p, _ = numpy_model(cfg, 3)
     tp, _ = weights.from_numpy({"decoder": p["decoder"],
                                 "projector": p["projector"]}, {}, dev)
@@ -881,8 +959,7 @@ def beam_kernel_checks(dev, results: dict, table) -> None:
         f32 = dt == torch.float32
         tol = 1e-4 if f32 else 3e-2   # h~ and near-tie margins, as decode
         tables = greedy_loop.build_tables(tp["decoder"], tp["projector"], E,
-                                          True, dt)
-        vp = tables["pw"].shape[1]
+                                          feed, dt)
         ctx = rand(L, B, Hd).to(dev, dt)
         # beam_step: one step of B x K beams, some frozen, at K=5 and at
         # K=10 (recognize's route for beams wider than beam_loop.MAX_K)
@@ -898,16 +975,16 @@ def beam_kernel_checks(dev, results: dict, table) -> None:
                                   (", 88k trie", table, False),
                                   (", tiny lexicon (dead ends)", tiny,
                                    True)):
-            err = check_beam_loop(name, what, ctx, st, tables, tr, lennorm,
-                                  tol, g)
+            err = check_beam_loop(name, nofeed + what, ctx, st, tables, tr,
+                                  lennorm, tol, g, feed)
             results.setdefault(("beam_loop", name), []).append(err)
 
 
-def beam_loop_args(ctx, st, tables, table, lennorm, g):
+def beam_loop_args(ctx, st, tables, table, lennorm, g, feed=True):
     """fused_beam_loop's arguments (before trie_table) for a search of
-    BEAM beams over T_MAX steps from the t=1 state st: t=1 picks drawn
-    from g (the trie's root children with a table), their scores sorted
-    as a top-K's."""
+    BEAM beams over T_MAX steps from the t=1 state st, with input feed or
+    not: t=1 picks drawn from g (the trie's root children with a table),
+    their scores sorted as a top-K's."""
     import torch
 
     cfg = base_config()
@@ -923,10 +1000,11 @@ def beam_loop_args(ctx, st, tables, table, lennorm, g):
         nodes0 = table[0][tok0.long()].clamp(min=0).to(torch.int32)
     sc0 = (-3 * torch.rand(B, K, generator=g)).sort(1, descending=True)[0]
     return (ctx, st, tok0, sc0.to(dev), nodes0, tables,
-            cfg.decoder_num_layers, True, T_MAX, K, lennorm)
+            cfg.decoder_num_layers, feed, T_MAX, K, lennorm)
 
 
-def check_beam_loop(name, what, ctx, st, tables, table, lennorm, tol, g):
+def check_beam_loop(name, what, ctx, st, tables, table, lennorm, tol, g,
+                    feed=True):
     """beam_loop against its plain version from one t=1 state: histories
     part only at plain near-ties; scores (1e-5 relative in float32, 0.5
     in bf16), lengths and refill counts of the other rows agree.  Returns
@@ -938,7 +1016,7 @@ def check_beam_loop(name, what, ctx, st, tables, table, lennorm, tol, g):
 
     L, B, H = ctx.shape
     K, T = BEAM, T_MAX
-    args = beam_loop_args(ctx, st, tables, table, lennorm, g)
+    args = beam_loop_args(ctx, st, tables, table, lennorm, g, feed)
     got = beam_loop.fused_beam_loop(*args, trie_table=table)
     want = beam_loop.fused_beam_loop_plain(*args, trie_table=table,
                                            return_margins=True)
@@ -979,9 +1057,10 @@ def lexicon_prefixes(words) -> set:
     return {w[:i] for w in words for i in range(len(w) + 1)}
 
 
-def beam_end_to_end(dev, seed: int, lexicon):
-    """Drive recognize(beam_size=5) and the dictionary; returns (launch
-    counts, the models, the requests)."""
+def beam_end_to_end(dev, seed: int, lexicon, base=None):
+    """Drive recognize(beam_size=5) and the dictionary on base's model (by
+    default the library's); returns (launch counts, the models, the
+    requests)."""
     import numpy as np
     import torch
 
@@ -991,7 +1070,8 @@ def beam_end_to_end(dev, seed: int, lexicon):
 
     words, table = lexicon
     prefixes = lexicon_prefixes(words)
-    base = base_config()
+    base = base or base_config()
+    tag = "" if base.input_feed else "no input feed "
     np_params, np_stats = numpy_model(base, seed)
     rs = np.random.RandomState(seed + 5)
     requests = [word_images(rs, B_SERVE, W_SERVE),
@@ -1025,10 +1105,11 @@ def beam_end_to_end(dev, seed: int, lexicon):
     outs = {k: drive(m) for k, m in models.items()}
     torch.cuda.synchronize()
     counts = cuda.launch_counts()
-    log(f"beam path launch counts: {counts}")
+    log(f"{tag}beam path launch counts: {counts}")
     for k in ("conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",
               "beam_step", "beam_loop"):
-        check(counts[k] > 0, f"kernel {k} never launched on the beam path")
+        check(counts[k] > 0, f"kernel {k} never launched on the {tag}beam "
+                             "path")
 
     for (dt, route), res in outs.items():
         for (mode, i), (ws, sc) in res.items():
@@ -1049,15 +1130,15 @@ def beam_end_to_end(dev, seed: int, lexicon):
             agree = float(np.mean([a == b for a, b in zip(got, want)]))
             lens = [len(w) for w in got]
             in_lex = float(np.mean([w in set(words) for w in got]))
-            log(f"e2e {dt} {route} {mode}: {len(got)} transcripts, "
+            log(f"e2e {tag}{dt} {route} {mode}: {len(got)} transcripts, "
                 f"{len(set(got))} distinct, mean length {np.mean(lens):.2f}"
                 + (f", in the lexicon {in_lex:.4f}" if mode != "beam5"
                    else "")
                 + f"; agreement with the plain route on the card "
                 f"{agree:.4f}")
             if dt == "float32":
-                check(got == want, f"float32 {route} {mode}: kernel and "
-                                   "plain routes disagree")
+                check(got == want, f"{tag}float32 {route} {mode}: kernel "
+                                   "and plain routes disagree")
                 dsc = max(np.abs(res[(mode, i)][1]
                                  - plain[(dt, route)][(mode, i)][1]).max()
                           for i in range(len(requests)))
@@ -1077,12 +1158,13 @@ def beam_end_to_end(dev, seed: int, lexicon):
                 m.set_dictionary_table(table)
             got_w, got_s = m.recognize(small, beam_size=BEAM)
             m.clear_dictionary()
-            check(got_w == want_w, f"float32 {route} beam-5 dictionary="
-                                   f"{dictionary}: card and CPU disagree")
+            check(got_w == want_w, f"{tag}float32 {route} beam-5 "
+                                   f"dictionary={dictionary}: card and CPU "
+                                   "disagree")
             check(bool(np.allclose(got_s, want_s, rtol=1e-4, atol=1e-3)),
                   f"float32 {route} beam-5: card and CPU scores differ")
-        log(f"e2e float32 beam-5{' dictionary' if dictionary else ''} card "
-            f"== CPU on 4 images: {want_w}")
+        log(f"e2e {tag}float32 beam-5{' dictionary' if dictionary else ''}"
+            f" card == CPU on 4 images: {want_w}")
     return counts, models, requests
 
 
@@ -1100,12 +1182,13 @@ def beam10_end_to_end(dev, models, requests):
     K = BEAM_STEP_K[1]
     batch = requests[0]
     mods = {dt: models[(dt, "loop")] for dt in ("bfloat16", "float32")}
+    tag = "" if mods["float32"].cfg.input_feed else "no input feed "
     check(K > beam_loop.MAX_K, "beam-10 would not take beam_step's route")
     cuda.reset_launch_counts()
     outs = {dt: m.recognize(batch, beam_size=K) for dt, m in mods.items()}
     torch.cuda.synchronize()
     counts = cuda.launch_counts()
-    log(f"beam-{K} path launch counts: {counts}")
+    log(f"{tag}beam-{K} path launch counts: {counts}")
     check(counts["beam_step"] > 0 and counts["beam_loop"] == 0,
           f"beam-{K} recognize did not run through beam_step alone")
     with plain_route():
@@ -1115,12 +1198,12 @@ def beam10_end_to_end(dev, models, requests):
         check(len(ws) == len(batch) and bool(np.isfinite(sc).all())
               and bool((sc <= 0).all()), f"{dt} beam-{K}: bad results")
         agree = float(np.mean([a == b for a, b in zip(ws, plain[dt][0])]))
-        log(f"e2e {dt} beam-{K} B={len(batch)}: {len(set(ws))} distinct "
+        log(f"e2e {tag}{dt} beam-{K} B={len(batch)}: {len(set(ws))} distinct "
             f"transcripts, mean length {np.mean([len(w) for w in ws]):.2f}; "
             f"agreement with the plain route on the card {agree:.4f}")
         if dt == "float32":
-            check(ws == plain[dt][0], f"float32 beam-{K}: kernel and plain "
-                                      "routes disagree")
+            check(ws == plain[dt][0], f"{tag}float32 beam-{K}: kernel and "
+                                      "plain routes disagree")
             gap = float(np.abs(sc - plain[dt][1]).max())
             check(gap <= 1e-3, f"float32 beam-{K}: score gap {gap}")
     return counts
@@ -1572,7 +1655,7 @@ def greedy_loop_timings(dev, models, results: dict, table):
         for B in GREEDY_TIMED:
             ctx = rand(L, B, Hd).to(dev, dt)
             c0, h0 = rand(B, Hd).to(dev), rand(B, Hd).to(dev)
-            args = (ctx, c0, h0, nl, T)
+            args = (ctx, c0, h0, nl, True, T)
             err = check_loop(name, tables, args, tol, f" (timed B={B})")
             results.setdefault(("greedy_loop", name), []).append(err)
             err = check_loop(name, tables, args, tol,
@@ -1607,7 +1690,7 @@ def greedy_loop_timings(dev, models, results: dict, table):
         log(f"time greedy_loop {name} B={B} with the 88k trie: kernel "
             f"{kt:.4f} ms ({int((lab_t != 0).sum(1).max().item())} of {T} "
             f"steps run)")
-        eos = eos_tables(tables, (ctx, c0, h0, nl, T), 1.0)
+        eos = eos_tables(tables, (ctx, c0, h0, nl, True, T), 1.0)
         ke = cuda_ms(lambda: greedy_loop.fused_greedy_loop(
             ctx, c0, h0, eos, nl, True, T), 10)
         ms[("greedy_loop_eos", name)] = ke
@@ -1709,40 +1792,24 @@ FIXTURE_DECOYS = ["abc", "cde", "ef", "fgh", "hi", "klm", "mno", "pqr",
                   "yolk"]
 
 
-def render_word(label: str, height: int = 32, width: int = 100):
-    """tests/synth.py's striped word image: (height, width) float32 in
-    [0, 255], each character a band whose stripes its id sets."""
-    import numpy as np
-
-    from aocr_torch import vocab
-
-    img = np.full((height, width), 255.0, np.float32)
-    band_w = max(width // max(len(label), 1), 1)
-    ys = np.arange(height)[:, None]
-    for i, ch in enumerate(label):
-        cid = vocab.char_to_id(ch)
-        x0, x1 = i * band_w, min((i + 1) * band_w, width)
-        xs = np.arange(x0, x1)[None, :]
-        pattern = ((ys + xs * (1 + cid % 3)) // (2 + cid % 7)) % 2
-        img[:, x0:x1] = np.where(pattern, 255.0 - cid * 6.0, cid * 5.0)
-    return img
-
-
-def trained_fixture(dev, seed: int = 0, steps: int = 300):
+def trained_fixture(dev, seed: int = 0, steps: int = 300,
+                    input_feed: bool = True):
     """tests/test_transcript_parity.py's tiny fixture (H=128, 32x32
-    crops of FIXTURE_WORDS, SGD at 0.1), trained with the port's
-    make_train_step on `dev` (float32, plain route) until its greedy
-    decode reads back every word; returns (cfg, params, batch_stats,
-    images, targets_eval, steps run), or None if `steps` do not get
-    there."""
+    crops of FIXTURE_WORDS rendered by aocr_torch.demo.render_word, SGD
+    at 0.1), with or without input feed, trained with the port's
+    make_train_step on `dev` (float32, plain route) until its greedy and
+    beam-5 decodes read back every word; returns (cfg, params,
+    batch_stats, images, targets_eval, steps run), or None if `steps` do
+    not get there."""
     import numpy as np
     import torch
 
     from aocr_torch import decode, eval as eval_lib, train_step, vocab
     from aocr_torch.config import Config
+    from aocr_torch.demo import render_word
     from aocr_torch.models import model
 
-    cfg = Config(batch_size=4, input_feed=True, encoder_num_hidden=64,
+    cfg = Config(batch_size=4, input_feed=input_feed, encoder_num_hidden=64,
                  target_embedding_size=8, max_decoder_l=8, image_width=32,
                  learning_rate=0.1, use_pallas=False, seed=seed).validate()
     imgs = np.stack([render_word(w, 32, 32) for w in FIXTURE_WORDS])[..., None]
@@ -1756,20 +1823,20 @@ def trained_fixture(dev, seed: int = 0, steps: int = 300):
     for i in range(steps):
         out = step(params, stats, opt, im, tg, te, 0.1)
         params, stats, opt = out.params, out.batch_stats, out.opt_state
-        if (i + 1) % 25 == 0:
-            pred, _ = decode.greedy_decode(params, stats, im, cfg,
-                                           cfg.max_decoder_l)
-            if bool(eval_lib.exact_match(pred, te).all()):
-                return cfg, params, stats, im, te, i + 1
+        if (i + 1) % 25 == 0 and all(
+                bool(eval_lib.exact_match(decode.beam_decode(
+                    params, stats, im, cfg, K, cfg.max_decoder_l)[0],
+                    te).all()) for K in (1, 5)):
+            return cfg, params, stats, im, te, i + 1
     return None
 
 
-def fixture_transcripts(dev, seed: int = 0):
-    """bf16 transcripts of the trained fixture on the card: greedy on the
-    loop and tail routes (greedy_loop, decode_step) and beam-5 on both
-    (beam_loop, beam_step), without and with a trie of its words and
-    decoys, each against the plain route (use_pallas=False) and the
-    words.  Returns [(what, ok)]."""
+def fixture_transcripts(dev, seed: int = 0, input_feed: bool = True):
+    """bf16 transcripts of the trained fixture (with or without input
+    feed) on the card: greedy on the loop and tail routes (greedy_loop,
+    decode_step) and beam-5 on both (beam_loop, beam_step), without and
+    with a trie of its words and decoys, each against the plain route
+    (use_pallas=False) and the words.  Returns [(what, ok)]."""
     import numpy as np
     import torch
 
@@ -1777,12 +1844,13 @@ def fixture_transcripts(dev, seed: int = 0):
     from aocr_torch.ops import cuda
     from aocr_torch.utils import trie
 
-    fx = trained_fixture(dev, seed)
+    fx = trained_fixture(dev, seed, input_feed=input_feed)
+    tag = f"seed={seed}" + ("" if input_feed else ", no input feed")
     if fx is None:
-        return [(f"trained fixture seed={seed}: no exact match in 300 "
-                 "steps", False)]
+        return [(f"trained fixture {tag}: no exact match in 300 steps",
+                 False)]
     cfg, params, stats, im, te, steps = fx
-    log(f"trained fixture seed={seed}: exact match after {steps} steps")
+    log(f"trained fixture {tag}: exact match after {steps} steps")
     table = torch.from_numpy(trie.build_transition_table(
         FIXTURE_WORDS + FIXTURE_DECOYS)).to(dev)
     kernels = {(1, "loop"): "greedy_loop", (1, "tail"): "decode_step",
@@ -1802,7 +1870,8 @@ def fixture_transcripts(dev, seed: int = 0):
             want, want_sc = run(use_pallas=False)
             words = [vocab.decode(r) for r in want.cpu().numpy()]
             what = (f"trained fixture bf16 {'greedy' if K == 1 else 'beam-5'}"
-                    f"{', trie' if tt is not None else ''}")
+                    f"{', trie' if tt is not None else ''}"
+                    f"{'' if input_feed else ', no input feed'}")
             out.append((f"{what}: plain route reads {words}",
                         words == FIXTURE_WORDS))
             for route in ("loop", "tail"):
@@ -1849,10 +1918,12 @@ def profile(label: str, fn) -> None:
 
 # ------------------------------------------------------------ training
 
-def train_config(dtype: str, small: bool = False):
-    """The default model at full width in training (SGD at the default
-    rate); small: a narrow encoder and decoder for the CPU reference."""
-    cfg = base_config().replace(compute_dtype=dtype, batch_size=B_TRAIN)
+def train_config(dtype: str, small: bool = False, base=None):
+    """base's model (by default the library's) at full width in training
+    (SGD at the default rate); small: a narrow encoder and decoder for
+    the CPU reference."""
+    cfg = (base or base_config()).replace(compute_dtype=dtype,
+                                          batch_size=B_TRAIN)
     if small:
         cfg = cfg.replace(encoder_num_hidden=32, target_embedding_size=8)
     return cfg
@@ -1951,24 +2022,18 @@ def train_kernel_checks(dev, results: dict) -> None:
     import torch.nn.functional as F
 
     from aocr_torch.ops.cuda import (conv1_pool_bwd, lstm_bwd, lstm_fwd,
-                                     pool_bwd, tf_bwd, tf_fwd)
+                                     pool_bwd)
 
     g = torch.Generator().manual_seed(17)
     rand = lambda *s, lo=-1.0, hi=1.0: (torch.rand(*s, generator=g)
                                         * (hi - lo) + lo)
     cfg = base_config()
-    B, L, T = B_TRAIN, W_SERVE // 4 - 1, WORD_LEN + 1
-    He, Hd = cfg.encoder_num_hidden, cfg.decoder_num_hidden
-    nl = cfg.decoder_num_layers
+    B, L = B_TRAIN, W_SERVE // 4 - 1
+    He = cfg.encoder_num_hidden
     rs = np.random.RandomState(18)
     words = (word_images(rs, B, W_SERVE)[..., None] - 128.0) / 128.0
 
-    def record(name, dt, got, want, tol, what):
-        err, rel = errs(got, want)
-        check(rel <= tol, f"{name} {dt}{what}: max err {rel} of the scale")
-        results.setdefault((name, dt), []).append(err)
-        log(f"check {name} {dt}{what}: max_abs_err {err:.3g}, {rel:.3g} of "
-            f"the plain version's max abs (tol {tol:.3g})")
+    record = lambda *a: record_rel(results, *a)
 
     for dt in (torch.float32, torch.bfloat16):
         name = "f32" if dt == torch.float32 else "bf16"
@@ -2049,9 +2114,43 @@ def train_kernel_checks(dev, results: dict) -> None:
             record("lstm_bwd", name, lstm_bwd.lstm_bwd_scan(*args),
                    lstm_bwd.lstm_bwd_scan_plain(*args), tol,
                    f" B={Br} L={L} H={He} reverse={reverse}")
-        # decoder: the default model's layers at the init law
+    tf_kernel_checks(dev, results, cfg, g)
+    torch.cuda.synchronize()
+
+
+def record_rel(results: dict, name, dt, got, want, tol, what) -> None:
+    """Check max|got - want| <= tol * max|want| over matching tensors and
+    keep the error in results[(name, dt)]."""
+    err, rel = errs(got, want)
+    check(rel <= tol, f"{name} {dt}{what}: max err {rel} of the scale")
+    results.setdefault((name, dt), []).append(err)
+    log(f"check {name} {dt}{what}: max_abs_err {err:.3g}, {rel:.3g} of "
+        f"the plain version's max abs (tol {tol:.3g})")
+
+
+def tf_kernel_checks(dev, results: dict, cfg, g) -> None:
+    """tf_fwd and tf_bwd against their plain versions at the train step's
+    shapes (B=400, L=24, T=11) and at the ragged B=37, float32 and bf16,
+    on cfg's decoder (layer 0's weights two segments with input feed, one
+    without) at the init law; the backward's residuals from the plain
+    forward.  Each holds max|kernel - plain| <= tol * max|plain|."""
+    import torch
+
+    from aocr_torch.ops.cuda import tf_bwd, tf_fwd
+
+    rand = lambda *s, lo=-1.0, hi=1.0: (torch.rand(*s, generator=g)
+                                        * (hi - lo) + lo)
+    B, L, T = B_TRAIN, W_SERVE // 4 - 1, WORD_LEN + 1
+    Hd, nl, feed = cfg.decoder_num_hidden, cfg.decoder_num_layers, \
+        cfg.input_feed
+    k0 = 2 * Hd if feed else Hd
+    what = "" if feed else " no input feed"
+    record = lambda *a: record_rel(results, *a)
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        tol = 1e-4 if dt == torch.float32 else 3e-2
         u = lambda bound, *s: rand(*s, lo=-bound, hi=bound)
-        wfh0 = u(Hd ** -0.5, 2 * Hd, 4 * Hd).to(dev, dt)
+        wfh0 = u(Hd ** -0.5, k0, 4 * Hd).to(dev, dt)
         rest = [(u(Hd ** -0.5, 2 * Hd, 4 * Hd).to(dev, dt),
                  u(Hd ** -0.5, 4 * Hd).to(dev), u(Hd ** -0.5, 4 * Hd).to(dev))
                 for _ in range(nl - 1)]
@@ -2060,32 +2159,22 @@ def train_kernel_checks(dev, results: dict) -> None:
         ctx = rand(L, B, Hd).to(dev, dt)
         xpd = rand(T, B, 4 * Hd).to(dev, dt)
         c0, h0 = rand(B, Hd).to(dev), rand(B, Hd).to(dev)
-        fargs = (ctx, wfh0, rest, wa, wc, xpd, c0, h0, True, True)
-        want = tf_fwd.decoder_fwd_scan_plain(*fargs)
-        record("tf_fwd", name, tf_fwd.decoder_fwd_scan(*fargs), want, tol,
-               f" B={B} T={T} L={L} H={Hd}")
-        htl, _, ifog, cs, alpha, _ = want
-        bargs = (ctx, wfh0, [r[0] for r in rest], wc, wa,
-                 (rand(T, B, Hd) * 0.1).to(dev), htl, alpha, ifog, cs, c0,
-                 True)
-        record("tf_bwd", name, tf_bwd.decoder_bwd_scan(*bargs),
-               tf_bwd.decoder_bwd_scan_plain(*bargs), tol,
-               f" B={B} T={T} L={L} H={Hd}")
-        # a ragged batch: three tiles, the last one part full
-        Br = TF_RAGGED
-        cut = lambda x: x[..., :Br, :].contiguous()
-        fargs = (cut(ctx), wfh0, rest, wa, wc, cut(xpd), cut(c0), cut(h0),
-                 True, True)
-        want = tf_fwd.decoder_fwd_scan_plain(*fargs)
-        record("tf_fwd", name, tf_fwd.decoder_fwd_scan(*fargs), want, tol,
-               f" B={Br} T={T} L={L} H={Hd}")
-        htl, _, ifog, cs, alpha, _ = want
-        bargs = (fargs[0], wfh0, [r[0] for r in rest], wc, wa,
-                 (rand(T, Br, Hd) * 0.1).to(dev), htl, alpha, ifog, cs,
-                 fargs[6], True)
-        record("tf_bwd", name, tf_bwd.decoder_bwd_scan(*bargs),
-               tf_bwd.decoder_bwd_scan_plain(*bargs), tol,
-               f" B={Br} T={T} L={L} H={Hd}")
+        # the whole batch, then a ragged one: three tiles, the last part
+        # full
+        for Bc in (B, TF_RAGGED):
+            cut = lambda x: x[..., :Bc, :].contiguous()
+            fargs = (cut(ctx), wfh0, rest, wa, wc, cut(xpd), cut(c0),
+                     cut(h0), feed, True)
+            want = tf_fwd.decoder_fwd_scan_plain(*fargs)
+            record("tf_fwd", name, tf_fwd.decoder_fwd_scan(*fargs), want,
+                   tol, f" B={Bc} T={T} L={L} H={Hd}{what}")
+            htl, _, ifog, cs, alpha, _ = want
+            bargs = (fargs[0], wfh0, [r[0] for r in rest], wc, wa,
+                     (rand(T, Bc, Hd) * 0.1).to(dev), htl, alpha, ifog, cs,
+                     fargs[6], feed)
+            record("tf_bwd", name, tf_bwd.decoder_bwd_scan(*bargs),
+                   tf_bwd.decoder_bwd_scan_plain(*bargs), tol,
+                   f" B={Bc} T={T} L={L} H={Hd}{what}")
     torch.cuda.synchronize()
 
 
@@ -2478,22 +2567,30 @@ def image_gradient(dev, seed: int) -> dict:
 
 # ------------------------------------------------------------ CLI trainer
 
-def write_dataset(root: str, seed: int):
-    """N_TRAIN and N_VAL 32x100 .npy crops with random 10-letter words
-    (train.txt, val.txt) and dict.txt, the validation words and 1,000
-    others, under root.  Returns the lexicon."""
+def write_dataset(root: str, seed: int, sizes=None, widths=None):
+    """sizes[0] train and sizes[1] validation (N_TRAIN and N_VAL where not
+    given) .npy crops with random
+    10-letter words (train.txt, val.txt) and dict.txt, the validation
+    words and 1,000 others, under root.  The crops are word_images at
+    32x100, or with `widths` each split's i-th word rendered
+    (aocr_torch.demo.render_word) at widths[i % len(widths)].  Returns
+    the lexicon."""
     import numpy as np
+
+    from aocr_torch import demo
 
     rs = np.random.RandomState(seed + 9)
     letters = list("abcdefghijklmnopqrstuvwxyz0123456789")
     word = lambda: "".join(rs.choice(letters, WORD_LEN))
     out = {}
-    for split, n in (("train", N_TRAIN), ("val", N_VAL)):
+    for split, n in zip(("train", "val"), sizes or (N_TRAIN, N_VAL)):
         os.makedirs(os.path.join(root, split))
         words = [word() for _ in range(n)]
+        imgs = (word_images(rs, n, W_SERVE) if widths is None else
+                [demo.render_word(w, 32, widths[i % len(widths)])
+                 for i, w in enumerate(words)])
         lines = []
-        for i, (w, img) in enumerate(zip(words, word_images(rs, n,
-                                                            W_SERVE))):
+        for i, (w, img) in enumerate(zip(words, imgs)):
             np.save(os.path.join(root, split, f"{i}.npy"), img)
             lines.append(f"{split}/{i}.npy {w}")
         with open(os.path.join(root, f"{split}.txt"), "w") as f:
@@ -2505,21 +2602,25 @@ def write_dataset(root: str, seed: int):
     return lexicon
 
 
-def trainer_argv(root: str, tag: str, seed: int, *args):
+def trainer_argv(root: str, tag: str, seed: int, *args,
+                 input_feed: bool = True):
     """aocr_torch.train's argv for the data under root, the log at
-    root/<tag>.log and the checkpoints in root/<tag>, then args."""
+    root/<tag>.log and the checkpoints in root/<tag>, -input_feed unless
+    input_feed is False (the CLI's default decoder), then args."""
     return ["-data_base_dir", root, "-data_path", "train.txt",
             "-val_data_path", "val.txt",
             "-log_path", os.path.join(root, f"{tag}.log"),
-            "-model_dir", os.path.join(root, tag), "-input_feed",
+            "-model_dir", os.path.join(root, tag),
+            *(("-input_feed",) if input_feed else ()),
             "-max_decoder_l", str(T_MAX), "-batch_size", str(B_TRAIN),
             "-seed", str(seed), *args]
 
 
-def run_trainer(root: str, tag: str, seed: int, *args):
+def run_trainer(root: str, tag: str, seed: int, *args,
+                input_feed: bool = True):
     """aocr_torch.train.main on the card with the data under root and
-    args, its stdout kept out of this log; returns (its log messages, the
-    launch counts of the run, seconds)."""
+    args (trainer_argv), its stdout kept out of this log; returns (its
+    log messages, the launch counts of the run, seconds)."""
     import io
 
     import torch
@@ -2532,7 +2633,8 @@ def run_trainer(root: str, tag: str, seed: int, *args):
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
-        train.main(trainer_argv(root, tag, seed, *args))
+        train.main(trainer_argv(root, tag, seed, *args,
+                                input_feed=input_feed))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = cuda.launch_counts()
@@ -2611,6 +2713,116 @@ def visualize(data_root: str, out: str, rows) -> None:
         f"({secs:.1f} s)")
 
 
+@contextlib.contextmanager
+def row_margins():
+    """On the plain route, each decoded row's smallest step margin
+    (recorded_margins' gaps): one (B,) tensor a decode, in the order of
+    the decodes (decode.greedy_from_context or beam_from_context,
+    outermost call)."""
+    import torch
+
+    from aocr_torch import decode
+
+    out, depth = [], [0]
+    fns = {n: getattr(decode, n)
+           for n in ("greedy_from_context", "beam_from_context")}
+
+    def wrap(f, steps):
+        def recorded(*a, **kw):
+            depth[0] += 1
+            n0 = len(steps)
+            try:
+                return f(*a, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    out.append(torch.stack(steps[n0:]).min(0).values)
+        return recorded
+
+    with recorded_margins() as steps:
+        for n, f in fns.items():
+            setattr(decode, n, wrap(f, steps))
+        try:
+            yield out
+        finally:
+            for n, f in fns.items():
+                setattr(decode, n, f)
+
+
+def trainer_runs_vs_plain(run, final, tag: str, train_args):
+    """A float32 train run of train_args with the kernels (<tag>k) and one
+    with -no_use_pallas (<tag>p).  Returns (their step perplexities'
+    largest relative difference, their final params' largest absolute
+    difference); the callers that hold them to a tolerance check it."""
+    import numpy as np
+
+    from aocr_torch.optim import leaves
+
+    runs = {}
+    for t, extra in ((tag + "k", ()), (tag + "p", ("-no_use_pallas",))):
+        msgs, _c, _ = run(t, *train_args, *extra)
+        runs[t] = (step_perplexities(msgs), final(t))
+    (pk, ck), (pp, cp) = runs[tag + "k"], runs[tag + "p"]
+    check(len(pk) > 0, f"trainer {tag}: no step perplexities")
+    perr = perplexity_rel_err(pk, pp)
+    werr = max(float(np.abs(a - b).max()) for a, b in
+               zip(leaves(ck["params"]), leaves(cp["params"])))
+    log(f"trainer {tag}, kernels vs -no_use_pallas on the card, {len(pk)} "
+        f"steps: step perplexity rel err {perr:.3g}, final params "
+        f"max_abs_err {werr:.3g}")
+    return perr, werr
+
+
+def trainer_test_vs_plain(run, root: str, tag: str, test_args) -> float:
+    """Test runs of test_args on <tag>k's checkpoint with the kernels and
+    with -no_use_pallas: every row's transcript equal but at a plain
+    near-tie (the row's smallest step margin on the plain route below
+    NEAR_TIE, or its two scores within it).  The test data must fill
+    whole batches (a row a result).  Returns the share of identical
+    transcripts."""
+    import numpy as np
+    import torch
+
+    res, near = {}, np.zeros(0)
+    for t, extra in ((f"test_{tag}k", ()),
+                     (f"test_{tag}p", ("-no_use_pallas",))):
+        out = os.path.join(root, f"res_{t}")
+        with (row_margins() if extra else contextlib.nullcontext([])) as m:
+            run(t, "-phase", "test", "-load_model", "-model_dir",
+                os.path.join(root, tag + "k"), *test_args, "-visualize",
+                "-output_dir", out, "-steps_per_checkpoint", "1000", *extra)
+        res[t] = read_results(os.path.join(out, "results.txt"))
+        if extra:
+            near = torch.cat(m).cpu().numpy()
+    got, want = res[f"test_{tag}k"], res[f"test_{tag}p"]
+    check([r[:2] for r in got] == [r[:2] for r in want]
+          and len(near) == len(want),
+          f"trainer {tag} test: rows differ in path or gold, or "
+          f"{len(near)} margins for {len(want)} rows")
+    parted = [i for i, (a, b) in enumerate(zip(got, want)) if a[2] != b[2]]
+    for i in parted:
+        ok = (i < len(near) and near[i] < NEAR_TIE) or \
+            abs(float(got[i][3]) - float(want[i][3])) < NEAR_TIE
+        check(ok, f"trainer {tag} test: row {i} parts without a near-tie "
+                  f"(plain margin {near[i] if i < len(near) else None}, "
+                  f"scores {got[i][3]} / {want[i][3]})")
+    same = 1.0 - len(parted) / max(len(got), 1)
+    log(f"trainer {tag} test ({' '.join(test_args)}), kernels vs "
+        f"-no_use_pallas: transcripts identical for {same:.4f} of "
+        f"{len(got)} rows (the rest at plain near-ties < {NEAR_TIE}); "
+        f"{len(set(r[2] for r in got))} distinct transcripts, mean length "
+        f"{np.mean([len(r[2]) for r in got]):.2f}")
+    return same
+
+
+def hold_trainer_runs(tag: str, perr: float, werr: float) -> None:
+    """A float32 trainer's kernel and plain runs (trainer_runs_vs_plain)
+    within 1e-5 relative in step perplexity and 1e-4 in final params."""
+    check(perr <= 1e-5 and werr <= 1e-4,
+          f"trainer {tag}: kernels vs plain route: perplexity rel err "
+          f"{perr} (tol 1e-5), params max abs err {werr} (tol 1e-4)")
+
+
 def trainer_phase(dev, seed: int, card: str):
     """python -m aocr_torch.train at the default model's full width on
     N_TRAIN + N_VAL crops written from seed: bf16 train (one epoch: 2
@@ -2625,10 +2837,8 @@ def trainer_phase(dev, seed: int, card: str):
     import tempfile
 
     import numpy as np
-    import torch
 
-    from aocr_torch import checkpoint, decode
-    from aocr_torch.ops.cuda import beam_step
+    from aocr_torch import checkpoint
     from aocr_torch.optim import leaves
 
     root = tempfile.mkdtemp(prefix="aocr_trainer_")
@@ -2740,62 +2950,13 @@ def trainer_phase(dev, seed: int, card: str):
                 f"CER {cer:f}, {len(set(r[2] for r in rows))} distinct "
                 f"transcripts, {secs:.2f} s with set-up")
             readings[tag] = (acc, cer)
-        # 5. float32 train, kernels against -no_use_pallas
-        runs = {}
-        for tag, extra in (("f32k", ()), ("f32p", ("-no_use_pallas",))):
-            msgs, _c, _ = run(tag, *train_args, "-num_epochs", "1", *extra)
-            runs[tag] = (step_perplexities(msgs), final(tag))
-        (pk, ck), (pp, cp) = runs["f32k"], runs["f32p"]
-        perr = perplexity_rel_err(pk, pp)
-        werr = max(float(np.abs(a - b).max()) for a, b in
-                   zip(leaves(ck["params"]), leaves(cp["params"])))
-        check(perr <= 1e-5 and werr <= 1e-4,
-              f"trainer f32: kernels vs plain route: perplexity rel err "
-              f"{perr}, params max abs err {werr}")
-        log(f"trainer f32, kernels vs -no_use_pallas on the card, 3 steps: "
-            f"step perplexity rel err {perr:.3g} (tol 1e-5), final params "
-            f"max_abs_err {werr:.3g} (tol 1e-4)")
-        # 6. float32 beam-5 tests on the kernel run's checkpoint; the plain
-        # route's top-K margins recorded at every step
-        margins = []
-        topk = decode._apply_trie_and_topk
-
-        def recorded(total_, valid, K):
-            t = total_ if valid is None else torch.where(
-                valid, total_, torch.full_like(total_, beam_step.NEG))
-            margins.append(beam_step.topk_margin(t, K))
-            return topk(total_, valid, K)
-
-        res = {}
-        for tag, extra in (("test_f32k", ()),
-                           ("test_f32p", ("-no_use_pallas",))):
-            out = os.path.join(root, f"res_{tag}")
-            decode._apply_trie_and_topk = recorded if extra else topk
-            try:
-                run(tag, "-phase", "test", "-load_model", "-model_dir",
-                    os.path.join(root, "f32k"), "-data_path", "val.txt",
-                    "-beam_size", str(BEAM), "-visualize", "-output_dir", out,
-                    "-steps_per_checkpoint", "1000", *extra)
-            finally:
-                decode._apply_trie_and_topk = topk
-            res[tag] = read_results(os.path.join(out, "results.txt"))
-        got, want = res["test_f32k"], res["test_f32p"]
-        check([r[:2] for r in got] == [r[:2] for r in want],
-              "trainer f32 test: rows differ in path or gold")
-        near = torch.stack(margins).min(0).values.cpu().numpy() \
-            if margins else np.zeros(0)
-        parted = [i for i, (a, b) in enumerate(zip(got, want)) if a[2] != b[2]]
-        for i in parted:
-            ok = (i < len(near) and near[i] < 1e-4) or \
-                abs(float(got[i][3]) - float(want[i][3])) < 1e-4
-            check(ok, f"trainer f32 test: row {i} parts without a near-tie "
-                      f"(plain margin {near[i] if i < len(near) else None}, "
-                      f"scores {got[i][3]} / {want[i][3]})")
-        same = 1.0 - len(parted) / max(len(got), 1)
-        log(f"trainer f32 beam-5 test, kernels vs -no_use_pallas: "
-            f"transcripts identical for {same:.4f} of {len(got)} rows (the "
-            f"rest at plain near-ties < 1e-4)")
-        readings["f32 test identical"] = same
+        # 5. and 6. float32 train and beam-5 test, kernels against
+        # -no_use_pallas
+        hold_trainer_runs("f32", *trainer_runs_vs_plain(
+            run, final, "f32", (*train_args, "-num_epochs", "1")))
+        readings["f32 test identical"] = trainer_test_vs_plain(
+            run, root, "f32", ("-data_path", "val.txt", "-beam_size",
+                               str(BEAM)))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return total, readings
@@ -2925,16 +3086,20 @@ def recorded_margins():
 
 def plain_margins(ocr, images, beam: int):
     """(B,) the smallest step margin of each row of a recognize of images
-    by ocr's weights on the plain route (the near-tie rule's reference)."""
-    import torch
+    by ocr's weights on the plain route (the near-tie rule's reference),
+    in input order (recognize decodes a group a width)."""
+    import numpy as np
 
     from aocr_torch.api import AttentionOCR
 
     plain = AttentionOCR(ocr.cfg.replace(use_pallas=False), ocr.params,
                          ocr.batch_stats, device=ocr.device)
-    with recorded_margins() as m:
+    with row_margins() as m:
         plain.recognize(images, beam_size=beam)
-    return torch.stack(m).min(0).values.cpu().numpy()
+    out = np.empty(sum(len(x) for x in m), np.float32)
+    for (idx, _x), rows in zip(plain._prepare_groups(images), m):
+        out[idx] = rows.cpu().numpy()
+    return out
 
 
 def parted(tag: str, got, want, margins) -> int:
@@ -3149,7 +3314,7 @@ def serving_phase(dev, seed: int, lexicon, card: str):
     import numpy as np
     import torch
 
-    from aocr_torch import data, weights
+    from aocr_torch import data, demo, weights
     from aocr_torch.api import AttentionOCR
     from aocr_torch.config import Config
     from aocr_torch.models import model as model_lib
@@ -3163,7 +3328,7 @@ def serving_phase(dev, seed: int, lexicon, card: str):
     letters = list("abcdefghijklmnopqrstuvwxyz0123456789")
     words = ["".join(rs.choice(letters, rs.randint(2, 11)))
              for _ in range(B_SERVE)]
-    bodies = [png(render_word(w)) for w in words]
+    bodies = [png(demo.render_word(w)) for w in words]
     root = tempfile.mkdtemp(prefix="aocr_serve_")
     total: dict = {}
     readings: dict = {}
@@ -5187,6 +5352,565 @@ def shard_phase(dev, seed: int, card: str):
 
 
 
+# ------------------------------------------------------------ phase 5
+
+def held_route_steps(cfg, np_model, batch, dev, n: int, tag: str):
+    """n train steps of cfg from np_model on batch, each step's state
+    also stepped by the plain route (use_pallas=False; held_steps): every
+    step held to it (TRAIN_TOLS), a trajectory compared step by step from
+    one state, since float32 runs on the card part by more than the
+    routes do (cuDNN).  Returns (the kernel steps' launch counts, their
+    outputs)."""
+    import torch
+
+    from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import lstm_fwd
+
+    cuda.reset_launch_counts()
+    outs, plain = held_steps(cfg, cfg.replace(use_pallas=False), np_model,
+                             batch, dev, n)
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    counts["lstm_fwd_collect"] = lstm_fwd.launches_collect
+    for i, (a, b) in enumerate(zip(outs, plain)):
+        e = step_agreement(a, b)
+        check(all(x <= t for x, t in zip(e, TRAIN_TOLS)),
+              f"{tag} step {i + 1}: kernel and plain routes disagree {e}")
+        log(f"{tag} step {i + 1}, kernel route vs the plain route from the "
+            f"same state: loss_sum rel err {e[0]:.3g}, grad norm rel err "
+            f"{e[1]:.3g}, param max abs err {e[2]:.3g} (tol {TRAIN_TOLS}); "
+            f"loss_sum {float(a.loss_sum):.2f}")
+    return counts, outs
+
+
+def held_train_steps(dev, seed: int, base) -> dict:
+    """TRAIN_STEPS float32 make_train_step steps (SGD) of base's model at
+    B=400, T=11 from the --seed weights, held to the plain route's
+    (held_route_steps); the loss falls.  Returns the launch counts."""
+    import numpy as np
+
+    tag = "" if base.input_feed else "no input feed "
+    cfg = train_config("float32", base=base)
+    batch = train_batch(np.random.RandomState(seed + 2), B_TRAIN)
+    counts, outs = held_route_steps(cfg, numpy_model(cfg, seed), batch, dev,
+                                    TRAIN_STEPS,
+                                    f"train {tag}float32 B={B_TRAIN}")
+    log(f"{tag}train path launch counts (the kernel steps; the plain "
+        f"steps launch none): {counts}")
+    for k in ("conv1_pool", "conv1_pool_bwd", "lstm_fwd_collect", "lstm_bwd",
+              "tf_fwd", "tf_bwd", "pool_bwd"):
+        check(counts[k] > 0, f"kernel {k} never launched on the {tag}train "
+                             "path")
+    losses = [float(o.loss_sum) for o in outs]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{tag}float32 train: loss_sum {losses}")
+    return counts
+
+
+def no_feed_trainer(dev, seed: int) -> dict:
+    """python -m aocr_torch.train without -input_feed (the CLI's default
+    decoder) on write_dataset's N_TRAIN + N_VAL crops: float32, one epoch
+    (3 steps) with the kernels and with -no_use_pallas, then a greedy
+    test of the kernel run's checkpoint both ways (trainer_runs_vs_plain
+    held by hold_trainer_runs, trainer_test_vs_plain).  Returns the runs'
+    launch counts."""
+    import shutil
+    import tempfile
+
+    from aocr_torch import checkpoint
+
+    root = tempfile.mkdtemp(prefix="aocr_nofeed_")
+    total: dict = {}
+
+    def run(tag, *args):
+        out = run_trainer(root, tag, seed, *args, input_feed=False)
+        add_counts(total, out[1])
+        return out
+
+    def final(tag):
+        return checkpoint.load(checkpoint.final_path(os.path.join(root, tag)))
+
+    try:
+        write_dataset(root, seed)
+        hold_trainer_runs("nofeed", *trainer_runs_vs_plain(
+            run, final, "nofeed",
+            ("-phase", "train", "-steps_per_checkpoint", "2",
+             "-num_batches_val", "1", "-num_epochs", "1")))
+        trainer_test_vs_plain(run, root, "nofeed", ("-data_path", "val.txt"))
+        check(final("nofeedk")["config"]["input_feed"] is False,
+              "trainer nofeed: the checkpoint has input feed")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k in ("conv1_pool", "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd",
+              "pool_bwd", "greedy_loop"):
+        check(total.get(k, 0) > 0,
+              f"kernel {k} never launched by the no-input-feed CLI trainer")
+    return total
+
+
+def no_input_feed_phase(dev, seed: int, lexicon, results: dict) -> dict:
+    """The CLI trainer's default decoder, without input feed (cli_config),
+    at full width on the card: the decoder kernels against their plain
+    versions at the main paths' shapes with the input-feed checks'
+    tolerances (greedy_loop B=512 T=50 with and without the 88k trie,
+    decode_step at B=1 and 512, beam_step at K=5 and 10, beam_loop at
+    K=5, tf_fwd and tf_bwd at B=400 and 37); the trained fixture's bf16
+    transcripts on every kernel route; recognize (greedy at B=1, 8, 32,
+    512 and a mixed list, beam-5, dictionary beam-5, beam-10) with
+    float32 transcripts equal to the plain route's; TRAIN_STEPS float32
+    train steps held to the plain route's step by step; the CLI trainer
+    without -input_feed.  Returns {path: launch counts}."""
+    import torch
+
+    words, table_np = lexicon
+    table = torch.from_numpy(table_np).to(dev)
+    cfg = cli_config()
+    log("no input feed: the CLI trainer's default decoder at full width")
+    g = torch.Generator().manual_seed(37)
+    decoder_kernel_checks(dev, results, table, cfg, g, (1, B_SERVE),
+                          ("auto",))
+    beam_kernel_checks(dev, results, table, cfg)
+    tf_kernel_checks(dev, results, cfg, g)
+    for what, ok in fixture_transcripts(dev, input_feed=False):
+        log(f"check {what}")
+        check(ok, what)
+    paths = {}
+    paths["recognize"], _m, _r = end_to_end(dev, seed, cfg)
+    paths["beam"], bmodels, brequests = beam_end_to_end(dev, seed, lexicon,
+                                                        cfg)
+    paths["beam-10"] = beam10_end_to_end(dev, bmodels, brequests)
+    paths["train step"] = held_train_steps(dev, seed, cfg)
+    paths["CLI trainer"] = no_feed_trainer(dev, seed)
+    return {f"no input feed {k}": v for k, v in paths.items()}
+
+
+# the width ladder at 32 px tall (data.width_ladder): contexts of L = W/4
+# - 1 = 3 ... 79 steps
+LADDER = (16, 24, 36, 54, 81, 121, 181, 271, 320)
+# requests a ladder width (bounds the phase's run time)
+B_LADDER = 64
+# the keep-aspect trainer's crops a width (one batch of each), train and
+# validation
+B_ASPECT = 32
+
+
+def ladder_recognize(dev, cfg, np_model, reqs, mixed) -> dict:
+    """recognize on cfg's keep-aspect model at each ladder width (reqs:
+    {W: B_LADDER images}) and on the mixed list of every width, greedy and
+    beam-5, float32 and bf16, on the default routes (the loop kernels at
+    every L) and the plain route: float32 transcripts equal, scores within
+    1e-3; bf16 agreement reported.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import decode, weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.ops import cuda
+
+    models = {dt: AttentionOCR(cfg.replace(compute_dtype=dt),
+                               *weights.from_numpy(*np_model), device=dev)
+              for dt in ("bfloat16", "float32")}
+    for dt, m in models.items():
+        for W in LADDER:
+            L = W // 4 - 1
+            for B in (B_LADDER, B_SERVE):
+                H = m.cfg.decoder_num_hidden
+                check(decode.greedy_route(m.cfg, B, L, H) == "loop"
+                      and decode.beam_route(m.cfg, B, L, H, BEAM) == "loop",
+                      f"keep-aspect {dt} W={W}: a decode off the loop "
+                      "kernels")
+
+    def drive(m):
+        out = {}
+        for K in (1, BEAM):
+            for W in LADDER:
+                out[(W, K)] = m.recognize(reqs[W], beam_size=K)
+            out[("mixed", K)] = m.recognize(mixed, beam_size=K)
+        return out
+
+    cuda.reset_launch_counts()
+    outs = {dt: drive(m) for dt, m in models.items()}
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    log(f"keep-aspect recognize path launch counts: {counts}")
+    for k in ("conv1_pool", "lstm_fwd", "greedy_loop", "beam_loop"):
+        check(counts[k] > 0, f"kernel {k} never launched on the keep-aspect "
+                             "recognize path")
+    with plain_route():
+        plain = {dt: drive(m) for dt, m in models.items()}
+    for dt, res in outs.items():
+        for (W, K), (ws, sc) in res.items():
+            want = plain[dt][(W, K)]
+            n = len(reqs[W]) if W != "mixed" else len(mixed)
+            check(len(ws) == n and bool(np.isfinite(sc).all())
+                  and bool((sc <= 0).all()),
+                  f"keep-aspect {dt} W={W} beam {K}: bad results")
+            agree = float(np.mean([a == b for a, b in zip(ws, want[0])]))
+            if dt == "float32":
+                gap = float(np.abs(sc - want[1]).max())
+                check(ws == want[0] and gap <= 1e-3,
+                      f"keep-aspect float32 W={W} beam {K}: kernel and "
+                      f"plain routes disagree (agreement {agree}, score gap "
+                      f"{gap})")
+            ctx = "3-79" if W == "mixed" else W // 4 - 1
+            mode = "greedy" if K == 1 else f"beam-{K}"
+            log(f"e2e keep-aspect {dt} W={W} (L={ctx}) B={n} {mode}: "
+                f"{len(set(ws))} distinct transcripts, mean length "
+                f"{np.mean([len(w) for w in ws]):.2f}; agreement with the "
+                f"plain route on the card {agree:.4f}")
+    return counts
+
+
+def aspect_loop_checks(dev, results: dict, table, cfg) -> None:
+    """greedy_loop and beam_loop (K=5) of cfg's decoder against their
+    plain versions at the ladder's shortest and longest contexts (W=16,
+    L=3; W=320, L=79), B=512, T=50, float32 and bf16, without a trie and
+    under the 88k trie, with the tolerances of the L=24 checks.  Random
+    contexts, states and (beam_loop) t=1 picks keep most searches live
+    for all T steps, where the ladder models' random-weight searches end
+    at EOS at once (ladder_recognize's transcripts are empty)."""
+    import torch
+
+    from aocr_torch import weights
+    from aocr_torch.models.decoder import DecoderState
+    from aocr_torch.ops.cuda import greedy_loop
+
+    g = torch.Generator().manual_seed(41)
+    rand = lambda *s, lo=-1.0, hi=1.0: (torch.rand(*s, generator=g)
+                                        * (hi - lo) + lo)
+    B, T = B_SERVE, T_MAX
+    Hd, E, nl, feed = (cfg.decoder_num_hidden, cfg.target_embedding_size,
+                       cfg.decoder_num_layers, cfg.input_feed)
+    nofeed = "" if feed else ", no input feed"
+    p, _ = numpy_model(cfg, 3)
+    tp, _ = weights.from_numpy({"decoder": p["decoder"],
+                                "projector": p["projector"]}, {}, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        tol = 1e-4 if dt == torch.float32 else 3e-2
+        tables = greedy_loop.build_tables(tp["decoder"], tp["projector"], E,
+                                          feed, dt)
+        for W in (LADDER[0], LADDER[-1]):
+            ctx = rand(W // 4 - 1, B, Hd).to(dev, dt)
+            loop_args = (ctx, rand(B, Hd).to(dev), rand(B, Hd).to(dev), nl,
+                         feed, T)
+            st = DecoderState(attn=rand(B, Hd).to(dev),
+                              cs=tuple(rand(B, Hd).to(dev)
+                                       for _ in range(nl)),
+                              hs=tuple(rand(B, Hd).to(dev)
+                                       for _ in range(nl)))
+            for what, tr in (("", None), (", 88k trie", table)):
+                what = f"{nofeed}, keep-aspect W={W}{what}"
+                results.setdefault(("greedy_loop", name), []).append(
+                    check_loop(name, tables, loop_args, tol, what,
+                               trie_table=tr))
+                results.setdefault(("beam_loop", name), []).append(
+                    check_beam_loop(name, what, ctx, st, tables, tr, False,
+                                    tol, g, feed))
+
+
+def aspect_held_steps(dev, seed: int, cfg) -> dict:
+    """At each ladder width, 2 float32 Adadelta train steps of cfg's
+    keep-aspect model at B_ASPECT (words rendered at the width) from the
+    --seed weights, held to the plain route's (held_route_steps) under
+    cuDNN's deterministic algorithms.  Returns the launch counts."""
+    import numpy as np
+
+    from aocr_torch import demo, vocab
+
+    cfg = cfg.replace(compute_dtype="float32", optimizer="adadelta",
+                      batch_size=B_ASPECT)
+    np_model = numpy_model(cfg, seed)
+    rs = np.random.RandomState(seed + 25)
+    letters = list("abcdefghijklmnopqrstuvwxyz0123456789")
+    total: dict = {}
+    for W in LADDER:
+        words = ["".join(rs.choice(letters, WORD_LEN))
+                 for _ in range(B_ASPECT)]
+        targets, targets_eval, _ = vocab.encode_batch(words)
+        images = np.stack([demo.render_word(w, 32, W)
+                           for w in words])[..., None]
+        with deterministic_cudnn():
+            counts, _ = held_route_steps(
+                cfg, np_model, (images, words, targets, targets_eval), dev,
+                2, f"train keep-aspect adadelta float32 W={W} (L={W // 4 - 1})"
+                   f" B={B_ASPECT}")
+        add_counts(total, counts)
+    return total
+
+
+def aspect_trainer(dev, seed: int) -> dict:
+    """python -m aocr_torch.train -keep_aspect_ratio -snap_width_ladder
+    -optimizer adadelta without -input_feed (queue 6's C2, C3 and C4 in
+    one run) on write_dataset's words rendered at the ladder widths,
+    B_ASPECT crops a width: float32, one epoch of a step a width bucket
+    with the kernels and with -no_use_pallas under cuDNN's deterministic
+    algorithms (trainer_runs_vs_plain), then a beam-5 test of the kernel
+    run's checkpoint both ways (trainer_test_vs_plain).  The two runs'
+    perplexity and params differences are stated, not held: over the
+    epoch Adadelta's normalized steps grow the routes' 1e-7 step
+    differences as much as a 1e-7 change of the initial params grows on
+    the plain route alone (tools/keep_aspect_drift_torch.py, PERF.md);
+    each step is held to the plain route's from one state at every width
+    by aspect_held_steps.  Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    from aocr_torch import checkpoint
+
+    root = tempfile.mkdtemp(prefix="aocr_aspect_")
+    total: dict = {}
+
+    def run(tag, *args):
+        out = run_trainer(root, tag, seed, *args, input_feed=False)
+        add_counts(total, out[1])
+        return out
+
+    def final(tag):
+        return checkpoint.load(checkpoint.final_path(os.path.join(root, tag)))
+
+    n = B_ASPECT * len(LADDER)
+    aspect = ("-keep_aspect_ratio", "-snap_width_ladder",
+              "-batch_size", str(B_ASPECT))
+    try:
+        write_dataset(root, seed, (n, n), LADDER)
+        with deterministic_cudnn():
+            trainer_runs_vs_plain(
+                run, final, "aspect",
+                ("-phase", "train", *aspect, "-optimizer", "adadelta",
+                 "-num_epochs", "1", "-steps_per_checkpoint", "100",
+                 "-num_batches_val", "1"))
+            trainer_test_vs_plain(
+                run, root, "aspect",
+                ("-data_path", "val.txt", *aspect, "-beam_size", str(BEAM)))
+        ck = final("aspectk")
+        got = {k: ck["config"][k]
+               for k in ("keep_aspect_ratio", "optimizer", "input_feed")}
+        check(ck["global_step"] == len(LADDER)
+              and got == {"keep_aspect_ratio": True,
+                          "optimizer": "adadelta", "input_feed": False},
+              f"trainer aspect: global_step {ck['global_step']}, {got}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k in ("conv1_pool", "conv1_pool_bwd", "lstm_bwd", "tf_fwd", "tf_bwd",
+              "pool_bwd", "beam_loop"):
+        check(total.get(k, 0) > 0,
+              f"kernel {k} never launched by the keep-aspect CLI trainer")
+    return total
+
+
+def aspect_wave(dev, url: str, bodies, want, margins, tag: str) -> None:
+    """post the bodies through 32 clients to url's /recognize (greedy):
+    every answer 200, texts equal to `want` but at plain near-ties
+    (margins), then /stats' padded rows logged."""
+    out, wall = post_concurrently(f"{url}/recognize",
+                                  [("", b) for b in bodies], 32)
+    check(all(o is not None and o[0] == 200 for o in out),
+          f"{tag}: a request failed")
+    texts = [o[1].get("text") for o in out]
+    n = parted(tag, texts, want, margins)
+    s = http(f"{url}/stats")[1]
+    rows = s["batched_rows"] + s["padded_rows"]
+    log(f"{tag}: {len(bodies)} requests of widths 20-300 in {wall:.3f} s; "
+        f"texts equal to the direct recognize but {n} at plain near-ties; "
+        f"{s['batches']} batches, padded_rows {s['padded_rows']} "
+        f"({s['padded_rows'] / max(rows, 1):.1%} of the decoded rows)")
+
+
+def aspect_serve_export(dev, cfg, np_model, reqs, card: str):
+    """A float32 keep-aspect model (cfg) served and exported: (a) a server
+    (max_batch 64) and one wave of 256 PNG posts of widths between the
+    ladder's steps (preprocessed by aspect, snapped up the ladder),
+    against a direct recognize of the same preprocessed images; (b)
+    export_recognizer(use_pallas=True) as a multi-width .aocrx (a program
+    a ladder width) whose recognize at each width is bit-equal to the
+    live route's; (c) serve(artifact=...) and one wave.  Returns (the
+    served waves' and the artifact recognizes' launch counts)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aocr_torch import data, demo, export, weights
+    from aocr_torch.api import AttentionOCR
+    from aocr_torch.ops import cuda
+
+    cfg = cfg.replace(compute_dtype="float32")
+    ocr = AttentionOCR(cfg, *weights.from_numpy(*np_model), device=dev)
+    rs = np.random.RandomState(31)
+    letters = list("abcdefghijklmnopqrstuvwxyz0123456789")
+    widths = (20, 30, 45, 70, 100, 150, 200, 250, 300)
+    bodies = [png(demo.render_word("".join(rs.choice(letters,
+                                                     rs.randint(2, 11))),
+                                   32, widths[i % len(widths)]))
+              for i in range(256)]
+    ingest = [data.load_and_preprocess(b, cfg) for b in bodies]
+    check(sorted({im.shape[1] for im in ingest}) == list(LADDER[1:]),
+          f"keep-aspect serve: preprocessed widths "
+          f"{sorted({im.shape[1] for im in ingest})}")
+    want = ocr.recognize(ingest)[0]
+    margins = plain_margins(ocr, ingest, 1)
+    root = tempfile.mkdtemp(prefix="aocr_aspect_serve_")
+    total: dict = {}
+    try:
+        model_dir = os.path.join(root, "model")
+        ocr.save(model_dir)
+        url, httpd, rec, thread = start_server(
+            model_dir=model_dir, max_batch=64, warmup=False, device=dev)
+        try:
+            check(rec.width_ladder == list(LADDER),
+                  f"keep-aspect serve: width ladder {rec.width_ladder}")
+            cuda.reset_launch_counts()
+            aspect_wave(dev, url, bodies, want, margins,
+                        "keep-aspect serve float32")
+            torch.cuda.synchronize()
+            add_counts(total, cuda.launch_counts())
+        finally:
+            stop_server(httpd, thread)
+
+        path = os.path.join(root, "aspect.aocrx")
+        t0 = time.perf_counter()
+        export.export_recognizer(ocr, path, use_pallas=True, device=dev)
+        trace_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        art = export.ExportedRecognizer.load(path, dev)
+        load_s = time.perf_counter() - t0
+        check(list(art.widths) == list(LADDER),
+              f"keep-aspect export: widths {art.widths}")
+        cuda.reset_launch_counts()
+        diff = []
+        for W in LADDER:
+            got, live = art.recognize(reqs[W]), ocr.recognize(reqs[W])
+            same = got[0] == live[0] and np.array_equal(got[1], live[1])
+            check(same, f"keep-aspect export W={W}: the artifact is not "
+                        "bit-equal to the live recognize")
+            if not same:
+                diff.append(W)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        add_counts(total, counts)
+        for k in ("conv1_pool", "lstm_fwd", "greedy_loop"):
+            check(counts[k] > 0, f"keep-aspect export: kernel {k} never "
+                                 "launched by the artifact")
+        log(f"keep-aspect export: {len(LADDER)} programs (W {LADDER}), "
+            f"{os.path.getsize(path) / 1e6:.1f} MB, traced in {trace_s:.1f} s"
+            f", loaded in {load_s:.1f} s; recognize bit-equal to the live "
+            f"route at {len(LADDER) - len(diff)} of {len(LADDER)} widths; "
+            f"launches {counts} on {card}")
+
+        ingest_a = [data.load_and_preprocess(b, art.preprocess_config())
+                    for b in bodies]
+        check(all(np.array_equal(a, b) for a, b in zip(ingest_a, ingest)),
+              "keep-aspect export: the artifact preprocesses otherwise")
+        want_a = art.recognize(ingest_a)[0]
+        url, httpd, rec, thread = start_server(
+            artifact=path, device=dev, max_batch=64, warmup=False)
+        try:
+            cuda.reset_launch_counts()
+            aspect_wave(dev, url, bodies, want_a, margins,
+                        "keep-aspect serve -artifact")
+            torch.cuda.synchronize()
+            add_counts(total, cuda.launch_counts())
+        finally:
+            stop_server(httpd, thread)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def keep_aspect_phase(dev, seed: int, lexicon, results: dict,
+                      card: str) -> dict:
+    """-keep_aspect_ratio over the whole width ladder (LADDER, L = 3 ...
+    79) on the CLI's default decoder (no input feed) at full width: the
+    loop kernels against their plain versions at L=3 and L=79
+    (aspect_loop_checks), ladder_recognize (B_LADDER images a width and a B=512 list of every
+    width), Adadelta train steps at every width held to the plain
+    route's (aspect_held_steps), the keep-aspect Adadelta CLI trainer and
+    beam-5 test (aspect_trainer), serving and a multi-width artifact
+    (aspect_serve_export).  Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+
+    from aocr_torch import data
+
+    cfg = cli_config().replace(keep_aspect_ratio=True,
+                               snap_width_ladder=True)
+    check(data.width_ladder(cfg) == list(LADDER),
+          f"the width ladder is {data.width_ladder(cfg)}")
+    log(f"keep-aspect: widths {LADDER}, no input feed")
+    aspect_loop_checks(dev, results,
+                       torch.from_numpy(lexicon[1]).to(dev), cfg)
+    np_model = numpy_model(cfg, seed)
+    rs = np.random.RandomState(seed + 21)
+    reqs = {W: word_images(rs, B_LADDER, W) for W in LADDER}
+    # B=512 of every width: 56 or 57 a width
+    mixed = [im for i, W in enumerate(LADDER)
+             for im in word_images(rs, (B_SERVE + i) // len(LADDER), W)]
+    check(len(mixed) == B_SERVE, f"the mixed list holds {len(mixed)}")
+    return {"keep-aspect recognize": ladder_recognize(dev, cfg, np_model,
+                                                      reqs, mixed),
+            "keep-aspect train steps": aspect_held_steps(dev, seed, cfg),
+            "keep-aspect CLI trainer": aspect_trainer(dev, seed),
+            "keep-aspect serve and export": aspect_serve_export(
+                dev, cfg, np_model, reqs, card)}
+
+
+# the demo's reduced run in chip_smoke (aocr_torch.demo: DEMO_WORDS words,
+# DEMO_EPOCHS epochs, batch 256; ~70 s on an H100) and the greedy exact
+# match it must reach.  The demo's full default run (120 epochs) reads
+# back every word, greedy and dictionary beam-5 (1.0000 on an H100 at
+# 700 W in 201.5 s; PERF.md); at 30 epochs two runs read 0.5150 and
+# 0.4324 greedy (the training mid-climb, float32 runs not repeatable
+# bitwise), its validation accuracy near 0.8 by epoch 40, so the floor
+# sits well under the reduced run
+DEMO_WORDS, DEMO_EPOCHS, DEMO_FLOOR = 2000, 40, 0.3
+
+
+def demo_phase(dev, card: str) -> dict:
+    """python -m aocr_torch.demo at a reduced size (DEMO_WORDS words,
+    DEMO_EPOCHS epochs, in-process on the card): every stage runs; the
+    artifact's transcripts match the live model's on every replayed
+    image; the greedy exact match reaches DEMO_FLOOR (0.3, where the full
+    default run reads back every word: the constants' comment).  Returns
+    the launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from aocr_torch import demo
+    from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import lstm_fwd
+
+    root = tempfile.mkdtemp(prefix="aocr_demo_")
+    cuda.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = demo.main(["--workdir", root, "--words", str(DEMO_WORDS),
+                             "--epochs", str(DEMO_EPOCHS)], device=dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    counts["lstm_fwd_collect"] = lstm_fwd.launches_collect
+    check(res["artifact_matches"] == res["replayed"] > 0,
+          f"demo: the artifact matches the live model on "
+          f"{res['artifact_matches']} of {res['replayed']} images")
+    check(res["greedy_exact_match"] >= DEMO_FLOOR,
+          f"demo: greedy exact match {res['greedy_exact_match']} below "
+          f"{DEMO_FLOOR}")
+    for k in ("conv1_pool", "lstm_fwd", "lstm_fwd_collect", "tf_fwd",
+              "tf_bwd", "greedy_loop", "beam_loop"):
+        check(counts[k] > 0, f"kernel {k} never launched by the demo")
+    log(f"demo ({DEMO_WORDS} words, {DEMO_EPOCHS} epochs): greedy exact "
+        f"match {res['greedy_exact_match']:.4f} (floor {DEMO_FLOOR}), "
+        f"dictionary beam-5 {res['dict_exact_match']:.4f}; artifact "
+        f"{res['artifact_matches']}/{res['replayed']} equal to the live "
+        f"model; {res['seconds']:.1f} s on {card}; launches {counts}")
+    return counts
+
+
 def ptxas_summary(text: str, kernel: str) -> list:
     """'<instance>: <registers>, <spills>' for each instance of a kernel in
     the build's -Xptxas=-v output (empty where nvcc printed none)."""
@@ -5254,37 +5978,69 @@ def main() -> int:
         f"nodes, {table.numel() * 4 / 2 ** 20:.1f} MiB int32 on the card "
         f"({time.perf_counter() - t0:.1f} s to build)")
 
+    secs: dict = {}
+
+    def timed(name, fn, *a):
+        """fn(*a), its wall seconds logged and kept in secs."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            secs[name] = time.perf_counter() - t0
+            log(f"phase {name}: {secs[name]:.1f} s")
+
+    lexicon = (words, table_np)
     results: dict = {}
-    kernel_checks(dev, results, table)
-    beam_kernel_checks(dev, results, table)
-    train_kernel_checks(dev, results)
-    for what, ok in fixture_transcripts(dev):
+    timed("kernel checks", kernel_checks, dev, results, table)
+    timed("beam kernel checks", beam_kernel_checks, dev, results, table)
+    timed("train kernel checks", train_kernel_checks, dev, results)
+    for what, ok in timed("trained fixture", fixture_transcripts, dev):
         log(f"check {what}")
         check(ok, what)
-    # the three paths, each driven with the counts set to 0 just before
-    # it and read just after
-    counts, models, requests = end_to_end(dev, args.seed)
-    bcounts, bmodels, brequests = beam_end_to_end(dev, args.seed,
-                                                  (words, table_np))
-    b10counts = beam10_end_to_end(dev, bmodels, brequests)
-    tcounts, tcfg, np_model, batch = train_end_to_end(dev, args.seed)
-    gcounts = image_gradient(dev, args.seed)
-    ccounts, readings = trainer_phase(dev, args.seed, card)
-    scounts, sreadings = serving_phase(dev, args.seed, (words, table_np),
-                                       card)
-    ecounts, ereadings = export_phase(dev, args.seed, (words, table_np),
-                                      card)
-    dcounts = device_preprocess_phase(dev, args.seed, card)
-    acounts = augment_phase(dev, tcfg, np_model, batch, card)
-    icounts, ireadings = import_phase(dev, args.seed, card)
-    w1counts, w1ms = dp_world1_phase(dev, args.seed, card)
-    w2 = dp_world2_phase(dev, args.seed, card)
+    # the paths, each driven with the counts set to 0 just before it and
+    # read just after
+    counts, models, requests = timed("recognize", end_to_end, dev,
+                                     args.seed)
+    bcounts, bmodels, brequests = timed("beam", beam_end_to_end, dev,
+                                        args.seed, lexicon)
+    b10counts = timed("beam-10", beam10_end_to_end, dev, bmodels, brequests)
+    tcounts, tcfg, np_model, batch = timed("train step", train_end_to_end,
+                                           dev, args.seed)
+    gcounts = timed("image gradient", image_gradient, dev, args.seed)
+    ccounts, readings = timed("CLI trainer", trainer_phase, dev, args.seed,
+                              card)
+    scounts, sreadings = timed("serve", serving_phase, dev, args.seed,
+                               lexicon, card)
+    ecounts, ereadings = timed("export", export_phase, dev, args.seed,
+                               lexicon, card)
+    dcounts = timed("device preprocess", device_preprocess_phase, dev,
+                    args.seed, card)
+    acounts = timed("augment", augment_phase, dev, tcfg, np_model, batch,
+                    card)
+    icounts, ireadings = timed("torch import", import_phase, dev, args.seed,
+                               card)
+    w1counts, w1ms = timed("dp world 1", dp_world1_phase, dev, args.seed,
+                           card)
+    w2 = timed("dp world 2", dp_world2_phase, dev, args.seed, card)
     none = {k: 0 for k in cuda.KERNELS + ("lstm_fwd_collect",)}
     w2 = {k: w2.get(k, [none, none]) for k in ("step_counts", "eval_counts",
                                               "trainer_counts")}
-    shcounts = shard_phase(dev, args.seed, card)
-    ocounts, oby = options_phase(dev, tcfg, np_model, batch, card)
-    tpcounts = tp_phase(dev, args.seed, card)
+    shcounts = timed("shard", shard_phase, dev, args.seed, card)
+    ocounts, oby = timed("training options", options_phase, dev, tcfg,
+                         np_model, batch, card)
+    tpcounts = timed("tp", tp_phase, dev, args.seed, card)
+    # the CLI's default decoder (no input feed), the width
+    # ladder under -keep_aspect_ratio, the demo
+    nfcounts = timed("no input feed", no_input_feed_phase, dev, args.seed,
+                     lexicon, results)
+    kacounts = timed("keep aspect", keep_aspect_phase, dev, args.seed,
+                     lexicon, results, card)
+    decounts = timed("demo", demo_phase, dev, card)
+    from aocr_torch import decode
+
+    log("decode routes, as each shape's first decode logged them: "
+        + "; ".join(f"{w} {k}: {r}" for (w, k), r in decode.routes.items()))
+    t0 = time.perf_counter()
     ms, bounds, lib = timings(dev, models, requests, card, table)
     gms, gbounds = greedy_loop_timings(dev, models, results, table)
     ms.update(gms)
@@ -5304,6 +6060,9 @@ def main() -> int:
     ms.update(lms)
     bounds.update(lbounds)
     lib.update(llib)
+    secs["timings"] = time.perf_counter() - t0
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in secs.items()))
 
     from aocr_torch.ops.cuda import lstm_bwd
 
@@ -5344,18 +6103,25 @@ def main() -> int:
     for key, ranks in tpcounts.items():
         for r, c_ in enumerate(ranks):
             paths[f"{key} rank {r}"] = c_
+    paths.update(nfcounts)
+    paths.update(kacounts)
+    paths["demo"] = decounts
+    for p_ in (*nfcounts, *kacounts, "demo"):
+        check(sum(paths[p_].get(k, 0) for k in cuda.KERNELS) > 0,
+              f"the path {p_!r} launched no kernel")
     kernels = []
     for k in cuda.KERNELS:
         d = main_dtype[k]
         entry = {
             "name": k, "route": "cuda", "source": f"aocr_torch/csrc/{k}.cu",
             "replaces": replaces[k],
-            "launches": sum(c_[k] for c_ in paths.values()),
+            "launches": sum(c_.get(k, 0) for c_ in paths.values()),
             "max_abs_err": max(results[(k, d)]), "dtype": d,
             "ms": ms[(k, d)][0], "plain_ms": ms[(k, d)][1],
             "bound_ms": bounds[(k, d)][0], "bound_by": bounds[(k, d)][1],
             "library_ms": lib.get((k, d)),
-            "launches_by_path": {p_: c_[k] for p_, c_ in paths.items()},
+            "launches_by_path": {p_: c_.get(k, 0)
+                                 for p_, c_ in paths.items()},
             # the DP step and eval at world size 2, each rank's launches
             "launches_dp": {"step": [c_[k] for c_ in w2["step_counts"]],
                             "eval": [c_[k] for c_ in w2["eval_counts"]]},

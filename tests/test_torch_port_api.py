@@ -264,6 +264,7 @@ def _port_modules_loaded(platform):
 
 def _assert_port_only(loaded):
     assert _jax_or_aocr(loaded) == []
+    assert not any(k == "tests" or k.startswith("tests.") for k in loaded)
     port = {k for k in loaded if k.startswith("aocr_torch")}
     assert len(port) >= 30
     assert {"aocr_torch.loss", "aocr_torch.optim", "aocr_torch.train_step",
@@ -279,6 +280,7 @@ def _assert_port_only(loaded):
             "aocr_torch.parallel.eval_parallel",
             "aocr_torch.ops.dropout", "aocr_torch.parallel.tensor_parallel",
             "aocr_torch.visualizer", "aocr_torch.visualizer.generate_html",
+            "aocr_torch.demo",
             *(f"aocr_torch.ops.cuda.{k}" for k in cuda.KERNELS)} <= port
     assert cuda.KERNELS == (
         "conv1_pool", "lstm_fwd", "decode_step", "greedy_loop",
@@ -287,9 +289,9 @@ def _assert_port_only(loaded):
 
 
 def test_port_never_imports_jax():
-    """Every aocr_torch module imports in a clean interpreter without
-    loading jax or any module of the JAX package `aocr`
-    (JAX_PLATFORM_NAME unset)."""
+    """Every aocr_torch module (the demo's too) imports in a clean
+    interpreter without loading jax, any module of the JAX package `aocr`
+    or the tests (JAX_PLATFORM_NAME unset)."""
     _assert_port_only(_port_modules_loaded(None))
 
 

@@ -479,6 +479,39 @@ def test_trained_fixture_bf16_transcripts(dev):
         assert ok, what
 
 
+def test_trained_fixture_bf16_transcripts_no_input_feed(dev):
+    """The same fixture without input feed (the CLI's default decoder:
+    layer 0's weights one segment)."""
+    import chip_smoke
+
+    for what, ok in chip_smoke.fixture_transcripts(dev, input_feed=False):
+        assert ok, what
+
+
+def test_tail_wrappers_raise_where_no_route_fits(dev):
+    """A shape that neither the cluster plan nor the rows route's shared
+    memory fits raises ValueError before any launch, as decode.py's
+    routes (decode_step.fits, beam_step.fits) foresee; nothing falls
+    back."""
+    H, L, B = 8192, 2, 1
+    dt = torch.bfloat16
+    assert not decode_step.fits(H, B, dt, L, 128)
+    assert not beam_step.fits(H, B, 2, dt, L, 128, 39)
+    z = lambda *s_: torch.zeros(*s_, device=dev, dtype=dt)
+    ctx, prev = z(L, B, H), torch.zeros(B, dtype=torch.int32, device=dev)
+    n = (decode_step.launches, beam_step.launches)
+    with pytest.raises(ValueError, match="no route fits"):
+        decode_step.fused_decode_tail(z(B, H), ctx, prev, z(H, H),
+                                      z(2 * H, H), z(H, 128),
+                                      torch.zeros(128, device=dev))
+    with pytest.raises(ValueError, match="no route fits"):
+        beam_step.fused_beam_tail(ctx, z(B, 2 * H), prev.repeat(2)[None],
+                                  torch.zeros(B, 2, device=dev), z(H, H),
+                                  z(2 * H, H), z(H, 128),
+                                  torch.zeros(128, device=dev), 2, 39)
+    assert (decode_step.launches, beam_step.launches) == n
+
+
 @pytest.mark.parametrize("route", ["auto", "tail"])
 def test_recognize_on_cuda_matches_cpu(dev, route):
     cfg = Config(input_feed=True, encoder_num_hidden=64,

@@ -131,11 +131,11 @@ def _cfgs(**kw):
     return Config(**base).validate(), TConfig(**base).validate()
 
 
-def _jax_model(seed):
+def _jax_model(seed, input_feed=True):
     """A small model whose transcripts depend on the image: the reference
     init, with weights scaled up so that rows differ and some emit EOS
     (at init the CNN features barely vary between images)."""
-    cfg = _cfgs(seed=seed)[0]
+    cfg = _cfgs(seed=seed, input_feed=input_feed)[0]
     ms = jmodel.init(jax.random.PRNGKey(seed), cfg)
     p = jax.tree.map(lambda a: np.array(a), ms.params)
     for conv in p["cnn"].values():
@@ -159,18 +159,27 @@ def _images(B, W):
                      for w in WORDS[:B]])[..., None].astype(np.float32)
 
 
+# the width ladder's ends (L = 3 and 79), decoded by the CLI's default
+# decoder, without input feed
+NO_FEED_WIDTHS = (16, 320)
+
+
 @pytest.mark.parametrize("route", ["loop", "tail", "xla"])
-@pytest.mark.parametrize("B,W", [(1, 32), (5, 100), (5, 81)])
+@pytest.mark.parametrize("B,W", [(1, 32), (5, 100), (5, 81), (5, 16),
+                                 (5, 320)])
 def test_greedy_decode_matches_reference(monkeypatch, route, B, W):
     """End to end in float32: JAX greedy_decode with its conv1, lstm_fwd
     and decode kernels in interpret mode (or its XLA route) against the
-    port's route of the same name."""
+    port's route of the same name; at NO_FEED_WIDTHS without input
+    feed."""
     # a distinct cfg per route: Config is greedy_decode's jit key, and the
     # interpret flags are read while tracing
     seed = {"loop": 901, "tail": 902, "xla": 903}[route]
-    _, params, stats = _jax_model(seed)
+    feed = W not in NO_FEED_WIDTHS
+    _, params, stats = _jax_model(seed, feed)
     cfg, tcfg = _cfgs(seed=seed, use_pallas=route != "xla",
-                      pallas_greedy="tail" if route == "tail" else "auto")
+                      pallas_greedy="tail" if route == "tail" else "auto",
+                      input_feed=feed)
     images = _images(B, W)
     kernels = route != "xla"
     monkeypatch.setattr(jdecode, "_PALLAS_GREEDY_INTERPRET", kernels)
