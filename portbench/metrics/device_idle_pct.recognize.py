@@ -1,0 +1,8 @@
+"""The share of the traced stretch of recognize calls in which no device
+operation ran (the union of their intervals; %)."""
+
+
+def read(run):
+    from portbench import readers
+
+    return readers.idle_pct(run, "recognize")

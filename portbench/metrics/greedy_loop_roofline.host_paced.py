@@ -1,0 +1,8 @@
+"""greedy_loop_roofline in the host-paced cells that BENCHMARK.json lists
+under this name, where it moves recognize_images_per_s.host_paced."""
+
+
+def read(run):
+    from portbench import registry
+
+    return registry.reader("greedy_loop_roofline")(run)
