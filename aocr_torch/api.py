@@ -35,6 +35,7 @@ from aocr_torch import decode, train_step, weights
 from aocr_torch.models import model as model_lib
 from aocr_torch.parallel import mesh as mesh_lib
 from aocr_torch.utils import trie as trie_lib
+from aocr_torch.utils.tracing import span
 
 
 class AttentionOCR:
@@ -229,22 +230,31 @@ class AttentionOCR:
                   max_len: Optional[int] = None
                   ) -> Tuple[List[str], np.ndarray]:
         """Decode a batch (stacked array, image paths or per-image arrays;
-        widths may mix).  Returns (transcripts, log-prob scores) in input order."""
-        groups = self._prepare_groups(images)
-        n = sum(len(idx) for idx, _ in groups)
-        words: List[Optional[str]] = [None] * n
-        scores = np.empty((n,), np.float32)
-        K = beam_size or self.cfg.beam_size
-        T = max_len or self.cfg.max_decoder_l
-        for idx, x in groups:
-            if self._shards:
-                labels, sc = self._decode_sharded(x, K, T)
-            else:
-                labels, sc = self._decode_on(self.device, x, K, T)
-            for j, i in enumerate(idx):
-                words[i] = vocab.decode(labels[j])
-                scores[i] = sc[j]
-        return words, scores
+        widths may mix).  Returns (transcripts, log-prob scores) in input
+        order.  Under a torch.profiler session the call records the spans
+        aocr_torch.recognize and, inside it, .prepare, .copy, .decode,
+        .fetch (once a width group and shard) and .transcripts."""
+        with span("aocr_torch.recognize"):
+            with span("aocr_torch.recognize.prepare"):
+                groups = self._prepare_groups(images)
+            n = sum(len(idx) for idx, _ in groups)
+            words: List[Optional[str]] = [None] * n
+            scores = np.empty((n,), np.float32)
+            K = beam_size or self.cfg.beam_size
+            T = max_len or self.cfg.max_decoder_l
+            decoded = []
+            for idx, x in groups:
+                if self._shards:
+                    labels, sc = self._decode_sharded(x, K, T)
+                else:
+                    labels, sc = self._decode_on(self.device, x, K, T)
+                scores[idx] = sc
+                decoded.append((idx, labels))
+            with span("aocr_torch.recognize.transcripts"):
+                for idx, labels in decoded:
+                    for j, i in enumerate(idx):
+                        words[i] = vocab.decode(labels[j])
+            return words, scores
 
     def _decode_on(self, dev: torch.device, x, K: int, T: int):
         """beam_decode of the rows x on dev with its replica of the
@@ -254,10 +264,14 @@ class AttentionOCR:
         with torch.inference_mode(), (torch.cuda.device(dev)
                                       if dev.type == "cuda"
                                       else contextlib.nullcontext()):
-            labels, sc = decode.beam_decode(
-                params, stats, torch.as_tensor(x).to(dev), self.cfg,
-                beam_size=K, max_len=T, trie_table=trie)
-            return labels.cpu().numpy(), sc.cpu().numpy()
+            with span("aocr_torch.recognize.copy"):
+                x = torch.as_tensor(x).to(dev)
+            with span("aocr_torch.recognize.decode"):
+                labels, sc = decode.beam_decode(
+                    params, stats, x, self.cfg, beam_size=K, max_len=T,
+                    trie_table=trie)
+            with span("aocr_torch.recognize.fetch"):
+                return labels.cpu().numpy(), sc.cpu().numpy()
 
     def _decode_sharded(self, x, K: int, T: int):
         """x split over the shards, padded by repeating its last row."""

@@ -58,6 +58,7 @@ from aocr_torch import vocab
 from aocr_torch.config import Config
 from aocr_torch.models import decoder, head, model
 from aocr_torch.ops.cuda import beam_loop, beam_step, decode_step, greedy_loop
+from aocr_torch.utils.tracing import PACK, span
 
 
 _log = logging.getLogger(__name__)
@@ -154,9 +155,10 @@ def greedy_from_context(params: dict, context: torch.Tensor, dec_init,
     B, L, H = context.shape
     route = greedy_route(cfg, B, L, H)
     if route == "loop":
-        tables = greedy_loop.build_tables(dec_params, proj,
-                                          cfg.target_embedding_size,
-                                          cfg.input_feed, cd)
+        with span(PACK):
+            tables = greedy_loop.build_tables(dec_params, proj,
+                                              cfg.target_embedding_size,
+                                              cfg.input_feed, cd)
         c0, h0 = dec_init
         return greedy_loop.fused_greedy_loop(
             context.transpose(0, 1).contiguous(), c0, h0, tables,
@@ -280,9 +282,10 @@ def beam_from_context(params: dict, context: torch.Tensor, dec_init,
 
     route = beam_route(cfg, B, L, H, K)
     if route == "loop":
-        tables = greedy_loop.build_tables(dec_params, proj,
-                                          cfg.target_embedding_size,
-                                          cfg.input_feed, cd)
+        with span(PACK):
+            tables = greedy_loop.build_tables(dec_params, proj,
+                                              cfg.target_embedding_size,
+                                              cfg.input_feed, cd)
         outs = beam_loop.fused_beam_loop(
             context.transpose(0, 1).contiguous(), state, tokens0, scores,
             nodes if use_trie else None, tables, cfg.decoder_num_layers,

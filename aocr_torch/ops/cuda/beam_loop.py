@@ -38,6 +38,7 @@ from aocr_torch import vocab
 from aocr_torch.ops import cuda, lstm
 from aocr_torch.ops.cuda import beam_step, greedy_loop
 from aocr_torch.ops.mm import matmul
+from aocr_torch.utils.tracing import PACK, span
 
 launches = 0
 
@@ -349,7 +350,8 @@ def op(context_lbh: torch.Tensor, init_state: List[torch.Tensor],
         minv = torch.empty((B,), dtype=torch.int32, device=dev)
     scratch = torch.zeros((scratch_bytes(p, cd, H, num_layers, V),),
                           dtype=torch.uint8, device=dev)
-    w = greedy_loop.pack_weights(t, p, num_layers, input_feed)
+    with span(PACK):
+        w = greedy_loop.pack_weights(t, p, num_layers, input_feed)
     cuda.launch("beam_loop", cd, dev, context_lbh.data_ptr(),
                 init.data_ptr(), tokens0.data_ptr(), scores0.data_ptr(),
                 cuda.ptr(nodes0 if trie_table is not None else None),

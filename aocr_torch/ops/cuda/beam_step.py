@@ -36,6 +36,7 @@ import torch
 
 from aocr_torch.ops import cuda
 from aocr_torch.ops.cuda import decode_step, greedy_loop
+from aocr_torch.utils.tracing import PACK, span
 
 launches = 0
 
@@ -388,7 +389,8 @@ def op(context_lbh: torch.Tensor, h_top_packed: torch.Tensor,
     w = scratch = None
     if p is not None:
         cuda.check_aligned(context_lbh=context_lbh)
-        w = packed_weights(w_a, w_c, p)
+        with span(PACK):
+            w = packed_weights(w_a, w_c, p)
         scratch = torch.empty((scratch_bytes(p, cd, H, V),),
                               dtype=torch.uint8, device=dev)
     cuda.launch("beam_step", cd, dev, context_lbh.data_ptr(), h.data_ptr(),

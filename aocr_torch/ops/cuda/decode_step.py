@@ -35,6 +35,7 @@ from aocr_torch import vocab
 from aocr_torch.ops import cuda
 from aocr_torch.ops.cuda import beam_step
 from aocr_torch.ops.mm import matmul
+from aocr_torch.utils.tracing import PACK, span
 
 launches = 0
 # the rows route's launches (counted in `launches` too)
@@ -299,8 +300,10 @@ def op(h_top: torch.Tensor, context_lbh: torch.Tensor, prev: torch.Tensor,
     w: dict = {}
     if p is not None:
         cuda.check_aligned(context_lbh=context_lbh)
-        w = (recall(context_lbh, w_a, w_c, p, V)
-             or pack_weights(w_a, w_c, context_lbh, pw_padded, V))
+        w = recall(context_lbh, w_a, w_c, p, V)
+        if w is None:
+            with span(PACK):
+                w = pack_weights(w_a, w_c, context_lbh, pw_padded, V)
     h_tilde = torch.empty((B, H), dtype=torch.float32, device=dev)
     tok = torch.empty((B,), dtype=torch.int32, device=dev)
     delta = torch.empty((B,), dtype=torch.float32, device=dev)

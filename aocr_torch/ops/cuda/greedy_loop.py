@@ -43,6 +43,7 @@ from aocr_torch import vocab
 from aocr_torch.ops import cuda, lstm
 from aocr_torch.ops.cuda import decode_step
 from aocr_torch.ops.mm import matmul
+from aocr_torch.utils.tracing import PACK, span
 
 launches = 0
 
@@ -505,7 +506,8 @@ def op(context_lbh: torch.Tensor, c0: torch.Tensor, h0: torch.Tensor,
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     scratch = torch.zeros((scratch_bytes(p, cd, H, num_layers, V),),
                           dtype=torch.uint8, device=dev)
-    w = pack_weights(t, p, num_layers, input_feed)
+    with span(PACK):
+        w = pack_weights(t, p, num_layers, input_feed)
     cuda.launch("greedy_loop", cd, dev, context_lbh.data_ptr(),
                 c0.data_ptr(), h0.data_ptr(), eg.data_ptr(),
                 w["w0"].data_ptr(), w["wl"].data_ptr(), bx.data_ptr(),
