@@ -252,8 +252,8 @@ class AttentionOCR:
                 decoded.append((idx, labels))
             with span("aocr_torch.recognize.transcripts"):
                 for idx, labels in decoded:
-                    for j, i in enumerate(idx):
-                        words[i] = vocab.decode(labels[j])
+                    for i, w in zip(idx, vocab.decode_batch(labels)):
+                        words[i] = w
             return words, scores
 
     def _decode_on(self, dev: torch.device, x, K: int, T: int):

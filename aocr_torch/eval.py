@@ -45,16 +45,11 @@ def eval_word_err_rate(labels, target_labels
                        ) -> Tuple[int, List[str], List[str]]:
     """Reference-parity eval: (num word errors, pred strings, gold
     strings).  An error is counted iff the EOS-truncated strings differ."""
-    preds, golds = [], []
-    errors = 0
-    for p_row, g_row in zip(np.asarray(labels), np.asarray(target_labels)):
-        p = vocab.decode(p_row)
-        g = vocab.decode(g_row)
-        preds.append(p)
-        golds.append(g)
-        if p != g:
-            errors += 1
-    return errors, preds, golds
+    labels, target_labels = np.asarray(labels), np.asarray(target_labels)
+    n = min(len(labels), len(target_labels))
+    preds = vocab.decode_batch(labels[:n])
+    golds = vocab.decode_batch(target_labels[:n])
+    return sum(p != g for p, g in zip(preds, golds)), preds, golds
 
 
 # ------------------------------------------------------------ tensor-side
@@ -68,12 +63,9 @@ def canonicalize(seqs: torch.Tensor):
     the first EOS, drop PAD and GO anywhere, compact the surviving
     character tokens to the front.  Returns (compacted (B, T) int32 rows
     PAD-filled past their length, lengths (B,) int32)."""
-    B, T = seqs.shape
-    is_eos = seqs == vocab.EOS
-    first = torch.where(is_eos.any(1), is_eos.int().argmax(1),
-                        torch.full((B,), T, device=seqs.device))
+    T = seqs.shape[1]
     pos = torch.arange(T, device=seqs.device)[None, :]
-    keep = (seqs >= vocab.EOS + 1) & (pos < first[:, None])
+    keep = (seqs >= vocab.EOS + 1) & vocab.live_mask(seqs)
     # kept tokens keep their order, dropped ones go last (keys are unique)
     order = torch.argsort(torch.where(keep, pos, pos + T), dim=1)
     compact = torch.gather(seqs, 1, order)

@@ -392,9 +392,9 @@ class ExportedRecognizer:
             by_width.setdefault(a.shape[1], []).append(i)
         for w, idx in sorted(by_width.items()):
             lab, sc = self._decode_width(w, np.stack([arrs[i] for i in idx]))
-            for j, i in enumerate(idx):
-                words[i] = vocab.decode(lab[j])
-                scores[i] = sc[j]
+            for i, word in zip(idx, vocab.decode_batch(lab)):
+                words[i] = word
+            scores[idx] = sc
         return words, scores
 
     def _decode_width(self, width: int, images: np.ndarray):

@@ -11,6 +11,7 @@ with identical structure, so transcripts round-trip identically.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Sequence
 
 import numpy as np
@@ -60,6 +61,69 @@ def decode(ids: Sequence[int]) -> str:
             continue
         out.append(id_to_char(i))
     return "".join(out)
+
+
+# code point of each printable id; 0 for PAD, GO and EOS
+_POINTS = np.zeros((VOCAB_SIZE,), np.uint32)
+_POINTS[NUM_SPECIAL:NUM_SPECIAL + 10] = np.arange(48, 58)
+_POINTS[NUM_SPECIAL + 10:] = np.arange(97, 123)
+
+# rows whose kept ids decode_batch moved forward: a PAD or GO before a
+# printable id, both before the row's first EOS (serve's handler threads
+# may decode at once)
+compacted_rows = 0
+_compacted_lock = threading.Lock()
+
+
+def compaction_count() -> int:
+    return compacted_rows
+
+
+def reset_compaction_count() -> None:
+    global compacted_rows
+    with _compacted_lock:
+        compacted_rows = 0
+
+
+def live_mask(seqs):
+    """(B, T) bool: the positions before each row's first EOS, the part
+    of a row that `decode` reads.  `seqs` is a numpy array or a torch
+    tensor (on any device) of (B, T) ids."""
+    return (seqs == EOS).cumsum(1) == 0
+
+
+def decode_batch(labels) -> List[str]:
+    """`decode` of every row of a (B, T) integer array, in one pass over
+    the block: truncate each row at its first EOS, drop PAD and GO before
+    it, raise ValueError on any other id outside the vocabulary before it.
+
+    Each row becomes T UCS-4 code points, 0 for PAD, GO and whatever
+    follows the EOS; `tolist()` strips the trailing 0s, and a 0 left
+    inside a row's string (a PAD or GO before a printable id) is removed
+    from it, the row counted in `compacted_rows`."""
+    global compacted_rows
+    a = np.asarray(labels)
+    if a.ndim == 1 and a.size == 0:
+        return []  # an empty list of rows
+    if a.ndim != 2:
+        raise ValueError(f"labels must be 2-D (B, T), got shape {a.shape}")
+    if a.dtype.kind != "i":
+        a = a.astype(np.int64)  # as decode's int(); take() wants signed ids
+    B, T = a.shape
+    if B == 0 or T == 0:
+        return [""] * B
+    live = live_mask(a)
+    bad = live & ((a < 0) | (a >= VOCAB_SIZE))
+    if bad.any():
+        r, c = np.argwhere(bad)[0]
+        raise ValueError(f"id {int(a[r, c])} is not a printable vocabulary id")
+    codes = _POINTS.take(a, mode="clip")  # ids after an EOS may lie outside
+    codes *= live
+    rows = codes.view(f"U{T}").ravel().tolist()
+    moved = sum("\0" in w for w in rows)
+    with _compacted_lock:
+        compacted_rows += moved
+    return [w.replace("\0", "") for w in rows]
 
 
 def encode_batch(labels: Sequence[str], pad_to: int | None = None):

@@ -20,7 +20,8 @@ from aocr import checkpoint
 from aocr.api import AttentionOCR as JaxOCR
 from aocr.config import Config
 from aocr.models import model as jmodel
-from aocr_torch import weights
+from aocr_torch import eval as teval
+from aocr_torch import vocab, weights
 from aocr_torch.api import AttentionOCR
 from aocr_torch.config import Config as TConfig
 from aocr_torch.models import model
@@ -195,6 +196,85 @@ def test_recognize_beam_and_dictionary_match_reference(tmp_path, beam_size):
         np.testing.assert_allclose(scores, want_scores, rtol=1e-5, atol=1e-5)
     # the trie admits lexicon words and, as PAD is always valid, prefixes
     assert all(any(x.startswith(w) for x in lexicon) for w in words)
+
+
+def _port_model():
+    """A seeded port model scaled as _sharpened scales the reference's,
+    with EOS lifted so that some rows end early; and crops of three
+    widths in mixed order (three width groups)."""
+    ocr = AttentionOCR.create(TConfig(
+        input_feed=True, encoder_num_hidden=16, target_embedding_size=8,
+        max_decoder_l=8, image_width=32), device="cpu")
+    p = ocr.params
+    with torch.no_grad():
+        for conv in p["cnn"].values():
+            if "w" in conv:
+                conv["w"].mul_(3)
+        for group in ("encoder_fw", "encoder_bw", "decoder"):
+            for layer in p[group]["layers"]:
+                layer["wi"].mul_(3)
+                layer["wh"].mul_(3)
+        p["decoder"]["w_a"].mul_(3)
+        p["decoder"]["w_c"].mul_(3)
+        p["projector"]["w"].mul_(6)
+        p["projector"]["b"][vocab.EOS] = 2.0
+    rng = np.random.default_rng(7)
+    images = [rng.uniform(0, 255, (32, w)).astype(np.float32)
+              for w in (32, 40, 32, 48, 40, 48, 32, 40, 48, 32)]
+    return ocr, images
+
+
+def _group_labels(ocr, images, K):
+    """(input index, label row) of every image, decoded group by group
+    as recognize decodes them."""
+    out = []
+    for idx, x in ocr._prepare_groups(images):
+        labels, _ = (ocr._decode_sharded(x, K, ocr.cfg.max_decoder_l)
+                     if ocr._shards else
+                     ocr._decode_on(ocr.device, x, K, ocr.cfg.max_decoder_l))
+        out += zip(idx, labels)
+    return out
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("beam_size", [1, 3])
+def test_recognize_transcripts_are_decode_of_each_row(shards, beam_size):
+    """recognize's batch transcript decode gives, in input order, what
+    vocab.decode gives on each row of the labels the groups decoded."""
+    ocr, images = _port_model()
+    if shards > 1:
+        ocr.shard(devices=["cpu"] * shards)
+    try:
+        words, _ = ocr.recognize(images, beam_size=beam_size)
+        rows = _group_labels(ocr, images, beam_size)
+    finally:
+        ocr.unshard()
+    assert len({x.shape[1] for x in images}) == 3
+    assert sorted(i for i, _ in rows) == list(range(len(images)))
+    want = [None] * len(images)
+    for i, row in rows:
+        want[i] = vocab.decode(row)
+    assert words == want
+    # rows that end early and rows that run to T, and several transcripts
+    assert any(vocab.EOS in row for _, row in rows)
+    assert any(len(w) == ocr.cfg.max_decoder_l for w in words)
+    assert len(set(words)) > 3
+
+
+def test_eval_word_err_rate_strings_are_decode_of_each_row():
+    """eval_word_err_rate's predictions and gold are vocab.decode of each
+    row, and its error count the rows whose two strings differ."""
+    ocr, images = _port_model()
+    pred = np.stack([row for _, row in sorted(
+        _group_labels(ocr, images, 1), key=lambda r: r[0])])
+    words = [vocab.decode(r) for r in pred]
+    gold_words = [w if i % 3 else w[:-1] + "z" if w else "z"
+                  for i, w in enumerate(words)]
+    _, gold, _ = vocab.encode_batch(gold_words)
+    errors, preds, golds = teval.eval_word_err_rate(pred, gold)
+    assert preds == [vocab.decode(r) for r in pred] == words
+    assert golds == [vocab.decode(r) for r in gold] == gold_words
+    assert errors == sum(p != g for p, g in zip(words, gold_words)) > 0
 
 
 def test_dictionary_table_surface():
