@@ -8,6 +8,11 @@ recognition, and scoring):
     gold = ocr.score(images, ["word", ...])  # teacher-forced log-probs
     ocr.shard()                              # recognize over every GPU
 
+im2markup (models/im2markup.py) runs through the same recognize path:
+
+    ocr = AttentionOCR.create(im2markup.config(), spec=im2markup.Spec())
+    latex, scores = ocr.recognize(formulas)  # stacked (B, 160, 500)
+
 `recognize` and `score` take a stacked array, a list of (H, W[, 1])
 arrays, or image paths: decoded and preprocessed on the host by
 `data.images_to_arrays`, or with `cfg.device_preprocess` decoded on the
@@ -21,6 +26,7 @@ thread a device (aocr.api's data-parallel inference, in one process).
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import asdict
@@ -32,19 +38,35 @@ import torch
 from aocr_torch import checkpoint, data, devices, preprocess, vocab
 from aocr_torch.config import GEOMETRY_FIELDS, STRUCT_FIELDS, Config
 from aocr_torch import decode, train_step, weights
+from aocr_torch.models import im2markup
 from aocr_torch.models import model as model_lib
 from aocr_torch.parallel import mesh as mesh_lib
 from aocr_torch.utils import trie as trie_lib
 from aocr_torch.utils.tracing import span
 
 
+# the key of an im2markup spec in a checkpoint's config
+SPEC_KEY = "im2markup"
+
+
 class AttentionOCR:
     """A loaded (or freshly initialized) attention-OCR model on one
-    device (default: the current CUDA device)."""
+    device (default: the current CUDA device); with `spec` an im2markup
+    model (models/im2markup.py), which recognizes stacked arrays only and
+    does not score."""
 
     def __init__(self, cfg: Config, params: dict, batch_stats: dict,
-                 global_step: int = 0, device=None):
+                 global_step: int = 0, device=None,
+                 spec: Optional[im2markup.Spec] = None):
         self.cfg = cfg.validate()
+        self.spec = spec
+        if spec is None:
+            self._encode = model_lib.encode
+            self._transcripts = vocab.decode_batch
+        else:
+            spec.check(self.cfg)
+            self._encode = functools.partial(im2markup.encode, spec=spec)
+            self._transcripts = spec.decode_batch
         self.device = devices.resolve(device)
         move = lambda tree: weights.tree_map(tree,
                                              lambda _p, t: t.to(self.device))
@@ -60,13 +82,19 @@ class AttentionOCR:
 
     @classmethod
     def create(cls, cfg: Optional[Config] = None, seed: Optional[int] = None,
-               device=None) -> "AttentionOCR":
+               device=None, spec: Optional[im2markup.Spec] = None
+               ) -> "AttentionOCR":
         """Random weights from a torch.Generator seeded with `seed` (default
-        cfg.seed); the numbers differ from the JAX package's init."""
-        cfg = cfg or Config(input_feed=True)
+        cfg.seed); the numbers differ from the JAX package's init.  With
+        `spec`, an im2markup model (cfg default: im2markup.config())."""
+        if spec is None:
+            cfg = cfg or Config(input_feed=True)
+        else:
+            cfg = cfg or im2markup.config(target_vocab_size=spec.vocab_size)
         gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-        params, stats = model_lib.init(cfg, gen)
-        return cls(cfg, params, stats, device=device)
+        params, stats = (model_lib.init(cfg, gen) if spec is None
+                         else im2markup.init(cfg, spec, gen))
+        return cls(cfg, params, stats, device=device, spec=spec)
 
     @classmethod
     def load(cls, model_dir_or_path: str, cfg: Optional[Config] = None,
@@ -74,7 +102,8 @@ class AttentionOCR:
         """Load an npz-v2 checkpoint written by either package (a file, or
         a model dir's final-model).  Structure fields come from the
         checkpoint; geometry too unless `cfg` overrides it; runtime knobs
-        (dtype, kernels) from `cfg` or the defaults, as aocr.api does."""
+        (dtype, kernels) from `cfg` or the defaults, as aocr.api does; an
+        im2markup spec saved beside the Config (`save`) comes back too."""
         path = model_dir_or_path
         if os.path.isdir(path):
             path = checkpoint.final_path(path)
@@ -87,14 +116,20 @@ class AttentionOCR:
         saved_cfg = base.replace(**{k: saved[k] for k in fields if k in saved})
         params, stats = weights.from_numpy(ckpt["params"],
                                            ckpt["batch_stats"])
-        return cls(saved_cfg, params, stats, ckpt["global_step"], device)
+        spec = saved.get(SPEC_KEY)
+        return cls(saved_cfg, params, stats, ckpt["global_step"], device,
+                   None if spec is None else im2markup.Spec(**spec))
 
     def save(self, model_dir: str) -> str:
         """Write an npz-v2 checkpoint (model-<step> and final-model) that
-        either package loads; returns the model-<step> path."""
+        either package loads (an im2markup model: this package, its spec
+        beside the Config); returns the model-<step> path."""
         params, stats = weights.to_numpy(self.params, self.batch_stats)
+        saved = asdict(self.cfg)
+        if self.spec is not None:
+            saved[SPEC_KEY] = asdict(self.spec)
         return checkpoint.save(
-            model_dir, params, stats, asdict(self.cfg), self.global_step,
+            model_dir, params, stats, saved, self.global_step,
             {"learning_rate": self.cfg.learning_rate})
 
     def use_dictionary(self, words: Sequence[str],
@@ -191,7 +226,12 @@ class AttentionOCR:
         data.images_to_arrays, as aocr.api does; with
         cfg.device_preprocess and a list of paths, the host only decodes
         (data.load_raw) and the luminance and resize run on the device
-        (aocr.api's serving fast path)."""
+        (aocr.api's serving fast path).  An im2markup model takes a
+        stacked array only."""
+        if self.spec is not None and not hasattr(images, "ndim"):
+            raise ValueError("an im2markup model recognizes a stacked (B, H, "
+                             "W[, 1]) array; image paths and lists are not "
+                             "taken yet")
         if hasattr(images, "ndim"):
             a = np.asarray(images, np.float32)
             if a.ndim == 3:
@@ -252,7 +292,7 @@ class AttentionOCR:
                 decoded.append((idx, labels))
             with span("aocr_torch.recognize.transcripts"):
                 for idx, labels in decoded:
-                    for i, w in zip(idx, vocab.decode_batch(labels)):
+                    for i, w in zip(idx, self._transcripts(labels)):
                         words[i] = w
             return words, scores
 
@@ -269,9 +309,13 @@ class AttentionOCR:
             with span("aocr_torch.recognize.decode"):
                 labels, sc = decode.beam_decode(
                     params, stats, x, self.cfg, beam_size=K, max_len=T,
-                    trie_table=trie)
+                    trie_table=trie, encode=self._encode)
             with span("aocr_torch.recognize.fetch"):
-                return labels.cpu().numpy(), sc.cpu().numpy()
+                labels, sc = labels.cpu().numpy(), sc.cpu().numpy()
+        if self.spec is not None:
+            im2markup.count_attended(labels, self.spec.context_length(
+                x.shape[1], x.shape[2]))
+        return labels, sc
 
     def _decode_sharded(self, x, K: int, T: int):
         """x split over the shards, padded by repeating its last row."""
@@ -294,6 +338,8 @@ class AttentionOCR:
     def score(self, images, transcripts: Sequence[str]) -> np.ndarray:
         """Per-sample gold log-prob of the given transcripts
         (teacher-forced, eval mode), in input order."""
+        if self.spec is not None:
+            raise ValueError("an im2markup model does not score yet")
         transcripts = list(transcripts)
         groups = self._prepare_groups(images)
         n = sum(len(idx) for idx, _ in groups)

@@ -212,7 +212,8 @@ def greedy_from_context(params: dict, context: torch.Tensor, dec_init,
 def beam_decode(params: dict, batch_stats: dict, images: torch.Tensor,
                 cfg: Config, beam_size: int, max_len: int,
                 trie_table: Optional[torch.Tensor] = None,
-                return_refills: bool = False, early_exit: bool = True):
+                return_refills: bool = False, early_exit: bool = True,
+                encode=model.encode):
     """Decode a batch; beam_size is clamped to the vocab size, and 1 is the
     greedy path.  Returns (labels (B, max_len) int32, scores (B,) float32,
     the best beam's cumulative log-prob), and with return_refills also
@@ -220,8 +221,9 @@ def beam_decode(params: dict, batch_stats: dict, images: torch.Tensor,
     trie continuations and the fewest valid continuations seen (the
     reference's 'valid beam size' warnings, model.lua:421-436).
     early_exit=False runs every step of the host loops (as
-    greedy_from_context)."""
-    context, dec_init = model.encode(params, batch_stats, images, cfg)
+    greedy_from_context).  `encode` is the model's encoder, with
+    model.encode's signature (im2markup's for that network)."""
+    context, dec_init = encode(params, batch_stats, images, cfg)
     return beam_from_context(params, context, dec_init, cfg, beam_size,
                              max_len, trie_table, return_refills,
                              early_exit)
