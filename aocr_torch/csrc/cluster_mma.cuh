@@ -66,12 +66,22 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // An mbarrier in shared memory (8-byte aligned): init with `count`
 // arrivals a phase; expect_tx arrives once and adds `bytes` of
-// transactions to the phase; wait spins until the phase of `parity`
-// completes.
+// transactions to the phase; arrive arrives once; wait spins until the
+// phase of `parity` completes; inval before its memory serves anything
+// else.
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_addr(bar)),
                "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
                : "memory");
 }
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,

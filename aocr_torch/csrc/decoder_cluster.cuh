@@ -30,8 +30,9 @@
 // ld.global.cg (never through L1).  The work that needs whole rows (the
 // attention over the context and its backward, the log-softmax and the
 // argmax) is split by rows instead: block s owns the tile rows [s*R,
-// (s+1)*R), R = ceil(bt / cs).  The exchange buffers hold bt rows a
-// cluster and H columns padded with zeros to hs = a multiple of kc.
+// (s+1)*R), R = ceil(bt / cs); greedy_loop.cu splits the attention over a
+// context too long to stage by positions.  The exchange buffers hold bt
+// rows a cluster and H columns padded with zeros to hs = a multiple of kc.
 //
 // Numerics as decode_tail.cuh: every product operand rounded to the
 // compute dtype, float32 sums; the gate math of common.cuh; q, the

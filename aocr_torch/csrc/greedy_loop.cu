@@ -36,7 +36,8 @@
 //      the block's columns; q's slice (float32) published;
 //   4. the attention of the block's own R = bt/cs tile rows: their context
 //      staged in shared memory, scores, softmax, the context vector
-//      (rounded), published;
+//      (rounded), published; at long contexts split by positions instead
+//      (below), with one more cluster barrier;
 //   5. h~ = tanh(ctx_vec @ W_c[:H] + h_top @ W_c[H:]) over the block's
 //      columns, published (the next step's input feed), and the block's
 //      partial logits round_cd(h~)[:, cols] @ W_p[cols, :V];
@@ -69,6 +70,28 @@
 // aocr_torch/ops/cuda/greedy_loop.py::plan) sizes the tile so that the
 // clusters fill the card; a ragged tile and units past H are masked; a
 // shape no plan fits is refused.
+//
+// Long contexts (im2markup: L = 1,240 positions at H = 512).  Where not one
+// tile row's context fits the ring (the row split's nb = 0), the row split
+// reads each row's context from global memory twice a step (the scores,
+// then the context vector), by rows B x H apart: a step at B=256 took ~1.16
+// ms for 325 MB.  The launch then takes the split instance (gl_split): the
+// cluster's cs blocks are cs / np row groups x np position slices; each
+// block streams its slice of positions for its group's rows through the
+// ring, ctx[l, the group's rows, :] one run of bytes a position in the (L,
+// B, H) layout, one bulk copy each, and keeps q, a running max and sum and
+// an unnormalised float32 context vector of each row in registers (an
+// online softmax), so each context element is read once a step.  The
+// blocks' partials meet in L2 across one more cluster barrier, and each
+// block combines them for its own units (gl_attend_combine).  Bound: each
+// live row's context read once a step, 48.8 GB a call of 256 rows x 150
+// steps, 14.6 ms at 3.35 TB/s.  At B=256 in bf16 (6 clusters of 48 rows,
+// 2 row groups x 8 slices of 155 positions) the attention takes ~295K
+// cycles a step (~1.87M split by rows), its stream alone ~222K (HBM near
+// its rate from 96 SMs) and its updates alone more: the chain of a
+// position's loads, three rows' butterfly sums and exp, with two warps a
+// scheduler, bounds it (tools/greedy_loop_phases_torch.py splitload,
+// splitcalc).  The rest of a step (one layer at H=512) ~220K.
 #include "decoder_cluster.cuh"
 
 namespace aocr {
@@ -92,6 +115,7 @@ struct GlArgs {
   float* scores;             // (B,)
   unsigned char* scratch;    // dc_scratch's regions, zeroed
   int L, B, H, Vp, V, T, nl, input_feed;
+  int np;  // the attention's position slices (gl_split), 0: by rows
 };
 
 #ifdef DC_PROBES
@@ -99,8 +123,270 @@ struct GlArgs {
 __device__ unsigned long long gl_prof[DC_NPHASES + 1];
 #endif
 
-// RT: float32 rows a thread (DC_FMA_RT); bf16 instances take 1.
-template <typename T, int RT>
+// ------------------------------------------- the attention split by positions
+
+// The split attention's registers: a warp holds q and the unnormalised
+// context vector of GL_SPLIT_RW tile rows, a lane GL_SPLIT_KM runs of 4
+// columns of each (4i + 128c), so H is at most 128 GL_SPLIT_KM.
+constexpr int GL_SPLIT_RW = 3, GL_SPLIT_KM = 4;
+
+// The rows of a row group of plan p split into np position slices:
+// ceil(bt / (cs / np)).
+__host__ __device__ inline int gl_split_rows(const DcPlan& p, int np) {
+  const int ng = p.cs / np;
+  return (p.bt + ng - 1) / ng;
+}
+
+// The split attention's stages, each one position of a row group's rows
+// (slot bytes), in the ring (ring bytes) after GL_SPLIT_BARS bytes of
+// their two mbarriers each (copied, consumed): as many as fit, up to
+// GL_SPLIT_STAGES.
+constexpr int GL_SPLIT_STAGES = 16;
+constexpr int GL_SPLIT_BARS = 16 * GL_SPLIT_STAGES;
+__host__ __device__ inline int gl_split_stages(long ring, long slot) {
+  const long n = (ring - GL_SPLIT_BARS) / slot;
+  return (int)(n < GL_SPLIT_STAGES ? n : GL_SPLIT_STAGES);
+}
+
+// The position slices np of the split attention for plan p (ring,
+// cluster and tile from dc_plan), or 0 for the row split: 0 where one tile
+// row's context (L x H) fits the ring beside the row split's q rows,
+// scores and logits (dc_attend_rows stages it), where H passes 128
+// GL_SPLIT_KM or a context row is no multiple of 16 bytes, or where no row
+// group fits.  The row groups: the fewest (a power of two up to cs) whose
+// rows the warps hold (GL_SPLIT_RW a warp), with two stages or more
+// (gl_split_stages).
+static inline int gl_split(const DcPlan& p, int esz, int H, int L, int Vp) {
+  const long ring = (long)p.stages * dc_geom(p, esz).stage * esz;
+  const int R = (p.bt + p.cs - 1) / p.cs, most = DC_WARPS * GL_SPLIT_RW;
+  if (ring - dc_round_up((long)R * (H + L + Vp) * 4, 16) >= (long)L * H * esz ||
+      H > 128 * GL_SPLIT_KM || (H * esz) % 16)
+    return 0;
+  int ng = 1;
+  while (ng < p.cs && (p.bt + ng - 1) / ng > most) ng *= 2;
+  const int rg = (p.bt + ng - 1) / ng;
+  if (rg > most || gl_split_stages(ring, (long)rg * H * esz) < 2) return 0;
+  return p.cs / ng;
+}
+
+// Four context values a lane as loaded (bf16 kept packed, 8 bytes) and
+// as floats: gl_attend_split loads them so, then converts, which ran its
+// loop ~12% faster on an H100 than load_row into zeroed floats did
+// (tools/greedy_loop_phases_torch.py, im2markup's shape).
+template <typename T>
+struct GlRaw {
+  using type = float4;
+};
+template <>
+struct GlRaw<__nv_bfloat16> {
+  using type = uint2;
+};
+__device__ __forceinline__ void gl_unpack(const float4& v, float (&o)[4]) {
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void gl_unpack(const uint2& v, float (&o)[4]) {
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+
+// The block's part of the split attention: its row group g = rank / np
+// (tile rows [g rg, g rg + rg), the real ones) over its position slice k =
+// rank % np ([k ls, k ls + ls) of L, ls = ceil(L / np)).  Warp w takes the
+// group's rows w, w + 8, ... (RW of them), lane i the columns 4i + 128c (c
+// < KM): q (float32, the q exchange buffer, row stride hs) and the
+// unnormalised context vector in registers.  The slice streams through
+// gl_split_stages stages in the ring, a position each, one bulk copy of
+// the group's real rows (one run of bytes in the (L, B, H) layout) onto
+// the stage's mbarrier; each warp arrives on the stage's second mbarrier
+// once done with it, and thread 0 waits for the eight before it refills
+// the stage, so the warps keep their own pace (the mbarriers at the
+// ring's start, initialized here and invalidated on exit: the ring serves
+// the products between the steps' attentions; many positions in flight
+// keep HBM busy).  For each position: the scores of the warp's rows
+// (float32, a warp's butterfly sum each: the same bits on every lane, so
+// the branch below is uniform), then each row's running max m (where one
+// rises, the vectors and the running sums rescaled by exp(m - m')), s += e
+// and the vector += e ctx, e = exp(score - m).  The loop is bound by the
+// latency of that chain (H100, im2markup's shape), so the RW rows' sums
+// and updates run side by side, with no branch but the rare rescale.  The
+// vectors go to part (clusters x cs x rg x H floats), (m, s) to ml
+// (clusters x cs x rg x 2), for gl_attend_combine.  Not inlined, as
+// dc_attend_rows.
+template <typename T>
+__device__ __noinline__ void gl_attend_split(const T* __restrict__ ctx, int L,
+                                             int B, const float* q,
+                                             float* part, float* ml, int np,
+                                             int rg, const DcBlock<T>& b,
+                                             unsigned char* ring,
+                                             long ring_bytes) {
+  constexpr int KM = GL_SPLIT_KM, RW = GL_SPLIT_RW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, H = b.H;
+  const int r0 = b.rank / np * rg, nr = min(rg, b.nrows - r0);
+  const int ls = (L + np - 1) / np, l0 = b.rank % np * ls;
+  const int n = min(L - l0, ls);  // the slice's positions
+  if (nr <= 0 || n <= 0) return;
+  const size_t slot = (size_t)rg * H;  // elements of a staged position
+  const int S = gl_split_stages(ring_bytes, (long)slot * sizeof(T));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring);  // copied
+  uint64_t* done = bar + GL_SPLIT_STAGES;              // consumed
+  T* stage = reinterpret_cast<T*>(ring + GL_SPLIT_BARS);
+  const uint32_t rowb = (uint32_t)((size_t)nr * H * sizeof(T));
+  auto issue = [&](int l) {  // the slice's position l into stage l % S
+    if (tid == 0 && l < n) {
+      mbar_expect_tx(bar + l % S, rowb);
+      bulk_copy(stage + (size_t)(l % S) * slot,
+                ctx + ((size_t)(l0 + l) * B + b.b0 + r0) * H, rowb,
+                bar + l % S);
+    }
+  };
+  float qv[RW][KM][4], acc[RW][KM][4], mx[RW], sum[RW];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const int r = warp + DC_WARPS * j;
+    mx[j] = -INFINITY;
+    sum[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KM; ++c) {
+      const int h = 4 * lane + 128 * c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][c][e] = qv[j][c][e] = 0.f;
+      if (r < nr && h < H)
+        load4_cg(q + (size_t)(b.b0 + r0 + r) * b.hs + h, qv[j][c]);
+    }
+  }
+  fence_proxy_async();  // the ring was last written by generic stores
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(bar + i, 1);
+      mbar_init(done + i, DC_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int l = 0; l < S; ++l) issue(l);
+  using Raw = typename GlRaw<T>::type;
+  for (int l = 0; l < n; ++l) {
+    mbar_wait(bar + l % S, (l / S) & 1);
+    const T* xs = stage + (size_t)(l % S) * slot;
+    // the RW rows' scores (rows past nr score 0 on zeros), summed together
+    float x[RW][KM][4], s[RW];
+#pragma unroll
+    for (int j = 0; j < RW; ++j) {
+      const int r = warp + DC_WARPS * j;
+      float sp[2] = {0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < KM; ++c) {
+        const int h = 4 * lane + 128 * c;
+        Raw raw{};
+        if (r < nr && h < H)
+          raw = *reinterpret_cast<const Raw*>(xs + (size_t)r * H + h);
+        gl_unpack(raw, x[j][c]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sp[c & 1] = fmaf(x[j][c][e], qv[j][c][e], sp[c & 1]);
+      }
+      s[j] = sp[0] + sp[1];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(done + l % S);  // the warp is done with it
+#pragma unroll
+    for (int j = 0; j < RW; ++j) s[j] = warp_sum(s[j]);
+    // the rows' running maxima; where one rises, every row rescaled (by 1
+    // where it did not)
+    bool rise = false;
+#pragma unroll
+    for (int j = 0; j < RW; ++j) rise |= s[j] > mx[j];
+    if (rise) {
+#pragma unroll
+      for (int j = 0; j < RW; ++j) {
+        const float mn = fmaxf(mx[j], s[j]), f = expf(mx[j] - mn);
+        sum[j] *= f;
+#pragma unroll
+        for (int c = 0; c < KM; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][c][e] *= f;
+        mx[j] = mn;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RW; ++j) {
+      const float ex = expf(s[j] - mx[j]);
+      sum[j] += ex;
+#pragma unroll
+      for (int c = 0; c < KM; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][c][e] = fmaf(ex, x[j][c][e], acc[j][c][e]);
+    }
+    if (tid == 0 && l + S < n) {  // every warp is done with position l
+      mbar_wait(done + l % S, (l / S) & 1);
+      issue(l + S);
+    }
+  }
+  __syncthreads();  // every wait is over
+  if (tid == 0)
+    for (int i = 0; i < S; ++i) {
+      mbar_inval(bar + i);
+      mbar_inval(done + i);
+    }
+  const size_t blk = ((size_t)b.cl * b.cs + b.rank) * rg;
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const int r = warp + DC_WARPS * j;
+    if (r >= nr) continue;
+#pragma unroll
+    for (int c = 0; c < KM; ++c) {
+      const int h = 4 * lane + 128 * c;
+      if (h < H) store4(part + (blk + r) * H + h, acc[j][c]);
+    }
+    if (lane == 0) {
+      ml[(blk + r) * 2] = mx[j];
+      ml[(blk + r) * 2 + 1] = sum[j];
+    }
+  }
+  __syncthreads();  // the ring is free on exit
+}
+
+// The context vectors of the tile's real rows at the block's own units
+// from gl_attend_split's partials (published by a cluster barrier): for
+// row r of group g, over the slices k that hold positions, M = max m_k and
+// cv = sum_k exp(m_k - M) vec_k / sum_k exp(m_k - M) s_k, float32,
+// rounded into the exchange plane cv (DcBlock::aoff), 4 units a thread.
+template <typename T>
+__device__ __noinline__ void gl_attend_combine(const float* part,
+                                               const float* ml, T* cv, int L,
+                                               int np, int rg,
+                                               const DcBlock<T>& b) {
+  const int nu4 = b.nu / 4, ls = (L + np - 1) / np, nk = (L + ls - 1) / ls;
+  for (int i = threadIdx.x; i < b.nrows * nu4; i += DC_THREADS) {
+    const int r = i / nu4, j = b.j0 + 4 * (i % nu4);
+    // the partials of the row's group, slice 0
+    const size_t p0 = ((size_t)b.cl * b.cs + r / rg * np) * rg + r % rg;
+    float M = -INFINITY;
+    for (int k = 0; k < nk; ++k) M = fmaxf(M, __ldcg(ml + (p0 + k * rg) * 2));
+    float den = 0.f, v[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < nk; ++k) {
+      const size_t pk = p0 + (size_t)k * rg;
+      const float w = expf(__ldcg(ml + pk * 2) - M);
+      den = fmaf(w, __ldcg(ml + pk * 2 + 1), den);
+      float a[4];
+      load4_cg(part + pk * b.H + j, a);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = fmaf(w, a[e], v[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] /= den;
+    store4(cv + b.aoff(r, j), v);
+  }
+}
+
+// RT: float32 rows a thread (DC_FMA_RT); bf16 instances take 1.  SPLIT:
+// the attention split by positions (a.np slices, gl_attend_split).
+template <typename T, int RT, bool SPLIT>
 __global__ void __launch_bounds__(DC_THREADS, 1)
 greedy_cluster_kernel(GlArgs a, DcPlan p) {
   constexpr int ESZ = (int)sizeof(T);
@@ -172,6 +458,11 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
   float* cb = reinterpret_cast<float*>(a.scratch + off[2]);  // (bp, nl, H)
   float* part = reinterpret_cast<float*>(a.scratch + off[3]);
   int* tokb = reinterpret_cast<int*>(a.scratch + off[4]);
+  // the split attention's partials after dc_scratch's regions: the context
+  // vectors (clusters x cs x rg x H), then (m, sum) (x 2)
+  const int rg = SPLIT ? gl_split_rows(p, a.np) : 0;
+  float* spart = reinterpret_cast<float*>(a.scratch + off[5]);
+  float* sml = spart + (size_t)p.clusters * p.cs * rg * H;
 
   const DcTiles tl(p.units, p.rt);
   const DcFma fm(p.units, RT);
@@ -297,9 +588,19 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
     clk.tick(DC_BARRIER);
     // ---- 3. q = h_top @ W_a and h_top @ W_c[H:]
     dc_query<T, RT>(hbuf(nl - 1, nxt) + at, wq, qb, ht, b, ring, clk, tl, fm);
-    // ---- 4. the attention of the own rows
-    dc_attend_rows<T>(ctx, a.L, a.B, qb, cvb, qs, sc, cbuf, nb, b, ring,
-                      (size_t)b0 + b.ra, 1);
+    // ---- 4. the attention: of the own rows, or split by positions
+    if constexpr (SPLIT) {
+      gl_attend_split<T>(ctx, a.L, a.B, qb, spart, sml, a.np, rg, b, smem,
+                         ring_bytes);
+      clk.tick(DC_ATTEND);
+      dc_publish();
+      cluster_wait();
+      clk.tick(DC_BARRIER);
+      gl_attend_combine<T>(spart, sml, cvb, a.L, a.np, rg, b);
+    } else {
+      dc_attend_rows<T>(ctx, a.L, a.B, qb, cvb, qs, sc, cbuf, nb, b, ring,
+                        (size_t)b0 + b.ra, 1);
+    }
     clk.tick(DC_ATTEND);
     dc_publish();
     cluster_wait();
@@ -348,12 +649,19 @@ greedy_cluster_kernel(GlArgs a, DcPlan p) {
 
 using GlKernel = void (*)(GlArgs, DcPlan);
 
-// The instance for a plan: bf16 one, float32 one per rows a thread.
-static GlKernel gl_kernel(int esz, int rt) {
-  if (esz == 2) return greedy_cluster_kernel<__nv_bfloat16, 1>;
-  if (rt == DC_FMA_RT[0]) return greedy_cluster_kernel<float, DC_FMA_RT[0]>;
-  if (rt == DC_FMA_RT[1]) return greedy_cluster_kernel<float, DC_FMA_RT[1]>;
-  return greedy_cluster_kernel<float, DC_FMA_RT[2]>;
+// The instance for a plan: bf16 one, float32 one per rows a thread; each
+// with the row split or the split by positions.
+template <bool SPLIT>
+static GlKernel gl_instance(int esz, int rt) {
+  if (esz == 2) return greedy_cluster_kernel<__nv_bfloat16, 1, SPLIT>;
+  if (rt == DC_FMA_RT[0])
+    return greedy_cluster_kernel<float, DC_FMA_RT[0], SPLIT>;
+  if (rt == DC_FMA_RT[1])
+    return greedy_cluster_kernel<float, DC_FMA_RT[1], SPLIT>;
+  return greedy_cluster_kernel<float, DC_FMA_RT[2], SPLIT>;
+}
+static GlKernel gl_kernel(int esz, int rt, int np) {
+  return np ? gl_instance<true>(esz, rt) : gl_instance<false>(esz, rt);
 }
 
 // The plan of a launch; false where none fits or the card runs no cluster
@@ -362,7 +670,7 @@ static bool gl_launch_plan(int esz, int H, int B, int L, int Vp, int nl,
                            DcPlan* p, int* active) {
   int cs, U;
   dc_cluster(H, &cs, &U);
-  *active = dc_active(gl_kernel(esz, DC_FMA_RT[2]), esz, cs);
+  *active = dc_active(gl_instance<false>(esz, DC_FMA_RT[2]), esz, cs);
   return *active > 0 && dc_plan(H, B, esz, L, Vp, nl, *active, p);
 }
 
@@ -373,7 +681,9 @@ static int launch(int esz, const GlArgs& a, cudaStream_t stream) {
       a.V < 1 || a.Vp < a.V ||
       !gl_launch_plan(esz, a.H, a.B, a.L, a.Vp, a.nl, &p, &active))
     return (int)cudaErrorInvalidValue;
-  return dc_launch(gl_kernel(esz, p.rt), p, a, stream);
+  GlArgs g = a;
+  g.np = gl_split(p, esz, a.H, a.L, a.Vp);
+  return dc_launch(gl_kernel(esz, p.rt, g.np), p, g, stream);
 }
 
 }  // namespace aocr
@@ -422,4 +732,16 @@ extern "C" int aocr_greedy_loop_plan(int H, int B, int is_f32, int L, int Vp,
                      p.smem, p.clusters, active};
   for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
+}
+
+// The attention's position slices of a launch (gl_split, as
+// aocr_torch/ops/cuda/greedy_loop.py::split gives them), 0 for the row
+// split; -1 where no plan fits.
+extern "C" int aocr_greedy_loop_split(int H, int B, int is_f32, int L, int Vp,
+                                      int nl) {
+  aocr::DcPlan p;
+  int active;
+  const int esz = is_f32 ? 4 : 2;
+  if (!aocr::gl_launch_plan(esz, H, B, L, Vp, nl, &p, &active)) return -1;
+  return aocr::gl_split(p, esz, H, L, Vp);
 }

@@ -195,6 +195,9 @@ def _declare(lib) -> None:
     # H, B, is_f32, L, Vp, num_layers, out[10]
     lib.aocr_greedy_loop_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
     lib.aocr_greedy_loop_plan.restype = ctypes.c_int
+    # H, B, is_f32, L, Vp, num_layers -> the attention's position slices
+    lib.aocr_greedy_loop_split.argtypes = [_I] * 6
+    lib.aocr_greedy_loop_split.restype = ctypes.c_int
     # H, B, K, is_f32, L, Vp, num_layers, out[11]
     lib.aocr_beam_loop_plan.argtypes = [_I] * 7 + [ctypes.POINTER(_I)]
     lib.aocr_beam_loop_plan.restype = ctypes.c_int

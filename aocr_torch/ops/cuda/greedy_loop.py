@@ -16,11 +16,16 @@ from L2 every step by bulk (TMA) copies (~2.6 MB a step in bf16 at the
 default decoder, H=1024, 2 layers, input feed), and multiplies them with
 the tile's rows on the tensor cores in bf16 (mma.sync, float32 sums) or on
 the CUDA cores in float32.  The attention, the log-softmax and the argmax
-are split by rows instead.  The SMs exchange h, q, the context vector, h~,
-the partial logits and the tokens through L2, nl + 4 cluster barriers a
-step.  So each weight element read serves bt rows (4 in the previous
-design, which streamed every weight through one block a 4-row tile and
-took as long at B=4 as at B=512).  On an H100 a step is a chain of
+are split by rows instead, except the attention over a context too long
+to stage a row of in shared memory (im2markup's 1,240 positions): there
+the SMs split it by positions (and, as their registers need, rows), each
+streaming its slice of the context once a step with an online softmax,
+and combine their partial context vectors through L2 (`split`).  The SMs
+exchange h, q, the context vector, h~, the partial logits and the tokens
+through L2, nl + 4 cluster barriers a step (nl + 5 with the split).  So
+each weight element read serves bt rows (4 in the previous design, which
+streamed every weight through one block a 4-row tile and took as long at
+B=4 as at B=512).  On an H100 a step is a chain of
 dependent phases, none near a roofline: at B=512 in bf16 the mma products
 are a third of it, the epilogues, the stream's waits and the attention
 most of the rest; float32 is bound by its FMA loop (PERF.md).
@@ -46,6 +51,7 @@ from aocr_torch.ops.mm import matmul
 from aocr_torch.utils.tracing import PACK, span
 
 launches = 0
+launches_split = 0  # the launches whose attention was split by positions
 
 # csrc/decoder_cluster.cuh's constants
 THREADS = 256
@@ -66,8 +72,9 @@ STREAM_ROWS = (40, 10)
 FIXED_ROWS = (10, 2)
 
 # launch plans held against the kernel's, by shape key: (Plan, the line
-# logged for it)
+# logged for it); the attention's position slices (`split`) held so too
 plans: dict = {}
+splits: dict = {}
 _log = logging.getLogger(__name__)
 
 
@@ -208,6 +215,49 @@ def plan_fit(H: int, B: int, dtype: torch.dtype, active: int,
     return out
 
 
+# the split attention's stages (a position of a row group's rows each): up
+# to SPLIT_STAGES, after SPLIT_BARS bytes of their mbarriers in the ring
+# (two a stage)
+SPLIT_STAGES = 16
+SPLIT_BARS = 16 * SPLIT_STAGES
+# its registers: q and the context vector of SPLIT_RW tile rows a warp, of
+# SPLIT_KM runs of 4 columns a lane (csrc/greedy_loop.cu GL_SPLIT_RW, _KM)
+SPLIT_RW, SPLIT_KM = 3, 4
+
+
+def split_stages(ring: int, slot: int) -> int:
+    """The split attention's stages of `slot` bytes in a ring of `ring`
+    bytes (csrc/greedy_loop.cu `gl_split_stages`)."""
+    return min(SPLIT_STAGES, (ring - SPLIT_BARS) // slot)
+
+
+def split_rows(p: Plan, slices: int) -> int:
+    """The tile rows of a row group of plan p split into `slices` position
+    slices (`gl_split_rows`)."""
+    return -(-p.bt // (p.cs // slices))
+
+
+def split(p: Plan, esz: int, H: int, L: int, Vp: int) -> int:
+    """The attention's position slices for plan p (csrc/greedy_loop.cu
+    `gl_split`), 0 for the row split: 0 where one tile row's context (L x
+    H) fits the ring beside the row split's q rows, scores and logits,
+    where H passes 128 SPLIT_KM or a context row is no multiple of 16
+    bytes, or where no row group fits; else cs over the fewest row groups
+    (a power of two up to cs) whose rows the warps hold (SPLIT_RW a warp),
+    with two stages or more (`split_stages`)."""
+    ring, R, most = ring_bytes(p, esz), -(-p.bt // p.cs), WARPS * SPLIT_RW
+    if (ring - _round_up(R * (H + L + Vp) * 4, 16) >= L * H * esz
+            or H > 128 * SPLIT_KM or H * esz % 16):
+        return 0
+    ng = 1
+    while ng < p.cs and -(-p.bt // ng) > most:
+        ng *= 2
+    rg = -(-p.bt // ng)
+    if rg > most or split_stages(ring, rg * H * esz) < 2:
+        return 0
+    return p.cs // ng
+
+
 def plan(H: int, B: int, dtype: torch.dtype, L: int, Vp: int,
          num_layers: int, active: int) -> Optional[Plan]:
     """The kernel's launch plan (csrc/decoder_cluster.cuh `dc_plan`) for
@@ -234,6 +284,15 @@ def scratch_bytes(p: Plan, dtype: torch.dtype, H: int, num_layers: int,
              bp * num_layers * H * 4, p.clusters * p.cs * p.bt * V * 4,
              bp * 4)
     return sum(_round_up(n, ALIGN) for n in sizes)
+
+
+def split_bytes(p: Plan, H: int, slices: int) -> int:
+    """Bytes of the split attention's partials (`slices` position slices),
+    after `scratch_bytes` in the kernel's scratch (csrc/greedy_loop.cu):
+    each block's context vectors and (max, sum), clusters x cs x rows of a
+    group x (H + 2) floats; 0 for the row split."""
+    return (p.clusters * p.cs * split_rows(p, slices) * (H + 2) * 4
+            if slices else 0)
 
 
 def packed(p: Plan, H: int, like: torch.Tensor, lead, nq: int) -> torch.Tensor:
@@ -313,17 +372,34 @@ def held_plan(plans: dict, key: tuple, name: str, what: str, lib_plan,
 
 
 def _checked_plan(H: int, B: int, cd: torch.dtype, L: int, Vp: int,
-                  nl: int) -> Plan:
-    """The launch's plan: ValueError where none fits; on a shape's first
-    launch held against the kernel's own (`held_plan`)."""
+                  nl: int) -> Tuple[Plan, int]:
+    """The launch's plan and its attention's position slices (`split`):
+    ValueError where no plan fits; on a shape's first launch the plan
+    held against the kernel's own (`held_plan`), and the slices against
+    the kernel's (RuntimeError where they differ); a split is logged
+    and named in the shape's plan line."""
     if plan(H, B, cd, L, Vp, nl, 1) is None:
         raise ValueError(f"fused_greedy_loop: no kernel plan fits H={H}, "
                          f"B={B}, L={L}, Vp={Vp}, {nl} layers in {cd}")
-    return held_plan(plans, (H, B, cd, L, Vp, nl), "greedy_loop",
-                     f"H={H} B={B} L={L} {cd}",
-                     cuda.library().aocr_greedy_loop_plan,
-                     (H, B, int(cd == torch.float32), L, Vp, nl),
-                     lambda active: plan(H, B, cd, L, Vp, nl, active))
+    key, f32 = (H, B, cd, L, Vp, nl), int(cd == torch.float32)
+    lib = cuda.library()
+    p = held_plan(plans, key, "greedy_loop", f"H={H} B={B} L={L} {cd}",
+                  lib.aocr_greedy_loop_plan, (H, B, f32, L, Vp, nl),
+                  lambda active: plan(H, B, cd, L, Vp, nl, active))
+    if key not in splits:
+        slices = split(p, 4 if f32 else 2, H, L, Vp)
+        got = lib.aocr_greedy_loop_split(H, B, f32, L, Vp, nl)
+        if got != slices:
+            raise RuntimeError(f"greedy_loop split mismatch at H={H} B={B} "
+                               f"L={L} {cd}: kernel {got}, wrapper {slices}")
+        if slices:
+            line = (f"{plans[key][1]}; attention split by positions: {slices} "
+                    f"slices x {p.cs // slices} row groups of "
+                    f"{split_rows(p, slices)} rows")
+            plans[key] = (p, line)
+            _log.info(line)
+        splits[key] = slices
+    return p, splits[key]
 
 
 def build_tables(dec_params: dict, proj: dict, embedding_size: int,
@@ -474,7 +550,7 @@ def op(context_lbh: torch.Tensor, c0: torch.Tensor, h0: torch.Tensor,
     """fused_greedy_loop as a custom op, so that torch.export traces the
     decode as one node; the plan, the weight packing and the scratch are
     sized here, from the real batch."""
-    global launches
+    global launches, launches_split
     t = {"eg": eg, "wfh0": wfh0, "wx": wx, "bx": bx, "wa": wa, "wc": wc,
          "pw": pw, "pb": pb}
     if context_lbh.device.type == "cpu":
@@ -488,7 +564,7 @@ def op(context_lbh: torch.Tensor, c0: torch.Tensor, h0: torch.Tensor,
     if H % 4 or Vp % 4 or T < 1 or num_layers < 1:
         raise ValueError(f"fused_greedy_loop: H={H}, Vp={Vp}, T={T}, "
                          f"num_layers={num_layers}")
-    p = _checked_plan(H, B, cd, L, Vp, num_layers)
+    p, slices = _checked_plan(H, B, cd, L, Vp, num_layers)
     cuda.check(context_lbh, "context_lbh", (L, B, H), cd, dev)
     cuda.check(c0, "c0", (B, H), torch.float32, dev)
     cuda.check(h0, "h0", (B, H), torch.float32, dev)
@@ -504,8 +580,9 @@ def op(context_lbh: torch.Tensor, c0: torch.Tensor, h0: torch.Tensor,
         cuda.check(trie_table, "trie_table", (None, V), torch.int32, dev)
     labels = torch.empty((B, T), dtype=torch.int32, device=dev)
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
-    scratch = torch.zeros((scratch_bytes(p, cd, H, num_layers, V),),
-                          dtype=torch.uint8, device=dev)
+    scratch = torch.zeros((scratch_bytes(p, cd, H, num_layers, V)
+                           + split_bytes(p, H, slices),), dtype=torch.uint8,
+                          device=dev)
     with span(PACK):
         w = pack_weights(t, p, num_layers, input_feed)
     cuda.launch("greedy_loop", cd, dev, context_lbh.data_ptr(),
@@ -516,6 +593,7 @@ def op(context_lbh: torch.Tensor, c0: torch.Tensor, h0: torch.Tensor,
                 scores.data_ptr(), scratch.data_ptr(), L, B, H, Vp, V, T,
                 num_layers, int(input_feed))
     launches += 1
+    launches_split += bool(slices)
     return labels, scores
 
 

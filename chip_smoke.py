@@ -24,7 +24,9 @@ Phases, each raising on failure:
      B=37; conv1_pool_bwd's two calls bit-identical; conv1_pool_dx bit
      for bit, also at B=37 and W=36; decode_step on its cluster and rows
      routes at B=1, 8, 32, 512 with an all-NaN row, and at B=512 with
-     the 88k trie plane and a row left no valid token;
+     the 88k trie plane and a row left no valid token; greedy_loop also
+     at im2markup's decode (L=1,240, H=512, T=150, bf16), its attention
+     split by positions, at B=256, 37 and under a random trie;
      lstm_fwd also at H=2400, B=8; a tiny model (H=128)
      trained on the card to exact match, whose bf16 greedy and beam-5
      transcripts on the kernel routes (greedy_loop, decode_step,
@@ -523,6 +525,68 @@ def kernel_checks(dev, results: dict, table) -> None:
             f"(tol {tol:.3g})")
     decoder_kernel_checks(dev, results, table, cfg, g, DECODE_TIMED,
                           ("auto", "rows"))
+    markup_loop_checks(dev, g)
+
+
+def markup_trie(dev, V: int, g, nodes: int = 64, fan: int = 12):
+    """A random (nodes, V) int32 transition table over im2markup's
+    vocabulary: `fan` children a node among the tokens past EOS."""
+    import torch
+
+    from aocr_torch import vocab
+
+    table = torch.full((nodes, V), -1, dtype=torch.int32)
+    for n in range(nodes):
+        kids = vocab.EOS + 1 + torch.randperm(V - vocab.EOS - 1,
+                                              generator=g)[:fan]
+        table[n, kids] = torch.randint(0, nodes, (fan,), generator=g,
+                                       dtype=torch.int32)
+    return table.to(dev)
+
+
+def markup_loop_checks(dev, g) -> None:
+    """greedy_loop at im2markup's decode (models/im2markup.py: L=1,240,
+    H=512, one layer, input feed, E=80, V=503, T=150) in bf16, where its
+    attention is split by positions: at B=256 (the benchmark's batch), a
+    ragged B=37, and B=256 under a random trie, PAD and EOS biased off so
+    that every row runs all 150 steps; each against the plain version
+    (check_loop's tolerances), the launch counts zeroed just before it
+    and then one launch, split; its plan line logged."""
+    import torch
+
+    from aocr_torch import vocab, weights
+    from aocr_torch.models import im2markup
+    from aocr_torch.ops import cuda
+    from aocr_torch.ops.cuda import greedy_loop
+
+    cfg = im2markup.config()
+    Hd, E, nl, T = (cfg.decoder_num_hidden, cfg.target_embedding_size,
+                    cfg.decoder_num_layers, cfg.max_decoder_l)
+    L, dt = 1240, torch.bfloat16
+    p, _ = numpy_model(cfg, 5)
+    tp, _ = weights.from_numpy({"decoder": p["decoder"],
+                                "projector": p["projector"]}, {}, dev)
+    tables = greedy_loop.build_tables(tp["decoder"], tp["projector"], E,
+                                      True, dt)
+    tables["pb"][[vocab.PAD, vocab.EOS]] = -1e4
+    V, Vp = tables["eg"].shape[0], tables["pw"].shape[1]
+    trie = markup_trie(dev, V, g)
+    for B, trie_table in ((256, None), (37, None), (256, trie)):
+        what = (", im2markup"
+                + (", a random trie" if trie_table is not None else ""))
+        ctx = (torch.rand(L, B, Hd, generator=g) * 2 - 1).to(dev, dt)
+        c0 = (torch.rand(B, Hd, generator=g) * 2 - 1).to(dev)
+        h0 = (torch.rand(B, Hd, generator=g) * 2 - 1).to(dev)
+        cuda.reset_launch_counts()
+        check_loop("bf16", tables, (ctx, c0, h0, nl, True, T), 3e-2, what,
+                   trie_table=trie_table)
+        moved = (greedy_loop.launches, greedy_loop.launches_split)
+        check(moved == (1, 1), f"greedy_loop bf16{what} B={B}: launches, "
+                               f"launches_split {moved}, not (1, 1)")
+        line = greedy_loop.plans[(Hd, B, dt, L, Vp, nl)][1]
+        check("attention split by positions" in line,
+              f"greedy_loop bf16{what} B={B}: not split ({line})")
+        log(f"  {line}")
 
 
 def decoder_kernel_checks(dev, results: dict, table, cfg, g, batches,

@@ -27,8 +27,10 @@ edges: ragged tiles, K up to 8, one batch row, several waves, a search
 that ends at once, its plan against the kernel's, refused shapes.
 greedy_loop (thread-block clusters) also at its plan's edges: ragged
 tiles, masked units, one to three layers, no input feed, an early exit,
-more tiles than one wave; and a model trained on the card must give the
-plain route's bf16 transcripts through every decode kernel.
+more tiles than one wave, the attention split by positions at
+im2markup's L=1,240 (B=256 and 37, a trie, early exits); and a model
+trained on the card must give the plain route's bf16 transcripts through
+every decode kernel.
 lstm_bwd also at its plan's edges (B=1, ragged tiles, the train step's
 B=400, H=2400 by rows, distributed shared memory) and its refusals;
 conv1_pool_bwd also at B=400 and ragged widths, two calls bit-identical;
@@ -316,23 +318,31 @@ def _greedy_case(g, dev, dtype, B, H, L=9, nl=2, input_feed=True):
 
 
 def test_greedy_loop_plan_matches_kernel(dev):
-    """The wrapper's plan is the kernel's, field for field, the card runs
-    at least one cluster of each, and the plan's smem fits."""
+    """The wrapper's plan is the kernel's, field for field, and so is the
+    attention's split; the card runs at least one cluster of each, and
+    the plan's smem fits: at L=24 over widths, batches and layers, and at
+    im2markup's L=1,240 (H=512, one layer, Vp=512), split."""
     import ctypes
 
     from aocr_torch.ops import cuda
 
     lib = cuda.library()
+    shapes = [(H, B, nl, 24, 128) for H in (4, 132, 256, 1020, 1024, 2048)
+              for B, nl in ((1, 1), (5, 2), (17, 3), (512, 2), (1000, 3))]
+    shapes += [(512, B, 1, 1240, 512) for B in (256, 37)]
     for dtype in DTYPES:
-        for H in (4, 132, 256, 1020, 1024, 2048):
-            for B, nl in ((1, 1), (5, 2), (17, 3), (512, 2), (1000, 3)):
-                out = (ctypes.c_int * 10)()
-                err = lib.aocr_greedy_loop_plan(
-                    H, B, int(dtype == torch.float32), 24, 128, nl, out)
-                assert err == 0, (H, B, dtype, err)
-                assert out[9] >= 1, (H, B, dtype, out[:])
-                p = greedy_loop.plan(H, B, dtype, 24, 128, nl, out[9])
-                assert tuple(out[:9]) == tuple(p), (H, B, dtype, out[:], p)
+        esz = torch.empty((), dtype=dtype).element_size()
+        for H, B, nl, L, Vp in shapes:
+            f32 = int(dtype == torch.float32)
+            out = (ctypes.c_int * 10)()
+            err = lib.aocr_greedy_loop_plan(H, B, f32, L, Vp, nl, out)
+            assert err == 0, (H, B, dtype, err)
+            assert out[9] >= 1, (H, B, dtype, out[:])
+            p = greedy_loop.plan(H, B, dtype, L, Vp, nl, out[9])
+            assert tuple(out[:9]) == tuple(p), (H, B, dtype, out[:], p)
+            n = greedy_loop.split(p, esz, H, L, Vp)
+            assert lib.aocr_greedy_loop_split(H, B, f32, L, Vp, nl) == n
+            assert (n > 0) == (L == 1240), p
 
 
 # (B, H, nl, input_feed, T): a ragged last tile, H not a multiple of
@@ -448,6 +458,100 @@ def test_greedy_loop_kernel_wide_operands(dev, dtype, B, L, V):
     parted = _greedy_agrees(lab, sc, lab_p, sc_p, margin, dtype)
     if dtype == torch.float32:
         assert parted == 0
+
+
+def _markup_trie(dev, V, nodes=64, fan=12, seed=5):
+    """A random (nodes, V) transition table over an im2markup-sized
+    vocabulary: each node has `fan` children among the tokens past EOS
+    and, at every third node, an EOS edge."""
+    rs = np.random.RandomState(seed)
+    table = np.full((nodes, V), -1, np.int32)
+    for n in range(nodes):
+        kids = rs.choice(np.arange(3, V), fan, replace=False)
+        table[n, kids] = rs.randint(0, nodes, fan)
+        if n % 3 == 0:
+            table[n, vocab.EOS] = n
+    return torch.from_numpy(table).to(dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [256, 37])
+@pytest.mark.parametrize("with_trie", [False, True])
+def test_greedy_loop_kernel_split_attention(dev, dtype, B, with_trie):
+    """im2markup's decode (L=1,240, H=512, one layer, V=503, T=150): the
+    attention split by positions against the plain version, at the cell's
+    B=256 and a ragged B=37, with and without a trie; launches_split
+    counts each such launch, and none at L=24."""
+    g = torch.Generator().manual_seed(B + 40 * with_trie)
+    H, L, V, T = 512, 1240, 503, 150
+    t = _decoder_tables(g, dev, dtype, H, V=V, E=80, nl=1)
+    ctx = _rand(g, L, B, H).to(dev, dtype)
+    c0, h0 = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
+    table = _markup_trie(dev, V) if with_trie else None
+    Vp, esz = t["pw"].shape[1], torch.empty((), dtype=dtype).element_size()
+    assert greedy_loop.split(greedy_loop.plan(H, B, dtype, L, Vp, 1, 1), esz,
+                             H, L, Vp)
+    n, ns = greedy_loop.launches, greedy_loop.launches_split
+    lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, t, 1, True, T,
+                                            trie_table=table)
+    assert (greedy_loop.launches, greedy_loop.launches_split) == (n + 1,
+                                                                  ns + 1)
+    torch.cuda.synchronize()
+    lab_p, sc_p, margin = greedy_loop.fused_greedy_loop_plain(
+        ctx, c0, h0, t, 1, True, T, return_margins=True, trie_table=table)
+    _greedy_agrees(lab, sc, lab_p, sc_p, margin, dtype)
+    if with_trie:
+        nodes = torch.zeros(B, dtype=torch.int64)
+        tab = table.cpu().long()
+        for step in range(T):
+            tok = lab[:, step].cpu().long()
+            live = tok != vocab.PAD
+            ok = tab[nodes, tok] >= 0
+            assert bool(ok[live].all()), step
+            nodes = torch.where(live, tab[nodes, tok].clamp(min=0), nodes)
+    t24, ctx24, c24, h24 = _greedy_case(g, dev, dtype, 6, 256)
+    greedy_loop.fused_greedy_loop(ctx24, c24, h24, t24, 2, True, 4)
+    assert (greedy_loop.launches, greedy_loop.launches_split) == (n + 2,
+                                                                  ns + 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_greedy_loop_kernel_split_early_exit(dev, dtype):
+    """The split attention's tiles leave together: every row emits EOS at
+    step 1 (the rest of the history PAD), and about half the rows do."""
+    g = torch.Generator().manual_seed(41)
+    B, H, L, V, T = 37, 512, 1240, 503, 12
+    t = _decoder_tables(g, dev, dtype, H, V=V, E=80, nl=1)
+    ctx = _rand(g, L, B, H).to(dev, dtype)
+    c0, h0 = _rand(g, B, H).to(dev), _rand(g, B, H).to(dev)
+    for bias, every in ((60.0, True), (None, False)):
+        tt = dict(t, pb=t["pb"].clone())
+        if bias is None:  # the bias at which about half the rows stop
+            lo, hi = -60.0, 60.0
+            for _ in range(25):
+                mid = (lo + hi) / 2
+                tt["pb"][vocab.EOS] = t["pb"][vocab.EOS] + mid
+                first, _ = greedy_loop.fused_greedy_loop_plain(
+                    ctx, c0, h0, tt, 1, True, 1)
+                if (first[:, 0] == vocab.EOS).float().mean() < 0.5:
+                    lo = mid
+                else:
+                    hi = mid
+            bias = hi
+        tt["pb"][vocab.EOS] = t["pb"][vocab.EOS] + bias
+        ns = greedy_loop.launches_split
+        lab, sc = greedy_loop.fused_greedy_loop(ctx, c0, h0, tt, 1, True, T)
+        assert greedy_loop.launches_split == ns + 1
+        torch.cuda.synchronize()
+        lab_p, sc_p, margin = greedy_loop.fused_greedy_loop_plain(
+            ctx, c0, h0, tt, 1, True, T, return_margins=True)
+        _greedy_agrees(lab, sc, lab_p, sc_p, margin, dtype)
+        stopped = (lab_p[:, 0] == vocab.EOS).cpu()
+        if every:
+            assert bool(stopped.all())
+            assert bool((lab[:, 1:] == vocab.PAD).all())
+        else:
+            assert 0 < int(stopped.sum()) < B
 
 
 def test_greedy_loop_unserved_shape_raises(dev):

@@ -117,3 +117,80 @@ def test_greedy_loop_packed_weights(H, B, nl, input_feed):
     assert torch.equal(q[:, 0], t["wa"]) and torch.equal(q[:, 1],
                                                          t["wc"][H:])
     assert torch.equal(unpack(w["wc"], 1)[:, 0], t["wc"][:H])
+
+
+def _row_stages(p, esz, H, L, Vp):
+    """Whether one tile row's context stages in the ring beside the row
+    split's q rows, scores and logits (the row split's nb >= 1)."""
+    R = -(-p.bt // p.cs)
+    rows = -(-R * (H + L + Vp) * 4 // 16) * 16  # q rows, scores, logits
+    room = greedy_loop.ring_bytes(p, esz) - rows
+    return room >= L * H * esz
+
+
+@pytest.mark.parametrize("dtype,bt,split,rows,stages", [
+    (torch.bfloat16, 48, 8, 24, 5), (torch.float32, 16, 16, 16, 4)])
+def test_greedy_loop_plan_splits_long_contexts(dtype, bt, split, rows,
+                                               stages):
+    """At im2markup's published shapes (H=512, L=1,240, one layer, Vp=512,
+    B=256) no tile row's context stages in the ring, so the attention is
+    split by positions: the tile's rows fall in row groups the warps hold
+    (3 rows a warp at H=512), the ring holds `stages` positions of a
+    group's rows beside their mbarriers, the slices cover the positions,
+    the shared memory fits and the scratch holds every block's
+    partials."""
+    H, L, Vp, nl, B = 512, 1240, 512, 1, 256
+    esz = torch.empty((), dtype=dtype).element_size()
+    p = greedy_loop.plan(H, B, dtype, L, Vp, nl, ACTIVE)
+    n = greedy_loop.split(p, esz, H, L, Vp)
+    assert (p.bt, n, greedy_loop.split_rows(p, n)) == (bt, split, rows)
+    assert 0 < p.smem <= SMEM
+    assert not _row_stages(p, esz, H, L, Vp)
+    ng = p.cs // n
+    assert ng * n == p.cs and ng * rows >= p.bt
+    assert rows <= greedy_loop.WARPS * greedy_loop.SPLIT_RW
+    ring = greedy_loop.ring_bytes(p, esz)
+    assert greedy_loop.split_stages(ring, rows * H * esz) == stages
+    assert greedy_loop.SPLIT_BARS + stages * rows * H * esz <= ring
+    assert -(-L // n) * n >= L
+    assert greedy_loop.split_bytes(p, H, n) == \
+        p.clusters * p.cs * rows * (H + 2) * 4
+    assert greedy_loop.split_bytes(p, H, 0) == 0
+
+
+# the default decoder's plans at L=24 (H=1024, 2 layers, Vp=128), as they
+# were before the split attention
+WORD_PLANS = {
+    (torch.bfloat16, 512): (16, 64, 80, 5, 64, 3, 1, 200360, 7),
+    (torch.bfloat16, 1): (16, 64, 16, 1, 128, 3, 1, 228744, 1),
+    (torch.float32, 512): (16, 64, 80, 10, 32, 3, 1, 198824, 7),
+    (torch.float32, 1): (16, 64, 8, 1, 64, 3, 1, 212712, 1)}
+
+
+@pytest.mark.parametrize("dtype,B", list(WORD_PLANS))
+def test_greedy_loop_plan_word_model_by_rows(dtype, B):
+    """At the word model's shapes (L=24) a tile row's context stages in
+    the ring: the plan is the row split's, field for field as before, and
+    the attention is not split."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    p = greedy_loop.plan(1024, B, dtype, 24, 128, 2, ACTIVE)
+    assert tuple(p) == WORD_PLANS[(dtype, B)]
+    assert greedy_loop.split(p, esz, 1024, 24, 128) == 0
+
+
+@pytest.mark.parametrize("L,B,dtype,stages", [
+    (3, 512, torch.bfloat16, True), (3, 1, torch.bfloat16, True),
+    (3, 512, torch.float32, True), (3, 1, torch.float32, True),
+    (79, 512, torch.bfloat16, False), (79, 1, torch.bfloat16, True),
+    (79, 512, torch.float32, False), (79, 1, torch.float32, False)])
+def test_greedy_loop_plan_keep_aspect(L, B, dtype, stages):
+    """Keep-aspect contexts of the word model (H=1024, 2 layers): at L=3
+    every row stages in the ring; at L=79 a row stages only in the one-row
+    bf16 tile's ring.  Either way the attention stays split by rows: the
+    warps hold q and the vector of rows of at most 512 units."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    p = greedy_loop.plan(1024, B, dtype, L, 128, 2, ACTIVE)
+    assert _row_stages(p, esz, 1024, L, 128) == stages
+    assert greedy_loop.split(p, esz, 1024, L, 128) == 0
+    assert tuple(p) == tuple(greedy_loop.plan(1024, B, dtype, 24, 128, 2,
+                                              ACTIVE))

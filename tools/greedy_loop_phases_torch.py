@@ -2,7 +2,9 @@
 """Where a step of aocr_torch's greedy_loop kernel spends its time, and A/B
 variants of its source, on one card.
 
-    python3 tools/greedy_loop_phases_torch.py [VARIANT ...]
+    python3 tools/greedy_loop_phases_torch.py [VARIANT ...] [--L 24]
+        [--H 1024] [--layers 2] [--V 39] [--T 50] [--B 512,32,1]
+        [--E 20] [--dtypes bf16,f32]
 
 Each VARIANT (default: all) is csrc/greedy_loop.cu with
 csrc/decoder_cluster.cuh, a few lines of either replaced (VARIANTS
@@ -14,19 +16,23 @@ row-split tail (log-softmax, argmax, tokens), the cluster-barrier waits,
 the token read-back, issuing the chunks' copies and the partial
 projector).  Each build lands in
 build/greedy_loop_phases/ and is called through its own C entry points at
-the recognition shape (L=24, the default decoder: H=1024, 2 layers, input
-feed, V=39, T=50, random weights with PAD and EOS biased off so that
-every row runs all steps) at B=512, 32 and 1, in bf16 and float32: one line each with the tokens'
-agreement with the plain version, the CUDA-event ms of the probed
-kernel, that of the package's own (unprobed) build of the same shape,
-and the cycles a step of each phase, per block.  A variant that
-skips work (nomma, nostream) is wrong by design and times only what it
-keeps.  Prints the card's name, power limit and SM clock.  Needs one CUDA
-device and nvcc.
+a shape given by the options, by default the recognition shape (L=24, the
+default decoder: H=1024, 2 layers, input feed, E=20, V=39, T=50) at
+B=512, 32 and 1, in bf16 and float32 (im2markup's: --L 1240 --H 512
+--layers 1 --E 80 --V 503 --T 150 --B 256), random weights at the init
+laws with PAD and EOS biased off so that every row runs all steps: one
+line each with the plan (the attention's position slices, `split`, 0 for
+the row split), the tokens' agreement with the plain version, the
+CUDA-event ms of the probed kernel, that of the package's own (unprobed)
+build of the same shape, and the cycles a step of each phase, per block.
+A variant that skips work (nomma, splitload, splitcalc) is wrong by design
+and times only what it keeps.  Prints the card's name, power limit and SM
+clock.  Needs one CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import shutil
@@ -65,6 +71,24 @@ VARIANTS = {
     # the cell states in L2 (a block-private buffer), not shared memory
     "cl2": [("decoder_cluster.cuh", "    p->cres = c < DC_NCHUNKS;\n",
              "    p->cres = 0;\n")],
+    # the split attention's stream alone: each position waited for, its
+    # stage released and refilled
+    "splitload": [("greedy_loop.cu",
+                   "    const T* xs = stage + (size_t)(l % S) * slot;\n",
+                   "    if (l < n) {\n      __syncwarp();\n"
+                   "      if (lane == 0) mbar_arrive(done + l % S);\n"
+                   "      if (tid == 0 && l + S < n) {\n"
+                   "        mbar_wait(done + l % S, (l / S) & 1);\n"
+                   "        issue(l + S);\n      }\n      continue;\n    }\n"
+                   "    const T* xs = stage + (size_t)(l % S) * slot;\n")],
+    # the split attention's updates alone, on stale stages: each stage's
+    # mbarrier completed by an arrival, no copy
+    "splitcalc": [("greedy_loop.cu",
+                   "      mbar_expect_tx(bar + l % S, rowb);\n",
+                   "      mbar_arrive(bar + l % S);\n      if (false)\n")],
+    # the split attention with two stages
+    "split2": [("greedy_loop.cu", "constexpr int GL_SPLIT_STAGES = 16;\n",
+                "constexpr int GL_SPLIT_STAGES = 2;\n")],
 }
 ENTRY = """
 extern "C" int phases_read(unsigned long long* o) {
@@ -125,48 +149,53 @@ def cuda_ms(fn, n=5):
     return a.elapsed_time(b) / n
 
 
-def decoder(dev):
-    """The default decoder's weights (H=1024, 2 layers, input feed, E=20,
-    V=39) at the init laws, the projector at gain 2, from a fixed seed."""
+def decoder(dev, H, nl, E, V):
+    """Input-feed decoder weights (H units, nl layers, embedding E,
+    vocabulary V) at the init laws, the projector at gain 2, from a fixed
+    seed."""
     rs = np.random.RandomState(3)
-    H, E, V = 1024, 20, 39
     u = lambda b, *s: rs.uniform(-b, b, s).astype(np.float32)
     layer = lambda i: {"wi": u(i ** -0.5, i, 4 * H), "bi": u(i ** -0.5, 4 * H),
                        "wh": u(H ** -0.5, H, 4 * H),
                        "bh": u(H ** -0.5, 4 * H)}
     dec = {"embedding": rs.standard_normal((V, E)).astype(np.float32),
-           "layers": [layer(E + H), layer(H)], "w_a": u(H ** -0.5, H, H),
+           "layers": [layer(E + H)] + [layer(H) for _ in range(nl - 1)],
+           "w_a": u(H ** -0.5, H, H),
            "w_c": u((2 * H) ** -0.5, 2 * H, H)}
     proj = {"w": u(2 * H ** -0.5, H, V), "b": u(H ** -0.5, V)}
     tp, _ = weights.from_numpy({"decoder": dec, "projector": proj}, {}, dev)
-    return tp, E
+    return tp
 
 
-def run(name, tp, E):
+def run(name, tp, a):
     lib = ctypes.CDLL(os.path.join(OUT, f"{name}.so"))
     P, I = ctypes.c_void_p, ctypes.c_int
     for fn in ("aocr_greedy_loop_f32", "aocr_greedy_loop_bf16"):
         getattr(lib, fn).argtypes = [P] * 15 + [I] * 8 + [P]
     lib.aocr_greedy_loop_plan.argtypes = [I] * 6 + [ctypes.POINTER(I)]
-    dev, H, L, T, nl = torch.device("cuda"), 1024, 24, 50, 2
+    lib.aocr_greedy_loop_split.argtypes = [I] * 6
+    dev, H, L, T, nl = torch.device("cuda"), a.H, a.L, a.T, a.layers
     g = torch.Generator().manual_seed(11)
-    for dt, fn in ((torch.bfloat16, lib.aocr_greedy_loop_bf16),
-                   (torch.float32, lib.aocr_greedy_loop_f32)):
-        t = greedy_loop.build_tables(tp["decoder"], tp["projector"], E, True,
-                                     dt)
+    kinds = {"bf16": (torch.bfloat16, lib.aocr_greedy_loop_bf16),
+             "f32": (torch.float32, lib.aocr_greedy_loop_f32)}
+    for dt, fn in (kinds[k] for k in a.dtypes.split(",")):
+        t = greedy_loop.build_tables(tp["decoder"], tp["projector"], a.E,
+                                     True, dt)
         # PAD and EOS biased off: every row runs all T steps
         t["pb"][[vocab.PAD, vocab.EOS]] = -1e4
         V, Vp = t["eg"].shape[0], t["pw"].shape[1]
-        for B in (512, 32, 1):
+        for B in (int(x) for x in a.B.split(",")):
             ctx = (torch.rand(L, B, H, generator=g) * 2 - 1).to(dev, dt)
             c0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
             h0 = (torch.rand(B, H, generator=g) * 2 - 1).to(dev)
             out = (ctypes.c_int * 10)()
-            lib.aocr_greedy_loop_plan(H, B, int(dt == torch.float32), L, Vp,
-                                      nl, out)
+            f32 = int(dt == torch.float32)
+            lib.aocr_greedy_loop_plan(H, B, f32, L, Vp, nl, out)
             p = greedy_loop.Plan(*out[:9])  # the variant's own plan
+            ns = lib.aocr_greedy_loop_split(H, B, f32, L, Vp, nl)
             scratch = torch.zeros(
-                (greedy_loop.scratch_bytes(p, dt, H, nl, V),),
+                (greedy_loop.scratch_bytes(p, dt, H, nl, V)
+                 + greedy_loop.split_bytes(p, H, ns),),
                 dtype=torch.uint8, device=dev)
             labels = torch.empty((B, T), dtype=torch.int32, device=dev)
             scores = torch.empty((B,), device=dev)
@@ -202,8 +231,9 @@ def run(name, tp, E):
             prof = (ctypes.c_ulonglong * (n + 1))()
             lib.phases_read(prof)
             per = [prof[i] / prof[n] / max(steps, 1) for i in range(n)]
-            print(f"{name} {str(dt)[6:]} B={B} (bt={p.bt}, {p.clusters} "
-                  f"clusters, kc={p.kc} x {p.stages}, cres={p.cres}): tokens "
+            print(f"{name} {str(dt)[6:]} L={L} H={H} B={B} (bt={p.bt}, "
+                  f"{p.clusters} clusters, kc={p.kc} x {p.stages}, "
+                  f"cres={p.cres}, split={ns}): tokens "
                   f"agree "
                   f"{agree:.4f}, {ms:.4f} ms probed, {pkg_ms:.4f} ms "
                   f"unprobed ({steps} steps); cycles a step: "
@@ -212,14 +242,24 @@ def run(name, tp, E):
 
 
 def main() -> int:
-    names = sys.argv[1:] or list(VARIANTS)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("variants", nargs="*", help=f"of {', '.join(VARIANTS)}")
+    for opt, default in (("L", 24), ("H", 1024), ("layers", 2), ("V", 39),
+                         ("T", 50), ("E", 20)):
+        ap.add_argument(f"--{opt}", type=int, default=default)
+    ap.add_argument("--B", default="512,32,1", help="batches, commas")
+    ap.add_argument("--dtypes", default="bf16,f32", help="bf16,f32")
+    a = ap.parse_args()
+    names = a.variants or list(VARIANTS)
+    if set(names) - set(VARIANTS):
+        ap.error(f"no variant {sorted(set(names) - set(VARIANTS))}")
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     build(names)
-    tp, E = decoder(torch.device("cuda"))
+    tp = decoder(torch.device("cuda"), a.H, a.layers, a.E, a.V)
     for name in names:
-        run(name, tp, E)
+        run(name, tp, a)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
                           "clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
