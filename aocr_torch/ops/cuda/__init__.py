@@ -9,8 +9,10 @@ every module on a machine without `nvcc`.
 
 Each kernel module (`KERNELS`) holds a wrapper, a plain PyTorch version,
 and a plain integer `launches` that the wrapper bumps at each kernel
-launch (some keep per-mode counters `launches_*` beside it).  The
-inference kernels' wrappers (`OPS`) call a `torch.library` custom op,
+launch (some keep per-mode counters `launches_*` beside it).  A kernel
+that plans its launch has a `checked_plan`, which holds the wrapper's
+plan against the kernel's own through `held_plan`.  The inference
+kernels' wrappers (`OPS`) call a `torch.library` custom op,
 `aocr_torch::<wrapper>`, whose body is the launch (or, on CPU tensors,
 the plain version) and whose fake version states the outputs' shapes.
 """
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -267,6 +270,34 @@ def check_aligned(**tensors) -> None:
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def held_plan(kernel: str, key, query, n_out: int, mirror, describe,
+              cache: dict, rows: bool = False):
+    """The launch plan of `kernel` at shape `key`, held against the
+    kernel's own.  On the key's first launch, query(out) (the kernel's
+    `aocr_<kernel>_plan`) fills out[0..n_out-2] with its plan and the last
+    slot with the clusters (or blocks) the card runs at once, `active`;
+    mirror(active), the wrapper's plan, must equal it (RuntimeError where
+    not; with `rows`, an all-zero kernel plan is the rows route, None);
+    the line describe(plan, active) is logged and `cache` keeps (plan,
+    line).  Later launches of the key read the cache."""
+    if key not in cache:
+        out = (ctypes.c_int * n_out)()
+        err = query(out)
+        if err != 0:
+            raise RuntimeError(f"aocr_{kernel}_plan failed: CUDA error {err}")
+        active = out[n_out - 1]
+        p = mirror(active)
+        got = tuple(out[:n_out - 1])
+        if (None if p is None else tuple(p)) != (
+                None if rows and not any(got) else got):
+            raise RuntimeError(f"{kernel} plan mismatch: kernel "
+                               f"{tuple(out)}, wrapper {p}")
+        line = describe(p, active)
+        cache[key] = (p, line)
+        logging.getLogger(f"{__name__}.{kernel}").info(line)
+    return cache[key][0]
 
 
 def register_ops() -> None:

@@ -27,8 +27,6 @@ and the beams' bookkeeping are split by batch row.
 
 from __future__ import annotations
 
-import ctypes
-import logging
 from types import SimpleNamespace
 from typing import List, Optional, Tuple
 
@@ -47,7 +45,6 @@ MAX_K = 8  # beam widths of the kernel; wider beams take the beam_step route
 # launch plans held against the kernel's, by shape key: (Plan, the line
 # logged for it)
 plans: dict = {}
-_log = logging.getLogger(__name__)
 
 
 # the launch plan's fields (csrc/beam_loop.cu `bl_plan`)
@@ -105,36 +102,25 @@ def scratch_bytes(p: Plan, dtype: torch.dtype, H: int, num_layers: int,
 def checked_plan(H: int, B: int, K: int, cd: torch.dtype, L: int, Vp: int,
                  nl: int) -> Plan:
     """The launch's plan: ValueError where none fits; on a shape's first
-    launch the kernel's own plan, and the clusters the card runs at once,
-    are read from the library, the plan is held against it and logged."""
+    launch held against the kernel's own and logged (`cuda.held_plan`)."""
     if plan(H, B, K, cd, L, Vp, nl, 1) is None:
         raise ValueError(f"fused_beam_loop: no kernel plan fits H={H}, "
                          f"B={B}, K={K}, L={L}, Vp={Vp}, {nl} layers in "
                          f"{cd} (wider beams or decoders take "
                          f"pallas_beam='tail')")
-    key = (H, B, K, cd, L, Vp, nl)
-    if key not in plans:
-        out = (ctypes.c_int * 11)()
-        err = cuda.library().aocr_beam_loop_plan(
-            H, B, K, int(cd == torch.float32), L, Vp, nl, out)
-        if err != 0:
-            raise RuntimeError(f"aocr_beam_loop_plan failed: CUDA error "
-                               f"{err}")
-        active = out[10]
-        p = plan(H, B, K, cd, L, Vp, nl, active)
-        if p is None or tuple(out[:10]) != tuple(p):
-            raise RuntimeError(f"beam_loop plan mismatch: kernel "
-                               f"{tuple(out)}, wrapper {p}")
-        line = (f"beam_loop plan H={H} B={B} K={K} L={L} {cd}: cluster "
-                f"{p.cs} x {p.units} units, bt={p.bt} beam rows (rt="
-                f"{p.rt}) = {p.nb} batch rows x {K} beams, {p.clusters} "
-                f"clusters, {active} at once ({-(-p.clusters // active)} "
-                f"waves); chunks of {p.kc} rows, {p.stages} stages; cell "
-                f"states in {'shared memory' if p.cres else 'L2'}; smem "
-                f"{p.smem} B")
-        plans[key] = (p, line)
-        _log.info(line)
-    return plans[key][0]
+    return cuda.held_plan(
+        "beam_loop", (H, B, K, cd, L, Vp, nl),
+        lambda out: cuda.library().aocr_beam_loop_plan(
+            H, B, K, int(cd == torch.float32), L, Vp, nl, out), 11,
+        lambda active: plan(H, B, K, cd, L, Vp, nl, active),
+        lambda p, active: (
+            f"beam_loop plan H={H} B={B} K={K} L={L} {cd}: cluster "
+            f"{p.cs} x {p.units} units, bt={p.bt} beam rows (rt="
+            f"{p.rt}) = {p.nb} batch rows x {K} beams, {p.clusters} "
+            f"clusters, {active} at once ({-(-p.clusters // active)} "
+            f"waves); chunks of {p.kc} rows, {p.stages} stages; cell "
+            f"states in {'shared memory' if p.cres else 'L2'}; smem "
+            f"{p.smem} B"), plans)
 
 
 def gather_beams(x: torch.Tensor, parents: torch.Tensor) -> torch.Tensor:

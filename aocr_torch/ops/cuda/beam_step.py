@@ -28,8 +28,6 @@ per shape.
 
 from __future__ import annotations
 
-import ctypes
-import logging
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -47,7 +45,6 @@ NEG = -1e30
 # launch plans held against the kernel's, by shape key: (Plan or None for
 # the rows route, the line logged for it)
 plans: dict = {}
-_log = logging.getLogger(__name__)
 
 
 class Plan(NamedTuple):
@@ -192,52 +189,37 @@ def scratch_bytes(p: Plan, dtype: torch.dtype, H: int, V: int) -> int:
     return sum(greedy_loop._round_up(n, greedy_loop.ALIGN) for n in sizes)
 
 
-def held_plan(kernel: str, query, H: int, B: int, K: int, cd: torch.dtype,
-              L: int, Vp: int, cache: dict, rows: str) -> Optional[Plan]:
+def plan_line(kernel: str, p: Optional[Plan], active: int, H: int, B: int,
+              K: int, cd: torch.dtype, L: int, Vp: int, rows: str) -> str:
     """The route of a launch of `kernel` (this one, or decode_step, the
-    same cluster step at K = 1): its cluster plan, or None for its rows
-    route (`rows` says what that runs).  On a shape's first launch the
-    kernel's own plan and the clusters the card runs at once are read by
-    query(out) (its `aocr_<kernel>_plan`: out[0..9] the plan, all 0 for
-    the rows route, out[10] the clusters), the plan is held against it
-    (RuntimeError where they differ) and the route is logged; `cache`
-    keeps each shape's (Plan or None, line)."""
-    key = (H, B, K, cd, L, Vp)
-    if key not in cache:
-        out = (ctypes.c_int * 11)()
-        err = query(out)
-        if err != 0:
-            raise RuntimeError(f"aocr_{kernel}_plan failed: CUDA error "
-                               f"{err}")
-        active = out[10]
-        p = plan(H, B, K, cd, L, Vp, active)
-        got = tuple(out[:10]) if out[9] else None
-        if (None if p is None else tuple(p)) != got:
-            raise RuntimeError(f"{kernel} plan mismatch: kernel "
-                               f"{tuple(out)}, wrapper {p}")
-        what = f"{kernel} plan H={H} B={B} K={K} L={L} Vp={Vp} {cd}"
-        if p is None:
-            line = (f"{what}: the rows route (no cluster plan at H={H}, "
-                    f"{active} clusters at once), {rows}")
-        else:
-            line = (f"{what}: cluster {p.cs} x {p.units} units, bt={p.bt} "
-                    f"rows (rt={p.rt}) = {p.nb} batch rows x {K} beams, "
-                    f"{p.clusters} clusters, {active} at once "
-                    f"({-(-p.clusters // active)} waves); chunks of {p.kc} "
-                    f"rows, {p.stages} stages; smem {p.smem} B")
-        cache[key] = (p, line)
-        _log.info(line)
-    return cache[key][0]
+    same cluster step at K = 1) in words, as the logs print it: its
+    cluster plan, or the rows route (p None; `rows` says what that
+    runs)."""
+    what = f"{kernel} plan H={H} B={B} K={K} L={L} Vp={Vp} {cd}"
+    if p is None:
+        return (f"{what}: the rows route (no cluster plan at H={H}, "
+                f"{active} clusters at once), {rows}")
+    return (f"{what}: cluster {p.cs} x {p.units} units, bt={p.bt} "
+            f"rows (rt={p.rt}) = {p.nb} batch rows x {K} beams, "
+            f"{p.clusters} clusters, {active} at once "
+            f"({-(-p.clusters // active)} waves); chunks of {p.kc} "
+            f"rows, {p.stages} stages; smem {p.smem} B")
 
 
 def checked_plan(H: int, B: int, K: int, cd: torch.dtype, L: int,
                  Vp: int) -> Optional[Plan]:
-    """The launch's route (`held_plan`): its cluster plan, or None for the
-    rows route (K past the largest tile, for one)."""
-    return held_plan(
-        "beam_step", lambda out: cuda.library().aocr_beam_step_plan(
-            H, B, K, int(cd == torch.float32), L, Vp, out),
-        H, B, K, cd, L, Vp, plans, "one block a batch row")
+    """The launch's route: its cluster plan, or None for the rows route
+    (K past the largest tile, for one), held against the kernel's own
+    (`aocr_beam_step_plan`, all 0 for the rows route) on a shape's first
+    launch and logged (`cuda.held_plan`)."""
+    return cuda.held_plan(
+        "beam_step", (H, B, K, cd, L, Vp),
+        lambda out: cuda.library().aocr_beam_step_plan(
+            H, B, K, int(cd == torch.float32), L, Vp, out), 11,
+        lambda active: plan(H, B, K, cd, L, Vp, active),
+        lambda p, active: plan_line("beam_step", p, active, H, B, K, cd, L,
+                                    Vp, "one block a batch row"),
+        plans, rows=True)
 
 
 def packed_weights(w_a: torch.Tensor, w_c: torch.Tensor, p: Plan) -> dict:

@@ -22,8 +22,6 @@ memory.
 
 from __future__ import annotations
 
-import ctypes
-import logging
 from typing import NamedTuple, Optional
 
 import torch
@@ -46,7 +44,6 @@ RESIDENT = 264
 # launch plans held against the kernel's, by (B, H, W, dtype): (Plan, the
 # line logged for it)
 plans: dict = {}
-_log = logging.getLogger(__name__)
 
 
 class Plan(NamedTuple):
@@ -102,29 +99,22 @@ def plan(B: int, H: int, W: int, dtype: torch.dtype,
 
 def checked_plan(B: int, H: int, W: int, cd: torch.dtype) -> Plan:
     """The launch's plan: ValueError where none fits; on a shape's first
-    launch the kernel's own plan, and the blocks the card holds at once,
-    are read from the library, the plan is held against it and logged."""
+    launch held against the kernel's own, with the blocks the card holds
+    at once, and logged (`cuda.held_plan`)."""
     key = (B, H, W, cd)
-    if key not in plans:
-        if plan(B, H, W, cd, 1) is None:
-            raise ValueError(f"conv1_relu_pool: no kernel plan fits B={B}, "
-                             f"H={H}, W={W}")
-        out = (ctypes.c_int * 5)()
-        err = cuda.library().aocr_conv1_pool_plan(
-            B, H, W, int(cd == torch.float32), out)
-        if err != 0:
-            raise RuntimeError(f"aocr_conv1_pool_plan failed: CUDA error "
-                               f"{err}")
-        p = plan(B, H, W, cd, out[4])
-        if p is None or tuple(out[:4]) != tuple(p):
-            raise RuntimeError(f"conv1_pool plan mismatch: kernel "
-                               f"{tuple(out)}, wrapper {p}")
-        line = (f"conv1_pool plan B={B} H={H} W={W} {cd}: {p.blocks} blocks "
-                f"({out[4]} at once) of {p.run} cells or one fewer, at most "
-                f"{p.rows} image rows staged ({p.smem} B of shared memory)")
-        plans[key] = (p, line)
-        _log.info(line)
-    return plans[key][0]
+    if key not in plans and plan(B, H, W, cd, 1) is None:
+        raise ValueError(f"conv1_relu_pool: no kernel plan fits B={B}, "
+                         f"H={H}, W={W}")
+    return cuda.held_plan(
+        "conv1_pool", key,
+        lambda out: cuda.library().aocr_conv1_pool_plan(
+            B, H, W, int(cd == torch.float32), out), 5,
+        lambda active: plan(B, H, W, cd, active),
+        lambda p, active: (
+            f"conv1_pool plan B={B} H={H} W={W} {cd}: {p.blocks} blocks "
+            f"({active} at once) of {p.run} cells or one fewer, at most "
+            f"{p.rows} image rows staged ({p.smem} B of shared memory)"),
+        plans)
 
 
 # the pool positions in row-major window order (aocr's _POSITIONS)

@@ -22,8 +22,6 @@ node (`levels`), so two calls on one card give the same bits.
 
 from __future__ import annotations
 
-import ctypes
-import logging
 from typing import NamedTuple, Optional
 
 import torch
@@ -45,7 +43,6 @@ plans: dict = {}
 # counters are zero between launches (each launch's last arrivals reset
 # them), and launches on one stream never overlap
 _tree: dict = {}
-_log = logging.getLogger(__name__)
 
 
 class Plan(NamedTuple):
@@ -107,41 +104,30 @@ def plan(B: int, H: int, W: int, resident: int,
     return Plan(lo, rows, rows * rb)
 
 
-def held_plan(kernel: str, B: int, H: int, W: int, cd: torch.dtype,
-              stage_max: int, cache: dict) -> Plan:
-    """The launch plan of `kernel` (this one, or conv1_pool_dx, which
-    shares csrc/conv1_route.cuh's `cb_plan` with its own stage_max):
-    ValueError where none fits; on a shape's first launch the kernel's own
-    plan (`aocr_<kernel>_plan`), and the blocks the card holds at once,
-    are read from the library, the plan is held against it and logged;
-    `cache` keeps each shape's (Plan, line)."""
-    if plan(B, H, W, 1, stage_max) is None:
-        raise ValueError(f"{kernel}: no kernel plan fits B={B}, H={H}, "
-                         f"W={W}")
-    key = (B, H, W, cd)
-    if key not in cache:
-        out = (ctypes.c_int * 4)()
-        err = getattr(cuda.library(), f"aocr_{kernel}_plan")(
-            B, H, W, int(cd == torch.float32), out)
-        if err != 0:
-            raise RuntimeError(f"aocr_{kernel}_plan failed: CUDA error "
-                               f"{err}")
-        p = plan(B, H, W, out[3], stage_max)
-        if p is None or tuple(out[:3]) != tuple(p):
-            raise RuntimeError(f"{kernel} plan mismatch: kernel "
-                               f"{tuple(out)}, wrapper {p}")
-        line = (f"{kernel} plan B={B} H={H} W={W} {cd}: {p.blocks} blocks "
-                f"({out[3]} at once) of "
-                f"{-(-B * (H // 2) * (W // 2) // p.blocks)} cells or one "
-                f"fewer, at most {p.rows} image rows staged ({p.smem} B)")
-        cache[key] = (p, line)
-        _log.info(line)
-    return cache[key][0]
+def plan_line(kernel: str, p: Plan, active: int, B: int, H: int, W: int,
+              cd: torch.dtype) -> str:
+    """A plan of `kernel` (this one, or conv1_pool_dx: `cb_plan`) in
+    words, as the logs print it."""
+    return (f"{kernel} plan B={B} H={H} W={W} {cd}: {p.blocks} blocks "
+            f"({active} at once) of "
+            f"{-(-B * (H // 2) * (W // 2) // p.blocks)} cells or one "
+            f"fewer, at most {p.rows} image rows staged ({p.smem} B)")
 
 
 def checked_plan(B: int, H: int, W: int, cd: torch.dtype) -> Plan:
-    """The launch's plan (`held_plan`)."""
-    return held_plan("conv1_pool_bwd", B, H, W, cd, STAGE_MAX, plans)
+    """The launch's plan: ValueError where none fits; on a shape's first
+    launch held against the kernel's own, with the blocks the card holds
+    at once, and logged (`cuda.held_plan`)."""
+    if plan(B, H, W, 1) is None:
+        raise ValueError(f"conv1_pool_bwd: no kernel plan fits B={B}, "
+                         f"H={H}, W={W}")
+    return cuda.held_plan(
+        "conv1_pool_bwd", (B, H, W, cd),
+        lambda out: cuda.library().aocr_conv1_pool_bwd_plan(
+            B, H, W, int(cd == torch.float32), out), 4,
+        lambda active: plan(B, H, W, active),
+        lambda p, active: plan_line("conv1_pool_bwd", p, active, B, H, W,
+                                    cd), plans)
 
 
 def _tree_buffers(dev: torch.device, blocks: int):

@@ -103,9 +103,19 @@ def plan(B: int, H: int, W: int,
 
 def checked_plan(B: int, H: int, W: int,
                  cd: torch.dtype) -> conv1_pool_bwd.Plan:
-    """The launch's plan (`conv1_pool_bwd.held_plan`)."""
-    return conv1_pool_bwd.held_plan("conv1_pool_dx", B, H, W, cd,
-                                    STAGE_MAX, plans)
+    """The launch's plan: ValueError where none fits; on a shape's first
+    launch held against the kernel's own, with the blocks the card holds
+    at once, and logged (`cuda.held_plan`)."""
+    if plan(B, H, W, 1) is None:
+        raise ValueError(f"conv1_pool_dx: no kernel plan fits B={B}, "
+                         f"H={H}, W={W}")
+    return cuda.held_plan(
+        "conv1_pool_dx", (B, H, W, cd),
+        lambda out: cuda.library().aocr_conv1_pool_dx_plan(
+            B, H, W, int(cd == torch.float32), out), 4,
+        lambda active: plan(B, H, W, active),
+        lambda p, active: conv1_pool_bwd.plan_line(
+            "conv1_pool_dx", p, active, B, H, W, cd), plans)
 
 
 def conv1_relu_pool_dx16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

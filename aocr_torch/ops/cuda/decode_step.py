@@ -162,12 +162,18 @@ def fits(H: int, B: int, dtype: torch.dtype, L: int, Vp: int) -> bool:
 def checked_plan(H: int, B: int, cd: torch.dtype, L: int,
                  Vp: int) -> Optional[beam_step.Plan]:
     """The launch's route: its cluster plan, or None for the rows route,
-    held against the kernel's own (`aocr_decode_step_plan`) on a shape's
-    first launch and logged (beam_step.held_plan at K = 1)."""
-    return beam_step.held_plan(
-        "decode_step", lambda out: cuda.library().aocr_decode_step_plan(
-            H, B, int(cd == torch.float32), L, Vp, out),
-        H, B, 1, cd, L, Vp, plans, "a block per 4 batch rows")
+    held against the kernel's own (`aocr_decode_step_plan`, all 0 for the
+    rows route) on a shape's first launch and logged (`cuda.held_plan`;
+    beam_step's at K = 1)."""
+    return cuda.held_plan(
+        "decode_step", (H, B, 1, cd, L, Vp),
+        lambda out: cuda.library().aocr_decode_step_plan(
+            H, B, int(cd == torch.float32), L, Vp, out), 11,
+        lambda active: plan(H, B, cd, L, Vp, active),
+        lambda p, active: beam_step.plan_line(
+            "decode_step", p, active, H, B, 1, cd, L, Vp,
+            "a block per 4 batch rows"),
+        plans, rows=True)
 
 
 def pack_weights(w_a: torch.Tensor, w_c: torch.Tensor,

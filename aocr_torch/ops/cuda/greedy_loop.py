@@ -38,7 +38,6 @@ token steps it, clamped at 0 (greedy_loop.py:153-187).
 
 from __future__ import annotations
 
-import ctypes
 import logging
 from typing import NamedTuple, Optional, Tuple
 
@@ -342,50 +341,34 @@ def pack_weights(tables: dict, p: Plan, num_layers: int,
     return {"w0": w0, "wl": wl, "wq": wq[:, 0], "wc": wcx[:, 0]}
 
 
-def held_plan(plans: dict, key: tuple, name: str, what: str, lib_plan,
-              args: tuple, mine) -> Plan:
-    """The launch's plan for shape `key`: on the key's first launch the
-    kernel's own plan and the clusters the card runs at once are read from
-    the library (lib_plan(*args, out): out[0..8] the Plan's fields, out[9]
-    the clusters), held against mine(active), the wrapper's mirror
-    (RuntimeError where they differ), logged ("<name> plan <what>: ...")
-    and kept in `plans` with the line."""
-    if key not in plans:
-        out = (ctypes.c_int * 10)()
-        err = lib_plan(*args, out)
-        if err != 0:
-            raise RuntimeError(f"{name}: the kernel's plan query failed: "
-                               f"CUDA error {err}")
-        active = out[9]
-        p = mine(active)
-        if p is None or tuple(out[:9]) != tuple(p):
-            raise RuntimeError(f"{name} plan mismatch: kernel "
-                               f"{tuple(out)}, wrapper {p}")
-        line = (f"{name} plan {what}: cluster {p.cs} x {p.units} units, "
-                f"bt={p.bt} (rt={p.rt}), {p.clusters} clusters, {active} "
-                f"at once ({-(-p.clusters // active)} waves); chunks of "
-                f"{p.kc} rows, {p.stages} stages; state in "
-                f"{'shared memory' if p.cres else 'L2'}; smem {p.smem} B")
-        plans[key] = (p, line)
-        _log.info(line)
-    return plans[key][0]
+def plan_line(kernel: str, what: str, p: Plan, active: int) -> str:
+    """A cluster plan of greedy_loop, tf_fwd or tf_bwd in words, as the
+    logs print it ("<kernel> plan <what>: ...")."""
+    return (f"{kernel} plan {what}: cluster {p.cs} x {p.units} units, "
+            f"bt={p.bt} (rt={p.rt}), {p.clusters} clusters, {active} "
+            f"at once ({-(-p.clusters // active)} waves); chunks of "
+            f"{p.kc} rows, {p.stages} stages; state in "
+            f"{'shared memory' if p.cres else 'L2'}; smem {p.smem} B")
 
 
-def _checked_plan(H: int, B: int, cd: torch.dtype, L: int, Vp: int,
-                  nl: int) -> Tuple[Plan, int]:
+def checked_plan(H: int, B: int, cd: torch.dtype, L: int, Vp: int,
+                 nl: int) -> Tuple[Plan, int]:
     """The launch's plan and its attention's position slices (`split`):
     ValueError where no plan fits; on a shape's first launch the plan
-    held against the kernel's own (`held_plan`), and the slices against
-    the kernel's (RuntimeError where they differ); a split is logged
+    held against the kernel's own (`cuda.held_plan`), and the slices
+    against the kernel's (RuntimeError where they differ); a split is logged
     and named in the shape's plan line."""
     if plan(H, B, cd, L, Vp, nl, 1) is None:
         raise ValueError(f"fused_greedy_loop: no kernel plan fits H={H}, "
                          f"B={B}, L={L}, Vp={Vp}, {nl} layers in {cd}")
     key, f32 = (H, B, cd, L, Vp, nl), int(cd == torch.float32)
     lib = cuda.library()
-    p = held_plan(plans, key, "greedy_loop", f"H={H} B={B} L={L} {cd}",
-                  lib.aocr_greedy_loop_plan, (H, B, f32, L, Vp, nl),
-                  lambda active: plan(H, B, cd, L, Vp, nl, active))
+    p = cuda.held_plan(
+        "greedy_loop", key,
+        lambda out: lib.aocr_greedy_loop_plan(H, B, f32, L, Vp, nl, out), 10,
+        lambda active: plan(H, B, cd, L, Vp, nl, active),
+        lambda p, active: plan_line("greedy_loop", f"H={H} B={B} L={L} {cd}",
+                                    p, active), plans)
     if key not in splits:
         slices = split(p, 4 if f32 else 2, H, L, Vp)
         got = lib.aocr_greedy_loop_split(H, B, f32, L, Vp, nl)
@@ -564,7 +547,7 @@ def op(context_lbh: torch.Tensor, c0: torch.Tensor, h0: torch.Tensor,
     if H % 4 or Vp % 4 or T < 1 or num_layers < 1:
         raise ValueError(f"fused_greedy_loop: H={H}, Vp={Vp}, T={T}, "
                          f"num_layers={num_layers}")
-    p, slices = _checked_plan(H, B, cd, L, Vp, num_layers)
+    p, slices = checked_plan(H, B, cd, L, Vp, num_layers)
     cuda.check(context_lbh, "context_lbh", (L, B, H), cd, dev)
     cuda.check(c0, "c0", (B, H), torch.float32, dev)
     cuda.check(h0, "h0", (B, H), torch.float32, dev)

@@ -25,8 +25,6 @@ streaming Wh from L2 every step).
 
 from __future__ import annotations
 
-import ctypes
-import logging
 from typing import NamedTuple, Optional
 
 import torch
@@ -50,7 +48,6 @@ ROWS_BT = 4  # batch rows a block, rows route
 # launch plans held against the kernel's, by shape key: (Plan, the line
 # logged for it)
 plans: dict = {}
-_log = logging.getLogger(__name__)
 
 
 class Plan(NamedTuple):
@@ -146,28 +143,18 @@ def plan_line(p: Plan, H: int, B: int, cd: torch.dtype, active: int) -> str:
 
 def checked_plan(H: int, B: int, cd: torch.dtype) -> Plan:
     """The launch's plan: ValueError where none fits; on a shape's first
-    launch the kernel's own plan, and the clusters the card runs at once,
-    are read from the library, the plan is held against it and logged."""
+    launch held against the kernel's own, with the clusters the card runs
+    at once, and logged (`cuda.held_plan`)."""
     if plan(H, B, cd, 1) is None:
         raise ValueError(
             f"lstm_bwd_scan: no kernel plan fits H={H}, B={B} in {cd} (the "
             "kernel takes H % 16 == 0 and a block's shared memory)")
-    key = (H, B, cd)
-    if key not in plans:
-        out = (ctypes.c_int * 7)()
-        err = cuda.library().aocr_lstm_bwd_plan(
-            H, B, int(cd == torch.float32), out)
-        if err != 0:
-            raise RuntimeError(f"aocr_lstm_bwd_plan failed: CUDA error {err}")
-        active = out[6]
-        p = plan(H, B, cd, active)
-        if p is None or tuple(out[:6]) != tuple(p):
-            raise RuntimeError(f"lstm_bwd plan mismatch: kernel {tuple(out)}"
-                               f", wrapper {p}")
-        line = plan_line(p, H, B, cd, active)
-        plans[key] = (p, line)
-        _log.info(line)
-    return plans[key][0]
+    return cuda.held_plan(
+        "lstm_bwd", (H, B, cd),
+        lambda out: cuda.library().aocr_lstm_bwd_plan(
+            H, B, int(cd == torch.float32), out), 7,
+        lambda active: plan(H, B, cd, active),
+        lambda p, active: plan_line(p, H, B, cd, active), plans)
 
 
 def gate_math_bwd(dh, dc, acts, c, cp):

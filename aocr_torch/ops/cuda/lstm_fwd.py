@@ -30,8 +30,6 @@ gate math in float32.
 
 from __future__ import annotations
 
-import ctypes
-import logging
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -59,7 +57,6 @@ STAGES = 2  # streamed chunks in shared memory
 # launch plans held against the kernel's, by shape key: (Plan, the line
 # logged for it)
 plans: dict = {}
-_log = logging.getLogger(__name__)
 
 
 class Plan(NamedTuple):
@@ -145,38 +142,33 @@ def plan(H: int, B: int, dtype: torch.dtype, active: int) -> Optional[Plan]:
     return out
 
 
-def _checked_plan(H: int, B: int, cd: torch.dtype,
-                  xd: torch.dtype) -> Plan:
+def plan_line(p: Plan, H: int, B: int, cd: torch.dtype, xd: torch.dtype,
+              active: int) -> str:
+    """The plan in words, as the logs print it."""
+    row = 4 * p.units * torch.empty((), dtype=cd).element_size()
+    return (
+        f"lstm_fwd plan H={H} B={B} {cd} (x_proj {xd}): cluster "
+        f"{p.cs} x {p.units} units, bt={p.bt}, {p.clusters} clusters, "
+        f"{active} at once ({-(-p.clusters // active)} waves); Wh slice "
+        f"{p.kp} x {4 * p.units}: {p.kres} rows ({p.kres * row} B) "
+        f"resident, {p.kp - p.kres} ({(p.kp - p.kres) * row} B) streamed "
+        f"in chunks of {p.kc}; smem {p.smem} B")
+
+
+def checked_plan(H: int, B: int, cd: torch.dtype, xd: torch.dtype) -> Plan:
     """The launch's plan: ValueError where none fits; on a shape's first
-    launch the kernel's own plan, and the clusters the card runs at once,
-    are read from the library, the plan is held against it and logged."""
+    launch held against the kernel's own, with the clusters the card runs
+    at once, and logged (`cuda.held_plan`)."""
     if plan(H, B, cd, 1) is None:
         raise ValueError(f"lstm_fwd_scan: no kernel plan fits H={H}, B={B} "
                          f"in {cd} (the h tile and the Wh chunks exceed "
                          "the shared memory)")
-    key = (H, B, cd, xd)
-    if key not in plans:
-        out = (ctypes.c_int * 9)()
-        err = cuda.library().aocr_lstm_fwd_plan(
-            H, B, int(cd == torch.float32), int(xd == torch.float32), out)
-        if err != 0:
-            raise RuntimeError(f"aocr_lstm_fwd_plan failed: CUDA error {err}")
-        active = out[8]
-        p = plan(H, B, cd, active)
-        if tuple(out[:8]) != tuple(p):
-            raise RuntimeError(f"lstm_fwd plan mismatch: kernel {tuple(out)}"
-                               f", wrapper {p}")
-        row = 4 * p.units * torch.empty((), dtype=cd).element_size()
-        line = (
-            f"lstm_fwd plan H={H} B={B} {cd} (x_proj {xd}): cluster "
-            f"{p.cs} x {p.units} units, bt={p.bt}, {p.clusters} clusters, "
-            f"{active} at once ({-(-p.clusters // active)} waves); Wh slice "
-            f"{p.kp} x {4 * p.units}: {p.kres} rows ({p.kres * row} B) "
-            f"resident, {p.kp - p.kres} ({(p.kp - p.kres) * row} B) streamed "
-            f"in chunks of {p.kc}; smem {p.smem} B")
-        plans[key] = (p, line)
-        _log.info(line)
-    return plans[key][0]
+    return cuda.held_plan(
+        "lstm_fwd", (H, B, cd, xd),
+        lambda out: cuda.library().aocr_lstm_fwd_plan(
+            H, B, int(cd == torch.float32), int(xd == torch.float32), out),
+        9, lambda active: plan(H, B, cd, active),
+        lambda p, active: plan_line(p, H, B, cd, xd, active), plans)
 
 
 def lstm_fwd_scan_plain(wh, x_proj, c0, h0, reverse: bool,
@@ -243,7 +235,7 @@ def op(wh: torch.Tensor, x_proj: torch.Tensor, c0: torch.Tensor,
     cuda.check(x_proj, "x_proj", (L, B, G), x_proj.dtype, dev)
     cuda.check(c0, "c0", (B, H), torch.float32, dev)
     cuda.check(h0, "h0", (B, H), torch.float32, dev)
-    _checked_plan(H, B, cd, x_proj.dtype)
+    checked_plan(H, B, cd, x_proj.dtype)
     hs = torch.empty((L, B, H), dtype=cd, device=dev)
     cf = torch.empty((B, H), dtype=torch.float32, device=dev)
     hf = torch.empty((B, H), dtype=torch.float32, device=dev)

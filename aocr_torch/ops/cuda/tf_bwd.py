@@ -104,15 +104,17 @@ def pack_weights(wfh0: torch.Tensor, rest_w, wc: torch.Tensor,
 
 def checked_plan(H: int, B: int, cd: torch.dtype, L: int, nl: int) -> Plan:
     """The launch's plan: ValueError where none fits; on a shape's first
-    launch held against the kernel's own (greedy_loop.held_plan)."""
+    launch held against the kernel's own (`cuda.held_plan`)."""
     if plan(H, B, cd, L, nl, 1) is None:
         raise ValueError(f"decoder_bwd_scan: no kernel plan fits H={H}, "
                          f"B={B}, L={L}, {nl} layers in {cd}")
-    return greedy_loop.held_plan(
-        plans, (H, B, cd, L, nl), "tf_bwd", f"H={H} B={B} L={L} {cd}",
-        cuda.library().aocr_tf_bwd_plan, (H, B, int(cd == torch.float32), L,
-                                          nl),
-        lambda active: plan(H, B, cd, L, nl, active))
+    return cuda.held_plan(
+        "tf_bwd", (H, B, cd, L, nl),
+        lambda out: cuda.library().aocr_tf_bwd_plan(
+            H, B, int(cd == torch.float32), L, nl, out), 10,
+        lambda active: plan(H, B, cd, L, nl, active),
+        lambda p, active: greedy_loop.plan_line(
+            "tf_bwd", f"H={H} B={B} L={L} {cd}", p, active), plans)
 
 
 def decoder_bwd_scan_plain(ctx_lbh, wfh0, rest_w, wc, wa, dys, htl, alpha,

@@ -76,15 +76,17 @@ def scratch_bytes(p: Plan, dtype: torch.dtype, H: int,
 
 def checked_plan(H: int, B: int, cd: torch.dtype, L: int, nl: int) -> Plan:
     """The launch's plan: ValueError where none fits; on a shape's first
-    launch held against the kernel's own (greedy_loop.held_plan)."""
+    launch held against the kernel's own (`cuda.held_plan`)."""
     if plan(H, B, cd, L, nl, 1) is None:
         raise ValueError(f"decoder_fwd_scan: no kernel plan fits H={H}, "
                          f"B={B}, L={L}, {nl} layers in {cd}")
-    return greedy_loop.held_plan(
-        plans, (H, B, cd, L, nl), "tf_fwd", f"H={H} B={B} L={L} {cd}",
-        cuda.library().aocr_tf_fwd_plan, (H, B, int(cd == torch.float32), L,
-                                          nl),
-        lambda active: plan(H, B, cd, L, nl, active))
+    return cuda.held_plan(
+        "tf_fwd", (H, B, cd, L, nl),
+        lambda out: cuda.library().aocr_tf_fwd_plan(
+            H, B, int(cd == torch.float32), L, nl, out), 10,
+        lambda active: plan(H, B, cd, L, nl, active),
+        lambda p, active: greedy_loop.plan_line(
+            "tf_fwd", f"H={H} B={B} L={L} {cd}", p, active), plans)
 
 
 def decoder_fwd_scan_plain(ctx_lbh, wfh0, rest, wa, wc, xp, c0, h0,

@@ -5,6 +5,8 @@ with and without a dictionary; the weight bridge round-trips; the entry
 points run on CUDA unless the caller names the CPU; and neither the port
 nor chip_smoke.py imports jax or the JAX package."""
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import ast
 import os
 import subprocess

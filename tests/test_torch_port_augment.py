@@ -17,6 +17,8 @@ moments, and by the determinism contract; then tests/test_augment.py's
 cases on the port's generator.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,8 @@ another order).  In bfloat16 agreement is reported, not asserted: near-
 ties flip on random weights (ROADMAP.md, "How the port is judged").
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

@@ -19,6 +19,8 @@ plain PyTorch, against aocr's fused_beam_tail in interpret mode at K 3,
 9, 12 and 20 with a trie plane, refills and frozen rows.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 import torch

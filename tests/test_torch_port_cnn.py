@@ -11,6 +11,8 @@ for conv1 is one rounding and for the 7-conv stack a few percent of the
 feature scale.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

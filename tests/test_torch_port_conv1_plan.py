@@ -18,6 +18,8 @@ pinned by numpy scalar arithmetic, and its plan (conv1_pool_bwd's) over
 the image-gradient shapes.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 import torch

@@ -42,6 +42,8 @@ float32 and within one bfloat16 step per tap; the CLI trainer on the
 card within 1e-4 of the same run on the CPU.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 import torch

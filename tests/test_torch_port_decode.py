@@ -12,6 +12,8 @@ about that much) and tokens identical wherever the port's best
 log-prob beats the runner-up by more than 1e-2.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

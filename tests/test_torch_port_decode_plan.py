@@ -18,6 +18,8 @@ float32 with a trie plane, an all-invalid row, a frozen row, a ragged
 last tile and an all-NaN row.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 import torch

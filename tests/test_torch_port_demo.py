@@ -3,6 +3,8 @@ renderers and dataset equal tests/synth.py's, and `python -m
 aocr_torch.demo --device cpu` runs every stage (dataset, train, greedy
 and dictionary beam-5 tests, gallery, artifact replay) at a tiny width."""
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import os
 import subprocess
 import sys

@@ -7,6 +7,8 @@ test_torch_port_train.py holds a step in float32 (loss 1e-5 relative,
 grad norms 1e-4 relative, params and batch stats 1e-5 absolute).
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

@@ -10,6 +10,8 @@ crossing's, test_torch_port_decode.py); against the port's own live
 recognize rtol 1e-5.  The tiny model decodes 8 steps of 32x32 crops.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import io
 import json
 import os

@@ -15,6 +15,8 @@ of the scale, since the stored stacks round to bf16 and a rounding that
 lands on the other side of a tie feeds every later step.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

@@ -12,6 +12,8 @@ kernel streams hold, at each (block, row, column), the weight of the
 build_tables operand it stands for, with zeros past H.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 import torch

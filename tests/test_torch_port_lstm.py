@@ -10,6 +10,8 @@ bf16) within a few bf16 steps of the state scale, since a rounding that
 flips at one step feeds every later step.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

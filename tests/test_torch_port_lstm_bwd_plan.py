@@ -20,6 +20,8 @@ a fixed tree (`levels`): every cell is added once, in a fixed order, and
 the replay equals the plain version within 1e-5 of its scale.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

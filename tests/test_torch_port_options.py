@@ -11,6 +11,8 @@ norms 1e-4 relative, params 1e-5 absolute) and, for remat against no
 remat, tests/test_decoder.py's (rtol 1e-4, atol 1e-5).
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

@@ -17,6 +17,8 @@ Philox draws are not JAX's threefry).  Parameters must be bit-equal
 across the ranks.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import os
 import re
 import shutil

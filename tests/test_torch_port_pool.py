@@ -13,6 +13,8 @@ scale in float32, 1e-2 in bfloat16); one whole train step with the pool
 kernel on in both packages as test_torch_port_train.py holds the step.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

@@ -8,6 +8,8 @@ JAX package's compiled program rounds them); against the host path as
 tests/test_preprocess.py holds aocr's (rtol 1e-4, atol 0.05; 0.5 for the
 PNG round trip); load_raw, pack_raw and the DataGen payload exact."""
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import os
 
 import numpy as np

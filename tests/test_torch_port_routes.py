@@ -15,6 +15,8 @@ Tolerances as tests/test_torch_port_beam.py: float32 labels identical,
 scores within 1e-5 relative.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import warnings
 
 import jax

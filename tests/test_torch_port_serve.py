@@ -9,6 +9,8 @@ model's, and the knobs frozen into an artifact raise before any load;
 -num_shards is validated before the load (tests/test_torch_port_parallel.py
 serves through AttentionOCR.shard)."""
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import base64
 import io
 import json

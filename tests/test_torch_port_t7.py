@@ -12,6 +12,8 @@ config, global_step and optim_state; a model dir written by either
 package loads in the other, and their float32 transcripts are identical.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

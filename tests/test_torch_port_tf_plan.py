@@ -14,6 +14,8 @@ block's own gate backward on its units, the exchanged round(dgates) times
 its slice of W^T) computes what decoder_bwd_scan_plain computes.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,8 @@ leaves must be bit-equal on every rank, and each shard across the data
 ranks that hold it.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import os
 import shutil
 

@@ -3,6 +3,8 @@ the recognize spans and their nesting in a chrome trace, the weight
 packing spans, and an exported artifact that holds no profiler op.  The
 tiny model decodes 8 steps of 32- and 40-pixel crops."""
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import contextlib
 import json
 

@@ -14,6 +14,8 @@ absolute; bfloat16 1e-3 on the loss and 5e-3 on norms, params and stats
 side of a tie).
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

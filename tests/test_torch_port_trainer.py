@@ -16,6 +16,8 @@ test transcripts identical but where a row parts at a near-tie (the two
 best scores within 1e-4), which the test reports.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import os
 import re
 import shutil

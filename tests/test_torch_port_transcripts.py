@@ -12,6 +12,8 @@ kernel wrappers run their plain versions) must give aocr's bf16 XLA
 labels.  Scores agree within 2e-2 (bf16 sums in another order).
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import numpy as np
 import pytest
 

@@ -8,6 +8,8 @@ Tolerances: tables, token ids and float32 labels identical; scores within
 1e-5 relative.
 """
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import os
 from dataclasses import asdict
 

@@ -4,6 +4,8 @@ bytes (.npy crops rendered to PNGs, .png crops copied), with a .json
 and a .pkl frequency file; the same FileNotFoundErrors; and the gallery
 of the port trainer's own -visualize output."""
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import json
 import os
 import pickle

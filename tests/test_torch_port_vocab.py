@@ -5,6 +5,8 @@ before it, ids after it ignored), a bad id before the EOS raises
 ValueError, and the compaction counter counts the rows whose printable ids
 moved forward (a PAD or GO before one of them, before the EOS)."""
 
+import tests.torch_threads  # noqa: F401  (sets the CPU thread budget)
+
 import sys
 import threading
 
